@@ -3,25 +3,31 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written Hopper flash-attention kernels from ``kubeflow_tpu_torch/
-ops/csrc`` into ``build/kernels/``, holds each kernel against its plain f32
-version, times them, trains the 271M bench Llama for 13 steps at batch 14 x
-seq 1024 through the port's ``Trainer``, checks that the step really launched
-the kernels, and compares one small bf16 step on the card with the same step
-on the CPU. Each phase prints one JSON line; the line before the last is the
-card's name and power limit from nvidia-smi, the last line is
-``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
-before that line. Needs a CUDA card; imports nothing of jax or kubeflow_tpu.
+Builds the hand-written Hopper kernels (flash attention K1-K3, grouped GEMM
+K4a/K4b) from ``kubeflow_tpu_torch/ops/csrc`` into ``build/kernels/``, holds
+each kernel against its plain f32 version, times them, runs one MoE layer's
+forward and backward with host syncs forbidden and holds it against the same
+layer on the CPU, trains the 271M bench Llama and the 1.24B MoE bench Llama
+(8 experts, top-2, dropless) for 13 steps each at batch 14 x seq 1024
+through the port's ``Trainer``, checks that each run
+really launched its kernels, and compares one small bf16 step (dense, then
+MoE) on the card with the same step on the CPU. Each phase prints one JSON
+line; the line before the last is the card's name and power limit from
+nvidia-smi, the last line is ``{"ok": true, "device": {...}}``. Any failure
+raises and exits non-zero before that line. Needs a CUDA card; imports
+nothing of jax or kubeflow_tpu.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import statistics
 import subprocess
 import sys
 import time
+import types
 
 #: H100 SXM published peaks (NVIDIA data sheet): dense bf16 and HBM rate
 PEAK_FLOPS = 989e12
@@ -31,8 +37,12 @@ REL_TOL = 1e-2
 LSE_ATOL = 1e-3
 #: the bench shape: b=14 x seq 1024, h=kv=8, head_dim 128
 BENCH = dict(b=14, s=1024, h=8, kv=8, d=128)
+#: the MoE bench's expert products: 14 x 1023 tokens x top-2 rows, hidden
+#: 1024, intermediate 2816, 8 experts
+GMM_BENCH = dict(b=14 * 1023 * 2, k=1024, n=2816, e=8)
 SEED = 0
 TPU_SOURCE = "kubeflow_tpu/ops/flash_attention.py"
+GMM_SOURCE = "kubeflow_tpu/ops/grouped_matmul.py"
 KERNEL_INFO = {
     "flash_fwd": ("kubeflow_tpu_torch/ops/csrc/flash_fwd.cu",
                   f"{TPU_SOURCE}:72 (_fwd_kernel)"),
@@ -40,6 +50,10 @@ KERNEL_INFO = {
                       f"{TPU_SOURCE}:168 (_bwd_dkv_kernel)"),
     "flash_bwd_dq": ("kubeflow_tpu_torch/ops/csrc/flash_bwd_dq.cu",
                      f"{TPU_SOURCE}:216 (_bwd_dq_kernel)"),
+    "gmm": ("kubeflow_tpu_torch/ops/csrc/gmm.cu",
+            f"{GMM_SOURCE}:89 (_gmm: MegaBlox gmm)"),
+    "tgmm": ("kubeflow_tpu_torch/ops/csrc/tgmm.cu",
+             f"{GMM_SOURCE}:127 (_vjp_bwd: MegaBlox tgmm)"),
 }
 
 
@@ -77,25 +91,36 @@ def time_ms(fn, reps: int) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
+def roofline(nbytes: int, flops: int) -> dict:
+    """The least time the card could take for this work: the larger of the
+    bytes over the HBM rate and the FLOPs over the bf16 peak."""
+    tb, tf = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS * 1e3
+    return {"bound_ms": max(tb, tf),
+            "bound_by": "bytes" if tb >= tf else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
 def bounds(b, s, h, kv, d, causal=True) -> dict[str, dict]:
-    """Each kernel's work on this shape (bytes: each input read once, each
-    output written once; FLOPs: the tile products over the unmasked pairs)
-    and the least time it could take: the larger of bytes over the HBM rate
-    and FLOPs over the bf16 peak."""
+    """Each flash kernel's work on this shape (bytes: each input read once,
+    each output written once; FLOPs: the tile products over the unmasked
+    pairs) and its roofline."""
     pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
     act_q, act_kv, row = b * s * h * d * 2, b * s * kv * d * 2, b * h * s * 4
-    work = {
-        "flash_fwd": (2 * act_q + 2 * act_kv + row, 4 * pairs * d),
-        "flash_bwd_dkv": (2 * act_q + 4 * act_kv + 2 * row, 8 * pairs * d),
-        "flash_bwd_dq": (3 * act_q + 2 * act_kv + 2 * row, 6 * pairs * d),
+    return {
+        "flash_fwd": roofline(2 * act_q + 2 * act_kv + row, 4 * pairs * d),
+        "flash_bwd_dkv": roofline(2 * act_q + 4 * act_kv + 2 * row,
+                                  8 * pairs * d),
+        "flash_bwd_dq": roofline(3 * act_q + 2 * act_kv + 2 * row,
+                                 6 * pairs * d),
     }
-    out = {}
-    for name, (nbytes, flops) in work.items():
-        tb, tf = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS * 1e3
-        out[name] = {"bound_ms": max(tb, tf),
-                     "bound_by": "bytes" if tb >= tf else "operations",
-                     "bytes": nbytes, "flops": flops}
-    return out
+
+
+def grouped_roofline(b, k, n, e, rows) -> dict:
+    """gmm's or tgmm's work: x [b,k], the [b,n] operand or result and the
+    [e,k,n] weights or gradient each once, plus the offsets; 2*k*n FLOPs for
+    each of the ``rows`` rows that lie in a group."""
+    return roofline(2 * (b * k + b * n + e * k * n) + 4 * (e + 1),
+                    2 * rows * k * n)
 
 
 def rel_err(x, ref) -> float:
@@ -188,6 +213,73 @@ def check_autograd_case(b, s, h, kv, d, gen) -> dict[str, float]:
             "dk_rel": rel_err(dk, dk_p), "dv_rel": rel_err(dv, dv_p)}
 
 
+def _split(rows: int, parts: int) -> list[int]:
+    """``rows`` over ``parts`` groups, as evenly as whole rows allow."""
+    return [rows // parts + (i < rows % parts) for i in range(parts)]
+
+
+def grouped_cases() -> dict[str, tuple]:
+    """(b, k, n, group sizes, trans_w) of each gmm/tgmm check case."""
+    b, k, n, e = (GMM_BENCH[key] for key in "bkne")
+    live = _split(b, 5)
+    tail = _split(b - 4144, e - 1)
+    return {
+        "bench_balanced": (b, k, n, _split(b, e), False),
+        "bench_skewed": (b, k, n, [b // 2] + _split(b - b // 2, e - 1),
+                         False),
+        # leading, middle and trailing empty groups
+        "bench_empty_groups": (b, k, n, [0, *live[:2], 0, *live[2:], 0],
+                               False),
+        # offsets[-1] < b: 4144 rows of no group, and an empty group
+        "bench_tail_rows": (b, k, n, [*tail[:2], 0, *tail[2:]], False),
+        # the dx product: [b, 2816] @ w[e]^T with w [8, 1024, 2816]
+        "bench_trans_w": (b, n, k, _split(b, e), True),
+        "small_odd": (333, 64, 96, [100, 0, 150, 50], False),
+    }
+
+
+def _offsets(sizes):
+    import torch
+
+    return torch.tensor([0, *itertools.accumulate(sizes)],
+                        dtype=torch.int32, device="cuda")
+
+
+def check_grouped_case(b, k, n, sizes, trans_w, gen) -> dict:
+    """gmm and tgmm against their plain versions on bf16 inputs; rows of no
+    group and empty groups' blocks must come back exactly 0."""
+    import torch
+
+    from kubeflow_tpu_torch.ops import grouped_matmul as gm
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    e = len(sizes)
+    x, g = rnd(b, k), rnd(b, n)
+    w = rnd(e, n, k) if trans_w else rnd(e, k, n)
+    offs = _offsets(sizes)
+    # poison the memory the outputs will reuse: a row or block the kernels
+    # failed to write would not read back as 0
+    torch.full((b, n), float("nan"), dtype=torch.bfloat16, device="cuda")
+    out = gm.gmm(x, w, offs, trans_w=trans_w)
+    torch.full((e, k, n), float("nan"), dtype=torch.bfloat16, device="cuda")
+    dw = gm.tgmm(x, g, offs)
+    out_p = gm.gmm_plain(x, w, offs, trans_w=trans_w)
+    dw_p = gm.tgmm_plain(x, g, offs)
+    end = sum(sizes)
+    return {
+        "gmm_rel": rel_err(out, out_p), "tgmm_rel": rel_err(dw, dw_p),
+        "gmm_abs": abs_err(out, out_p), "tgmm_abs": abs_err(dw, dw_p),
+        "tail_rows": b - end,
+        "tail_rows_zero": bool((out[end:] == 0).all()),
+        "empty_groups": sizes.count(0),
+        "empty_blocks_zero": all(bool((dw[i] == 0).all())
+                                 for i, size in enumerate(sizes) if size == 0),
+    }
+
+
 def phase_kernels_check() -> dict[str, float]:
     """Returns the max abs error of each kernel at the bench shape."""
     import torch
@@ -218,6 +310,16 @@ def phase_kernels_check() -> dict[str, float]:
         require(max(r.values()) <= REL_TOL,
                 f"flash_attention disagrees with the plain formulas on "
                 f"{name}: {r}")
+    for name, (b, k, n, sizes, trans_w) in grouped_cases().items():
+        r = check_grouped_case(b, k, n, sizes, trans_w, gen)
+        results[name] = {"shape": [b, k, n], "sizes": sizes,
+                         "trans_w": trans_w, **r}
+        require(max(r["gmm_rel"], r["tgmm_rel"]) <= REL_TOL
+                and r["tail_rows_zero"] and r["empty_blocks_zero"],
+                f"gmm/tgmm disagree with their plain versions on {name}: "
+                f"{r}")
+        if name == "bench_balanced":
+            bench_abs.update(gmm=r["gmm_abs"], tgmm=r["tgmm_abs"])
     emit("kernels_check", rel_tol=REL_TOL, lse_atol=LSE_ATOL, cases=results)
     return bench_abs
 
@@ -272,78 +374,270 @@ def phase_kernels_time() -> dict[str, dict]:
     return out
 
 
-def phase_slice() -> dict[str, int]:
+def phase_grouped_time() -> dict[str, dict]:
+    """gmm and tgmm at the MoE bench shapes, balanced routing. The kernels
+    line's rows are the gate/up products; every shape a step runs is timed
+    too, with its launches per layer, for the step's K4 total, and the
+    gate/up products once more with one expert taking half the rows."""
     import torch
 
-    from kubeflow_tpu_torch.models.llama import (
-        bench_model,
-        flops_per_token,
-        num_params,
-    )
+    from kubeflow_tpu_torch.ops import grouped_matmul as gm
+
+    b, k, n, e = (GMM_BENCH[key] for key in "bkne")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    xh, xm = rnd(b, k), rnd(b, n)            # [b, 1024] and [b, 2816] rows
+    w_in, w_out = rnd(e, k, n), rnd(e, n, k)  # gate/up and down weights
+    offs = _offsets(_split(b, e))
+    skewed = _offsets([b // 2] + _split(b - b // 2, e - 1))
+    # name: (kernel call, plain call, launches per layer per step, shape)
+    runs = {
+        "gmm": (lambda: gm.gmm(xh, w_in, offs),
+                lambda: gm.gmm_plain(xh, w_in, offs), 4, (k, n)),
+        "gmm_down": (lambda: gm.gmm(xm, w_out, offs),
+                     lambda: gm.gmm_plain(xm, w_out, offs), 2, (n, k)),
+        "gmm_dx_gate_up": (lambda: gm.gmm(xm, w_in, offs, trans_w=True),
+                           None, 2, (n, k)),
+        "gmm_dx_down": (lambda: gm.gmm(xh, w_out, offs, trans_w=True),
+                        None, 1, (k, n)),
+        "tgmm": (lambda: gm.tgmm(xh, xm, offs),
+                 lambda: gm.tgmm_plain(xh, xm, offs), 2, (k, n)),
+        "tgmm_down": (lambda: gm.tgmm(xm, xh, offs), None, 1, (n, k)),
+        "gmm_skewed": (lambda: gm.gmm(xh, w_in, skewed), None, 0, (k, n)),
+        "tgmm_skewed": (lambda: gm.tgmm(xh, xm, skewed), None, 0, (k, n)),
+    }
+    shapes, per_layer_ms = {}, 0.0
+    for name, (kernel, plain, per_layer, (kk, nn)) in runs.items():
+        ms = time_ms(kernel, 20)
+        bnd = grouped_roofline(b, kk, nn, e, b)
+        shapes[name] = {"k": kk, "n": nn, "ms": ms, **bnd,
+                        "tflops": bnd["flops"] / ms / 1e9,
+                        "bound_share": bnd["bound_ms"] / ms,
+                        "launches_per_layer": per_layer}
+        if plain is not None:
+            shapes[name]["plain_ms"] = time_ms(plain, 3)
+        per_layer_ms += per_layer * ms
+    # yardstick only (the port never calls it): PyTorch's grouped GEMM on
+    # the same inputs, 2d x 3d for gmm and 2d x 2d over the rows for tgmm
+    ends = offs[1:].contiguous()
+    library = {
+        "gmm": (lambda: torch._grouped_mm(xh, w_in, offs=ends),
+                lambda: gm.gmm_plain(xh, w_in, offs)),
+        "tgmm": (lambda: torch._grouped_mm(xh.t(), xm, offs=ends),
+                 lambda: gm.tgmm_plain(xh, xm, offs)),
+    }
+    lib_ms, lib_note = {}, {}
+    for name, (call, plain) in library.items():
+        try:
+            err = rel_err(call(), plain())
+        except (AttributeError, RuntimeError, TypeError) as exc:
+            lib_ms[name], lib_note[name] = None, f"{type(exc).__name__}: {exc}"
+            continue
+        if err > REL_TOL:
+            lib_ms[name], lib_note[name] = None, f"disagrees: rel err {err}"
+            continue
+        lib_ms[name] = time_ms(call, 20)
+        lib_note[name] = f"torch._grouped_mm, rel err {err}"
+    out = {name: {"ms": shapes[name]["ms"],
+                  "plain_ms": shapes[name]["plain_ms"],
+                  "bound_ms": shapes[name]["bound_ms"],
+                  "bound_by": shapes[name]["bound_by"],
+                  "library_ms": lib_ms[name]} for name in ("gmm", "tgmm")}
+    emit("grouped_time", shape=GMM_BENCH, kernels=out, shapes=shapes,
+         library=lib_note, k4_ms_per_layer_step=per_layer_ms)
+    return out
+
+
+def _pin_routing(layer, idx) -> None:
+    """Make ``layer`` route every token to the experts ``idx`` names, its
+    gates taken from its own router probabilities at those experts. Two
+    devices' runs of one layer then compare value for value even where a
+    near-tie rounds to another expert on one of them."""
+    route = type(layer).route
+
+    def pinned(self, x):
+        probs = route(self, x)[0]
+        gates = probs.gather(-1, idx)
+        if self.cfg.moe_normalize_topk:
+            gates = gates / (gates.sum(dim=-1, keepdim=True) + 1e-9)
+        return probs, gates, idx
+
+    layer.route = types.MethodType(pinned, layer)
+
+
+def phase_moe_no_sync() -> None:
+    """One MoE layer forward and backward at the bench shape with host syncs
+    made errors: the routing, offsets and kernels must stay on the device.
+    The same layer then runs on the CPU (the plain versions) with the same
+    weights and inputs and the card's routing: its output, input gradient
+    and every weight gradient are held at ``REL_TOL``."""
+    import torch
+
+    from kubeflow_tpu_torch.models.llama import bench_moe_model
+    from kubeflow_tpu_torch.models.moe import MoeMlp
+    from kubeflow_tpu_torch.ops import grouped_matmul as gm
+
+    cfg = bench_moe_model()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    layer = MoeMlp(cfg, device="cuda")
+    with torch.no_grad():
+        layer.init_weights(gen)
+    shape = (14, 1023, cfg.hidden_size)
+    x = torch.randn(*shape, generator=gen, device="cuda").to(
+        torch.bfloat16).requires_grad_()
+    dy = torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def fwd_bwd(mod, xx, dyy):
+        """(y, grads wrt x and each parameter, in named_parameters order)."""
+        y, aux = mod(xx)
+        params = [p for _, p in mod.named_parameters()]
+        return y, torch.autograd.grad(
+            (y, aux), [xx, *params], (dyy, torch.ones_like(aux)))
+
+    fwd_bwd(layer, x, dy)  # first use: cuBLAS handles, kernel libraries
+    torch.cuda.synchronize()
+    before = dict(gm.LAUNCHES)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, grads = fwd_bwd(layer, x, dy)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    launches = {key: gm.LAUNCHES[key] - before[key] for key in before}
+    require(launches == {"gmm": 6, "tgmm": 3},
+            f"one MoE layer fwd+bwd launched {launches}")
+
+    cpu = MoeMlp(cfg, device="cpu")
+    cpu.load_state_dict(layer.state_dict())
+    x_c = x.detach().cpu().requires_grad_()
+    with torch.no_grad():
+        ids = layer.route(x)[2].cpu()
+        flipped = int((cpu.route(x_c)[2].sort(-1).values
+                       != ids.sort(-1).values).any(-1).sum())
+    _pin_routing(cpu, ids)
+    t0 = time.perf_counter()
+    y_c, grads_c = fwd_bwd(cpu, x_c, dy.cpu())
+    cpu_s = time.perf_counter() - t0
+    names = ["y", "x"] + [n for n, _ in cpu.named_parameters()]
+    errs = {f"{n}_rel": rel_err(a.cpu(), b.float()) for n, a, b in zip(
+        names, (y, *grads), (y_c.detach(), *grads_c))}
+    emit("moe_no_sync", shape=list(shape), sync_debug_mode="error",
+         launches=launches, tokens_routed_differently_on_cpu=flipped,
+         cpu_seconds=cpu_s, rel_tol=REL_TOL, card_vs_cpu=errs)
+    require(max(errs.values()) <= REL_TOL,
+            f"MoE layer on the card vs the CPU: {errs}")
+
+
+def _counters() -> list[dict]:
     from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.ops import grouped_matmul as gm
+
+    return [fa.LAUNCHES, gm.LAUNCHES]
+
+
+def train_slice(phase: str, model_name: str, expect_per_layer: dict
+                ) -> dict[str, int]:
+    """13 steps of a bench model at 14 x 1024 through ``Trainer.train``;
+    every kernel's launches over the run must be ``expect_per_layer`` x
+    layers x steps."""
+    import torch
+
+    from kubeflow_tpu_torch.models import llama
     from kubeflow_tpu_torch.train.trainer import TrainConfig, Trainer
 
     warmup, timed = 3, 10
-    cfg = TrainConfig(model=bench_model(), global_batch=14, seq_len=1024,
-                      steps=warmup + timed, warmup_steps=2, log_every=1)
+    cfg = TrainConfig(model=getattr(llama, model_name)(), global_batch=14,
+                      seq_len=1024, steps=warmup + timed, warmup_steps=2,
+                      log_every=1, aux_loss_coef=0.01)
     trainer = Trainer(cfg)
     trainer.init_state(SEED)
     metrics = []
-    for key in fa.LAUNCHES:
-        fa.LAUNCHES[key] = 0
+    for counts in _counters():
+        for key in counts:
+            counts[key] = 0
     torch.cuda.reset_peak_memory_stats()
     trainer.train(on_metrics=metrics.append)
-    launches = dict(fa.LAUNCHES)
+    launches = {k: v for counts in _counters() for k, v in counts.items()}
     losses = [m.loss for m in metrics]
     require(len(losses) == cfg.steps and all(map(math.isfinite, losses)),
-            f"bench train losses not finite: {losses}")
+            f"{model_name} train losses not finite: {losses}")
     step_s = sum(m.step_time_s for m in metrics[warmup:])
     tps = timed * cfg.global_batch * cfg.seq_len / step_s
     layers, steps = cfg.model.num_layers, cfg.steps
-    # remat "dots" keeps matmul outputs only, so the flash forward runs again
-    # in the backward pass: K1 twice per layer per step, K2 and K3 once
-    expect = {"flash_fwd": 2 * layers * steps, "flash_bwd_dkv": layers * steps,
-              "flash_bwd_dq": layers * steps}
+    expect = {k: expect_per_layer.get(k, 0) * layers * steps
+              for k in launches}
     require(launches == expect,
             f"kernel launches {launches} != expected {expect}")
-    emit("slice", model="bench_model", params=num_params(cfg.model),
+    emit(phase, model=model_name, params=llama.num_params(cfg.model),
+         active_params=llama.active_params(cfg.model),
          global_batch=cfg.global_batch, seq_len=cfg.seq_len, steps=steps,
          timed_steps=timed, losses=losses,
          step_ms=[m.step_time_s * 1e3 for m in metrics],
          tokens_per_sec=tps,
-         mfu=tps * flops_per_token(cfg.model, cfg.seq_len) / PEAK_FLOPS,
+         mfu=tps * llama.flops_per_token(cfg.model, cfg.seq_len) / PEAK_FLOPS,
          peak_mem_bytes=torch.cuda.max_memory_allocated(),
          launches=launches, launches_per_step={
              k: n // steps for k, n in launches.items()})
     return launches
 
 
-def phase_parity_on_card() -> None:
+#: remat "dots" keeps matmul outputs only, so the flash forward runs again in
+#: the backward pass (K1 twice per layer, K2 and K3 once), and so does every
+#: gmm forward: 3 forward + 3 recomputed + 3 dx gmm and 3 tgmm per MoE layer
+FLASH_PER_LAYER = {"flash_fwd": 2, "flash_bwd_dkv": 1, "flash_bwd_dq": 1}
+MOE_PER_LAYER = {**FLASH_PER_LAYER, "gmm": 9, "tgmm": 3}
+
+
+def parity_on_card(phase: str, **model_kw) -> None:
+    """One bf16 step of a small model on the card against the same step on
+    the CPU (the kernels' plain versions). For an MoE model the tokens whose
+    top-k set differs between the two are counted; the gradients are held
+    only when there are none (a flipped token moves its output by O(1))."""
     import torch
 
     from kubeflow_tpu_torch.models.llama import tiny
+    from kubeflow_tpu_torch.models.moe import MoeMlp
     from kubeflow_tpu_torch.train.data import SyntheticLm
     from kubeflow_tpu_torch.train.trainer import TrainConfig, Trainer
 
     cfg = TrainConfig(
-        model=tiny(head_dim=64, attention_impl="flash", dtype=torch.bfloat16),
+        model=tiny(head_dim=64, attention_impl="flash", dtype=torch.bfloat16,
+                   **model_kw),
         global_batch=4, seq_len=128, steps=1)
     gpu, cpu = Trainer(cfg), Trainer(cfg, device="cpu")
     gpu.init_state(SEED)
     cpu.model.load_state_dict(gpu.model.state_dict())
+    routes = {}
+    for side, trainer in (("card", gpu), ("cpu", cpu)):
+        routes[side] = []
+        for mod in trainer.model.modules():
+            if isinstance(mod, MoeMlp):
+                mod.register_forward_hook(
+                    lambda m, inp, out, seen=routes[side]: seen.append(
+                        m.route(inp[0].detach())[2].sort(-1).values.cpu()))
     tokens = SyntheticLm(cfg.global_batch, cfg.seq_len,
                          cfg.model.vocab_size).local_batch(0)["tokens"]
     loss_g = float(gpu.loss_and_grads(tokens))
     loss_c = float(cpu.loss_and_grads(tokens))
+    flipped = sum(int((a != b).any(-1).sum())
+                  for a, b in zip(routes["card"], routes["cpu"]))
     grads_c = dict(cpu.model.named_parameters())
     worst = max(
         (rel_err(p.grad.cpu(), grads_c[n].grad.float()), n)
         for n, p in gpu.model.named_parameters())
     loss_rel = abs(loss_g - loss_c) / abs(loss_c)
-    emit("parity_on_card", loss_card=loss_g, loss_cpu=loss_c,
-         loss_rel=loss_rel, worst_grad_rel=worst[0], worst_grad=worst[1])
+    emit(phase, loss_card=loss_g, loss_cpu=loss_c, loss_rel=loss_rel,
+         worst_grad_rel=worst[0], worst_grad=worst[1],
+         routed_tokens=sum(r.shape[0] * r.shape[1] for r in routes["card"]),
+         tokens_routed_differently=flipped,
+         grads_held=flipped == 0)
     require(loss_rel <= 1e-2, f"loss card {loss_g} vs cpu {loss_c}")
-    require(worst[0] <= 5e-2, f"grad {worst[1]} differs by {worst[0]}")
+    if flipped == 0:
+        require(worst[0] <= 5e-2, f"grad {worst[1]} differs by {worst[0]}")
 
 
 def run() -> int:
@@ -360,9 +654,15 @@ def run() -> int:
     line = phase_env()
     phase_build()
     max_abs = phase_kernels_check()
-    times = phase_kernels_time()
-    launches = phase_slice()
-    phase_parity_on_card()
+    times = {**phase_kernels_time(), **phase_grouped_time()}
+    phase_moe_no_sync()
+    launches = train_slice("slice", "bench_model", FLASH_PER_LAYER)
+    parity_on_card("parity_on_card")
+    moe_launches = train_slice("moe_slice", "bench_moe_model", MOE_PER_LAYER)
+    parity_on_card("moe_parity_on_card", moe_experts=4, moe_top_k=2,
+                   moe_dispatch="ragged")
+    # each kernel's launches from the run of the path that carries it
+    launches.update(gmm=moe_launches["gmm"], tgmm=moe_launches["tgmm"])
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
         kernels.append({"name": name, "route": "cuda", "source": source,

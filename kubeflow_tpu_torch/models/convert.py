@@ -2,8 +2,10 @@
 
 The port keeps the reference's kernel layouts, so the bridge renames and, for
 the scan-stacked layout, unstacks the leading layer axis; nothing is
-transposed. Input is the ``params`` tree as nested dicts of numpy arrays (or
-anything ``numpy.asarray`` accepts), in either layout:
+transposed. An MoE layer's router and experts are raw params (no ``kernel``
+key), ``[L, E, h, m]`` when scan-stacked. Input is the ``params`` tree as
+nested dicts of numpy arrays (or anything ``numpy.asarray`` accepts), in
+either layout:
 
 - scan-stacked: ``params["layers"]["block"][...]`` with a leading L axis;
 - unrolled: ``params["layer_{i}"][...]``.
@@ -23,10 +25,10 @@ _BLOCK = {
     "attn.wv": ("attn", "wv", "kernel"),
     "attn.wo": ("attn", "wo", "kernel"),
     "mlp_norm.scale": ("mlp_norm", "scale"),
-    "mlp.w_gate": ("mlp", "w_gate", "kernel"),
-    "mlp.w_up": ("mlp", "w_up", "kernel"),
-    "mlp.w_down": ("mlp", "w_down", "kernel"),
 }
+_MLP = {f"mlp.{n}": ("mlp", n, "kernel") for n in ("w_gate", "w_up", "w_down")}
+_MOE_MLP = {f"mlp.{n}": ("mlp", n)
+            for n in ("router", "w_gate", "w_up", "w_down")}
 
 
 def _get(tree, path):
@@ -44,7 +46,8 @@ def state_dict_from_jax(params, cfg: LlamaConfig) -> dict[str, torch.Tensor]:
     if not cfg.tie_embeddings:
         out["head.unembedding"] = _get(params, ("head", "unembedding"))
     stacked = "layers" in params
-    for name, path in _BLOCK.items():
+    block = {**_BLOCK, **(_MOE_MLP if cfg.moe_experts > 0 else _MLP)}
+    for name, path in block.items():
         if stacked:
             arr = _get(params["layers"]["block"], path)
             if arr.shape[0] != cfg.num_layers:

@@ -1,12 +1,14 @@
 """Llama-family decoder in PyTorch: the port of ``kubeflow_tpu/models/llama.py``.
 
-Covers the training path of the bench model: RMSNorm, split-halves rope,
-GQA attention (``dense`` or the Hopper ``flash`` kernels), SwiGLU MLP,
-embedding and head (optionally tied), with per-block rematerialisation.
-Parameters keep the reference's Einsum kernel layouts (wq ``[E,H,D]``, wk/wv
-``[E,K,D]``, wo ``[H,D,E]``, w_gate/w_up ``[E,M]``, w_down ``[M,E]``,
-unembedding ``[E,V]``) in f32 and are cast to the activation dtype before each
-product, as the reference does, so ``convert.py`` maps weights by name alone.
+Covers the training path of the bench models: RMSNorm, split-halves rope,
+GQA attention (``dense`` or the Hopper ``flash`` kernels), SwiGLU MLP or the
+Mixture-of-Experts MLP of ``moe.py``, embedding and head (optionally tied),
+with per-block rematerialisation. Parameters keep the reference's Einsum
+kernel layouts (wq ``[E,H,D]``, wk/wv ``[E,K,D]``, wo ``[H,D,E]``,
+w_gate/w_up ``[E,M]``, w_down ``[M,E]``, unembedding ``[E,V]``; MoE router
+``[E,X]`` and experts ``[X,E,M]``/``[X,M,E]``) in f32 and are cast to the
+activation dtype before each product, as the reference does, so
+``convert.py`` maps weights by name alone.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from torch.utils.checkpoint import (
 
 from ..device import resolve_device
 from ..ops.flash_attention import flash_attention
+from .moe import MoeMlp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,6 +51,15 @@ class LlamaConfig:
     #: "dense" = plain causal attention; "flash" = the Hopper kernels
     attention_impl: str = "dense"
     tie_embeddings: bool = False
+    #: Mixture-of-Experts MLP (``moe.py``): 0 = the dense MLP; > 0 = number
+    #: of experts, each token routed to its top ``moe_top_k``
+    moe_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_normalize_topk: bool = True
+    #: "dense" = capacity dispatch (tokens past capacity dropped); "ragged" =
+    #: dropless sort-by-expert dispatch
+    moe_dispatch: str = "dense"
 
     @property
     def q_per_kv(self) -> int:
@@ -60,6 +72,8 @@ class LlamaConfig:
             raise ValueError(f"unknown attention_impl {self.attention_impl!r}")
         if self.remat_policy not in ("dots", "nothing"):
             raise ValueError(f"unknown remat_policy {self.remat_policy!r}")
+        if self.moe_dispatch not in ("dense", "ragged"):
+            raise ValueError(f"unknown moe_dispatch {self.moe_dispatch!r}")
 
 
 def tiny(**kw) -> LlamaConfig:
@@ -82,21 +96,45 @@ def bench_model(**kw) -> LlamaConfig:
     })
 
 
-def num_params(cfg: LlamaConfig) -> int:
-    """Closed-form parameter count (for tokens/sec -> MFU conversion)."""
+def bench_moe_model(**kw) -> LlamaConfig:
+    """The MoE bench model: the 271M trunk with 8 experts, top-2, dropless
+    (``scripts/moe_bench.py``'s configuration at full depth); 1.24B params,
+    410M active per token."""
+    return bench_model(**{
+        **dict(moe_experts=8, moe_top_k=2, moe_dispatch="ragged"),
+        **kw,
+    })
+
+
+def _param_count(cfg: LlamaConfig, experts: int) -> int:
+    """Parameters of the model with ``experts`` expert MLPs per layer (plus
+    the router when the config has experts)."""
     h, v, m = cfg.hidden_size, cfg.vocab_size, cfg.intermediate_size
     attn = (h * cfg.num_heads * cfg.head_dim * 2
             + h * cfg.num_kv_heads * cfg.head_dim * 2)
-    per_layer = attn + 3 * h * m + 2 * h
+    router = h * cfg.moe_experts
+    per_layer = attn + experts * 3 * h * m + router + 2 * h
     out = v * h if cfg.tie_embeddings else 2 * v * h
     return per_layer * cfg.num_layers + out + h
 
 
+def num_params(cfg: LlamaConfig) -> int:
+    """Closed-form count of every parameter. (The reference's counts one
+    expert MLP and no router for an MoE model.)"""
+    return _param_count(cfg, cfg.moe_experts or 1)
+
+
+def active_params(cfg: LlamaConfig) -> int:
+    """Parameters one token passes through: its top-k experts and the
+    router for an MoE model, every parameter for a dense one."""
+    return _param_count(cfg, cfg.moe_top_k if cfg.moe_experts else 1)
+
+
 def flops_per_token(cfg: LlamaConfig, seq_len: int) -> float:
-    """Train FLOPs/token: 6*N plus the causal attention term (lower triangle
-    only: 6*L*h*d*s)."""
+    """Train FLOPs/token: 6 x the active params plus the causal attention
+    term (lower triangle only: 6*L*h*d*s)."""
     attn = 6 * cfg.num_layers * cfg.num_heads * cfg.head_dim * seq_len
-    return 6.0 * num_params(cfg) + attn
+    return 6.0 * active_params(cfg) + attn
 
 
 # -- building blocks --------------------------------------------------------
@@ -203,11 +241,16 @@ class Block(nn.Module):
         self.attn = Attention(cfg, device)
         self.mlp_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype,
                                 device)
-        self.mlp = Mlp(cfg, device)
+        self.mlp = (MoeMlp(cfg, device) if cfg.moe_experts > 0
+                    else Mlp(cfg, device))
 
     def forward(self, x, positions):
+        """(x, aux): aux is the MoE layer's load-balancing loss, else None."""
         x = x + self.attn(self.attn_norm(x), positions)
-        return x + self.mlp(self.mlp_norm(x))
+        if isinstance(self.mlp, MoeMlp):
+            y, aux = self.mlp(self.mlp_norm(x))
+            return x + y, aux
+        return x + self.mlp(self.mlp_norm(x)), None
 
 
 class Embedder(nn.Module):
@@ -266,9 +309,10 @@ class Llama(nn.Module):
 
     @torch.no_grad()
     def init_weights(self, seed: int = 0) -> None:
-        """Random init from ``seed``: embeddings normal(0.02), projections
-        fan-in truncated normal, norm scales one (the reference's
-        initializers; its random draws differ)."""
+        """Random init from ``seed``: embeddings and MoE routers
+        normal(0.02), projections and experts fan-in truncated normal, norm
+        scales one (the reference's initializers; its random draws
+        differ)."""
         gen = torch.Generator(device=self.embedder.embedding.device)
         gen.manual_seed(seed)
         self.embedder.embedding.normal_(0.0, 0.02, generator=gen)
@@ -281,20 +325,28 @@ class Llama(nn.Module):
         if not self.cfg.tie_embeddings:
             self.head.unembedding.normal_(0.0, 0.02, generator=gen)
 
-    def forward(self, tokens):
+    def forward(self, tokens, return_aux: bool = False):
+        """Logits; with ``return_aux``, (logits, the MoE load-balancing loss
+        averaged over layers, or None for a dense model)."""
         cfg = self.cfg
         positions = torch.arange(tokens.shape[-1], device=tokens.device)
         x = self.embedder(tokens)
         remat = cfg.remat and torch.is_grad_enabled()
+        auxes = []
         for blk in self.layers:
             if not remat:
-                x = blk(x, positions)
+                x, aux = blk(x, positions)
             elif cfg.remat_policy == "dots":
-                x = checkpoint(
+                x, aux = checkpoint(
                     blk, x, positions, use_reentrant=False,
                     context_fn=functools.partial(
                         create_selective_checkpoint_contexts, _DOTS))
             else:
-                x = checkpoint(blk, x, positions, use_reentrant=False)
+                x, aux = checkpoint(blk, x, positions, use_reentrant=False)
+            if aux is not None:
+                auxes.append(aux)
         table = self.embedder.embedding if cfg.tie_embeddings else None
-        return self.head(x, table)
+        logits = self.head(x, table)
+        if not return_aux:
+            return logits
+        return logits, torch.stack(auxes).mean() if auxes else None

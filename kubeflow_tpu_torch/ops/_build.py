@@ -26,6 +26,8 @@ KERNELS = {
     "flash_fwd": "flash_fwd.cu",
     "flash_bwd_dkv": "flash_bwd_dkv.cu",
     "flash_bwd_dq": "flash_bwd_dq.cu",
+    "gmm": "gmm.cu",
+    "tgmm": "tgmm.cu",
 }
 HEADERS = ("flash_common.cuh",)
 NVCC_FLAGS = (

@@ -1,15 +1,18 @@
 """Where the time of the bench train step goes on the card.
 
-    python -m kubeflow_tpu_torch.train.profile [--steps 3] [--warmup 3]
+    python -m kubeflow_tpu_torch.train.profile [--model bench|bench_moe]
+        [--steps 3] [--warmup 3]
 
-Trains the 271M bench model (batch 14 x seq 1024) for ``--warmup`` steps,
-times ``--steps`` steps unprofiled, then traces as many with
-``torch.profiler`` and prints one JSON line: wall ms per step (unprofiled
-and profiled), device busy ms per step (the kernels' summed time; one
-stream, so they do not overlap), the device's idle share of an unprofiled
-step, kernel launches per step, device ms per step by kind of kernel, the
-top kernels by device time, and the time the model's FLOPs would take at
-the bf16 peak. Needs a CUDA card.
+Trains the 271M bench model (or, with ``--model bench_moe``, the 1.24B MoE
+bench model: 8 experts, top-2, dropless) at batch 14 x seq 1024 for
+``--warmup`` steps, times ``--steps`` steps unprofiled, then traces as many
+with ``torch.profiler`` and prints one JSON line: wall ms per step
+(unprofiled and profiled), device busy ms per step (the kernels' summed time;
+one stream, so they do not overlap), the device's idle share of an
+unprofiled step, kernel launches per step, device ms per step by kind of
+kernel, the top kernels by device time, and the time the model's FLOPs
+(active ones for the MoE model) would take at the bf16 peak. Needs a CUDA
+card.
 """
 
 from __future__ import annotations
@@ -23,14 +26,16 @@ from collections import defaultdict
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from ..models.llama import bench_model, flops_per_token
+from ..models.llama import bench_model, bench_moe_model, flops_per_token
 from .data import SyntheticLm
 from .trainer import PEAK_TFLOPS, TrainConfig, Trainer
 
 #: kernel-name fragments -> kind, first match wins
 KINDS = (
     ("flash_fwd", "flash K1"), ("flash_bwd_dkv", "flash K2"),
-    ("flash_bwd_dq", "flash K3"),
+    ("flash_bwd_dq", "flash K3"), ("tgmm", "grouped GEMM K4b (tgmm)"),
+    ("gmm", "grouped GEMM K4a (gmm)"), ("sort", "sort/top-k"),
+    ("topk", "sort/top-k"), ("indexselect", "gather (index_select)"),
     ("gemm", "matmul"), ("nvjet", "matmul"), ("cutlass", "matmul"),
     ("xmma", "matmul"), ("cublas", "matmul"),
     ("reduce", "reduction"), ("softmax", "softmax/cross-entropy"),
@@ -39,6 +44,9 @@ KINDS = (
     ("Memset", "memset"), ("elementwise", "elementwise"),
     ("foreach", "elementwise"),
 )
+
+
+MODELS = {"bench": bench_model, "bench_moe": bench_moe_model}
 
 
 def _kind(name: str) -> str:
@@ -57,14 +65,15 @@ def _device_us(evt) -> float:
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=sorted(MODELS), default="bench")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--warmup", type=int, default=3)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile: no CUDA device is visible")
     total = args.warmup + 2 * args.steps
-    cfg = TrainConfig(model=bench_model(), global_batch=14, seq_len=1024,
-                      steps=total, warmup_steps=2)
+    cfg = TrainConfig(model=MODELS[args.model](), global_batch=14,
+                      seq_len=1024, steps=total, warmup_steps=2)
     trainer = Trainer(cfg)
     trainer.init_state(0)
     source = SyntheticLm(cfg.global_batch, cfg.seq_len, cfg.model.vocab_size)
@@ -101,7 +110,8 @@ def main(argv=None) -> dict:
     model_tflop = (flops_per_token(cfg.model, cfg.seq_len)
                    * cfg.global_batch * cfg.seq_len / 1e12)
     out = {
-        "card": card, "steps": args.steps, "wall_ms_per_step": wall_ms,
+        "card": card, "model": args.model, "steps": args.steps,
+        "wall_ms_per_step": wall_ms,
         "profiled_wall_ms_per_step": profiled_ms,
         "device_busy_ms_per_step": busy,
         "idle_share": max(0.0, 1.0 - busy / wall_ms),

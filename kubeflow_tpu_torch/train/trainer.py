@@ -2,10 +2,12 @@
 ``kubeflow_tpu/train/trainer.py::Trainer`` for one device.
 
 One step: next-token cross-entropy (f32, mean) of the model's logits on
-``tokens[:, 1:]`` given ``tokens[:, :-1]``, backward through the remat
-blocks, then the optax-exact clipped AdamW of ``optim.py``. Metering
-(tokens/s, MFU against the card's bf16 peak) follows the reference: the host
-blocks on the device only at log boundaries.
+``tokens[:, 1:]`` given ``tokens[:, :-1]`` (plus ``aux_loss_coef`` times the
+MoE load-balancing loss averaged over layers, for an MoE model), backward
+through the remat blocks, then the optax-exact clipped AdamW of
+``optim.py``. Metering (tokens/s, MFU of the active FLOPs against the card's
+bf16 peak) follows the reference: the host blocks on the device only at log
+boundaries.
 """
 
 from __future__ import annotations
@@ -44,6 +46,8 @@ class TrainConfig:
     #: dtype of AdamW's first moment (None = the param dtype, f32)
     mu_dtype: Optional[torch.dtype] = torch.bfloat16
     log_every: int = 10
+    #: weight of the MoE load-balancing loss (no effect on a dense model)
+    aux_loss_coef: float = 0.01
 
 
 @dataclasses.dataclass
@@ -91,13 +95,21 @@ class Trainer:
 
     def loss_and_grads(self, tokens) -> torch.Tensor:
         """Forward + backward on one global batch [b, seq+1]; the grads are
-        left in the params' ``.grad``. Returns the loss (0-d, on device)."""
+        left in the params' ``.grad``. Returns the loss (0-d, on device),
+        the load-balancing term included."""
+        cfg = self.cfg
         tokens = torch.as_tensor(np.asarray(tokens), device=self.device)
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
-        logits = self.model(inputs)
+        with_aux = cfg.model.moe_experts > 0 and cfg.aux_loss_coef > 0
+        if with_aux:
+            logits, aux = self.model(inputs, return_aux=True)
+        else:
+            logits = self.model(inputs)
         loss = F.cross_entropy(
             logits.float().reshape(-1, logits.shape[-1]),
             targets.reshape(-1).long())
+        if with_aux:
+            loss = loss + cfg.aux_loss_coef * aux
         loss.backward()
         return loss.detach()
 

@@ -113,6 +113,27 @@ def test_param_and_flop_counts_match_reference(name, kw):
             port.num_params(pcfg)
 
 
+def test_moe_param_and_flop_counts():
+    """num_params counts every expert and the router; flops_per_token counts
+    the active ones (top-k experts + router). The reference's num_params
+    counts one expert MLP and no router, so only the dense trunk agrees."""
+    _, port, _ = _port()
+    cfg = port.bench_moe_model()
+    assert port.num_params(cfg) == 1_240_105_984
+    assert port.active_params(cfg) == 409_633_792
+    assert port.flops_per_token(cfg, 1024) == 6 * 409_633_792 + 6 * 16 * 8 \
+        * 128 * 1024
+    rcfg = dataclasses.replace(_bench_model(), moe_experts=8, moe_top_k=2,
+                               moe_dispatch="ragged")
+    assert ref.num_params(rcfg) == 271_090_688
+    tiny = port.tiny(moe_experts=4)
+    model = port.Llama(tiny, device="cpu")
+    assert sum(p.numel() for p in model.parameters()) == \
+        port.num_params(tiny)
+    dense = port.tiny()
+    assert port.active_params(dense) == port.num_params(dense)
+
+
 def test_bench_model_matches_graft_entry():
     torch, port, _ = _port()
     want, got = _bench_model(), port.bench_model()
@@ -133,6 +154,8 @@ def test_config_validation():
         port.tiny(attention_impl="ring")
     with pytest.raises(ValueError):
         port.tiny(remat_policy="everything")
+    with pytest.raises(ValueError):
+        port.tiny(moe_experts=4, moe_dispatch="scatter")
 
 
 def test_port_imports_no_jax():
@@ -141,8 +164,9 @@ def test_port_imports_no_jax():
         "import chip_smoke\n"
         "import kubeflow_tpu_torch, kubeflow_tpu_torch.device\n"
         "import kubeflow_tpu_torch.models.llama, "
-        "kubeflow_tpu_torch.models.convert\n"
+        "kubeflow_tpu_torch.models.convert, kubeflow_tpu_torch.models.moe\n"
         "import kubeflow_tpu_torch.ops.flash_attention, "
+        "kubeflow_tpu_torch.ops.grouped_matmul, "
         "kubeflow_tpu_torch.ops._build\n"
         "import kubeflow_tpu_torch.train.data, kubeflow_tpu_torch.train.optim,"
         " kubeflow_tpu_torch.train.trainer, kubeflow_tpu_torch.train.profile\n"

@@ -43,13 +43,20 @@ def _numpy_params(state):
     return jax.tree.map(np.array, nn.meta.unbox(state["params"]))
 
 
-def _reference_run(mu_dtype):
+#: the MoE layers of the MoE loss-curve case (the reference runs them on its
+#: grouped GEMM, the port's only expert compute)
+MOE = dict(moe_experts=4, moe_top_k=2, moe_dispatch="ragged")
+
+
+def _reference_run(mu_dtype, **model_kw):
     """Initial params, per-step losses and params after each step of the
-    reference trainer on tiny(flash)."""
+    reference trainer on tiny(flash, **model_kw)."""
+    if model_kw.get("moe_experts"):
+        model_kw = dict(model_kw, moe_ragged_compute="grouped")
     cfg = ref_train.TrainConfig(
-        model=ref.tiny(attention_impl="flash"), global_batch=BATCH,
-        seq_len=SEQ, steps=STEPS, warmup_steps=2, log_every=1,
-        mu_dtype=mu_dtype)
+        model=ref.tiny(attention_impl="flash", **model_kw),
+        global_batch=BATCH, seq_len=SEQ, steps=STEPS, warmup_steps=2,
+        log_every=1, mu_dtype=mu_dtype, aux_loss_coef=0.01)
     t = ref_train.Trainer(cfg, devices=jax.devices()[:1])
     state = t.init_state(0)
     init = _numpy_params(state)
@@ -64,16 +71,18 @@ def _reference_run(mu_dtype):
     return init, losses, params
 
 
-@pytest.mark.parametrize("mu_dtype,rtol", [
-    (None, 1e-4), ("bfloat16", 1e-3)], ids=["mu_f32", "mu_bf16"])
-def test_loss_curve_matches_reference(mu_dtype, rtol):
+@pytest.mark.parametrize("mu_dtype,rtol,model_kw", [
+    (None, 1e-4, {}), ("bfloat16", 1e-3, {}), (None, 1e-4, MOE)],
+    ids=["mu_f32", "mu_bf16", "moe_mu_f32"])
+def test_loss_curve_matches_reference(mu_dtype, rtol, model_kw):
     pt = _port()
     init, want_losses, want_params = _reference_run(
-        mu_dtype and jnp.bfloat16)
+        mu_dtype and jnp.bfloat16, **model_kw)
     cfg = pt.trainer.TrainConfig(
-        model=pt.llama.tiny(attention_impl="flash"), global_batch=BATCH,
-        seq_len=SEQ, steps=STEPS, warmup_steps=2, log_every=1,
-        mu_dtype=mu_dtype and pt.torch.bfloat16)
+        model=pt.llama.tiny(attention_impl="flash", **model_kw),
+        global_batch=BATCH, seq_len=SEQ, steps=STEPS, warmup_steps=2,
+        log_every=1, mu_dtype=mu_dtype and pt.torch.bfloat16,
+        aux_loss_coef=0.01)
     trainer = pt.trainer.Trainer(cfg, device="cpu")
     trainer.load_params(init)
     source = pt.data.SyntheticLm(BATCH, SEQ, cfg.model.vocab_size)
