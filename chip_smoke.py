@@ -4,13 +4,15 @@
     python3 chip_smoke.py
 
 Builds the hand-written Hopper kernels (flash attention K1-K3, grouped GEMM
-K4a/K4b) from ``kubeflow_tpu_torch/ops/csrc`` into ``build/kernels/``, holds
-each kernel against its plain f32 version, times them, runs one MoE layer's
-forward and backward with host syncs forbidden and holds it against the same
-layer on the CPU, trains the 271M bench Llama and the 1.24B MoE bench Llama
-(8 experts, top-2, dropless) for 13 steps each at batch 14 x seq 1024
-through the port's ``Trainer``, checks that each run
-really launched its kernels, and compares one small bf16 step (dense, then
+K4a/K4b) from ``kubeflow_tpu_torch/ops/csrc`` into ``build/kernels/``,
+checks in their SASS that the grouped GEMM runs on wgmma and TMA and that no
+kernel spills, holds each kernel against its plain f32 version (the grouped
+GEMM also launched twice for bitwise equality), times them, runs one MoE
+layer's forward and backward with host syncs forbidden and holds it against
+the same layer on the CPU, trains the 271M bench Llama and the 1.24B MoE
+bench Llama (8 experts, top-2, dropless) for 13 steps each at batch 14 x seq
+1024 through the port's ``Trainer``, checks that each run really launched
+its kernels, and compares one small bf16 step (dense, then
 MoE) on the card with the same step on the CPU. Each phase prints one JSON
 line; the line before the last is the card's name and power limit from
 nvidia-smi, the last line is ``{"ok": true, "device": {...}}``. Any failure
@@ -23,6 +25,7 @@ from __future__ import annotations
 import itertools
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -149,16 +152,53 @@ def phase_env() -> str:
     return line
 
 
+#: kernels whose SASS must hold wgmma (HGMMA) fed by TMA loads (UTMALDG)
+HOPPER_KERNELS = ("gmm", "tgmm")
+HOPPER_OPS = ("HGMMA", "UTMALDG")
+
+
+def _cuobjdump(*args: str) -> str:
+    from pathlib import Path
+
+    from kubeflow_tpu_torch.ops import _build
+
+    tool = Path(_build.nvcc_path()).parent / "cuobjdump"
+    return subprocess.run([str(tool), *args], check=True, capture_output=True,
+                          text=True).stdout
+
+
 def phase_build() -> None:
+    """Builds every kernel library, then reads what was compiled: the
+    grouped-GEMM libraries' SASS must hold wgmma and TMA loads, and no
+    kernel may spill (ptxas's report for what was built now, the registers
+    and local memory of every library from cuobjdump, cached ones too)."""
     from kubeflow_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     logs = _build.build()
     seconds = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]
+                    if "registers" in ln or "spill" in ln or "wgmma" in ln
+                    or "setmaxnreg" in ln]
              for name, log in logs.items()}
-    emit("build", seconds=seconds, built=sorted(logs), ptxas=ptxas)
+    spills = [f"{name}: {ln}" for name, lines in ptxas.items() for ln in lines
+              if any(int(v) for v in re.findall(r"(\d+) bytes spill", ln))]
+    resources, sass = {}, {}
+    for name in _build.KERNELS:
+        lib = str(_build.library_path(name))
+        resources[name] = [ln.strip() for ln in _cuobjdump(
+            "-res-usage", lib).splitlines() if "REG:" in ln]
+        spills += [f"{name}: {ln}" for ln in resources[name]
+                   if re.search(r"LOCAL:(\d+)", ln).group(1) != "0"]
+        if name in HOPPER_KERNELS:
+            text = _cuobjdump("-sass", lib)
+            sass[name] = {op: text.count(op) for op in HOPPER_OPS}
+    emit("build", seconds=seconds, built=sorted(logs), ptxas=ptxas,
+         resources=resources, sass=sass)
+    require(not spills, f"kernels spill registers: {spills}")
+    for name, counts in sass.items():
+        require(all(counts.values()),
+                f"{name} does not use Hopper's paths in its SASS: {counts}")
 
 
 def _inputs(b, s, h, kv, d, gen):
@@ -218,6 +258,16 @@ def _split(rows: int, parts: int) -> list[int]:
     return [rows // parts + (i < rows % parts) for i in range(parts)]
 
 
+def heavy_last(b: int, e: int) -> list[int]:
+    """The last of ``e`` experts takes half the rows."""
+    return _split(b - b // 2, e - 1) + [b // 2]
+
+
+def one_expert(b: int, e: int, which: int = 3) -> list[int]:
+    """Expert ``which`` takes every row; the other groups are empty."""
+    return [b if i == which else 0 for i in range(e)]
+
+
 def grouped_cases() -> dict[str, tuple]:
     """(b, k, n, group sizes, trans_w) of each gmm/tgmm check case."""
     b, k, n, e = (GMM_BENCH[key] for key in "bkne")
@@ -235,6 +285,17 @@ def grouped_cases() -> dict[str, tuple]:
         # the dx product: [b, 2816] @ w[e]^T with w [8, 1024, 2816]
         "bench_trans_w": (b, n, k, _split(b, e), True),
         "small_odd": (333, 64, 96, [100, 0, 150, 50], False),
+        "bench_heavy_last": (b, k, n, heavy_last(b, e), False),
+        # seven empty groups around the one that takes every row
+        "bench_one_expert": (b, k, n, one_expert(b, e), False),
+        "bench_e1": (b, k, n, [b], False),
+        "fewer_rows_than_a_tile": (100, 64, 96, [30, 0, 70], False),
+        # K = 40: the 64-deep slices read past K (TMA fills zeros)
+        "k40": (333, 40, 96, [100, 0, 150, 83], False),
+        # trans_w with N = 104 (not a multiple of 64) and K = 40
+        "trans_w_odd": (333, 40, 104, [0, 120, 1, 200], True),
+        # 200 groups of 0 to 6 rows: the schedules' searches and sort
+        "many_groups": (700, 64, 96, [i % 7 for i in range(200)], False),
     }
 
 
@@ -247,7 +308,11 @@ def _offsets(sizes):
 
 def check_grouped_case(b, k, n, sizes, trans_w, gen) -> dict:
     """gmm and tgmm against their plain versions on bf16 inputs; rows of no
-    group and empty groups' blocks must come back exactly 0."""
+    group and empty groups' blocks must come back exactly 0, and a second
+    launch on the same inputs bitwise equal to the first (the kernels'
+    schedules use no atomics). x's and g's rows of no group hold NaN: the
+    tiles and slices that read them past a group's end must not carry them
+    into the group's results."""
     import torch
 
     from kubeflow_tpu_torch.ops import grouped_matmul as gm
@@ -260,6 +325,8 @@ def check_grouped_case(b, k, n, sizes, trans_w, gen) -> dict:
     x, g = rnd(b, k), rnd(b, n)
     w = rnd(e, n, k) if trans_w else rnd(e, k, n)
     offs = _offsets(sizes)
+    end = sum(sizes)
+    x[end:], g[end:] = float("nan"), float("nan")
     # poison the memory the outputs will reuse: a row or block the kernels
     # failed to write would not read back as 0
     torch.full((b, n), float("nan"), dtype=torch.bfloat16, device="cuda")
@@ -268,7 +335,8 @@ def check_grouped_case(b, k, n, sizes, trans_w, gen) -> dict:
     dw = gm.tgmm(x, g, offs)
     out_p = gm.gmm_plain(x, w, offs, trans_w=trans_w)
     dw_p = gm.tgmm_plain(x, g, offs)
-    end = sum(sizes)
+    repeat = (torch.equal(out, gm.gmm(x, w, offs, trans_w=trans_w))
+              and torch.equal(dw, gm.tgmm(x, g, offs)))
     return {
         "gmm_rel": rel_err(out, out_p), "tgmm_rel": rel_err(dw, dw_p),
         "gmm_abs": abs_err(out, out_p), "tgmm_abs": abs_err(dw, dw_p),
@@ -277,6 +345,7 @@ def check_grouped_case(b, k, n, sizes, trans_w, gen) -> dict:
         "empty_groups": sizes.count(0),
         "empty_blocks_zero": all(bool((dw[i] == 0).all())
                                  for i, size in enumerate(sizes) if size == 0),
+        "repeat_bitwise_equal": repeat,
     }
 
 
@@ -315,7 +384,8 @@ def phase_kernels_check() -> dict[str, float]:
         results[name] = {"shape": [b, k, n], "sizes": sizes,
                          "trans_w": trans_w, **r}
         require(max(r["gmm_rel"], r["tgmm_rel"]) <= REL_TOL
-                and r["tail_rows_zero"] and r["empty_blocks_zero"],
+                and r["tail_rows_zero"] and r["empty_blocks_zero"]
+                and r["repeat_bitwise_equal"],
                 f"gmm/tgmm disagree with their plain versions on {name}: "
                 f"{r}")
         if name == "bench_balanced":
@@ -377,8 +447,10 @@ def phase_kernels_time() -> dict[str, dict]:
 def phase_grouped_time() -> dict[str, dict]:
     """gmm and tgmm at the MoE bench shapes, balanced routing. The kernels
     line's rows are the gate/up products; every shape a step runs is timed
-    too, with its launches per layer, for the step's K4 total, and the
-    gate/up products once more with one expert taking half the rows."""
+    too, with its launches per layer, for the step's K4 total; the gate/up
+    products once more under three skews (the first expert takes half the
+    rows, the last takes half, one takes them all); and the host's time per
+    call."""
     import torch
 
     from kubeflow_tpu_torch.ops import grouped_matmul as gm
@@ -394,6 +466,8 @@ def phase_grouped_time() -> dict[str, dict]:
     w_in, w_out = rnd(e, k, n), rnd(e, n, k)  # gate/up and down weights
     offs = _offsets(_split(b, e))
     skewed = _offsets([b // 2] + _split(b - b // 2, e - 1))
+    last = _offsets(heavy_last(b, e))
+    single = _offsets(one_expert(b, e))
     # name: (kernel call, plain call, launches per layer per step, shape)
     runs = {
         "gmm": (lambda: gm.gmm(xh, w_in, offs),
@@ -409,6 +483,12 @@ def phase_grouped_time() -> dict[str, dict]:
         "tgmm_down": (lambda: gm.tgmm(xm, xh, offs), None, 1, (n, k)),
         "gmm_skewed": (lambda: gm.gmm(xh, w_in, skewed), None, 0, (k, n)),
         "tgmm_skewed": (lambda: gm.tgmm(xh, xm, skewed), None, 0, (k, n)),
+        "gmm_heavy_last": (lambda: gm.gmm(xh, w_in, last), None, 0, (k, n)),
+        "tgmm_heavy_last": (lambda: gm.tgmm(xh, xm, last), None, 0, (k, n)),
+        "gmm_one_expert": (lambda: gm.gmm(xh, w_in, single), None, 0,
+                           (k, n)),
+        "tgmm_one_expert": (lambda: gm.tgmm(xh, xm, single), None, 0,
+                            (k, n)),
     }
     shapes, per_layer_ms = {}, 0.0
     for name, (kernel, plain, per_layer, (kk, nn)) in runs.items():
@@ -448,7 +528,41 @@ def phase_grouped_time() -> dict[str, dict]:
                   "bound_by": shapes[name]["bound_by"],
                   "library_ms": lib_ms[name]} for name in ("gmm", "tgmm")}
     emit("grouped_time", shape=GMM_BENCH, kernels=out, shapes=shapes,
-         library=lib_note, k4_ms_per_layer_step=per_layer_ms)
+         library=lib_note, k4_ms_per_layer_step=per_layer_ms,
+         host_us_per_call=grouped_host_us(xh, w_in, xm, offs))
+    return out
+
+
+def host_us(fn, calls: int = 100) -> float:
+    """Host time of one call, in µs, with the card busy: the calls queue
+    behind a sleeping kernel, so the clock reads only the host's work (the
+    Python wrapper, the tensor maps, the launch). Fails if the card caught up
+    with the host before the last call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)  # about a tenth of a second at H100 clocks
+    asleep = torch.cuda.Event()
+    asleep.record()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    seconds = time.perf_counter() - t0
+    require(not asleep.query(), "the card caught up with the host calls")
+    torch.cuda.synchronize()
+    return seconds / calls * 1e6
+
+
+def grouped_host_us(x, w, g, offs, rounds: int = 5) -> dict[str, list]:
+    """``host_us`` of gmm (x @ w) and tgmm (x^T g), ``rounds`` readings each,
+    alternated."""
+    from kubeflow_tpu_torch.ops import grouped_matmul as gm
+
+    out = {"gmm": [], "tgmm": []}
+    for _ in range(rounds):
+        out["gmm"].append(host_us(lambda: gm.gmm(x, w, offs)))
+        out["tgmm"].append(host_us(lambda: gm.tgmm(x, g, offs)))
     return out
 
 

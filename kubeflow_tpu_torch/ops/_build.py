@@ -29,7 +29,7 @@ KERNELS = {
     "gmm": "gmm.cu",
     "tgmm": "tgmm.cu",
 }
-HEADERS = ("flash_common.cuh",)
+HEADERS = ("flash_common.cuh", "hopper_gemm.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -9,21 +9,34 @@
 //
 // Bound on the H100: at the MoE bench shape (B = 28,644 rows, K = 1024,
 // N = 2816, E = 8) one launch is 165 GFLOP against 0.27 GB, so the tensor
-// cores bound it (0.167 ms at 989 TFLOP/s). Design against that: 128 x 128
-// output tiles (8 warps, each 64 x 32) keep 64 f32 accumulators a thread and
-// reuse each shared operand across four mma tiles; the K loop streams 32-deep
-// slices of x and w[e] through a three-stage cp.async ring, read with
-// ldmatrix from padded tiles (no bank conflicts). mma.sync bf16, f32 sums.
-//
-// The tile schedule comes from offsets on the device. grid.y has one slot for
-// each (segment, row tile) pair the offsets can make: ceil(B / 128) + E + 1,
-// where the E + 2 segments are the head rows [0, offsets[0]), the E groups and
-// the tail rows [offsets[E], B). Each block reads the offsets into shared
-// memory and walks the segments' tile counts to find its own; a tile that
-// straddles a boundary is computed once for each segment, with its rows masked
-// on load and store, as MegaBlox does. Blocks past the last tile exit, and
-// head/tail tiles only store zeros.
-#include "flash_common.cuh"
+// cores bound it (0.167 ms at 989 TFLOP/s). Design against that:
+// - Tensor cores through wgmma: each block computes 128 x 256 output tiles,
+//   two consumer warpgroups of 64 rows each running m64n256k16 products from
+//   shared memory (128 f32 accumulators a thread), 64-deep K slices.
+// - Loads through TMA: one producer thread keeps a three-stage ring of
+//   48 KB slices (16 KB of x, 32 KB of w[e], 128-byte swizzle) in flight,
+//   tracked by full/empty mbarriers; the producer warpgroup gives its
+//   registers to the consumers (setmaxnreg). w is one 3-D tensor map, the
+//   expert a coordinate. x is K-major (A); w [K, N] is an MN-major B (the
+//   transpose bit set), w [N, K] with trans_w a K-major B. Columns of K or N
+//   past the tensor load as zeros.
+// - A persistent grid: min(#SMs, most units) blocks, each reading the offsets
+//   once and walking the units u = blockIdx.x, + gridDim.x, ... with a static
+//   stride (no atomics, so the result is bitwise reproducible). A unit is a
+//   (segment, 128-row tile, 256-column tile): the E + 2 segments are the head
+//   rows [0, offsets[0]), the E groups and the tail rows [offsets[E], B). Row
+//   tiles are outer and column tiles inner, so the blocks in flight share one
+//   group's w[e] in L2. While the consumers finish a unit, the producer
+//   already loads the next one's slices.
+// - The epilogue: a warpgroup whose 64 rows all lie in the unit's group
+//   stages its tile in shared memory (swizzled, conflict-free) and one thread
+//   stores it by TMA, which runs on while the next unit's products start. A
+//   tile that straddles a group boundary was loaded whole and computed with
+//   this group's weights (each output row depends only on its own x row); it
+//   stores only the group's rows, with masked st.global, since a whole-tile
+//   store would overwrite the neighbouring group's rows, which another unit
+//   writes. Head and tail units store zeros.
+#include "hopper_gemm.cuh"
 
 // Must match kubeflow_tpu_torch/ops/grouped_matmul.py::_GmmArgs.
 struct GmmArgs {
@@ -41,161 +54,198 @@ struct GmmArgs {
 
 namespace {
 
-constexpr int BM = 128, BN = 128, BK = 32, STAGES = 3, THREADS = 256;
-constexpr int PA = BK + 8;     // x tile [BM][PA]
-constexpr int PKN = BN + 8;    // w tile [BK][PKN] (w stored [K, N])
-constexpr int PNK = BK + 8;    // w tile [BN][PNK] (w stored [N, K])
-constexpr int A_STAGE = BM * PA;
-constexpr int B_STAGE = BN * PNK > BK * PKN ? BN * PNK : BK * PKN;
-constexpr int SMEM_BYTES = STAGES * (A_STAGE + B_STAGE) * (int)sizeof(bf16);
+constexpr int BM = 128, BN = 256, BK = 64, STAGES = 3;
+constexpr int THREADS = 384;             // producer warpgroup + two consumer warpgroups
+constexpr int A_BYTES = BM * BK * 2;     // x slice: 128 rows x 128 bytes
+constexpr int B_BOX = 64 * BK * 2;       // one 64 x 64 box of w
+constexpr int B_BYTES = BN * BK * 2;     // w slice: four boxes, or one [256 n][64 k] box
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+constexpr int OUT_BYTES = BM * BN * 2;   // the output tile, staged for the TMA store
+constexpr int NSEG_MAX = GMM_MAX_EXPERTS + 2;
+
+struct Sched {
+  uint64_t full[STAGES], empty[STAGES];
+  int bnd[NSEG_MAX + 1];  // segment boundaries: 0, offsets clamped monotone into [0, B], B
+  int cum[NSEG_MAX + 1];  // row tiles of the segments before each one
+};
+constexpr int SMEM_BYTES = 1024 + STAGES * STAGE_BYTES + OUT_BYTES + (int)sizeof(Sched);
+
+struct Unit {
+  int seg, r0, lo, hi, n0;  // segment, tile's first row, its rows [lo, hi), first column
+};
+
+__device__ __forceinline__ Unit unit_at(const Sched& s, int u, int ntn, int nseg) {
+  const int slot = u / ntn;
+  int a = 0, b = nseg - 1;  // the last segment whose tiles start at or before slot
+  while (a < b) {
+    const int m = (a + b + 1) >> 1;
+    if (s.cum[m] <= slot) a = m; else b = m - 1;
+  }
+  Unit t;
+  t.seg = a;
+  t.r0 = (s.bnd[a] / BM + slot - s.cum[a]) * BM;
+  t.lo = max(s.bnd[a], t.r0);
+  t.hi = min(s.bnd[a + 1], t.r0 + BM);
+  t.n0 = (u % ntn) * BN;
+  return t;
+}
 
 template <bool TRANS>
-__global__ void __launch_bounds__(THREADS) gmm_kernel(const GmmArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int bnd[GMM_MAX_EXPERTS + 3];
-  bf16* sA = reinterpret_cast<bf16*>(smem);
-  bf16* sB = sA + STAGES * A_STAGE;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+__global__ void __launch_bounds__(THREADS, 1)
+    gmm_kernel(const GmmArgs a, const __grid_constant__ CUtensorMap tx,
+               const __grid_constant__ CUtensorMap tw, const __grid_constant__ CUtensorMap to) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align1024(smem_raw);
+  unsigned char* staged = ring + STAGES * STAGE_BYTES;
+  Sched& s = *reinterpret_cast<Sched*>(staged + OUT_BYTES);
+  const int tid = threadIdx.x, nseg = a.e + 2;
 
-  // segment boundaries 0, offsets[0..E], B, clamped monotone into [0, B]
-  for (int i = tid; i <= a.e; i += THREADS) bnd[i + 1] = a.offsets[i];
+  for (int i = tid; i <= a.e; i += THREADS) s.bnd[i + 1] = a.offsets[i];
+  if (tid == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&s.full[i], 1);   // the producer's arrival + the TMA bytes
+      mbar_init(&s.empty[i], 2);  // one arrival per consumer warpgroup
+    }
+    mbar_init_fence();
+  }
   __syncthreads();
   if (tid == 0) {
-    bnd[0] = 0;
-    for (int i = 1; i <= a.e + 1; ++i) bnd[i] = min(max(bnd[i], bnd[i - 1]), a.b);
-    bnd[a.e + 2] = a.b;
+    s.bnd[0] = 0;
+    for (int i = 1; i <= a.e + 1; ++i) s.bnd[i] = min(max(s.bnd[i], s.bnd[i - 1]), a.b);
+    s.bnd[nseg] = a.b;
+    s.cum[0] = 0;
+    for (int j = 0; j < nseg; ++j) {
+      const int s0 = s.bnd[j], s1 = s.bnd[j + 1];
+      s.cum[j + 1] = s.cum[j] + (s1 > s0 ? (s1 - 1) / BM - s0 / BM + 1 : 0);
+    }
   }
   __syncthreads();
+  const int ntn = (a.n + BN - 1) / BN;
+  const int units = s.cum[nseg] * ntn;
 
-  int slot = blockIdx.y, seg = -1, lo = 0, hi = 0, r0 = 0;
-  for (int j = 0; j <= a.e + 1; ++j) {
-    const int s0 = bnd[j], s1 = bnd[j + 1];
-    if (s1 <= s0) continue;
-    const int t0 = s0 / BM, nt = (s1 - 1) / BM - t0 + 1;
-    if (slot < nt) {
-      seg = j;
-      r0 = (t0 + slot) * BM;
-      lo = max(s0, r0);
-      hi = min(s1, r0 + BM);
-      break;
-    }
-    slot -= nt;
-  }
-  if (seg < 0) return;
-  const int n0 = blockIdx.x * BN;
-
-  if (seg == 0 || seg == a.e + 1) {  // rows of no group
-    const int nch = min(BN, a.n - n0) / 8;
-    const uint4 zero = make_uint4(0, 0, 0, 0);
-    for (int i = tid; i < (hi - lo) * nch; i += THREADS) {
-      const long long r = lo + i / nch;
-      *reinterpret_cast<uint4*>(a.out + r * a.ldo + n0 + (i % nch) * 8) = zero;
-    }
-    return;
-  }
-
-  const bf16* wp = a.w + (long long)(seg - 1) * a.swe;
-  const int nk = (a.k + BK - 1) / BK;
-
-  auto load_stage = [&](int kt, int st) {
-    const int k0 = kt * BK;
-    bf16* dA = sA + st * A_STAGE;
-    bf16* dB = sB + st * B_STAGE;
-    for (int i = tid; i < BM * (BK / 8); i += THREADS) {
-      const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
-      const int row = r0 + r, col = k0 + c;
-      const bool ok = row >= lo && row < hi && col < a.k;
-      cp_async16(dA + r * PA + c, ok ? a.x + row * a.ldx + col : a.x, ok);
-    }
-    if (TRANS) {  // w[e] is [N, K]: rows n0.., columns k0..
-      for (int i = tid; i < BN * (BK / 8); i += THREADS) {
-        const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
-        const int nn = n0 + r, col = k0 + c;
-        const bool ok = nn < a.n && col < a.k;
-        cp_async16(dB + r * PNK + c, ok ? wp + nn * a.swr + col : wp, ok);
-      }
-    } else {      // w[e] is [K, N]: rows k0.., columns n0..
-      for (int i = tid; i < BK * (BN / 8); i += THREADS) {
-        const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
-        const int kk = k0 + r, col = n0 + c;
-        const bool ok = kk < a.k && col < a.n;
-        cp_async16(dB + r * PKN + c, ok ? wp + kk * a.swr + col : wp, ok);
-      }
-    }
-  };
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk) load_stage(s, s);
-    cp_async_commit();
-  }
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // stage kt landed; every warp is done with stage kt - 1
-    if (kt + STAGES - 1 < nk) load_stage(kt + STAGES - 1, (kt + STAGES - 1) % STAGES);
-    cp_async_commit();
-    const bf16* cA = sA + (kt % STAGES) * A_STAGE;
-    const bf16* cB = sB + (kt % STAGES) * B_STAGE;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t af[4][4];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) load_a<PA>(af[mi], cA, wm + mi * 16, kk, lane);
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj) {
-        uint32_t b[4];
-        if (TRANS)
-          load_b_nk<PNK>(b, cB, wn + nj * 16, kk, lane);
-        else
-          load_b_kn<PKN>(b, cB, wn + nj * 16, kk, lane);
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi) {
-          mma_bf16(acc[mi][2 * nj], af[mi], b[0], b[1]);
-          mma_bf16(acc[mi][2 * nj + 1], af[mi], b[2], b[3]);
+  if (tid < 128) {  // producer warpgroup: one thread starts every load
+    setmaxnreg_dec<40>();
+    if (tid == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const Unit t = unit_at(s, u, ntn, nseg);
+        if (t.seg == 0 || t.seg == nseg - 1) continue;  // zeros: no loads
+        const int e = t.seg - 1;
+        int boxes = 1;  // w boxes inside N (trans_w: one box, partly inside)
+        if (!TRANS) boxes = min(4, (a.n - t.n0 + 63) / 64);
+        for (int k0 = 0; k0 < a.k; k0 += BK) {
+          mbar_wait(&s.empty[stage], phase ^ 1);
+          unsigned char* st = ring + stage * STAGE_BYTES;
+          mbar_arrive_expect_tx(&s.full[stage], A_BYTES + (TRANS ? B_BYTES : boxes * B_BOX));
+          tma_load_2d(st, &tx, &s.full[stage], k0, t.r0);
+          if (TRANS) {
+            tma_load_3d(st + A_BYTES, &tw, &s.full[stage], k0, t.n0, e);
+          } else {
+            for (int i = 0; i < boxes; ++i)
+              tma_load_3d(st + A_BYTES + i * B_BOX, &tw, &s.full[stage], t.n0 + 64 * i, k0, e);
+          }
+          if (++stage == STAGES) { stage = 0; phase ^= 1; }
         }
       }
     }
-  }
-  cp_async_wait<0>();
-
-  const int g = lane >> 2, t = lane & 3;
+  } else {  // two consumer warpgroups, 64 rows of the tile each
+    setmaxnreg_inc<232>();
+    const int cw = tid / 128 - 1, t = tid % 128;
+    float acc[BN / 2];
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const Unit q = unit_at(s, u, ntn, nseg);
+      if (q.seg == 0 || q.seg == nseg - 1) {  // rows of no group
+        store_zeros(a.out, a.ldo, q.lo, q.hi, q.n0, min(q.n0 + BN, a.n), tid - 128, 256);
+        continue;
+      }
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
-    const int row = r0 + wm + mi * 16 + g;
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      int prev = -1;
+      for (int k0 = 0; k0 < a.k; k0 += BK) {
+        mbar_wait(&s.full[stage], phase);
+        const unsigned char* st = ring + stage * STAGE_BYTES;
+        const uint64_t da = sw128_desc(st + cw * 64 * 128, 16, 1024);
+        const uint64_t db = sw128_desc(st + A_BYTES, TRANS ? 16 : B_BOX, 1024);
+        fence_acc(acc);
+        wgmma_fence();
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int col = n0 + wn + ni * 8 + 2 * t;
-      if (col >= a.n) continue;
-      if (row >= lo && row < hi)
-        store_bf16x2(a.out + (long long)row * a.ldo + col, acc[mi][ni][0], acc[mi][ni][1]);
-      if (row + 8 >= lo && row + 8 < hi)
-        store_bf16x2(a.out + (long long)(row + 8) * a.ldo + col, acc[mi][ni][2], acc[mi][ni][3]);
+        for (int kk = 0; kk < BK / 16; ++kk)  // k16 steps: 32 bytes (K-major), 16 rows (MN-major)
+          wgmma_m64n256k16<0, TRANS ? 0 : 1>(acc, da + 2 * kk, db + (TRANS ? 2 : 128) * kk, 1);
+        wgmma_commit();
+        fence_acc(acc);
+        wgmma_wait<1>();  // the previous slice's products are done: release its stage
+        if (prev >= 0 && t == 0) mbar_arrive(&s.empty[prev]);
+        prev = stage;
+        if (++stage == STAGES) { stage = 0; phase ^= 1; }
+      }
+      wgmma_wait<0>();
+      fence_acc(acc);
+      if (t == 0) mbar_arrive(&s.empty[prev]);
+      const int row0 = q.r0 + 64 * cw;  // this warpgroup's 64 rows
+      if (row0 >= a.b) continue;
+      if (q.lo <= row0 && min(row0 + 64, a.b) <= q.hi) {
+        // every row is the group's: stage the tile, one thread stores it by TMA
+        unsigned char* own = staged + cw * (OUT_BYTES / 2);
+        if (t == 0) tma_store_wait_read();  // the last unit's store has read `own`
+        named_bar_sync(1 + cw, 128);
+        acc_to_smem<BN>(acc, own, t);
+        fence_proxy_async();
+        named_bar_sync(1 + cw, 128);
+        if (t == 0) {
+          for (int i = 0; i < BN / 64 && q.n0 + 64 * i < a.n; ++i)
+            tma_store_2d(&to, own + i * B_BOX, q.n0 + 64 * i, row0);
+          tma_store_commit();
+        }
+      } else {  // rows of another segment lie in the tile: masked stores
+        store_acc<BN>(acc, a.out, a.ldo, row0, q.lo, q.hi, q.n0, a.n, t);
+      }
     }
+    if (t == 0) tma_store_wait();  // before the block's shared memory goes away
   }
 }
 
 template <bool TRANS>
 cudaError_t launch(const GmmArgs& a, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(gmm_kernel<TRANS>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  CUtensorMap tx, tw, to;
+  const cuuint64_t x_dims[2] = {(cuuint64_t)a.k, (cuuint64_t)a.b};
+  const cuuint64_t x_strides[1] = {(cuuint64_t)a.ldx * 2};
+  const cuuint32_t x_box[2] = {BK, BM};
+  // w[e] as [K, N] (boxes of 64 k x 64 n) or, with trans_w, [N, K] (256 n x 64 k)
+  const cuuint64_t w_dims[3] = {(cuuint64_t)(TRANS ? a.k : a.n), (cuuint64_t)(TRANS ? a.n : a.k),
+                                (cuuint64_t)a.e};
+  const cuuint64_t w_strides[2] = {(cuuint64_t)a.swr * 2, (cuuint64_t)a.swe * 2};
+  const cuuint32_t w_box[3] = {64, TRANS ? (cuuint32_t)BN : (cuuint32_t)BK, 1};
+  const cuuint64_t o_dims[2] = {(cuuint64_t)a.n, (cuuint64_t)a.b};
+  const cuuint64_t o_strides[1] = {(cuuint64_t)a.ldo * 2};
+  const cuuint32_t o_box[2] = {64, 64};
+  if (!make_tensor_map(&tx, a.x, 2, x_dims, x_strides, x_box) ||
+      !make_tensor_map(&tw, a.w, 3, w_dims, w_strides, w_box) ||
+      !make_tensor_map(&to, a.out, 2, o_dims, o_strides, o_box))
+    return cudaErrorInvalidValue;
+  static bool smem_set[MAX_DEVICES];  // one record per instantiation
+  cudaError_t err =
+      allow_smem(reinterpret_cast<const void*>(gmm_kernel<TRANS>), SMEM_BYTES, smem_set);
   if (err != cudaSuccess) return err;
-  dim3 grid((a.n + BN - 1) / BN, (a.b + BM - 1) / BM + a.e + 1);
-  gmm_kernel<TRANS><<<grid, THREADS, SMEM_BYTES, stream>>>(a);
+  // the most units the offsets can make: every row tile, plus one split per boundary
+  const long long most =
+      ((long long)(a.b + BM - 1) / BM + a.e + 1) * ((a.n + BN - 1) / BN);
+  if (most > 0x7fffffffLL) return cudaErrorInvalidValue;  // units are counted in int
+  const int grid = (int)(most < sm_count() ? most : sm_count());
+  gmm_kernel<TRANS><<<grid, THREADS, SMEM_BYTES, stream>>>(a, tx, tw, to);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int gmm_launch(const GmmArgs* a, void* stream) {
-  if (a->e < 1 || a->e > GMM_MAX_EXPERTS || a->k % 8 || a->n % 8) return (int)cudaErrorInvalidValue;
+  // TMA coordinates are int32: the last row tile must start below 2^31
+  if (a->e < 1 || a->e > GMM_MAX_EXPERTS || a->k % 8 || a->n % 8 || a->b < 0 ||
+      (long long)a->b + BM > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  if (a->b == 0) return 0;  // no rows, nothing to write
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)(a->trans_w ? launch<true>(*a, st) : launch<false>(*a, st));
 }

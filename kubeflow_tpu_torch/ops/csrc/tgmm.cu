@@ -7,20 +7,34 @@
 //
 // Bound on the H100: at the MoE bench shape (B = 28,644, K = 1024, N = 2816,
 // E = 8) one launch is 165 GFLOP against 0.27 GB, so the tensor cores bound
-// it (0.167 ms at 989 TFLOP/s). Design against that: one block owns one
-// 128 x 128 tile of dw[e] (grid: N tiles x K tiles x E) and loops over its
-// group's rows in 32-row slices, so the sum stays in registers (64 f32 a
-// thread, 8 warps of 64 x 32): no atomics and no second pass. The slices of x
-// and g stream through a three-stage cp.async ring; the slice of x lands in
-// shared memory row-major ([row][k]) and ldmatrix.trans hands it to mma.sync
-// as the transposed A operand, so x is never transposed in device memory. The
-// last slice of a group is ragged and zero-filled past the group's end.
-//
-// Skewed routing leaves the load unbalanced: every block of a large group
-// loops over all of its rows while the blocks of small groups finish early.
-// Splitting long groups over several blocks is the first target of a later
-// change.
-#include "flash_common.cuh"
+// it (0.167 ms at 989 TFLOP/s). Design against that:
+// - One owner per output tile: a unit is one 128 x 256 tile of one dw[e]; its
+//   block reduces over the group's rows in 64-row slices with the sum in
+//   registers (two consumer warpgroups of 64 dw rows, 128 f32 accumulators a
+//   thread). No atomics, no second pass: the result is deterministic.
+// - Tensor cores through wgmma m64n256k16. A is x_e^T and B is g_e, both read
+//   as they lie in memory ([rows, K] and [rows, N]): MN-major operands, the
+//   transpose bit set, so x is never transposed in device memory.
+// - Loads through TMA: one producer thread keeps a three-stage ring of slices
+//   (two 64 x 64 boxes of x, four of g, 128-byte swizzle) in flight, tracked
+//   by full/empty mbarriers; the producer warpgroup gives its registers to
+//   the consumers (setmaxnreg). A slice starts at any row (TMA coordinates
+//   need no alignment), so the first starts exactly at offsets[e].
+// - The last slice of a group reads rows of the next group (or past
+//   offsets[E]), which TMA cannot mask: before its products the consumer
+//   warpgroups zero those rows of x and of g in shared memory (one 128-byte
+//   line a row and box, whatever the swizzle), each its own x half and two of
+//   the four g boxes, fence the generic-proxy stores for wgmma and meet at one
+//   barrier. Both operands, so that an Inf or NaN there cannot reach the
+//   group's sums as 0 * Inf.
+// - A persistent grid: min(#SMs, units) blocks walk the units with a static
+//   stride, groups ordered largest first (each block sorts the E group sizes
+//   from the offsets on the device), so the longest units start first and
+//   the short ones fill the tail. Empty groups' units store zeros.
+// - The epilogue stages each warpgroup's 64 x 256 tile in shared memory and
+//   one thread stores it by TMA (clipped at K and N), which runs on while the
+//   next unit's products start.
+#include "hopper_gemm.cuh"
 
 // Must match kubeflow_tpu_torch/ops/grouped_matmul.py::_TgmmArgs.
 struct TgmmArgs {
@@ -33,123 +47,179 @@ struct TgmmArgs {
   int b, k, n, e;
 };
 
+#define TGMM_MAX_EXPERTS 256  // grouped_matmul.py::MAX_EXPERTS
+
 namespace {
 
-constexpr int BM = 128, BN = 128, BK = 32, STAGES = 3, THREADS = 256;
-constexpr int PM = BM + 8;  // x slice [BK][PM]
-constexpr int PN = BN + 8;  // g slice [BK][PN]
-constexpr int A_STAGE = BK * PM, B_STAGE = BK * PN;
-constexpr int SMEM_BYTES = STAGES * (A_STAGE + B_STAGE) * (int)sizeof(bf16);
+constexpr int BM = 128, BN = 256, BK = 64, STAGES = 3;
+constexpr int THREADS = 384;                 // producer warpgroup + two consumer warpgroups
+constexpr int BOX = 64 * BK * 2;             // one 64-row x 64-column box: 8 KB
+constexpr int A_BYTES = 2 * BOX;             // x slice: 64 rows x 128 columns
+constexpr int B_BYTES = (BN / 64) * BOX;     // g slice: 64 rows x 256 columns
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+constexpr int OUT_BYTES = BM * BN * 2;       // the dw tile, staged for the TMA store
 
-// A operand (16 x 16, A[m][k]) of mma.sync from a shared tile stored [k][m]
-// (m contiguous), transposed on load.
-template <int P>
-__device__ __forceinline__ void load_a_km(uint32_t (&a)[4], const bf16* base, int m0, int k0,
-                                          int lane) {
-  const int mi = lane >> 3, r = lane & 7;
-  ldsm_x4_t(a, base + (k0 + (mi >> 1) * 8 + r) * P + m0 + (mi & 1) * 8);
-}
+struct Sched {
+  uint64_t full[STAGES], empty[STAGES];
+  int lo[TGMM_MAX_EXPERTS];     // group rows [lo, lo + size), clamped into [0, B]
+  int size[TGMM_MAX_EXPERTS];
+  int order[TGMM_MAX_EXPERTS];  // groups, largest first (ties by index)
+};
+constexpr int SMEM_BYTES = 1024 + STAGES * STAGE_BYTES + OUT_BYTES + (int)sizeof(Sched);
 
-__global__ void __launch_bounds__(THREADS) tgmm_kernel(const TgmmArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sA = reinterpret_cast<bf16*>(smem);
-  bf16* sB = sA + STAGES * A_STAGE;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM, e = blockIdx.z;
-  const int lo = min(max(a.offsets[e], 0), a.b);
-  const int hi = min(max(a.offsets[e + 1], lo), a.b);
-  bf16* dwp = a.dw + (long long)e * a.k * a.n;
+__global__ void __launch_bounds__(THREADS, 1)
+    tgmm_kernel(const TgmmArgs a, const __grid_constant__ CUtensorMap tx,
+                const __grid_constant__ CUtensorMap tg, const __grid_constant__ CUtensorMap tdw) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align1024(smem_raw);
+  unsigned char* staged = ring + STAGES * STAGE_BYTES;
+  Sched& s = *reinterpret_cast<Sched*>(staged + OUT_BYTES);
+  const int tid = threadIdx.x;
 
-  if (hi <= lo) {  // empty group: its block is zeros
-    const uint4 zero = make_uint4(0, 0, 0, 0);
-    for (int i = tid; i < BM * (BN / 8); i += THREADS) {
-      const int m = m0 + i / (BN / 8), c = n0 + (i % (BN / 8)) * 8;
-      if (m < a.k && c < a.n) *reinterpret_cast<uint4*>(dwp + (long long)m * a.n + c) = zero;
-    }
-    return;
+  for (int i = tid; i < a.e; i += THREADS) {
+    const int lo = min(max(a.offsets[i], 0), a.b);
+    s.lo[i] = lo;
+    s.size[i] = min(max(a.offsets[i + 1], lo), a.b) - lo;
   }
-
-  const int nc = (hi - lo + BK - 1) / BK;
-  auto load_stage = [&](int ct, int st) {
-    const int row0 = lo + ct * BK;
-    bf16* dA = sA + st * A_STAGE;
-    bf16* dB = sB + st * B_STAGE;
-    for (int i = tid; i < BK * (BM / 8); i += THREADS) {
-      const int r = i / (BM / 8), c = (i % (BM / 8)) * 8;
-      const int row = row0 + r, col = m0 + c;
-      const bool ok = row < hi && col < a.k;
-      cp_async16(dA + r * PM + c, ok ? a.x + row * a.ldx + col : a.x, ok);
+  if (tid == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&s.full[i], 1);   // the producer's arrival + the TMA bytes
+      mbar_init(&s.empty[i], 2);  // one arrival per consumer warpgroup
     }
-    for (int i = tid; i < BK * (BN / 8); i += THREADS) {
-      const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
-      const int row = row0 + r, col = n0 + c;
-      const bool ok = row < hi && col < a.n;
-      cp_async16(dB + r * PN + c, ok ? a.g + row * a.ldg + col : a.g, ok);
-    }
-  };
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nc) load_stage(s, s);
-    cp_async_commit();
+    mbar_init_fence();
   }
+  __syncthreads();
+  for (int i = tid; i < a.e; i += THREADS) {
+    int rank = 0;
+    for (int j = 0; j < a.e; ++j)
+      rank += s.size[j] > s.size[i] || (s.size[j] == s.size[i] && j < i);
+    s.order[rank] = i;
+  }
+  __syncthreads();
+  const int ntn = (a.n + BN - 1) / BN, per_group = ((a.k + BM - 1) / BM) * ntn;
+  const int units = a.e * per_group;
 
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-
-  for (int ct = 0; ct < nc; ++ct) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // slice ct landed; every warp is done with slice ct - 1
-    if (ct + STAGES - 1 < nc) load_stage(ct + STAGES - 1, (ct + STAGES - 1) % STAGES);
-    cp_async_commit();
-    const bf16* cA = sA + (ct % STAGES) * A_STAGE;
-    const bf16* cB = sB + (ct % STAGES) * B_STAGE;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t af[4][4];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) load_a_km<PM>(af[mi], cA, wm + mi * 16, kk, lane);
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj) {
-        uint32_t b[4];
-        load_b_kn<PN>(b, cB, wn + nj * 16, kk, lane);
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi) {
-          mma_bf16(acc[mi][2 * nj], af[mi], b[0], b[1]);
-          mma_bf16(acc[mi][2 * nj + 1], af[mi], b[2], b[3]);
+  if (tid < 128) {  // producer warpgroup: one thread starts every load
+    setmaxnreg_dec<40>();
+    if (tid == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const int grp = s.order[u / per_group], r = u % per_group;
+        const int m0 = (r / ntn) * BM, n0 = (r % ntn) * BN;
+        const int lo = s.lo[grp], hi = lo + s.size[grp];
+        const int xboxes = min(2, (a.k - m0 + 63) / 64), gboxes = min(BN / 64, (a.n - n0 + 63) / 64);
+        for (int row = lo; row < hi; row += BK) {
+          mbar_wait(&s.empty[stage], phase ^ 1);
+          unsigned char* st = ring + stage * STAGE_BYTES;
+          mbar_arrive_expect_tx(&s.full[stage], (xboxes + gboxes) * BOX);
+          for (int i = 0; i < xboxes; ++i)
+            tma_load_2d(st + i * BOX, &tx, &s.full[stage], m0 + 64 * i, row);
+          for (int i = 0; i < gboxes; ++i)
+            tma_load_2d(st + A_BYTES + i * BOX, &tg, &s.full[stage], n0 + 64 * i, row);
+          if (++stage == STAGES) { stage = 0; phase ^= 1; }
         }
       }
     }
-  }
-  cp_async_wait<0>();
-
-  const int gr = lane >> 2, t = lane & 3;
+  } else {  // two consumer warpgroups, 64 rows of the dw tile each
+    setmaxnreg_inc<232>();
+    const int cw = tid / 128 - 1, t = tid % 128;
+    float acc[BN / 2];
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const int grp = s.order[u / per_group], r = u % per_group;
+      const int m0 = (r / ntn) * BM, n0 = (r % ntn) * BN;
+      const int lo = s.lo[grp], hi = lo + s.size[grp];
+      bf16* dw = a.dw + (long long)grp * a.k * a.n;
+      if (hi <= lo) {  // empty group: its tile is zeros
+        store_zeros(dw, a.n, m0, min(m0 + BM, a.k), n0, min(n0 + BN, a.n), tid - 128, 256);
+        continue;
+      }
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
-    const int m = m0 + wm + mi * 16 + gr;
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      int prev = -1;
+      for (int row = lo; row < hi; row += BK) {
+        mbar_wait(&s.full[stage], phase);
+        unsigned char* st = ring + stage * STAGE_BYTES;
+        unsigned char* xs = st + cw * BOX;  // this warpgroup's 64 dw rows: x columns m0 + 64 cw..
+        const int valid = hi - row;
+        if (valid < BK) {  // rows past the group: zero them in x and g, for wgmma
+          const int lines = (BK - valid) * 8;  // 16-byte chunks of those rows in one box
+          for (int i = t; i < 3 * lines; i += 128) {  // x half cw, g boxes 2 cw and 2 cw + 1
+            const int box = i / lines, j = i % lines;
+            unsigned char* p = box == 0 ? xs : st + A_BYTES + (2 * cw + box - 1) * BOX;
+            *reinterpret_cast<uint4*>(p + (valid + j / 8) * 128 + (j % 8) * 16) =
+                make_uint4(0, 0, 0, 0);
+          }
+          fence_proxy_async();
+          named_bar_sync(3, 256);  // both warpgroups read all of g
+        }
+        const uint64_t da = sw128_desc(xs, BOX, 1024);
+        const uint64_t db = sw128_desc(st + A_BYTES, BOX, 1024);
+        fence_acc(acc);
+        wgmma_fence();
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int col = n0 + wn + ni * 8 + 2 * t;
-      if (col >= a.n) continue;
-      if (m < a.k) store_bf16x2(dwp + (long long)m * a.n + col, acc[mi][ni][0], acc[mi][ni][1]);
-      if (m + 8 < a.k)
-        store_bf16x2(dwp + (long long)(m + 8) * a.n + col, acc[mi][ni][2], acc[mi][ni][3]);
+        for (int kk = 0; kk < BK / 16; ++kk)  // k16 steps: 16 rows, 2,048 bytes
+          wgmma_m64n256k16<1, 1>(acc, da + 128 * kk, db + 128 * kk, 1);
+        wgmma_commit();
+        fence_acc(acc);
+        wgmma_wait<1>();  // the previous slice's products are done: release its stage
+        if (prev >= 0 && t == 0) mbar_arrive(&s.empty[prev]);
+        prev = stage;
+        if (++stage == STAGES) { stage = 0; phase ^= 1; }
+      }
+      wgmma_wait<0>();
+      fence_acc(acc);
+      if (t == 0) mbar_arrive(&s.empty[prev]);
+      const int row0 = m0 + 64 * cw;  // this warpgroup's 64 dw rows
+      if (row0 >= a.k) continue;
+      // stage the tile; one thread stores it by TMA (clipped at K and N)
+      unsigned char* own = staged + cw * (OUT_BYTES / 2);
+      if (t == 0) tma_store_wait_read();  // the last unit's store has read `own`
+      named_bar_sync(1 + cw, 128);
+      acc_to_smem<BN>(acc, own, t);
+      fence_proxy_async();
+      named_bar_sync(1 + cw, 128);
+      if (t == 0) {
+        for (int i = 0; i < BN / 64 && n0 + 64 * i < a.n; ++i)
+          tma_store_3d(&tdw, own + i * BOX, n0 + 64 * i, row0, grp);
+        tma_store_commit();
+      }
     }
+    if (t == 0) tma_store_wait();  // before the block's shared memory goes away
   }
 }
 
 }  // namespace
 
 extern "C" int tgmm_launch(const TgmmArgs* a, void* stream) {
-  if (a->e < 1 || a->k % 8 || a->n % 8) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(tgmm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         SMEM_BYTES);
+  // TMA coordinates are int32: the last slice must start below 2^31
+  if (a->e < 1 || a->e > TGMM_MAX_EXPERTS || a->k % 8 || a->n % 8 || a->b < 0 ||
+      (long long)a->b + BK > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (a->b == 0)  // every group is empty
+    return (int)cudaMemsetAsync(a->dw, 0, (size_t)a->e * a->k * a->n * sizeof(bf16), st);
+  CUtensorMap tx, tg, tdw;
+  const cuuint64_t x_dims[2] = {(cuuint64_t)a->k, (cuuint64_t)a->b};
+  const cuuint64_t x_strides[1] = {(cuuint64_t)a->ldx * 2};
+  const cuuint64_t g_dims[2] = {(cuuint64_t)a->n, (cuuint64_t)a->b};
+  const cuuint64_t g_strides[1] = {(cuuint64_t)a->ldg * 2};
+  const cuuint32_t box[2] = {64, BK};
+  const cuuint64_t dw_dims[3] = {(cuuint64_t)a->n, (cuuint64_t)a->k, (cuuint64_t)a->e};
+  const cuuint64_t dw_strides[2] = {(cuuint64_t)a->n * 2, (cuuint64_t)a->k * a->n * 2};
+  const cuuint32_t dw_box[3] = {64, 64, 1};
+  if (!make_tensor_map(&tx, a->x, 2, x_dims, x_strides, box) ||
+      !make_tensor_map(&tg, a->g, 2, g_dims, g_strides, box) ||
+      !make_tensor_map(&tdw, a->dw, 3, dw_dims, dw_strides, dw_box))
+    return (int)cudaErrorInvalidValue;
+  static bool smem_set[MAX_DEVICES];
+  cudaError_t err = allow_smem(reinterpret_cast<const void*>(tgmm_kernel), SMEM_BYTES, smem_set);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((a->n + BN - 1) / BN, (a->k + BM - 1) / BM, a->e);
-  tgmm_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(*a);
+  const long long units = (long long)a->e * ((a->k + BM - 1) / BM) * ((a->n + BN - 1) / BN);
+  if (units > 0x7fffffffLL) return (int)cudaErrorInvalidValue;  // units are counted in int
+  const int grid = (int)(units < sm_count() ? units : sm_count());
+  tgmm_kernel<<<grid, THREADS, SMEM_BYTES, st>>>(*a, tx, tg, tdw);
   return (int)cudaGetLastError();
 }

@@ -17,7 +17,10 @@ belong to no group come back as zeros (``gmm``), and so do the blocks of
 empty groups (``tgmm``). The offsets stay on the device: the kernels build
 their tile schedule from them, so a call makes no host sync. Accumulation is
 f32; the reference's TPU tile request (``set_gmm_tiling``) and its bf16
-accumulator option are not carried over.
+accumulator option are not carried over. Both kernels are persistent
+(one block per SM walks a tile schedule it builds from the offsets) and
+feed ``wgmma`` from TMA loads; ``csrc/hopper_gemm.cuh`` holds their shared
+pieces.
 """
 
 from __future__ import annotations
@@ -31,8 +34,12 @@ from . import _build
 #: kernel launches per wrapper; reset by setting entries to 0
 LAUNCHES = {"gmm": 0, "tgmm": 0}
 
-#: most groups the gmm kernel schedules (GMM_MAX_EXPERTS in csrc/gmm.cu)
+#: most groups the kernels schedule (GMM_MAX_EXPERTS in csrc/gmm.cu,
+#: TGMM_MAX_EXPERTS in csrc/tgmm.cu)
 MAX_EXPERTS = 256
+#: most rows: the kernels' TMA row coordinates are int32, and the last
+#: 128-row tile must start below 2**31
+MAX_ROWS = 2**31 - 1 - 128
 
 
 class _GmmArgs(ctypes.Structure):
@@ -102,6 +109,10 @@ def _check(x, offsets, e: int, k: int, n: int, *rest) -> None:
         if not 1 <= e <= MAX_EXPERTS:
             raise ValueError(
                 f"the CUDA kernels take 1 to {MAX_EXPERTS} groups, not {e}")
+        if x.shape[0] > MAX_ROWS:
+            raise ValueError(
+                f"the CUDA kernels take at most {MAX_ROWS} rows (int32 TMA "
+                f"coordinates), not {x.shape[0]}")
     elif x.device.type != "cpu":
         raise ValueError(f"no grouped matmul for device {x.device}")
 
@@ -164,8 +175,6 @@ def gmm(x, w, offsets, trans_w: bool = False) -> torch.Tensor:
     if not x.is_cuda:
         return gmm_plain(x, w, offsets, trans_w).to(x.dtype)
     out = torch.empty(b, n, dtype=x.dtype, device=x.device)
-    if -(-b // 128) + e + 1 > 65535:  # the kernel's row-tile slots (grid.y)
-        raise ValueError(f"too many rows for the gmm kernel: {b}")
     x, w = _kernel_layout(x), _kernel_layout(w)
     offsets = offsets.contiguous()
     _launch("gmm", _GmmArgs(
@@ -178,7 +187,8 @@ def gmm(x, w, offsets, trans_w: bool = False) -> torch.Tensor:
 
 def tgmm(x, g, offsets) -> torch.Tensor:
     """K4b: dw [E, K, N] in x's dtype, ``dw[e] = x_e^T g_e``; empty groups
-    0. ``E`` is ``len(offsets) - 1``."""
+    0. ``E`` is ``len(offsets) - 1``. Rows outside group e never reach
+    ``dw[e]``, whatever they hold (Inf and NaN included)."""
     if x.dim() != 2 or g.dim() != 2 or x.shape[0] != g.shape[0]:
         raise ValueError(
             f"expected x [B,K] and g [B,N]; got {tuple(x.shape)}, "
