@@ -5,9 +5,10 @@
 
 Builds the hand-written Hopper kernels (flash attention K1-K3, grouped GEMM
 K4a/K4b) from ``kubeflow_tpu_torch/ops/csrc`` into ``build/kernels/``,
-checks in their SASS that the grouped GEMM runs on wgmma and TMA and that no
-kernel spills, holds each kernel against its plain f32 version (the grouped
-GEMM also launched twice for bitwise equality), times them, runs one MoE
+checks in their SASS that the flash forward, the flash dK/dV and the grouped
+GEMM run on wgmma and TMA and that no kernel spills, holds each kernel
+against its plain f32 version (outputs in NaN-poisoned memory, each kernel
+launched twice for bitwise equality), times them, runs one MoE
 layer's forward and backward with host syncs forbidden and holds it against
 the same layer on the CPU, trains the 271M bench Llama and the 1.24B MoE
 bench Llama (8 experts, top-2, dropless) for 13 steps each at batch 14 x seq
@@ -153,7 +154,7 @@ def phase_env() -> str:
 
 
 #: kernels whose SASS must hold wgmma (HGMMA) fed by TMA loads (UTMALDG)
-HOPPER_KERNELS = ("gmm", "tgmm")
+HOPPER_KERNELS = ("flash_fwd", "flash_bwd_dkv", "gmm", "tgmm")
 HOPPER_OPS = ("HGMMA", "UTMALDG")
 
 
@@ -168,10 +169,11 @@ def _cuobjdump(*args: str) -> str:
 
 
 def phase_build() -> None:
-    """Builds every kernel library, then reads what was compiled: the
-    grouped-GEMM libraries' SASS must hold wgmma and TMA loads, and no
-    kernel may spill (ptxas's report for what was built now, the registers
-    and local memory of every library from cuobjdump, cached ones too)."""
+    """Builds every kernel library, then reads what was compiled: the SASS
+    of the flash forward, the flash dK/dV and the grouped-GEMM libraries must
+    hold wgmma and TMA loads, and no kernel may spill (ptxas's report for
+    what was built now, the registers and local memory of every library from
+    cuobjdump, cached ones too)."""
     from kubeflow_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -211,18 +213,45 @@ def _inputs(b, s, h, kv, d, gen):
     return rnd(b, s, h, d), rnd(b, s, kv, d), rnd(b, s, kv, d), rnd(b, s, h, d)
 
 
+def _poison(*shapes) -> None:
+    """Fill fresh blocks of these (shape, dtype) sizes with NaN and free
+    them: the caching allocator hands that memory to the next outputs of
+    those sizes, so an element a kernel failed to write reads back as NaN."""
+    import torch
+
+    blocks = [torch.full(shape, float("nan"), dtype=dtype, device="cuda")
+              for shape, dtype in shapes]
+    del blocks
+
+
 def check_kernels_case(b, s, h, kv, d, causal, gen) -> dict[str, float]:
-    """Each kernel against its plain version on the same bf16 inputs."""
+    """Each kernel against its plain version on the same bf16 inputs, its
+    outputs written into NaN-poisoned memory; then each kernel again on the
+    same inputs, which must give the same bits (one owner per output
+    element, no atomics)."""
+    import torch
+
     from kubeflow_tpu_torch.ops import flash_attention as fa
 
+    bf16, f32 = torch.bfloat16, torch.float32
     q, k, v, do = _inputs(b, s, h, kv, d, gen)
-    o, lse = fa.flash_fwd(q, k, v, causal=causal)
     o_p, lse_p = fa.flash_fwd_plain(q, k, v, causal=causal)
     delta = (do.float() * o_p).sum(-1).transpose(1, 2).contiguous()
-    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_p, delta, causal=causal)
+
+    def launch_all():
+        _poison((q.shape, bf16), ((b, h, s), f32))
+        o, lse = fa.flash_fwd(q, k, v, causal=causal)
+        _poison((k.shape, bf16), (k.shape, bf16))
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_p, delta, causal=causal)
+        _poison((q.shape, bf16))
+        dq = fa.flash_bwd_dq(q, k, v, do, lse_p, delta, causal=causal)
+        return o, lse, dk, dv, dq
+
+    outs = launch_all()
+    o, lse, dk, dv, dq = outs
+    repeat = all(map(torch.equal, outs, launch_all()))
     dk_p, dv_p = fa.flash_bwd_dkv_plain(q, k, v, do, lse_p, delta,
                                         causal=causal)
-    dq = fa.flash_bwd_dq(q, k, v, do, lse_p, delta, causal=causal)
     dq_p = fa.flash_bwd_dq_plain(q, k, v, do, lse_p, delta, causal=causal)
     return {
         "o_rel": rel_err(o, o_p), "lse_abs": abs_err(lse, lse_p),
@@ -230,6 +259,8 @@ def check_kernels_case(b, s, h, kv, d, causal, gen) -> dict[str, float]:
         "dv_rel": rel_err(dv, dv_p),
         "o_abs": abs_err(o, o_p), "dq_abs": abs_err(dq, dq_p),
         "dk_abs": abs_err(dk, dk_p), "dv_abs": abs_err(dv, dv_p),
+        "finite": all(bool(x.isfinite().all()) for x in outs),
+        "repeat_bitwise_equal": repeat,
     }
 
 
@@ -360,13 +391,18 @@ def phase_kernels_check() -> dict[str, float]:
         ("gqa_causal", dict(b=4, s=1024, h=8, kv=2, d=128), True),
         ("gqa_noncausal", dict(b=4, s=1024, h=8, kv=2, d=128), False),
         ("gqa_d64_ragged", dict(b=2, s=333, h=4, kv=2, d=64), True),
+        # 128-row tiles: a half tile at the end, fewer rows than one tile
+        ("half_tile_960", dict(b=2, s=960, h=8, kv=8, d=128), True),
+        ("short_100", dict(b=3, s=100, h=4, kv=2, d=128), True),
+        ("gqa4_d64_noncausal", dict(b=2, s=1024, h=8, kv=2, d=64), False),
     ]
     results, bench_abs = {}, {}
     for name, shape, causal in cases:
         r = check_kernels_case(**shape, causal=causal, gen=gen)
         results[name] = r
         require(max(r["o_rel"], r["dq_rel"], r["dk_rel"], r["dv_rel"])
-                <= REL_TOL and r["lse_abs"] <= LSE_ATOL,
+                <= REL_TOL and r["lse_abs"] <= LSE_ATOL and r["finite"]
+                and r["repeat_bitwise_equal"],
                 f"kernel disagrees with its plain version on {name}: {r}")
         if name == "bench_causal":
             bench_abs = {"flash_fwd": r["o_abs"], "flash_bwd_dq": r["dq_abs"],
@@ -438,9 +474,14 @@ def phase_kernels_time() -> dict[str, dict]:
         y = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
         torch.autograd.grad(y, (qg, kg, vg), dot)
 
+    fwd_bwd_ms = time_ms(sdpa_fwd_bwd, 30)
+    # no single call computes dK/dV (K2) or dQ (K3) alone: SDPA's backward,
+    # its forward and backward less its forward, is the yardstick of the two
     emit("kernels_time", shape=BENCH, kernels=out, work=detail,
-         sdpa_fwd_bwd_ms=time_ms(sdpa_fwd_bwd, 30),
-         kernels_fwd_bwd_ms=sum(r["ms"] for r in out.values()))
+         sdpa_fwd_bwd_ms=fwd_bwd_ms,
+         kernels_fwd_bwd_ms=sum(r["ms"] for r in out.values()),
+         sdpa_bwd_ms=fwd_bwd_ms - out["flash_fwd"]["library_ms"],
+         kernels_bwd_ms=out["flash_bwd_dkv"]["ms"] + out["flash_bwd_dq"]["ms"])
     return out
 
 

@@ -143,8 +143,9 @@ template <int D>
 cudaError_t launch(const FlashArgs& a, cudaStream_t stream) {
   constexpr int P = D + 8;
   const int smem = (2 * BR + 4 * BC) * P * (int)sizeof(bf16);
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static bool smem_set[MAX_DEVICES];  // one record per instantiation
+  cudaError_t err =
+      allow_smem(reinterpret_cast<const void*>(flash_bwd_dq_kernel<D>), smem, smem_set);
   if (err != cudaSuccess) return err;
   dim3 grid((a.s + BR - 1) / BR, a.b * a.h);
   flash_bwd_dq_kernel<D><<<grid, FLASH_THREADS, smem, stream>>>(a);

@@ -1,8 +1,10 @@
-// Shared Hopper (sm_90a) pieces of the grouped-GEMM kernels (gmm.cu, tgmm.cu),
-// in raw PTX: tensor maps for the Tensor Memory Accelerator (TMA), made on the
-// host; mbarrier init, arrive and wait; TMA tile loads that complete on an
-// mbarrier, and TMA tile stores; wgmma shared-memory descriptors for
-// 128-byte-swizzled tiles; the bf16 wgmma products with f32 accumulators and
+// Shared Hopper (sm_90a) pieces of the wgmma kernels: the grouped GEMM
+// (gmm.cu, tgmm.cu) and the flash-attention forward and dK/dV kernels
+// (flash_fwd.cu, flash_bwd_dkv.cu), in raw PTX: tensor maps for the Tensor
+// Memory Accelerator (TMA), made on the host; mbarrier init, arrive and wait;
+// TMA tile loads that complete on an mbarrier, and TMA tile stores; wgmma
+// shared-memory descriptors for 128-byte-swizzled tiles; the bf16 wgmma
+// products with f32 accumulators (A from shared memory or from registers) and
 // the fences around them; and the warpgroup epilogues, which stage an
 // accumulator tile in shared memory for a TMA store or store it as bf16 with
 // rows and columns masked.
@@ -11,12 +13,15 @@
 // rows of 64 bf16 (128 bytes) at a 128-byte pitch, the eight 16-byte chunks of
 // row r permuted by (r % 8), every box starting on a 1,024-byte boundary. That
 // is the canonical SW128 layout of wgmma, in both majors:
-//   K-major (K contiguous, A of gmm, B of gmm's trans_w): 8-row core groups
-//     1,024 bytes apart (SBO); a k16 step moves the start by 32 bytes.
-//   MN-major (M or N contiguous, B of gmm, A and B of tgmm; the transpose bit
-//     of the instruction is set): 64-wide blocks of M or N one box apart
-//     (LBO), groups of 8 k-rows 1,024 bytes apart (SBO); a k16 step moves the
-//     start by 16 rows, 2,048 bytes.
+//   K-major (K contiguous, A of gmm, B of gmm's trans_w, both operands of
+//     flash attention's score products): 8-row core groups 1,024 bytes apart
+//     (SBO); a k16 step moves the start by 32 bytes, four steps a box, and a
+//     K deeper than 64 continues in the next box.
+//   MN-major (M or N contiguous, B of gmm, A and B of tgmm, the B of flash
+//     attention's P V, P^T dO and dS^T Q; the transpose bit of the
+//     instruction is set): 64-wide blocks of M or N one box apart (LBO),
+//     groups of 8 k-rows 1,024 bytes apart (SBO); a k16 step moves the start
+//     by 16 rows, 2,048 bytes.
 #pragma once
 
 #include <cuda.h>
@@ -64,7 +69,7 @@ static bool make_tensor_map(CUtensorMap* map, const void* base, cuuint32_t rank,
                             const cuuint32_t* box) {
   const TensorMapEncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return false;
-  const cuuint32_t unit[3] = {1, 1, 1};
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims,
                 strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
@@ -183,6 +188,15 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // TMA tile stores: the box at coordinates (c0 innermost, ...) from shared
 // memory at src; elements outside the tensor are not written. Tracked in
 // bulk groups of the thread that started them.
@@ -201,6 +215,15 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void*
       "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
           reinterpret_cast<uint64_t>(map)),
       "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -227,6 +250,13 @@ __device__ __forceinline__ void fence_proxy_async() {
 // Barrier `id` (1..15) over `count` threads; id 0 is __syncthreads.
 __device__ __forceinline__ void named_bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Counts the calling threads as arrived at barrier `id` (of `count` threads)
+// without waiting for the others: the signalling half of a producer/consumer
+// hand-off over named barriers.
+__device__ __forceinline__ void named_bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // Warp specialisation: the producer warpgroup gives registers back, the
@@ -274,6 +304,24 @@ __device__ __forceinline__ void fence_acc(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// The same for register A operands (K k16 steps of four bf16 pairs): their
+// writes stay before the wgmma.fence that precedes the products reading them,
+// so the compiler need not insert a fence of its own.
+template <int K>
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[K][4]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[k][i])::"memory");
+}
+
+// The warpgroup of the calling thread, broadcast from lane 0 so that the
+// compiler knows it is the same across the warp: wgmma under a branch on it
+// is not treated as divergent (which ptxas answers by serialising them).
+__device__ __forceinline__ int warpgroup_id() {
+  return __shfl_sync(0xffffffff, static_cast<int>(threadIdx.x) / 128, 0);
+}
+
 // d[64 x N] (+)= A[64 x 16] B[16 x N], bf16 operands from shared memory
 // through descriptors, f32 accumulators; TA/TB set the transpose (MN-major)
 // bit of A/B. Thread t of the warpgroup holds rows 16 (t / 32) + (t % 32) / 4
@@ -312,6 +360,91 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, u
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
+// The same products at N = 64 and N = 128 (32 and 64 accumulators a thread,
+// the same row and column map).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// d[64 x N] (+)= A[64 x 16] B[16 x N] with A from registers (the RS form; A
+// is never transposed): thread t holds rows 16 (t / 32) + (t % 32) / 4 (+ 8)
+// and columns 2 (t % 4) (+ 1) (+ 8) of A as four bf16 pairs,
+//   a[0]: row r, columns c, c + 1;     a[1]: row r + 8, columns c, c + 1;
+//   a[2]: row r, columns c + 8, c + 9; a[3]: row r + 8, columns c + 8, c + 9,
+// which is the accumulator map above: the accumulators of columns 16 k ..
+// 16 k + 15 of one product, d[8k .. 8k + 7], packed pairwise into bf16, are
+// the A operand of k16 step k of the next product. B from shared memory
+// through its descriptor; TB sets its transpose (MN-major) bit.
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+}
+
 // ---------------------------------------------------------------------------
 // device: stores
 // ---------------------------------------------------------------------------
@@ -321,10 +454,12 @@ __device__ __forceinline__ void store_bf16x2(bf16* p, float lo, float hi) {
 }
 
 // One warpgroup's 64 x N accumulator tile (thread t of 128) as bf16 into
-// N / 64 boxes of 64 rows x 64 columns at `stage`, 128-byte swizzled: what a
-// TMA store with the 128-byte swizzle reads. The eight rows a warp writes at
-// once land in eight different 16-byte chunks: no bank conflicts.
-template <int N>
+// N / 64 boxes of 64 rows x 64 columns at `stage`, BOX bytes apart (one 8 KB
+// box after the other, or the warpgroup's 64 rows inside taller boxes),
+// 128-byte swizzled: what a TMA store with the 128-byte swizzle reads. The
+// eight rows a warp writes at once land in eight different 16-byte chunks: no
+// bank conflicts.
+template <int N, int BOX = 8192>
 __device__ __forceinline__ void acc_to_smem(const float (&d)[N / 2], unsigned char* stage,
                                             int t) {
   const int r = (t >> 5) * 16 + ((t & 31) >> 2);
@@ -332,7 +467,7 @@ __device__ __forceinline__ void acc_to_smem(const float (&d)[N / 2], unsigned ch
   unsigned char* row1 = row0 + 8 * 128;
 #pragma unroll
   for (int j = 0; j < N / 8; ++j) {
-    const int off = (j / 8) * 8192 + (((j % 8) ^ (r & 7)) << 4);
+    const int off = (j / 8) * BOX + (((j % 8) ^ (r & 7)) << 4);
     *reinterpret_cast<__nv_bfloat162*>(row0 + off) = __floats2bfloat162_rn(d[4 * j], d[4 * j + 1]);
     *reinterpret_cast<__nv_bfloat162*>(row1 + off) =
         __floats2bfloat162_rn(d[4 * j + 2], d[4 * j + 3]);

@@ -65,10 +65,11 @@ def _ref(t: torch.Tensor) -> _TensorRef:
 
 
 def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
-    """t itself when the kernels can read it (head_dim contiguous, 16-byte
-    aligned rows), else a contiguous copy."""
+    """t itself when the kernels can read it through a TMA tensor map
+    (head_dim contiguous, a 16-byte aligned base, the other strides positive
+    multiples of 16 bytes), else a contiguous copy."""
     if (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-            and all(st % 8 == 0 for st in t.stride()[:-1])):
+            and all(st > 0 and st % 8 == 0 for st in t.stride()[:-1])):
         return t
     return t.contiguous()
 

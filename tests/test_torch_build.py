@@ -8,6 +8,7 @@ with the bytes. No compiler is needed.
 The port is imported inside the tests, as in the other port tests.
 """
 
+import re
 import shutil
 
 import pytest
@@ -71,3 +72,39 @@ def test_library_path_follows_source_bytes(csrc_copy):
     assert after["gmm"] != before["gmm"]
     assert {n: p for n, p in after.items() if n != "gmm"} == {
         n: p for n, p in before.items() if n != "gmm"}
+
+
+def _c_fields(header: str, struct: str) -> list[tuple[str, str]]:
+    """(name, C type) of each field of ``struct`` in ``header``, in order;
+    a declaration of several names gives each the declaration's type."""
+    bodies = re.findall(rf"struct {struct} {{(.*?)\n}};", header, re.S)
+    assert len(bodies) == 1, f"struct {struct} defined {len(bodies)} times"
+    fields = []
+    for decl in re.sub(r"//[^\n]*", "", bodies[0]).split(";"):
+        if not decl.strip():
+            continue
+        first, *more = decl.replace("*", " * ").split(",")
+        words = first.split()
+        ctype = " ".join(words[:-1]).replace(" *", "*")
+        fields += [(name.strip(), ctype) for name in (words[-1], *more)]
+    return fields
+
+
+@pytest.mark.parametrize("struct", ["TensorRef", "FlashArgs"])
+def test_flash_ctypes_mirror_the_header(struct):
+    """The ctypes structures the flash wrappers pass to the kernels hold the
+    same fields, in the same order and of the same C types, as the structs
+    in flash_common.cuh."""
+    import ctypes
+
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+
+    b = _build()
+    header = (b.CSRC / "flash_common.cuh").read_text()
+    ctypes_of = {"void*": ctypes.c_void_p, "float*": ctypes.c_void_p,
+                 "long long": ctypes.c_longlong, "int": ctypes.c_int,
+                 "float": ctypes.c_float, "TensorRef": fa._TensorRef}
+    mirror = {"TensorRef": fa._TensorRef, "FlashArgs": fa._FlashArgs}[struct]
+    fields = _c_fields(header, struct)
+    assert [n for n, _ in fields] == [n for n, _ in mirror._fields_]
+    assert [ctypes_of[t] for _, t in fields] == [t for _, t in mirror._fields_]

@@ -117,6 +117,23 @@ def test_cpu_wrappers_run_the_plain_versions():
     assert port.LAUNCHES == before  # no kernel ran
 
 
+def test_kernel_layout_keeps_what_a_tensor_map_takes():
+    import torch
+
+    port = _port()
+    q = torch.zeros(2, 16, 4, 64)
+    assert port._kernel_layout(q) is q
+    # a head view of a fused projection: strided, 16-byte aligned
+    heads = torch.zeros(2, 16, 12, 64)[:, :, 4:8]
+    assert port._kernel_layout(heads) is heads
+    # stride 0 (an expanded batch): copied
+    wide = torch.zeros(1, 16, 4, 64).expand(3, -1, -1, -1)
+    laid = port._kernel_layout(wide)
+    assert laid.stride(0) > 0 and torch.equal(laid, wide)
+    # head_dim not contiguous: copied
+    assert port._kernel_layout(q.transpose(2, 3)).is_contiguous()
+
+
 def test_shape_mismatches_raise():
     import torch
 
