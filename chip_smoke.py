@@ -5,10 +5,10 @@
 
 Builds the hand-written Hopper kernels (flash attention K1-K3, grouped GEMM
 K4a/K4b) from ``kubeflow_tpu_torch/ops/csrc`` into ``build/kernels/``,
-checks in their SASS that the flash forward, the flash dK/dV and the grouped
-GEMM run on wgmma and TMA and that no kernel spills, holds each kernel
-against its plain f32 version (outputs in NaN-poisoned memory, each kernel
-launched twice for bitwise equality), times them, runs one MoE
+checks in their SASS that every kernel runs on wgmma and TMA and that no
+kernel spills, holds each kernel against its plain f32 version (outputs in
+NaN-poisoned memory, each kernel launched twice for bitwise equality),
+times them, runs one MoE
 layer's forward and backward with host syncs forbidden and holds it against
 the same layer on the CPU, trains the 271M bench Llama and the 1.24B MoE
 bench Llama (8 experts, top-2, dropless) for 13 steps each at batch 14 x seq
@@ -154,7 +154,7 @@ def phase_env() -> str:
 
 
 #: kernels whose SASS must hold wgmma (HGMMA) fed by TMA loads (UTMALDG)
-HOPPER_KERNELS = ("flash_fwd", "flash_bwd_dkv", "gmm", "tgmm")
+HOPPER_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "gmm", "tgmm")
 HOPPER_OPS = ("HGMMA", "UTMALDG")
 
 
@@ -170,10 +170,10 @@ def _cuobjdump(*args: str) -> str:
 
 def phase_build() -> None:
     """Builds every kernel library, then reads what was compiled: the SASS
-    of the flash forward, the flash dK/dV and the grouped-GEMM libraries must
-    hold wgmma and TMA loads, and no kernel may spill (ptxas's report for
-    what was built now, the registers and local memory of every library from
-    cuobjdump, cached ones too)."""
+    of every library in ``HOPPER_KERNELS`` must hold wgmma and TMA loads, and
+    no kernel may spill (ptxas's report for what was built now, the
+    registers and local memory of every library from cuobjdump, cached ones
+    too)."""
     from kubeflow_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -395,6 +395,11 @@ def phase_kernels_check() -> dict[str, float]:
         ("half_tile_960", dict(b=2, s=960, h=8, kv=8, d=128), True),
         ("short_100", dict(b=3, s=100, h=4, kv=2, d=128), True),
         ("gqa4_d64_noncausal", dict(b=2, s=1024, h=8, kv=2, d=64), False),
+        # a one-row last query tile (its second warpgroup has no real row)
+        # and a one-key ragged key tile
+        ("one_row_tile_129", dict(b=2, s=129, h=8, kv=2, d=128), True),
+        # the ragged key mask without the causal mask beside it
+        ("ragged_333_noncausal", dict(b=2, s=333, h=8, kv=2, d=64), False),
     ]
     results, bench_abs = {}, {}
     for name, shape, causal in cases:

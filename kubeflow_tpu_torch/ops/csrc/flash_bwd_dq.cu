@@ -1,154 +1,257 @@
 // K3: flash-attention backward, dQ, for Hopper (sm_90a).
 //
 // Replaces kubeflow_tpu/ops/flash_attention.py::_bwd_dq_kernel (launched in
-// _bwd). For each 64-row query tile it loops over the key tiles (up to the
-// diagonal when causal) and accumulates
-//   P = exp(scale * Q K^T - lse),  dS = P * (dO V^T - delta),  dQ += dS K,
-// and writes dQ = scale * sum in bf16. delta = rowsum(dO * O) - dlse comes
-// from the caller, as in the reference.
+// _bwd). One block owns a 128-row query tile of one (batch, query head). It
+// loops over the key tiles (up to the diagonal when causal), recomputes
+//   P = exp(scale * Q K^T - lse),  dS = P * (dO V^T - delta),
+// accumulates dQ += dS K, and writes dQ = scale * sum in bf16. delta =
+// rowsum(dO * O) - dlse comes from the caller, as in the reference.
 //
 // Bound on the H100: three tile products per (query, key) pair; at the bench
-// shape ~45 GFLOP against ~177 MB of traffic, so the tensor cores bound it
-// (~46 us at 989 TFLOP/s). Design against that: one block owns a query tile,
-// so dQ accumulates in registers and is written once with no atomics; Q and
-// dO stay in shared memory for the whole key loop, K/V tiles stream through a
-// two-stage cp.async ring; P and dS never leave registers (accumulators are
-// repacked as bf16 A operands). mma.sync bf16 with f32 accumulation.
+// shape (b=14, s=1024, h=kv=8, d=128, causal) ~45 GFLOP against ~148 MB, so
+// the tensor cores bound it (~46 us at 989 TFLOP/s) with memory close behind
+// (~44 us at 3.35 TB/s). Design against that (K2's, flash_bwd_dkv.cu, with
+// the roles of the operands swapped):
+// - Two warpgroups of 64 query rows each, 256 threads, so that the launch
+//   gives every thread up to 255 registers: dQ, S and dP take 192 f32 a
+//   thread at D = 128 while products are in flight, and ptxas sizes the
+//   wgmma pipeline by the launch's budget (with a producer warpgroup beside
+//   them it serialised every wgmma). Q and dO [128 x D] are loaded once by
+//   TMA; the (K, V) tiles of 128 keys of KV head hi / g stream through a
+//   two-stage ring of full/empty mbarriers (192 KB of shared memory with Q
+//   and dO at D = 128), through 4-D tensor maps over [batch, seq, heads,
+//   head_dim] (zeros past seq). Thread 0 refills the ring: at the top of
+//   each iteration it loads the next tile into the stage both warpgroups
+//   released last. 128-key tiles in two stages measured 9% faster than
+//   64-key tiles in four (PERF.md).
+// - A block's query rows are fixed: each thread reads the lse and delta of
+//   its two rows once, before the key loop (0 past seq).
+// - Per stage and warpgroup: S = Q K^T and dP = dO V^T with wgmma
+//   m64n128k16, both operands K-major from shared memory, committed as two
+//   groups, so that P is computed in place of S (scale * log2 e folded into
+//   one FFMA before exp2) while the dP product runs; dS in registers; then
+//   dQ += dS K with wgmma m64nDk16, dS as the register A operand and K read
+//   as an MN-major B from the same stage. dQ stays in registers across the
+//   whole loop; with no atomics a second launch gives the same bits.
+// - Causal: the key loop stops at the key tile on the query tile's
+//   diagonal, and only that tile is masked. A warpgroup with no row before
+//   seq skips every tile, still releasing each stage.
+// - Ragged keys: the stage that holds key seq - 1 masks the keys past it.
+//   A zero key row would give P = exp(-lse), which overflows once lse is
+//   below about -88, and inf * 0 in dS K is NaN. Query rows past seq need no
+//   mask: Q and dO are zero there and lse and delta read 0, so dS = 0.
+// - Epilogue: dQ * scale as bf16, staged in the warpgroup's own rows of Q's
+//   buffer (free after its last S product) and stored by TMA, clipped at
+//   seq. The last query tile, which has the most key tiles when causal, is
+//   launched first.
 #include "flash_common.cuh"
 
 namespace {
 
-constexpr int BR = 64;  // query rows per block: 4 warps x 16
-constexpr int BC = 64;  // keys per tile
+constexpr int BR = 128;          // query rows per block: two warpgroups x 64
+constexpr int BC = 128;          // keys per streamed tile
+constexpr int STAGES = 2;
+constexpr int THREADS = 256;     // two warpgroups
+constexpr int QBOX = BR * 128;   // a Q or dO box: 128 rows x 64 bf16 columns, 16 KB
+constexpr int KBOX = BC * 128;   // a K or V box: 128 rows x 64 bf16 columns, 16 KB
+constexpr int BAR_EPI = 1;       // named barriers 1, 2: each warpgroup's epilogue
+
+struct Bars {
+  uint64_t q_full, full[STAGES], empty[STAGES];
+};
 
 template <int D>
-__global__ void __launch_bounds__(FLASH_THREADS) flash_bwd_dq_kernel(const FlashArgs a) {
-  constexpr int P = D + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sdO = sQ + BR * P;
-  bf16* sK = sdO + BR * P;     // 2 stages
-  bf16* sV = sK + 2 * BC * P;  // 2 stages
+constexpr int smem_bytes() {
+  // Q and dO, then STAGES x (K, V)
+  return 1024 + 2 * (D / 64) * QBOX + STAGES * 2 * (D / 64) * KBOX + (int)sizeof(Bars);
+}
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+// Key tile `it` (K and V) into its stage by TMA, completing on the stage's
+// full barrier: from the second round of the ring on, once both warpgroups
+// have released the stage.
+template <int D>
+__device__ __forceinline__ void load_stage(Bars& bar, unsigned char* ring, const CUtensorMap* tk,
+                                           const CUtensorMap* tv, int it, int kvi, int bi) {
+  constexpr int KT = (D / 64) * KBOX;
+  const int st = it % STAGES;
+  if (it >= STAGES) mbar_wait(&bar.empty[st], ((it / STAGES) & 1) ^ 1);
+  unsigned char* sk = ring + st * 2 * KT;
+  mbar_arrive_expect_tx(&bar.full[st], 2 * KT);
+  for (int i = 0; i < D / 64; ++i) {
+    tma_load_4d(sk + i * KBOX, tk, &bar.full[st], 64 * i, kvi, it * BC, bi);
+    tma_load_4d(sk + KT + i * KBOX, tv, &bar.full[st], 64 * i, kvi, it * BC, bi);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_bwd_dq_kernel(const FlashArgs a, const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tdo,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tdq) {
+  constexpr int QT = (D / 64) * QBOX;  // Q or dO [128 x D]
+  constexpr int KT = (D / 64) * KBOX;  // K or V [128 x D]
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sq = align1024(smem_raw);
+  unsigned char* sdo = sq + QT;
+  unsigned char* ring = sdo + QT;  // stage i: K at ring + 2 i KT, V after it
+  Bars& bar = *reinterpret_cast<Bars*>(ring + STAGES * 2 * KT);
+
+  const int tid = threadIdx.x, w = warpgroup_id(), t = tid % 128;
   const int s = a.s;
-  const int nq = (s + BR - 1) / BR;
-  const int q0 = (nq - 1 - blockIdx.x) * BR;
+  const int q0 = ((s + BR - 1) / BR - 1 - blockIdx.x) * BR;  // longest tiles first
   const int bh = blockIdx.y, bi = bh / a.h, hi = bh % a.h, kvi = hi / (a.h / a.kv);
+  // key tiles up to the one holding the last key the tile's last row sees
+  const int n_it = ((a.causal ? min(q0 + BR, s) : s) - 1) / BC + 1;
 
-  const bf16* qp = static_cast<const bf16*>(a.q.ptr) + bi * a.q.sb + hi * a.q.sh;
-  const bf16* dop = static_cast<const bf16*>(a.dout.ptr) + bi * a.dout.sb + hi * a.dout.sh;
-  const bf16* kp = static_cast<const bf16*>(a.k.ptr) + bi * a.k.sb + kvi * a.k.sh;
-  const bf16* vp = static_cast<const bf16*>(a.v.ptr) + bi * a.v.sb + kvi * a.v.sh;
-
-  const int last_key = a.causal ? min(q0 + BR - 1, s - 1) : s - 1;
-  const int nk = last_key / BC + 1;
-
-  load_rows<D, P>(sQ, qp + q0 * a.q.ss, a.q.ss, BR, s - q0, tid);
-  load_rows<D, P>(sdO, dop + q0 * a.dout.ss, a.dout.ss, BR, s - q0, tid);
-  load_rows<D, P>(sK, kp, a.k.ss, BC, s, tid);
-  load_rows<D, P>(sV, vp, a.v.ss, BC, s, tid);
-  cp_async_commit();
-
-  const int row0 = q0 + warp * 16 + (lane >> 2), row1 = row0 + 8;
-  const float* lse = a.lse + (long long)bh * s;
-  const float* delta = a.delta + (long long)bh * s;
-  const float lse0 = row0 < s ? lse[row0] : 0.f, lse1 = row1 < s ? lse[row1] : 0.f;
-  const float dl0 = row0 < s ? delta[row0] : 0.f, dl1 = row1 < s ? delta[row1] : 0.f;
-
-  float dq[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) dq[i][0] = dq[i][1] = dq[i][2] = dq[i][3] = 0.f;
-
-  for (int j = 0; j < nk; ++j) {
-    if (j + 1 < nk) {
-      const int st = (j + 1) & 1, k1 = (j + 1) * BC;
-      load_rows<D, P>(sK + st * BC * P, kp + k1 * a.k.ss, a.k.ss, BC, s - k1, tid);
-      load_rows<D, P>(sV + st * BC * P, vp + k1 * a.v.ss, a.v.ss, BC, s - k1, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (tid == 0) {
+    mbar_init(&bar.q_full, 1);
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&bar.full[i], 1);   // the loading thread's arrival + the TMA bytes
+      mbar_init(&bar.empty[i], 2);  // one arrival per warpgroup
     }
-    __syncthreads();
-    const bf16* cK = sK + (j & 1) * BC * P;
-    const bf16* cV = sV + (j & 1) * BC * P;
-    const int k0 = j * BC;
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-    // S = Q K^T and dP = dO V^T over the same 16 x 64 warp tile
-    float sc[BC / 8][4], dp[BC / 8][4];
-#pragma unroll
-    for (int i = 0; i < BC / 8; ++i) {
-      sc[i][0] = sc[i][1] = sc[i][2] = sc[i][3] = 0.f;
-      dp[i][0] = dp[i][1] = dp[i][2] = dp[i][3] = 0.f;
+  if (tid == 0) {  // Q and dO, then the first round of the ring
+    mbar_arrive_expect_tx(&bar.q_full, 2 * QT);
+    for (int i = 0; i < D / 64; ++i) {
+      tma_load_4d(sq + i * QBOX, &tq, &bar.q_full, 64 * i, hi, q0, bi);
+      tma_load_4d(sdo + i * QBOX, &tdo, &bar.q_full, 64 * i, hi, q0, bi);
     }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t qa[4], da[4];
-      load_a<P>(qa, sQ, warp * 16, kk * 16, lane);
-      load_a<P>(da, sdO, warp * 16, kk * 16, lane);
-#pragma unroll
-      for (int n2 = 0; n2 < BC / 16; ++n2) {
-        uint32_t b[4];
-        load_b_nk<P>(b, cK, n2 * 16, kk * 16, lane);
-        mma_bf16(sc[2 * n2], qa, b[0], b[1]);
-        mma_bf16(sc[2 * n2 + 1], qa, b[2], b[3]);
-        load_b_nk<P>(b, cV, n2 * 16, kk * 16, lane);
-        mma_bf16(dp[2 * n2], da, b[0], b[1]);
-        mma_bf16(dp[2 * n2 + 1], da, b[2], b[3]);
-      }
-    }
-
-    const bool need_mask = (a.causal && k0 + BC - 1 > q0) || k0 + BC > s || q0 + BR > s;
-#pragma unroll
-    for (int nt = 0; nt < BC / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = e < 2 ? row0 : row1;
-        float p = __expf(sc[nt][e] * a.scale - (e < 2 ? lse0 : lse1));
-        if (need_mask) {
-          const int col = k0 + nt * 8 + 2 * (lane & 3) + (e & 1);
-          if (col >= s || row >= s || (a.causal && col > row)) p = 0.f;
-        }
-        sc[nt][e] = p * (dp[nt][e] - (e < 2 ? dl0 : dl1));  // dS (scale applied at the end)
-      }
-    }
-#pragma unroll
-    for (int kk = 0; kk < BC / 16; ++kk) {
-      uint32_t ds[4];
-      acc_to_a(ds, sc[2 * kk], sc[2 * kk + 1]);
-#pragma unroll
-      for (int d2 = 0; d2 < D / 16; ++d2) {
-        uint32_t b[4];
-        load_b_kn<P>(b, cK, d2 * 16, kk * 16, lane);
-        mma_bf16(dq[2 * d2], ds, b[0], b[1]);
-        mma_bf16(dq[2 * d2 + 1], ds, b[2], b[3]);
-      }
-    }
-    __syncthreads();
+    for (int it = 0; it < n_it && it < STAGES; ++it)
+      load_stage<D>(bar, ring, &tk, &tv, it, kvi, bi);
   }
 
-  bf16* out = static_cast<bf16*>(a.dq.ptr) + bi * a.dq.sb + hi * a.dq.sh;
-  const int col = 2 * (lane & 3);
+  // two warpgroups, 64 query rows each
+  const int qw = q0 + 64 * w;                           // this warpgroup's first row
+  const int r0 = qw + 16 * (t >> 5) + ((t & 31) >> 2);  // rows r0 and r0 + 8
+  const int c = 2 * (t & 3);
+  const float sl2 = a.scale * FLASH_LOG2E;
+  const float* lse = a.lse + (long long)bh * s;
+  const float* delta = a.delta + (long long)bh * s;
+  const float l0 = r0 < s ? lse[r0] * FLASH_LOG2E : 0.f;
+  const float l1 = r0 + 8 < s ? lse[r0 + 8] * FLASH_LOG2E : 0.f;
+  const float d0 = r0 < s ? delta[r0] : 0.f, d1 = r0 + 8 < s ? delta[r0 + 8] : 0.f;
+  // this warpgroup's 64 rows of Q and dO: the K-major A of S and dP
+  const uint64_t aq = sw128_desc(sq + w * 64 * 128, 16, 1024);
+  const uint64_t ado = sw128_desc(sdo + w * 64 * 128, 16, 1024);
+
+  float dq[D / 2], sc[BC / 2], dp[BC / 2];
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    if (row0 < s)
-      store_bf16x2(out + row0 * a.dq.ss + i * 8 + col, dq[i][0] * a.scale, dq[i][1] * a.scale);
-    if (row1 < s)
-      store_bf16x2(out + row1 * a.dq.ss + i * 8 + col, dq[i][2] * a.scale, dq[i][3] * a.scale);
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BC / 2; ++i) sc[i] = dp[i] = 0.f;
+
+  mbar_wait(&bar.q_full, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int it = 0; it < n_it; ++it) {
+    // thread 0 refills the stage of iteration it - 1 (both warpgroups done
+    // with it) with the tile of the next iteration
+    if (tid == 0 && it >= 1 && it - 1 + STAGES < n_it)
+      load_stage<D>(bar, ring, &tk, &tv, it - 1 + STAGES, kvi, bi);
+    const int k0 = it * BC;
+    mbar_wait(&bar.full[stage], phase);
+    if (qw < s) {  // else this warpgroup has no row before seq
+      const unsigned char* sk = ring + stage * 2 * KT;
+      const unsigned char* sv = sk + KT;
+      const uint64_t bk = sw128_desc(sk, 16, 1024), bv = sw128_desc(sv, 16, 1024);
+      fence_acc(sc);
+      fence_acc(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_m64n128k16<0, 0>(sc, aq + kstep(kk, QBOX), bk + kstep(kk, KBOX), kk > 0);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_m64n128k16<0, 0>(dp, ado + kstep(kk, QBOX), bv + kstep(kk, KBOX), kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_acc(sc);
+
+      // P in place of S while the dP product runs, for rows r0, r0 + 8 and
+      // the 16 keys k0 + 16 kk + 8 h2 + c (+ 1) of k16 step kk
+      const bool mask = (a.causal && k0 + BC - 1 > qw) || k0 + BC > s;
+#pragma unroll
+      for (int kk = 0; kk < BC / 16; ++kk) {
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {  // n-tiles 2 kk and 2 kk + 1
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * h2 + e;
+            float x = exp2_approx(fmaf(sc[8 * kk + i], sl2, -(e < 2 ? l0 : l1)));
+            if (mask) {
+              const int key = k0 + 16 * kk + 8 * h2 + c + (e & 1);
+              if (key >= s || (a.causal && key > (e < 2 ? r0 : r0 + 8))) x = 0.f;
+            }
+            sc[8 * kk + i] = x;
+          }
+        }
+      }
+      wgmma_wait<0>();
+      fence_acc(dp);
+      // dS (scale applied at the end), packed as the bf16 A operand of dS K
+      uint32_t df[BC / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BC / 16; ++kk) {
+        float ds[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)  // rows r0 (i % 4 < 2) and r0 + 8
+          ds[i] = sc[8 * kk + i] * (dp[8 * kk + i] - (i % 4 < 2 ? d0 : d1));
+        df[kk][0] = pack_bf16(ds[0], ds[1]);
+        df[kk][1] = pack_bf16(ds[2], ds[3]);
+        df[kk][2] = pack_bf16(ds[4], ds[5]);
+        df[kk][3] = pack_bf16(ds[6], ds[7]);
+      }
+
+      // K [128 keys x D] as MN-major B: 64-column blocks one box apart, a
+      // k16 step 16 key rows (2,048 bytes)
+      const uint64_t mk = sw128_desc(sk, KBOX, 1024);
+      fence_acc(dq);
+      fence_frags(df);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BC / 16; ++kk) wgmma_rs_mn(dq, df[kk], mk + 128 * kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(dq);
+    }
+    if (t == 0) mbar_arrive(&bar.empty[stage]);
+    if (++stage == STAGES) { stage = 0; phase ^= 1; }
+  }
+
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] *= a.scale;
+  // stage dQ in this warpgroup's rows of Q's buffer (only its own products
+  // read them, and those are done); one thread stores it by TMA
+  unsigned char* own = sq + w * 64 * 128;
+  acc_to_smem<D, QBOX>(dq, own, t);
+  fence_proxy_async();
+  named_bar_sync(BAR_EPI + w, 128);
+  if (t == 0 && qw < s) {
+    for (int i = 0; i < D / 64; ++i) tma_store_4d(&tdq, own + i * QBOX, 64 * i, hi, qw, bi);
+    tma_store_commit();
+    tma_store_wait_read();  // the stores have read shared memory: the block may exit
   }
 }
 
 template <int D>
 cudaError_t launch(const FlashArgs& a, cudaStream_t stream) {
-  constexpr int P = D + 8;
-  const int smem = (2 * BR + 4 * BC) * P * (int)sizeof(bf16);
+  CUtensorMap tq, tdo, tk, tv, tdq;
+  if (!flash_tensor_map(&tq, a.q, a.h, a, BR) || !flash_tensor_map(&tdo, a.dout, a.h, a, BR) ||
+      !flash_tensor_map(&tk, a.k, a.kv, a, BC) || !flash_tensor_map(&tv, a.v, a.kv, a, BC) ||
+      !flash_tensor_map(&tdq, a.dq, a.h, a, 64))
+    return cudaErrorInvalidValue;
   static bool smem_set[MAX_DEVICES];  // one record per instantiation
-  cudaError_t err =
-      allow_smem(reinterpret_cast<const void*>(flash_bwd_dq_kernel<D>), smem, smem_set);
+  cudaError_t err = allow_smem(reinterpret_cast<const void*>(flash_bwd_dq_kernel<D>),
+                               smem_bytes<D>(), smem_set);
   if (err != cudaSuccess) return err;
   dim3 grid((a.s + BR - 1) / BR, a.b * a.h);
-  flash_bwd_dq_kernel<D><<<grid, FLASH_THREADS, smem, stream>>>(a);
+  flash_bwd_dq_kernel<D><<<grid, THREADS, smem_bytes<D>(), stream>>>(a, tq, tdo, tk, tv, tdq);
   return cudaGetLastError();
 }
 

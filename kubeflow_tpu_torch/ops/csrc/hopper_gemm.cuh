@@ -1,6 +1,6 @@
 // Shared Hopper (sm_90a) pieces of the wgmma kernels: the grouped GEMM
-// (gmm.cu, tgmm.cu) and the flash-attention forward and dK/dV kernels
-// (flash_fwd.cu, flash_bwd_dkv.cu), in raw PTX: tensor maps for the Tensor
+// (gmm.cu, tgmm.cu) and the flash-attention kernels (flash_fwd.cu,
+// flash_bwd_dkv.cu, flash_bwd_dq.cu), in raw PTX: tensor maps for the Tensor
 // Memory Accelerator (TMA), made on the host; mbarrier init, arrive and wait;
 // TMA tile loads that complete on an mbarrier, and TMA tile stores; wgmma
 // shared-memory descriptors for 128-byte-swizzled tiles; the bf16 wgmma
@@ -18,7 +18,7 @@
 //     (SBO); a k16 step moves the start by 32 bytes, four steps a box, and a
 //     K deeper than 64 continues in the next box.
 //   MN-major (M or N contiguous, B of gmm, A and B of tgmm, the B of flash
-//     attention's P V, P^T dO and dS^T Q; the transpose bit of the
+//     attention's P V, P^T dO, dS^T Q and dS K; the transpose bit of the
 //     instruction is set): 64-wide blocks of M or N one box apart (LBO),
 //     groups of 8 k-rows 1,024 bytes apart (SBO); a k16 step moves the start
 //     by 16 rows, 2,048 bytes.

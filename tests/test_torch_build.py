@@ -8,8 +8,13 @@ with the bytes. No compiler is needed.
 The port is imported inside the tests, as in the other port tests.
 """
 
+import importlib.util
+import os
 import re
 import shutil
+import subprocess
+import sys
+from pathlib import Path
 
 import pytest
 
@@ -32,6 +37,32 @@ def test_every_source_is_built():
     assert sources == sorted(b.KERNELS.values())
     for name, source in b.KERNELS.items():
         assert f"{name}_launch" in (b.CSRC / source).read_text()
+
+
+def test_sass_guard_covers_every_kernel():
+    """chip_smoke.py's SASS guard (wgmma and TMA loads in the compiled
+    library) names every kernel the build makes, so a new kernel cannot land
+    on an older tensor-core path unnoticed. chip_smoke is loaded by path; it
+    imports torch only inside its phases."""
+    b = _build()
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert set(b.KERNELS) <= set(smoke.HOPPER_KERNELS)
+
+
+def test_kernel_ab_refuses_without_a_card():
+    """kernel_ab.py, which times kernel variants, fails where no CUDA card
+    is visible instead of timing anything on the CPU."""
+    root = Path(__file__).resolve().parents[1]
+    out = subprocess.run(
+        [sys.executable, "kernel_ab.py", "flash_bwd_dq", "variant.cu"],
+        capture_output=True, text=True, timeout=120, cwd=root,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode != 0
+    assert "no CUDA device is visible" in out.stderr
+    assert out.stdout == ""
 
 
 @pytest.fixture

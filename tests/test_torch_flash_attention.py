@@ -81,11 +81,15 @@ def test_flash_attention_matches_reference(h, kv, s):
     _assert_close(grads, r_grads, GRAD_TOL)
 
 
-@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+# s = 127: a length no tile divides, causal and not (on the card, K3 masks
+# the keys of its ragged key tile explicitly)
+@pytest.mark.parametrize(
+    "causal,s", [(True, 128), (False, 128), (True, 127), (False, 127)],
+    ids=["causal", "full", "causal_s127", "full_s127"])
 @pytest.mark.parametrize("h,kv", [(4, 2), (4, 4)], ids=["gqa", "mha"])
-def test_flash_attention_lse_matches_reference(h, kv, causal):
+def test_flash_attention_lse_matches_reference(h, kv, causal, s):
     port = _port()
-    q, k, v, do, dlse = _inputs(1, 2, 128, h, kv, 32)
+    q, k, v, do, dlse = _inputs(1, 2, s, h, kv, 32)
     g = h // kv
     outs, grads = _port_grads(
         lambda q, k, v: port.flash_attention_lse(

@@ -161,7 +161,7 @@ def test_config_validation():
 def test_port_imports_no_jax():
     code = (
         "import sys\n"
-        "import chip_smoke\n"
+        "import chip_smoke, kernel_ab\n"
         "import kubeflow_tpu_torch, kubeflow_tpu_torch.device\n"
         "import kubeflow_tpu_torch.models.llama, "
         "kubeflow_tpu_torch.models.convert, kubeflow_tpu_torch.models.moe\n"
