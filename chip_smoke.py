@@ -14,7 +14,13 @@ the same layer on the CPU, trains the 271M bench Llama and the 1.24B MoE
 bench Llama (8 experts, top-2, dropless) for 13 steps each at batch 14 x seq
 1024 through the port's ``Trainer``, checks that each run really launched
 its kernels, and compares one small bf16 step (dense, then
-MoE) on the card with the same step on the CPU. Each phase prints one JSON
+MoE, its routing pinned to the card's) on the card with the same step on the
+CPU. Then one full bench-model ``Trainer.step`` runs with host syncs made
+errors, and the serving engine (``kubeflow_tpu_torch.serving``, every program
+a CUDA graph) serves the bench model as ``bench.py``'s serving row does
+(``serve``), in its three pool and admission variants (``serve_variants``),
+and serves the MoE bench model (``moe_serve``, on ``gmm``, which is also
+checked and timed at the serving shapes). Each phase prints one JSON
 line; the line before the last is the card's name and power limit from
 nvidia-smi, the last line is ``{"ok": true, "device": {...}}``. Any failure
 raises and exits non-zero before that line. Needs a CUDA card; imports
@@ -93,6 +99,33 @@ def time_ms(fn, reps: int) -> float:
         events.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def graph_time_ms(fn, calls: int = 50, reps: int = 20) -> float:
+    """Median device time of one call, from ``calls`` calls captured in one
+    CUDA graph and replayed ``reps`` times between CUDA events: a call
+    whose kernel is shorter than its host launch cost is timed without
+    that cost (the graph launches the kernels back to back)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events) / calls
 
 
 def roofline(nbytes: int, flops: int) -> dict:
@@ -294,6 +327,19 @@ def heavy_last(b: int, e: int) -> list[int]:
     return _split(b - b // 2, e - 1) + [b // 2]
 
 
+#: a decode step's 16 expert rows over 8 experts, two of them empty
+SERVE_DECODE_SIZES = [3, 0, 5, 1, 0, 2, 4, 1]
+
+
+def skewed_split(b: int, e: int) -> list[int]:
+    """``b`` rows over ``e`` experts in the proportions 1 : 2 : ... : e
+    with the first expert empty, as a prefill's routing might fall."""
+    w = list(range(e))
+    sizes = [b * i // sum(w) for i in w]
+    sizes[-1] += b - sum(sizes)
+    return sizes
+
+
 def one_expert(b: int, e: int, which: int = 3) -> list[int]:
     """Expert ``which`` takes every row; the other groups are empty."""
     return [b if i == which else 0 for i in range(e)]
@@ -327,6 +373,13 @@ def grouped_cases() -> dict[str, tuple]:
         "trans_w_odd": (333, 40, 104, [0, 120, 1, 200], True),
         # 200 groups of 0 to 6 rows: the schedules' searches and sort
         "many_groups": (700, 64, 96, [i % 7 for i in range(200)], False),
+        # the serving shapes of the MoE bench model: a decode step's 16
+        # rows (8 slots x top-2) over 8 experts, most groups 0-3 rows, and
+        # a prefill's 256 and 2,048 rows
+        "serve_decode_16": (16, k, n, SERVE_DECODE_SIZES, False),
+        "serve_decode_16_down": (16, n, k, SERVE_DECODE_SIZES, False),
+        "serve_prefill_256": (256, k, n, skewed_split(256, e), False),
+        "serve_prefill_2048": (2048, k, n, skewed_split(2048, e), False),
     }
 
 
@@ -579,6 +632,56 @@ def phase_grouped_time() -> dict[str, dict]:
     return out
 
 
+def phase_serve_gmm_time() -> dict:
+    """gmm at a serving decode step's shape (16 rows over 8 experts, two
+    groups empty; the gate/up product, K 1024 -> N 2816) against its plain
+    version and ``torch._grouped_mm`` on the same inputs. The kernel is
+    shorter than its host launch, so ``ms`` and ``library_ms`` come from
+    launches captured in a CUDA graph, as the serving engine runs them
+    (``eager_ms``: one launch between events, the host's launch
+    included). Its bound counts what this routing needs: x, the output
+    and the weights of the six experts that have rows."""
+    import torch
+
+    from kubeflow_tpu_torch.ops import grouped_matmul as gm
+
+    b, k, n, e = 16, GMM_BENCH["k"], GMM_BENCH["n"], GMM_BENCH["e"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    x = torch.randn(b, k, generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randn(e, k, n, generator=gen, device="cuda").to(torch.bfloat16)
+    offs = _offsets(SERVE_DECODE_SIZES)
+    live = sum(1 for size in SERVE_DECODE_SIZES if size)
+    bnd = roofline(2 * (b * k + b * n + live * k * n) + 4 * (e + 1),
+                   2 * b * k * n)
+    out = {"ms": graph_time_ms(lambda: gm.gmm(x, w, offs)),
+           "plain_ms": time_ms(lambda: gm.gmm_plain(x, w, offs), 20),
+           "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"],
+           "library_ms": None}
+    ends = offs[1:].contiguous()
+    try:
+        err = rel_err(torch._grouped_mm(x, w, offs=ends),
+                      gm.gmm_plain(x, w, offs))
+        note = f"torch._grouped_mm, rel err {err}"
+        if err <= REL_TOL:
+            out["library_ms"] = graph_time_ms(
+                lambda: torch._grouped_mm(x, w, offs=ends))
+    except (AttributeError, RuntimeError, TypeError) as exc:
+        note = f"{type(exc).__name__}: {exc}"
+    eager_ms = time_ms(lambda: gm.gmm(x, w, offs), 200)
+    emit("serve_gmm_time", rows=b, k=k, n=n, sizes=SERVE_DECODE_SIZES,
+         eager_ms=eager_ms,
+         bytes=bnd["bytes"], flops=bnd["flops"], library=note,
+         bound_share=bnd["bound_ms"] / out["ms"],
+         launches_per_decode_step=3 * bench_moe_layers(), **out)
+    return out
+
+
+def bench_moe_layers() -> int:
+    from kubeflow_tpu_torch.models.llama import bench_moe_model
+
+    return bench_moe_model().num_layers
+
+
 def host_us(fn, calls: int = 100) -> float:
     """Host time of one call, in µs, with the card busy: the calls queue
     behind a sleeping kernel, so the clock reads only the host's work (the
@@ -754,9 +857,12 @@ MOE_PER_LAYER = {**FLASH_PER_LAYER, "gmm": 9, "tgmm": 3}
 
 def parity_on_card(phase: str, **model_kw) -> None:
     """One bf16 step of a small model on the card against the same step on
-    the CPU (the kernels' plain versions). For an MoE model the tokens whose
-    top-k set differs between the two are counted; the gradients are held
-    only when there are none (a flipped token moves its output by O(1))."""
+    the CPU (the kernels' plain versions): the loss within 1e-2 and every
+    gradient within 5e-2, relative. For an MoE model each CPU layer is
+    pinned to the experts the card chose for its tokens (``_pin_routing``):
+    a near-tie that rounds to another expert on one device moves a token's
+    output by O(1). The tokens the CPU alone would route differently are
+    counted."""
     import torch
 
     from kubeflow_tpu_torch.models.llama import tiny
@@ -771,33 +877,291 @@ def parity_on_card(phase: str, **model_kw) -> None:
     gpu, cpu = Trainer(cfg), Trainer(cfg, device="cpu")
     gpu.init_state(SEED)
     cpu.model.load_state_dict(gpu.model.state_dict())
-    routes = {}
+    routes = {"card": [], "cpu": []}
+
+    def record(seen):
+        # the layer's own routing (unpinned) of this forward's input
+        return lambda m, inp, out: seen.append(
+            type(m).route(m, inp[0].detach())[2].detach().cpu())
+
     for side, trainer in (("card", gpu), ("cpu", cpu)):
-        routes[side] = []
         for mod in trainer.model.modules():
             if isinstance(mod, MoeMlp):
-                mod.register_forward_hook(
-                    lambda m, inp, out, seen=routes[side]: seen.append(
-                        m.route(inp[0].detach())[2].sort(-1).values.cpu()))
+                mod.register_forward_hook(record(routes[side]))
     tokens = SyntheticLm(cfg.global_batch, cfg.seq_len,
                          cfg.model.vocab_size).local_batch(0)["tokens"]
     loss_g = float(gpu.loss_and_grads(tokens))
+    layers = [m for m in cpu.model.modules() if isinstance(m, MoeMlp)]
+    for layer, ids in zip(layers, routes["card"]):
+        _pin_routing(layer, ids)
     loss_c = float(cpu.loss_and_grads(tokens))
-    flipped = sum(int((a != b).any(-1).sum())
+    flipped = sum(int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
                   for a, b in zip(routes["card"], routes["cpu"]))
     grads_c = dict(cpu.model.named_parameters())
     worst = max(
         (rel_err(p.grad.cpu(), grads_c[n].grad.float()), n)
         for n, p in gpu.model.named_parameters())
     loss_rel = abs(loss_g - loss_c) / abs(loss_c)
+    held = loss_rel <= 1e-2 and worst[0] <= 5e-2
     emit(phase, loss_card=loss_g, loss_cpu=loss_c, loss_rel=loss_rel,
          worst_grad_rel=worst[0], worst_grad=worst[1],
          routed_tokens=sum(r.shape[0] * r.shape[1] for r in routes["card"]),
          tokens_routed_differently=flipped,
-         grads_held=flipped == 0)
+         routing_pinned_to_card=bool(layers), grads_held=held)
     require(loss_rel <= 1e-2, f"loss card {loss_g} vs cpu {loss_c}")
-    if flipped == 0:
-        require(worst[0] <= 5e-2, f"grad {worst[1]} differs by {worst[0]}")
+    require(worst[0] <= 5e-2, f"grad {worst[1]} differs by {worst[0]}")
+
+
+def phase_step_no_sync() -> None:
+    """One full ``Trainer.step`` of the 271M bench model (forward, backward,
+    clipped AdamW) with host syncs made errors; the batch reaches the card
+    before the checked region."""
+    import torch
+
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.train.data import SyntheticLm
+    from kubeflow_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    cfg = TrainConfig(model=llama.bench_model(), global_batch=14,
+                      seq_len=1024, steps=2, warmup_steps=1)
+    trainer = Trainer(cfg)
+    trainer.init_state(SEED)
+    data = SyntheticLm(cfg.global_batch, cfg.seq_len, cfg.model.vocab_size)
+    trainer.step(data.local_batch(0)["tokens"])  # first use: handles, libs
+    batch = torch.as_tensor(data.local_batch(1)["tokens"], device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss, norm = trainer.step(batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    loss, norm = float(loss), float(norm)
+    emit("step_no_sync", model="bench_model", sync_debug_mode="error",
+         loss=loss, grad_norm=norm)
+    require(math.isfinite(loss) and math.isfinite(norm),
+            f"step under sync debug: loss {loss}, grad norm {norm}")
+
+
+#: bench.py's serving row (bench_serving): 8 prompts of 128 tokens, 8
+#: slots, chunk 16, pipeline depth 3, 16 primed then 64 timed new tokens
+SERVE = dict(prompts=8, prompt_len=128, prime=16, new=64)
+SERVE_ENGINE = dict(num_slots=8, decode_chunk=16, pipeline_depth=3,
+                    prefix_cache=False)
+#: bench.py's roofline: every decoded token streams the f32 weights
+#: (batched over the live slots) and its ~256 attended positions of f32 KV
+SERVE_ATTENDED = 256
+#: the row's timed round lasts about a quarter of a second on the card:
+#: repeat it for a spread, report the median
+SERVE_ROUNDS = 5
+
+
+def _serve_model(model_name: str):
+    """(cfg, the port's Llama on the card with random weights from SEED)."""
+    import torch
+
+    from kubeflow_tpu_torch.models import llama
+
+    cfg = getattr(llama, model_name)()
+    model = llama.Llama(cfg, device="cuda")
+    model.init_weights(SEED)
+    torch.cuda.synchronize()
+    return cfg, model
+
+
+def _prompts(cfg, n: int, length: int) -> list[list[int]]:
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return rng.integers(1, cfg.vocab_size, size=(n, length)).tolist()
+
+
+def _serve(cfg, model, prompts, new: int, warmup, prime: int = 0,
+           rounds: int = 1, counters: bool = False, ledger=None,
+           **engine_kw) -> dict:
+    """Serve ``prompts`` through a fresh ContinuousEngine: warmup, an
+    optional priming round of ``prime`` tokens a prompt, then ``rounds``
+    rounds of ``new`` tokens a prompt, each timed on the host clock (the
+    medians are reported, the tokens are the first round's). With
+    ``counters`` the kernel launch counts are set to 0 just before the
+    first timed round and read just after the last; a ``ledger`` is
+    attached to a paged engine before warmup."""
+    from kubeflow_tpu_torch.serving.continuous import ContinuousEngine
+
+    eng = ContinuousEngine(cfg, model, **engine_kw)
+    if ledger is not None:
+        eng.attach_block_ledger(ledger)
+    seconds, dispatches, streams = [], [], []
+    try:
+        t0 = time.perf_counter()
+        eng.warmup(warmup)
+        warmup_s = time.perf_counter() - t0
+        if prime:
+            for r in [eng.submit(p, max_new_tokens=prime) for p in prompts]:
+                r.wait(600)
+        if counters:
+            for c in _counters():
+                for key in c:
+                    c[key] = 0
+        for _ in range(rounds):
+            steps0 = eng.stats()["decode_steps"]
+            t0 = time.perf_counter()
+            reqs = [eng.submit(p, max_new_tokens=new) for p in prompts]
+            streams.append([r.wait(600) for r in reqs])
+            seconds.append(time.perf_counter() - t0)
+            dispatches.append(eng.stats()["decode_steps"] - steps0)
+        launches = {k: v for c in _counters() for k, v in c.items()}
+        stats = eng.stats()
+    finally:
+        eng.stop()
+    vocab = cfg.vocab_size
+    for tokens in streams:
+        require(all(len(t) == new for t in tokens), "short token streams")
+        require(all(0 <= x < vocab for t in tokens for x in t),
+                "tokens out of the vocabulary")
+    tps = [len(prompts) * new / s for s in seconds]
+    ms = [s / max(d, 1) * 1e3 for s, d in zip(seconds, dispatches)]
+    return {"tokens": streams[0], "seconds": seconds, "warmup_s": warmup_s,
+            "tokens_per_sec": statistics.median(tps),
+            "tokens_per_sec_rounds": tps, "decode_dispatches": dispatches,
+            "ms_per_dispatch": statistics.median(ms),
+            "launches": launches, "stats": stats}
+
+
+def phase_serve() -> None:
+    """bench.py's serving row on the port: the 271M bench model at full
+    width and depth, random weights, 8 x 128-token prompts, 64 new tokens
+    each after a 16-token priming round, every program a CUDA graph."""
+    import torch
+
+    from kubeflow_tpu_torch.models import llama
+
+    cfg, model = _serve_model("bench_model")
+    torch.cuda.reset_peak_memory_stats()
+    r = _serve(cfg, model, _prompts(cfg, SERVE["prompts"],
+                                    SERVE["prompt_len"]),
+               SERVE["new"], [(8, 128), (1, 128)], prime=SERVE["prime"],
+               rounds=SERVE_ROUNDS, **SERVE_ENGINE)
+    st = r["stats"]
+    wbytes = llama.num_params(cfg) * 4
+    kvbytes = (2 * cfg.num_layers * SERVE_ATTENDED * cfg.num_kv_heads
+               * cfg.head_dim * 4)
+    slots = SERVE_ENGINE["num_slots"]
+    roofline_tps = slots / ((wbytes + slots * kvbytes) / PEAK_BYTES)
+    emit("serve", model="bench_model", engine=SERVE_ENGINE, **SERVE,
+         rounds=SERVE_ROUNDS, tokens_per_sec=r["tokens_per_sec"],
+         tokens_per_sec_rounds=r["tokens_per_sec_rounds"],
+         seconds=r["seconds"],
+         decode_dispatches=r["decode_dispatches"],
+         ms_per_dispatch=r["ms_per_dispatch"], warmup_s=r["warmup_s"],
+         graph_captures_warmup=st["graph_captures_warmup"],
+         graph_captures_after_warmup=st["graph_captures_total"],
+         peak_mem_bytes=torch.cuda.max_memory_allocated(),
+         kv_pool_bytes=st["kv_pool_bytes"],
+         kv_pool_bytes_allocated=st["kv_pool_bytes_allocated"],
+         roofline_tokens_per_sec=roofline_tps,
+         roofline_inputs={"weight_bytes": wbytes, "kv_bytes_per_slot":
+                          kvbytes, "bytes_per_sec": PEAK_BYTES},
+         vs_roofline=r["tokens_per_sec"] / roofline_tps,
+         first_tokens=r["tokens"][0][:8])
+    require(st["graph_captures_total"] == 0,
+            f"{st['graph_captures_total']} captures after warmup")
+    require(st["kv_pool_bytes"] == 536_870_912,
+            f"KV pool of {st['kv_pool_bytes']} B")
+
+
+def _first_difference(cfg, model, prompts, a, b) -> list[dict]:
+    """For each prompt whose streams ``a`` and ``b`` differ: the first
+    differing position and the top-2 margin of the logits there (the
+    model's plain forward over the prompt and ``a``'s tokens before it),
+    relative to the top logit."""
+    import torch
+
+    out = []
+    for i, (p, ta, tb) in enumerate(zip(prompts, a, b)):
+        at = next((j for j, (x, y) in enumerate(zip(ta, tb)) if x != y),
+                  None)
+        if at is None:
+            continue
+        seq = torch.tensor([p + ta[:at]], device="cuda")
+        with torch.no_grad():
+            logits = model(seq)[0, -1].float()
+        top = logits.topk(2).values
+        out.append({"prompt": i, "position": at, "tokens": [ta[at], tb[at]],
+                    "margin_rel": float((top[0] - top[1]) / top[0].abs())})
+    return out
+
+
+def phase_serve_variants() -> None:
+    """The bench model's 4 prompts x 32 new tokens through the slot pool,
+    the slot pool with chunked admission (prefill_budget 64), and the paged
+    pool (block_size 16) with the same chunked admission. Paged and slot
+    pool run the same shapes: their streams must be equal. Whole-prompt and
+    chunked admission run different GEMM shapes, so cuBLAS may round
+    differently: each difference must sit where the top-2 margin is below
+    2e-2 relative. The paged pool's BlockLedger must count no leak."""
+    from kubeflow_tpu_torch.analysis.runtime import BlockLedger
+
+    cfg, model = _serve_model("bench_model")
+    prompts = _prompts(cfg, 4, 128)
+    kw = SERVE_ENGINE
+    runs = {}
+    for name, extra in (("slot", {}), ("chunked", {"prefill_budget": 64}),
+                        ("paged", {"prefill_budget": 64, "block_size": 16})):
+        ledger = BlockLedger()
+        r = _serve(cfg, model, prompts, 32, [(4, 128), (1, 128)],
+                   ledger=ledger if "block_size" in extra else None,
+                   **kw, **extra)
+        runs[name] = r
+        r["leaked"] = ledger.leaked_total
+        r["ledger_errors"] = ledger.conservation_errors
+    diffs = _first_difference(cfg, model, prompts, runs["slot"]["tokens"],
+                              runs["chunked"]["tokens"])
+    paged_equal = runs["paged"]["tokens"] == runs["chunked"]["tokens"]
+    emit("serve_variants", prompts=4, new=32, engine=kw,
+         tokens_per_sec={k: r["tokens_per_sec"] for k, r in runs.items()},
+         captures_after_warmup={k: r["stats"]["graph_captures_total"]
+                                for k, r in runs.items()},
+         paged_equal_to_slot_pool=paged_equal,
+         slot_vs_chunked_differences=diffs,
+         blocks_leaked=runs["paged"]["leaked"],
+         ledger_errors=runs["paged"]["ledger_errors"],
+         kv_blocks_free=runs["paged"]["stats"]["kv_blocks_free"],
+         kv_blocks_total=runs["paged"]["stats"]["kv_blocks_total"])
+    require(paged_equal, "paged and slot pool streams differ")
+    require(all(d["margin_rel"] < 2e-2 for d in diffs),
+            f"whole-prompt vs chunked admission differ where the top-2 "
+            f"margin is not small: {diffs}")
+    require(runs["paged"]["leaked"] == 0
+            and not runs["paged"]["ledger_errors"],
+            "the paged pool leaked blocks")
+    require(all(r["stats"]["graph_captures_total"] == 0
+                for r in runs.values()), "captures after warmup")
+
+
+def phase_moe_serve() -> dict:
+    """The MoE bench model (8 experts, top-2, dropless, on K4a ``gmm``)
+    serving 4 prompts x 128 tokens, 32 new tokens each, in the slot pool;
+    the gmm launches of the timed round are counted."""
+    import torch
+
+    cfg, model = _serve_model("bench_moe_model")
+    torch.cuda.reset_peak_memory_stats()
+    r = _serve(cfg, model, _prompts(cfg, 4, 128), 32, [(4, 128), (1, 128)],
+               rounds=3, counters=True, **SERVE_ENGINE)
+    st = r["stats"]
+    emit("moe_serve", model="bench_moe_model", prompts=4, new=32, rounds=3,
+         tokens_per_sec=r["tokens_per_sec"],
+         tokens_per_sec_rounds=r["tokens_per_sec_rounds"],
+         seconds=r["seconds"],
+         decode_dispatches=r["decode_dispatches"],
+         ms_per_dispatch=r["ms_per_dispatch"], warmup_s=r["warmup_s"],
+         launches=r["launches"],
+         graph_captures_warmup=st["graph_captures_warmup"],
+         graph_captures_after_warmup=st["graph_captures_total"],
+         peak_mem_bytes=torch.cuda.max_memory_allocated())
+    require(r["launches"]["gmm"] > 0, "MoE serving launched no gmm")
+    require(st["graph_captures_total"] == 0, "captures after warmup")
+    return r["launches"]
 
 
 def run() -> int:
@@ -821,6 +1185,11 @@ def run() -> int:
     moe_launches = train_slice("moe_slice", "bench_moe_model", MOE_PER_LAYER)
     parity_on_card("moe_parity_on_card", moe_experts=4, moe_top_k=2,
                    moe_dispatch="ragged")
+    phase_step_no_sync()
+    phase_serve_gmm_time()
+    phase_serve()
+    phase_serve_variants()
+    phase_moe_serve()
     # each kernel's launches from the run of the path that carries it
     launches.update(gmm=moe_launches["gmm"], tgmm=moe_launches["tgmm"])
     kernels = []

@@ -39,6 +39,9 @@ class LlamaConfig:
     num_heads: int = 32
     num_kv_heads: int = 32
     head_dim: int = 128
+    #: KV-cache length of the decode path (``KvCache``), the serving
+    #: engine's context limit
+    max_seq_len: int = 4096
     rope_theta: float = 10000.0
     rms_norm_eps: float = 1e-5
     #: activation dtype; params are always f32 and cast before each product
@@ -60,6 +63,9 @@ class LlamaConfig:
     #: "dense" = capacity dispatch (tokens past capacity dropped); "ragged" =
     #: dropless sort-by-expert dispatch
     moe_dispatch: str = "dense"
+    #: serving only: the KV cache in int8 with one f32 absmax scale per
+    #: (row, kv head, position), dequantized into the f32 attend math
+    quant_kv: bool = False
 
     @property
     def q_per_kv(self) -> int:
@@ -81,7 +87,7 @@ def tiny(**kw) -> LlamaConfig:
     return LlamaConfig(**{
         **dict(vocab_size=256, hidden_size=64, intermediate_size=128,
                num_layers=2, num_heads=4, num_kv_heads=2, head_dim=16,
-               dtype=torch.float32, remat=False),
+               max_seq_len=128, dtype=torch.float32, remat=False),
         **kw,
     })
 
@@ -91,7 +97,7 @@ def bench_model(**kw) -> LlamaConfig:
     return LlamaConfig(**{
         **dict(vocab_size=32000, hidden_size=1024, intermediate_size=2816,
                num_layers=16, num_heads=8, num_kv_heads=8, head_dim=128,
-               remat=True, attention_impl="flash"),
+               max_seq_len=1024, remat=True, attention_impl="flash"),
         **kw,
     })
 
@@ -153,12 +159,13 @@ class RMSNorm(nn.Module):
 
 
 def rope(x, positions, theta: float):
-    """Rotary embedding, split halves; x: [b, s, heads, head_dim]."""
+    """Rotary embedding, split halves; x: [b, s, heads, head_dim];
+    positions [s], or [b, s] for per-row positions."""
     half = x.shape[-1] // 2
     freqs = theta ** (-torch.arange(half, dtype=torch.float32,
                                     device=x.device) / half)
-    angles = positions[:, None].float() * freqs          # [s, half]
-    cos, sin = angles.cos()[:, None, :], angles.sin()[:, None, :]
+    angles = positions[..., None].float() * freqs        # [..., s, half]
+    cos, sin = angles.cos()[..., None, :], angles.sin()[..., None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      dim=-1).to(x.dtype)
@@ -175,6 +182,85 @@ def _causal_attention(q, k, v, q_per_kv: int):
     probs = logits.softmax(dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.float())
     return out.reshape(b, s, h, d).to(q.dtype)
+
+
+class KvCache:
+    """The decode path's KV cache: one stacked tensor per leaf, on one
+    device, updated in place by ``Llama.forward(..., cache=...)``.
+
+    - ``k``, ``v``: ``[layers, rows, seq, kv_heads, head_dim]`` in the
+      activation dtype, int8 with ``quant_kv``;
+    - ``k_scale``, ``v_scale`` (``quant_kv`` only): ``[layers, rows,
+      kv_heads, seq]`` f32, seq last as in the reference.
+
+    ``seq_len`` is the logical length. A cache the model writes holds at
+    least one position past it, scratch that nothing attends: a write at a
+    position ``>= seq_len`` lands there. The reference drops such scatters
+    (``mode="drop"``: an inactive serving slot is pinned at the end of the
+    cache); an out-of-range index on a CUDA tensor would fire a device-side
+    assert instead. (A paged block pool, which the model never writes
+    directly, has no scratch positions: ``serving/paged.py``.)
+    """
+
+    LEAVES = ("k", "v", "k_scale", "v_scale")
+
+    def __init__(self, k, v, k_scale=None, v_scale=None, *, seq_len: int):
+        if k.shape[2] < seq_len:
+            raise ValueError(
+                f"cache of {k.shape[2]} positions is shorter than its "
+                f"seq_len {seq_len}")
+        self.k, self.v, self.k_scale, self.v_scale = k, v, k_scale, v_scale
+        self.seq_len = seq_len
+
+    @classmethod
+    def zeros(cls, cfg: "LlamaConfig", rows: int, seq_len: int, *,
+              device, scratch: int = 1) -> "KvCache":
+        """A zeroed cache of ``rows`` rows and ``seq_len`` positions plus
+        ``scratch`` positions of scratch."""
+        shape = (cfg.num_layers, rows, seq_len + scratch, cfg.num_kv_heads,
+                 cfg.head_dim)
+        dt = torch.int8 if cfg.quant_kv else cfg.dtype
+        k, v = (torch.zeros(shape, dtype=dt, device=device) for _ in "kv")
+        scales = [None, None]
+        if cfg.quant_kv:
+            sshape = (cfg.num_layers, rows, cfg.num_kv_heads,
+                      seq_len + scratch)
+            scales = [torch.zeros(sshape, device=device) for _ in "kv"]
+        return cls(k, v, *scales, seq_len=seq_len)
+
+    def leaves(self) -> dict[str, torch.Tensor]:
+        return {n: t for n in self.LEAVES
+                if (t := getattr(self, n)) is not None}
+
+    def _map(self, fn) -> "KvCache":
+        out = {n: fn(n, t) for n, t in self.leaves().items()}
+        return KvCache(**out, seq_len=self.seq_len)
+
+    def head_rows(self, n: int) -> "KvCache":
+        """A view of the first ``n`` rows."""
+        return self._map(lambda _, t: t[:, :n])
+
+    def select_rows(self, idx) -> "KvCache":
+        """A copy of the rows ``idx`` (a device index tensor)."""
+        return self._map(lambda _, t: t.index_select(1, idx))
+
+    def put_rows(self, idx, rows: "KvCache") -> None:
+        """Write ``rows`` back at the rows ``idx``."""
+        for n, t in self.leaves().items():
+            t.index_copy_(1, idx, getattr(rows, n))
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in self.leaves().values())
+
+
+def _quantize(x):
+    """int8 values and f32 absmax scales over head_dim (``[b, s, kv]``)."""
+    x32 = x.float()
+    s = x32.abs().amax(-1).clamp_min(1e-8) / 127.0
+    q8 = (x32 / s[..., None]).round().clamp(-127, 127).to(torch.int8)
+    return q8, s
 
 
 class Attention(nn.Module):
@@ -194,7 +280,12 @@ class Attention(nn.Module):
                           (self.wo, hd)):
             _trunc_normal(w, fan_in, gen)
 
-    def forward(self, x, positions):
+    def forward(self, x, positions, cache=None, layer: int = 0,
+                attend=None):
+        """Causal self-attention over ``x``; with ``cache`` (a ``KvCache``)
+        the decode path: this layer's keys and values are written into the
+        cache at ``positions`` [b, s] and the queries attend the cache's
+        first ``attend`` positions."""
         cfg = self.cfg
         b, s, e = x.shape
         dt = cfg.dtype
@@ -206,11 +297,58 @@ class Attention(nn.Module):
             b, s, cfg.num_kv_heads, cfg.head_dim)
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-        if cfg.attention_impl == "flash":
+        if cache is not None:
+            out = self._decode_attend(q, k, v, positions, cache, layer,
+                                      attend or cache.seq_len)
+        elif cfg.attention_impl == "flash":
             out = flash_attention(q, k, v, q_per_kv=cfg.q_per_kv)
         else:
             out = _causal_attention(q, k, v, cfg.q_per_kv)
         return out.reshape(b, s, -1) @ self.wo.to(dt).reshape(-1, e)
+
+
+    def _decode_attend(self, q, k, v, positions, cache, layer, attend):
+        """The reference's ``Attention._decode_attend`` without its
+        shared-prefix arguments: a per-row scatter of this step's keys and
+        values at each row's positions (writes past ``cache.seq_len`` land
+        in the scratch), then f32 attention over the first ``attend``
+        positions with the per-row causal mask ``slot <= position``."""
+        cfg = self.cfg
+        b, sc = q.shape[:2]
+        kc, vc = cache.k[layer], cache.v[layer]
+        if kc.shape[1] <= cache.seq_len:
+            raise ValueError("the decode path writes into a cache with "
+                             "scratch past its seq_len (KvCache)")
+        rows = torch.arange(b, device=q.device)[:, None]
+        widx = positions.clamp(max=cache.seq_len)
+        if cfg.quant_kv:
+            kq, ks = _quantize(k)
+            vq, vs = _quantize(v)
+            kc[rows, widx] = kq
+            vc[rows, widx] = vq
+            heads = torch.arange(cfg.num_kv_heads, device=q.device)
+            srow, shead, spos = rows[:, :, None], heads, widx[:, :, None]
+            kscale, vscale = cache.k_scale[layer], cache.v_scale[layer]
+            kscale[srow, shead, spos] = ks
+            vscale[srow, shead, spos] = vs
+            kf = (kc[:, :attend].float()
+                  * kscale[:, :, :attend].transpose(1, 2)[..., None])
+            vf = (vc[:, :attend].float()
+                  * vscale[:, :, :attend].transpose(1, 2)[..., None])
+        else:
+            kc[rows, widx] = k.to(cfg.dtype)
+            vc[rows, widx] = v.to(cfg.dtype)
+            kf, vf = kc[:, :attend].float(), vc[:, :attend].float()
+        qh = q.reshape(b, sc, cfg.num_kv_heads, cfg.q_per_kv,
+                       cfg.head_dim).float()
+        logits = torch.einsum("bqkgh,bskh->bkgqs", qh, kf)
+        valid = (torch.arange(attend, device=q.device)[None, None, :]
+                 <= positions[:, :, None])                  # [b, q, s]
+        logits = logits.masked_fill(~valid[:, None, None], -1e30)
+        logits = logits / torch.tensor(math.sqrt(cfg.head_dim),
+                                       dtype=torch.float32)
+        out = torch.einsum("bkgqs,bskh->bqkgh", logits.softmax(dim=-1), vf)
+        return out.reshape(b, sc, cfg.num_heads, cfg.head_dim).to(cfg.dtype)
 
 
 class Mlp(nn.Module):
@@ -244,9 +382,10 @@ class Block(nn.Module):
         self.mlp = (MoeMlp(cfg, device) if cfg.moe_experts > 0
                     else Mlp(cfg, device))
 
-    def forward(self, x, positions):
+    def forward(self, x, positions, cache=None, layer: int = 0,
+                attend=None):
         """(x, aux): aux is the MoE layer's load-balancing loss, else None."""
-        x = x + self.attn(self.attn_norm(x), positions)
+        x = x + self.attn(self.attn_norm(x), positions, cache, layer, attend)
         if isinstance(self.mlp, MoeMlp):
             y, aux = self.mlp(self.mlp_norm(x))
             return x + y, aux
@@ -325,16 +464,27 @@ class Llama(nn.Module):
         if not self.cfg.tie_embeddings:
             self.head.unembedding.normal_(0.0, 0.02, generator=gen)
 
-    def forward(self, tokens, return_aux: bool = False):
+    def forward(self, tokens, positions=None, return_aux: bool = False, *,
+                cache: KvCache | None = None, attend: int | None = None):
         """Logits; with ``return_aux``, (logits, the MoE load-balancing loss
-        averaged over layers, or None for a dense model)."""
+        averaged over layers, or None for a dense model).
+
+        With ``cache``, the decode path of the reference's ``decode=True``:
+        ``positions`` [b, s] (default ``arange(s)`` in every row) are each
+        token's global position, the cache is written in place there, and
+        attention reads its first ``attend`` positions (default all)."""
         cfg = self.cfg
-        positions = torch.arange(tokens.shape[-1], device=tokens.device)
+        if positions is None:
+            positions = torch.arange(tokens.shape[-1], device=tokens.device)
+        if cache is not None:
+            positions = positions.expand(tokens.shape)
         x = self.embedder(tokens)
-        remat = cfg.remat and torch.is_grad_enabled()
+        remat = cfg.remat and torch.is_grad_enabled() and cache is None
         auxes = []
-        for blk in self.layers:
-            if not remat:
+        for i, blk in enumerate(self.layers):
+            if cache is not None:
+                x, aux = blk(x, positions, cache, i, attend)
+            elif not remat:
                 x, aux = blk(x, positions)
             elif cfg.remat_policy == "dots":
                 x, aux = checkpoint(

@@ -7,7 +7,9 @@ its learning rate is not evaluated at the pre-increment count, it decays
 weights before the moment update, and it has no bf16 first moment). In order,
 for every parameter:
 
-1. clip: if the global grad norm n >= clip, g = (g / n) * clip;
+1. clip: g = g if n < clip else (g / n) * clip, with n the global grad
+   norm: optax's predicate, on the device (no host read), so a NaN norm
+   takes the clipping branch and every parameter turns NaN, as in optax;
 2. mu = (1 - b1) * g + b1 * mu, in f32 from the stored mu; when mu is stored
    in bf16, ``b1 * mu`` is a bf16 product with b1 rounded to bf16 (jax's weak
    typing of the python scalar);
@@ -72,7 +74,6 @@ class AdamW:
         grad norm before clipping (a 0-d tensor on the params' device)."""
         grads = [p.grad for p in self.params]
         norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
-        clipped = bool(norm >= self.clip)  # one device-to-host sync a step
         lr = -warmup_cosine_decay(self.count, self.lr, self.warmup,
                                   self.decay_steps)
         t = self.count + 1
@@ -80,8 +81,7 @@ class AdamW:
         bc2 = float(np.float32(1) - np.float32(self.b2) ** np.float32(t))
         for p, g, mu, nu, b1_mu in zip(self.params, grads, self.mu, self.nu,
                                        self._b1_mu):
-            if clipped:
-                g = (g / norm) * self.clip
+            g = torch.where(norm < self.clip, g, (g / norm) * self.clip)
             m = (1 - self.b1) * g + (mu * b1_mu).float()
             nu.mul_(self.b2).add_((1 - self.b2) * (g * g))
             u = (m / bc1) / (torch.sqrt(nu / bc2) + EPS)

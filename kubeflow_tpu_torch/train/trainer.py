@@ -98,7 +98,9 @@ class Trainer:
         left in the params' ``.grad``. Returns the loss (0-d, on device),
         the load-balancing term included."""
         cfg = self.cfg
-        tokens = torch.as_tensor(np.asarray(tokens), device=self.device)
+        if not isinstance(tokens, torch.Tensor):
+            tokens = np.asarray(tokens)
+        tokens = torch.as_tensor(tokens, device=self.device)
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
         with_aux = cfg.model.moe_experts > 0 and cfg.aux_loss_coef > 0
         if with_aux:

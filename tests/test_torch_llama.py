@@ -170,6 +170,11 @@ def test_port_imports_no_jax():
         "kubeflow_tpu_torch.ops._build\n"
         "import kubeflow_tpu_torch.train.data, kubeflow_tpu_torch.train.optim,"
         " kubeflow_tpu_torch.train.trainer, kubeflow_tpu_torch.train.profile\n"
+        "import kubeflow_tpu_torch.serving, "
+        "kubeflow_tpu_torch.serving.continuous, "
+        "kubeflow_tpu_torch.serving.paged, "
+        "kubeflow_tpu_torch.serving.profile, "
+        "kubeflow_tpu_torch.analysis.runtime\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax') or m.startswith('kubeflow_tpu.')"
         " or m == 'kubeflow_tpu']\n"

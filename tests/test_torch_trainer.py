@@ -120,16 +120,26 @@ def test_train_loop_reports_metrics():
     assert last.tokens_per_sec > 0 and last.mfu == 0.0  # no peak for a CPU
 
 
-@pytest.mark.parametrize("mu_dtype", [None, "bfloat16"],
-                         ids=["mu_f32", "mu_bf16"])
-def test_adamw_matches_optax(mu_dtype):
+def _nan_grads(step):
+    """A NaN in one parameter's gradient, the other's all finite: optax's
+    clip takes the clipping branch on the NaN norm and turns every
+    parameter NaN."""
+    return {"a": np.array([0.1, np.nan, 0.1, 0.1], np.float32),
+            "b": np.full(3, 0.2 * (step + 1), np.float32)}
+
+
+@pytest.mark.parametrize("mu_dtype,nan", [
+    (None, False), ("bfloat16", False), (None, True)],
+    ids=["mu_f32", "mu_bf16", "mu_f32_nan_grad"])
+def test_adamw_matches_optax(mu_dtype, nan):
     pt = _port()
     torch = pt.torch
     rng = np.random.default_rng(4)
-    shapes = {"a": (8, 16), "b": (32,), "c": (4, 4, 4)}
+    shapes = ({"a": (4,), "b": (3,)} if nan
+              else {"a": (8, 16), "b": (32,), "c": (4, 4, 4)})
     params = {k: rng.standard_normal(s).astype(np.float32)
               for k, s in shapes.items()}
-    steps, warmup, lr = 4, 2, 1e-2
+    steps, warmup, lr = (2, 1, 1e-2) if nan else (4, 2, 1e-2)
     tx = optax.chain(
         optax.clip_by_global_norm(1.0),
         optax.adamw(optax.warmup_cosine_decay_schedule(
@@ -142,9 +152,11 @@ def test_adamw_matches_optax(mu_dtype):
                          warmup_steps=warmup,
                          decay_steps=max(steps, warmup + 1),
                          mu_dtype=mu_dtype and torch.bfloat16)
-    for step, scale in enumerate([5.0, 0.01, 3.0, 0.02]):  # clip fires twice
-        grads = {k: (scale * rng.standard_normal(s)).astype(np.float32)
-                 for k, s in shapes.items()}
+    scales = [5.0, 0.01] if nan else [5.0, 0.01, 3.0, 0.02]  # clip fires
+    for step, scale in enumerate(scales):
+        grads = (_nan_grads(step) if nan else
+                 {k: (scale * rng.standard_normal(s)).astype(np.float32)
+                  for k, s in shapes.items()})
         updates, state = tx.update(
             jax.tree.map(jnp.asarray, grads), state, jp)
         jp = optax.apply_updates(jp, updates)
@@ -164,6 +176,8 @@ def test_adamw_matches_optax(mu_dtype):
             np.testing.assert_allclose(
                 opt.nu[i].numpy(), np.asarray(state[1][0].nu[k]),
                 rtol=1e-6, atol=1e-12)
+    if nan:  # the finite parameter went NaN with the rest, as in optax
+        assert np.isnan(tp["b"].detach().numpy()).all()
 
 
 def test_schedule_matches_optax():
