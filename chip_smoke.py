@@ -632,25 +632,29 @@ def phase_grouped_time() -> dict[str, dict]:
     return out
 
 
-def phase_serve_gmm_time() -> dict:
-    """gmm at a serving decode step's shape (16 rows over 8 experts, two
-    groups empty; the gate/up product, K 1024 -> N 2816) against its plain
-    version and ``torch._grouped_mm`` on the same inputs. The kernel is
-    shorter than its host launch, so ``ms`` and ``library_ms`` come from
-    launches captured in a CUDA graph, as the serving engine runs them
-    (``eager_ms``: one launch between events, the host's launch
-    included). Its bound counts what this routing needs: x, the output
-    and the weights of the six experts that have rows."""
+#: a speculative verify step's expert rows: 8 slots x (spec_k + 1 = 5)
+#: tokens x top-2, every expert live
+SERVE_VERIFY_SIZES = _split(8 * 5 * 2, 8)
+
+
+def _serve_gmm_reading(sizes, gen) -> dict:
+    """gmm at a serving shape (``sizes`` rows over 8 experts; the gate/up
+    product, K 1024 -> N 2816): against its plain version and
+    ``torch._grouped_mm`` on the same inputs. The kernel is shorter than
+    its host launch, so ``ms`` and ``library_ms`` come from launches
+    captured in a CUDA graph, as the serving engine runs them
+    (``eager_ms``: one launch between events, the host's launch included).
+    Its bound counts what this routing needs: x, the output and the
+    weights of the experts that have rows."""
     import torch
 
     from kubeflow_tpu_torch.ops import grouped_matmul as gm
 
-    b, k, n, e = 16, GMM_BENCH["k"], GMM_BENCH["n"], GMM_BENCH["e"]
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    b, k, n, e = sum(sizes), GMM_BENCH["k"], GMM_BENCH["n"], len(sizes)
     x = torch.randn(b, k, generator=gen, device="cuda").to(torch.bfloat16)
     w = torch.randn(e, k, n, generator=gen, device="cuda").to(torch.bfloat16)
-    offs = _offsets(SERVE_DECODE_SIZES)
-    live = sum(1 for size in SERVE_DECODE_SIZES if size)
+    offs = _offsets(sizes)
+    live = sum(1 for size in sizes if size)
     bnd = roofline(2 * (b * k + b * n + live * k * n) + 4 * (e + 1),
                    2 * b * k * n)
     out = {"ms": graph_time_ms(lambda: gm.gmm(x, w, offs)),
@@ -667,13 +671,33 @@ def phase_serve_gmm_time() -> dict:
                 lambda: torch._grouped_mm(x, w, offs=ends))
     except (AttributeError, RuntimeError, TypeError) as exc:
         note = f"{type(exc).__name__}: {exc}"
-    eager_ms = time_ms(lambda: gm.gmm(x, w, offs), 200)
-    emit("serve_gmm_time", rows=b, k=k, n=n, sizes=SERVE_DECODE_SIZES,
-         eager_ms=eager_ms,
-         bytes=bnd["bytes"], flops=bnd["flops"], library=note,
-         bound_share=bnd["bound_ms"] / out["ms"],
-         launches_per_decode_step=3 * bench_moe_layers(), **out)
-    return out
+    return {**out, "rows": b, "k": k, "n": n, "sizes": sizes,
+            "eager_ms": time_ms(lambda: gm.gmm(x, w, offs), 200),
+            "bytes": bnd["bytes"], "flops": bnd["flops"], "library": note,
+            "bound_share": bnd["bound_ms"] / out["ms"]}
+
+
+def phase_serve_gmm_time() -> dict:
+    """gmm at a serving decode step's shape (16 rows over 8 experts, two
+    groups empty) and at a speculative verify's (80 rows, 8 slots x 5
+    tokens x top-2, every group live), each read by ``_serve_gmm_reading``;
+    the verify shape is first checked as ``check_grouped_case`` checks the
+    kernels (from NaN-poisoned memory, against the plain version under
+    REL_TOL, a repeat bitwise equal). Returns the two readings."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    decode = _serve_gmm_reading(SERVE_DECODE_SIZES, gen)
+    k, n = GMM_BENCH["k"], GMM_BENCH["n"]
+    check = check_grouped_case(sum(SERVE_VERIFY_SIZES), k, n,
+                               SERVE_VERIFY_SIZES, False, gen)
+    verify = {**_serve_gmm_reading(SERVE_VERIFY_SIZES, gen), "check": check}
+    emit("serve_gmm_time", **decode,
+         launches_per_decode_step=3 * bench_moe_layers(), verify=verify)
+    require(check["gmm_rel"] <= REL_TOL and check["tgmm_rel"] <= REL_TOL
+            and check["repeat_bitwise_equal"],
+            f"gmm at the verify shape: {check}")
+    return {"decode": decode, "verify": verify}
 
 
 def bench_moe_layers() -> int:
@@ -1069,11 +1093,44 @@ def phase_serve() -> None:
             f"KV pool of {st['kv_pool_bytes']} B")
 
 
+def _router_margin(model, seq, lo: int, hi: int) -> float:
+    """The smallest top-k boundary margin of every MoE layer's router over
+    the tokens [lo, hi) of ``seq`` in the model's plain forward: the gap
+    of the k-th and (k+1)-th expert probabilities, relative to the k-th.
+    A routing decision that close can round to another expert when the
+    same tokens run in another GEMM shape."""
+    import torch
+
+    from kubeflow_tpu_torch.models.moe import MoeMlp
+
+    margins = []
+    layers = [blk.mlp for blk in model.layers if isinstance(blk.mlp, MoeMlp)]
+    for layer in layers:
+        route = type(layer).route
+
+        def recording(self, x, _route=route):
+            out = _route(self, x)
+            top = out[0][0, lo:hi].topk(self.cfg.moe_top_k + 1, dim=-1).values
+            margins.append(((top[:, -2] - top[:, -1]) / top[:, -2]).min())
+            return out
+
+        layer.route = types.MethodType(recording, layer)
+    try:
+        with torch.no_grad():
+            model(seq)
+    finally:
+        for layer in layers:
+            del layer.route
+    return float(min(margins))
+
+
 def _first_difference(cfg, model, prompts, a, b) -> list[dict]:
     """For each prompt whose streams ``a`` and ``b`` differ: the first
     differing position and the top-2 margin of the logits there (the
     model's plain forward over the prompt and ``a``'s tokens before it),
-    relative to the top logit."""
+    relative to the top logit; for an MoE model also the smallest router
+    margin over the generated tokens fed before it (``_router_margin``):
+    the tokens whose forward shapes differ between two serving runs."""
     import torch
 
     out = []
@@ -1086,9 +1143,19 @@ def _first_difference(cfg, model, prompts, a, b) -> list[dict]:
         with torch.no_grad():
             logits = model(seq)[0, -1].float()
         top = logits.topk(2).values
-        out.append({"prompt": i, "position": at, "tokens": [ta[at], tb[at]],
-                    "margin_rel": float((top[0] - top[1]) / top[0].abs())})
+        diff = {"prompt": i, "position": at, "tokens": [ta[at], tb[at]],
+                "margin_rel": float((top[0] - top[1]) / top[0].abs())}
+        if cfg.moe_experts and at > 0:
+            diff["router_margin_rel"] = _router_margin(model, seq, len(p),
+                                                       len(p) + at)
+        out.append(diff)
     return out
+
+
+def _near_tie(d: dict) -> bool:
+    """A first difference two runs' rounding can explain: the logits'
+    top-2 margin there, or a router margin before it, below 2e-2."""
+    return min(d["margin_rel"], d.get("router_margin_rel", 1.0)) < 2e-2
 
 
 def phase_serve_variants() -> None:
@@ -1164,6 +1231,218 @@ def phase_moe_serve() -> dict:
     return r["launches"]
 
 
+#: the speculation phases: the slot pool, one token a dispatch when plain
+SPEC_ENGINE = dict(num_slots=8, decode_chunk=1, prefix_cache=False)
+SPEC_K = 4
+
+
+def _replay_proposer(prompts, streams):
+    """A DraftProposer that drafts ``streams`` (a run's own tokens for
+    ``prompts``): for a history of a prompt and the stream's first n
+    tokens, the k tokens after the next one, as the alignment contract
+    asks. A history that left its stream (a near tie that the verify's
+    wider forward rounded the other way) gets no draft: the recorded
+    tokens no longer continue it."""
+    from kubeflow_tpu_torch.serving.continuous import DraftProposer
+
+    book = {tuple(p): s for p, s in zip(prompts, streams)}
+    plen = len(prompts[0])
+
+    class Replay(DraftProposer):
+        def propose(self, history, k):
+            stream = book.get(tuple(history[:plen]), [])
+            n = len(history) - plen
+            if stream[:n] != history[plen:]:
+                return []
+            return stream[n + 1:n + 1 + k]
+
+    return Replay()
+
+
+def _spec_runs(phase: str, model_name: str, n_prompts: int, new: int,
+               counters: bool) -> dict:
+    """Three runs of ``n_prompts`` x 128-token prompts, ``new`` tokens
+    each, through ``SPEC_ENGINE``: speculation off, ``spec_k=4`` with the
+    NgramProposer, and ``spec_k=4`` with a replay proposer that drafts the
+    first run's own tokens. Every stream of a speculating run must equal
+    the plain run's, or first differ where the top-2 margin is below 2e-2
+    relative (a [slots, 5] forward runs other GEMM shapes than a [slots, 1]
+    one); the replay run must accept more than half of its drafts in fewer
+    decode dispatches; no run may capture after warmup."""
+    cfg, model = _serve_model(model_name)
+    prompts = _prompts(cfg, n_prompts, 128)
+    warm = [(n_prompts, 128), (1, 128)]
+    runs = {"off": _serve(cfg, model, prompts, new, warm, counters=counters,
+                          **SPEC_ENGINE)}
+    runs["ngram"] = _serve(cfg, model, prompts, new, warm,
+                           counters=counters, spec_k=SPEC_K, **SPEC_ENGINE)
+    runs["replay"] = _serve(
+        cfg, model, prompts, new, warm, counters=counters, spec_k=SPEC_K,
+        draft_proposer=_replay_proposer(prompts, runs["off"]["tokens"]),
+        **SPEC_ENGINE)
+    keys = ("spec_dispatches_total", "spec_tokens_proposed_total",
+            "spec_tokens_accepted_total", "spec_acceptance_rate",
+            "graph_captures_total", "graph_captures_warmup")
+    diffs = {name: _first_difference(cfg, model, prompts,
+                                     runs["off"]["tokens"], r["tokens"])
+             for name, r in runs.items() if name != "off"}
+    emit(phase, model=model_name, prompts=n_prompts, prompt_len=128,
+         new=new, engine=SPEC_ENGINE, spec_k=SPEC_K,
+         tokens_per_sec={n: r["tokens_per_sec"] for n, r in runs.items()},
+         decode_dispatches={n: r["decode_dispatches"][0]
+                            for n, r in runs.items()},
+         ms_per_dispatch={n: r["ms_per_dispatch"] for n, r in runs.items()},
+         warmup_s={n: r["warmup_s"] for n, r in runs.items()},
+         stats={n: {k: r["stats"][k] for k in keys}
+                for n, r in runs.items()},
+         launches=({n: r["launches"] for n, r in runs.items()}
+                   if counters else None),
+         differences_from_off=diffs)
+    for name, r in runs.items():
+        require(r["stats"]["graph_captures_total"] == 0,
+                f"{name}: captures after warmup")
+    for name, d in diffs.items():
+        require(all(map(_near_tie, d)),
+                f"{name} differs from plain decode where no margin is "
+                f"small: {d}")
+    rep = runs["replay"]["stats"]
+    require(rep["spec_tokens_accepted_total"]
+            > rep["spec_tokens_proposed_total"] / 2,
+            f"replay drafts accepted {rep['spec_tokens_accepted_total']} of "
+            f"{rep['spec_tokens_proposed_total']}")
+    require(runs["replay"]["decode_dispatches"][0]
+            < runs["off"]["decode_dispatches"][0],
+            "speculation did not save decode dispatches")
+    return runs
+
+
+def phase_spec_serve() -> None:
+    """Speculative decoding on the 271M bench model: 8 prompts, 64 new
+    tokens each."""
+    _spec_runs("spec_serve", "bench_model", 8, 64, counters=False)
+
+
+def phase_moe_spec_serve() -> None:
+    """Speculative decoding on the MoE bench model: 4 prompts, 32 new
+    tokens each; every verify runs the experts on gmm at [slots x 5 x
+    top-2] rows."""
+    runs = _spec_runs("moe_spec_serve", "bench_moe_model", 4, 32,
+                      counters=True)
+    for name in ("ngram", "replay"):
+        require(runs[name]["launches"]["gmm"] > 0,
+                f"{name}: the MoE spec run launched no gmm")
+
+
+#: the prefix phase: 8 prompts of a shared 760-token prefix and a distinct
+#: 24-token tail (the suffix stays in the smallest bucket, 32; 760 is not a
+#: multiple of the block size, so a paged match forks its last block)
+PREFIX = dict(prompts=8, shared=760, tail=24, new=32)
+PREFIX_ENGINE = dict(num_slots=8, decode_chunk=4, prefill_budget=0)
+
+
+def _prefix_prompts(cfg) -> list[list[int]]:
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 7)
+    shared = rng.integers(1, cfg.vocab_size, size=PREFIX["shared"]).tolist()
+    return [shared + rng.integers(1, cfg.vocab_size,
+                                  size=PREFIX["tail"]).tolist()
+            for _ in range(PREFIX["prompts"])]
+
+
+def _serve_prefix(cfg, model, prompts, ledger=None, **engine_kw) -> dict:
+    """The first prompt served alone, then the other seven together,
+    through a fresh engine; the seven's median TTFT (``Request.ttft_s``)."""
+    from kubeflow_tpu_torch.serving.continuous import ContinuousEngine
+
+    eng = ContinuousEngine(cfg, model, **PREFIX_ENGINE, **engine_kw)
+    if ledger is not None:
+        eng.attach_block_ledger(ledger)
+    new = PREFIX["new"]
+    try:
+        t0 = time.perf_counter()
+        eng.warmup([(1, 1023), (8, 1023)])
+        warmup_s = time.perf_counter() - t0
+        first = eng.submit(prompts[0], max_new_tokens=new)
+        tokens = [first.wait(600)]
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, max_new_tokens=new) for p in prompts[1:]]
+        tokens += [r.wait(600) for r in reqs]
+        seconds = time.perf_counter() - t0
+        stats = eng.stats()
+    finally:
+        eng.stop()
+    require(all(len(t) == new for t in tokens), "short token streams")
+    return {"tokens": tokens, "warmup_s": warmup_s,
+            "first_ttft_s": first.ttft_s,
+            "ttft_s_median": statistics.median(r.ttft_s for r in reqs),
+            "tokens_per_sec": len(reqs) * new / seconds, "stats": stats,
+            "leaked": None if ledger is None else ledger.leaked_total,
+            "ledger_errors": None if ledger is None
+            else ledger.conservation_errors}
+
+
+def phase_prefix_serve() -> None:
+    """Prefix reuse on the 271M bench model: the slot pool with the prefix
+    cache off and on, the paged pool (block_size 16, a BlockLedger
+    attached) off and on, and shared-prefix segments (2 of 768 tokens).
+    With reuse on, seven prompts share what the first one left: 7 hits in
+    the slot and paged pools, a COW fork in the paged pool, no block
+    leaked, no capture after warmup, and every stream equal to the
+    prefix-off stream of the same pool or first apart at a near tie."""
+    from kubeflow_tpu_torch.analysis.runtime import BlockLedger
+
+    cfg, model = _serve_model("bench_model")
+    prompts = _prefix_prompts(cfg)
+    engines = {
+        "slot_off": dict(prefix_cache=False),
+        "slot_on": dict(prefix_cache=True),
+        "paged_off": dict(prefix_cache=False, block_size=16),
+        "paged_on": dict(prefix_cache=True, block_size=16),
+        "segments": dict(prefix_cache=False, prefix_segments=2,
+                         segment_len=768),
+    }
+    runs = {name: _serve_prefix(cfg, model, prompts,
+                                BlockLedger() if "block_size" in kw
+                                else None, **kw)
+            for name, kw in engines.items()}
+    base = {"slot_on": "slot_off", "paged_on": "paged_off",
+            "segments": "slot_off", "paged_off": "slot_off"}
+    diffs = {name: _first_difference(cfg, model, prompts,
+                                     runs[ref]["tokens"],
+                                     runs[name]["tokens"])
+             for name, ref in base.items()}
+    keys = ("prefix_hits", "prefix_tokens_saved", "prefix_block_hits_total",
+            "kv_blocks_cow_copies_total", "segment_hits",
+            "segment_tokens_shared", "graph_captures_total",
+            "graph_captures_warmup")
+    emit("prefix_serve", model="bench_model", **PREFIX,
+         engine=PREFIX_ENGINE, engines=engines,
+         ttft_s_median={n: r["ttft_s_median"] for n, r in runs.items()},
+         first_ttft_s={n: r["first_ttft_s"] for n, r in runs.items()},
+         tokens_per_sec={n: r["tokens_per_sec"] for n, r in runs.items()},
+         warmup_s={n: r["warmup_s"] for n, r in runs.items()},
+         stats={n: {k: r["stats"][k] for k in keys}
+                for n, r in runs.items()},
+         blocks_leaked={n: r["leaked"] for n, r in runs.items()},
+         ledger_errors={n: r["ledger_errors"] for n, r in runs.items()},
+         differences=diffs)
+    for name in ("slot_on", "paged_on"):
+        require(runs[name]["stats"]["prefix_hits"] == 7,
+                f"{name}: {runs[name]['stats']['prefix_hits']} prefix hits")
+    require(runs["paged_on"]["stats"]["kv_blocks_cow_copies_total"] >= 1,
+            "the paged pool forked no block")
+    for name, r in runs.items():
+        require(r["stats"]["graph_captures_total"] == 0,
+                f"{name}: captures after warmup")
+        require(r["leaked"] in (None, 0) and not r["ledger_errors"],
+                f"{name}: blocks leaked")
+    for name, d in diffs.items():
+        require(all(map(_near_tie, d)),
+                f"{name} differs from {base[name]} where the top-2 margin "
+                f"is not small: {d}")
+
+
 def run() -> int:
     import torch
 
@@ -1173,6 +1452,7 @@ def run() -> int:
     # outside a checkout of the repo this fails before anything is printed
     import kubeflow_tpu_torch  # noqa: F401
 
+    started = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     line = phase_env()
@@ -1190,6 +1470,12 @@ def run() -> int:
     phase_serve()
     phase_serve_variants()
     phase_moe_serve()
+    t0 = time.perf_counter()
+    phase_spec_serve()
+    phase_moe_spec_serve()
+    phase_prefix_serve()
+    emit("phase_seconds", total=time.perf_counter() - started,
+         speculation_and_prefix=time.perf_counter() - t0)
     # each kernel's launches from the run of the path that carries it
     launches.update(gmm=moe_launches["gmm"], tgmm=moe_launches["tgmm"])
     kernels = []

@@ -281,11 +281,13 @@ class Attention(nn.Module):
             _trunc_normal(w, fan_in, gen)
 
     def forward(self, x, positions, cache=None, layer: int = 0,
-                attend=None):
+                attend=None, prefix=None, cache_positions=None):
         """Causal self-attention over ``x``; with ``cache`` (a ``KvCache``)
         the decode path: this layer's keys and values are written into the
-        cache at ``positions`` [b, s] and the queries attend the cache's
-        first ``attend`` positions."""
+        cache at ``positions`` [b, s] (``cache_positions`` when given) and
+        the queries attend the cache's first ``attend`` positions, after
+        this layer's shared-prefix segment ``prefix`` when given
+        (``_decode_attend``)."""
         cfg = self.cfg
         b, s, e = x.shape
         dt = cfg.dtype
@@ -299,7 +301,8 @@ class Attention(nn.Module):
         k = rope(k, positions, cfg.rope_theta)
         if cache is not None:
             out = self._decode_attend(q, k, v, positions, cache, layer,
-                                      attend or cache.seq_len)
+                                      attend or cache.seq_len, prefix,
+                                      cache_positions)
         elif cfg.attention_impl == "flash":
             out = flash_attention(q, k, v, q_per_kv=cfg.q_per_kv)
         else:
@@ -307,21 +310,37 @@ class Attention(nn.Module):
         return out.reshape(b, s, -1) @ self.wo.to(dt).reshape(-1, e)
 
 
-    def _decode_attend(self, q, k, v, positions, cache, layer, attend):
-        """The reference's ``Attention._decode_attend`` without its
-        shared-prefix arguments: a per-row scatter of this step's keys and
-        values at each row's positions (writes past ``cache.seq_len`` land
-        in the scratch), then f32 attention over the first ``attend``
-        positions with the per-row causal mask ``slot <= position``."""
+    def _decode_attend(self, q, k, v, positions, cache, layer, attend,
+                       prefix=None, cache_positions=None):
+        """The reference's ``Attention._decode_attend``: a per-row scatter
+        of this step's keys and values at each row's cache positions
+        (``cache_positions``, default ``positions``; writes past
+        ``cache.seq_len`` land in the scratch), then f32 attention over the
+        first ``attend`` positions with the per-row causal mask
+        ``slot <= cache position``.
+
+        Shared-prefix mode: ``prefix = (pk, pv, plen)`` is the per-row KV
+        [b, sp, kv, d] of an immutable segment holding global positions
+        [0, plen), already roped there, in the activation dtype whatever
+        ``quant_kv`` says; the row's own cache then holds only its suffix,
+        at slot-local ``cache_positions`` (rope and causality stay global
+        through ``positions``). The attention is one softmax over
+        [segment ; private]."""
         cfg = self.cfg
         b, sc = q.shape[:2]
         kc, vc = cache.k[layer], cache.v[layer]
         if kc.shape[1] <= cache.seq_len:
             raise ValueError("the decode path writes into a cache with "
                              "scratch past its seq_len (KvCache)")
+        cpos = positions if cache_positions is None else \
+            cache_positions.expand(b, sc)
         rows = torch.arange(b, device=q.device)[:, None]
-        widx = positions.clamp(max=cache.seq_len)
-        if cfg.quant_kv:
+        # a verify's rejected tail or an inactive row pinned at the end may
+        # reach past seq_len: every such write lands in the scratch
+        widx = cpos.clamp(max=cache.seq_len)
+        # the cache says whether it is int8: a shared-prefix engine's
+        # segment pool is not, whatever the model's quant_kv
+        if cache.k_scale is not None:
             kq, ks = _quantize(k)
             vq, vs = _quantize(v)
             kc[rows, widx] = kq
@@ -343,10 +362,26 @@ class Attention(nn.Module):
                        cfg.head_dim).float()
         logits = torch.einsum("bqkgh,bskh->bkgqs", qh, kf)
         valid = (torch.arange(attend, device=q.device)[None, None, :]
-                 <= positions[:, :, None])                  # [b, q, s]
+                 <= cpos[:, :, None])                       # [b, q, s]
         logits = logits.masked_fill(~valid[:, None, None], -1e30)
-        logits = logits / torch.tensor(math.sqrt(cfg.head_dim),
-                                       dtype=torch.float32)
+        scale = torch.tensor(math.sqrt(cfg.head_dim), dtype=torch.float32)
+        if prefix is not None:
+            pk, pv, plen = prefix
+            plogits = torch.einsum("bqkgh,bskh->bkgqs", qh, pk.float())
+            # the whole live segment precedes every query position
+            pvalid = (torch.arange(pk.shape[1], device=q.device)[None, :]
+                      < plen[:, None])                      # [b, sp]
+            plogits = plogits.masked_fill(
+                ~pvalid[:, None, None, None, :], -1e30)
+            probs = (torch.cat([plogits, logits], dim=-1) / scale).softmax(
+                dim=-1)
+            sp = pk.shape[1]
+            out = (torch.einsum("bkgqs,bskh->bqkgh", probs[..., :sp],
+                                pv.float())
+                   + torch.einsum("bkgqs,bskh->bqkgh", probs[..., sp:], vf))
+            return out.reshape(b, sc, cfg.num_heads,
+                               cfg.head_dim).to(cfg.dtype)
+        logits = logits / scale
         out = torch.einsum("bkgqs,bskh->bqkgh", logits.softmax(dim=-1), vf)
         return out.reshape(b, sc, cfg.num_heads, cfg.head_dim).to(cfg.dtype)
 
@@ -383,9 +418,10 @@ class Block(nn.Module):
                     else Mlp(cfg, device))
 
     def forward(self, x, positions, cache=None, layer: int = 0,
-                attend=None):
+                attend=None, prefix=None, cache_positions=None):
         """(x, aux): aux is the MoE layer's load-balancing loss, else None."""
-        x = x + self.attn(self.attn_norm(x), positions, cache, layer, attend)
+        x = x + self.attn(self.attn_norm(x), positions, cache, layer, attend,
+                          prefix, cache_positions)
         if isinstance(self.mlp, MoeMlp):
             y, aux = self.mlp(self.mlp_norm(x))
             return x + y, aux
@@ -465,14 +501,18 @@ class Llama(nn.Module):
             self.head.unembedding.normal_(0.0, 0.02, generator=gen)
 
     def forward(self, tokens, positions=None, return_aux: bool = False, *,
-                cache: KvCache | None = None, attend: int | None = None):
+                cache: KvCache | None = None, attend: int | None = None,
+                prefix=None, cache_positions=None):
         """Logits; with ``return_aux``, (logits, the MoE load-balancing loss
         averaged over layers, or None for a dense model).
 
         With ``cache``, the decode path of the reference's ``decode=True``:
         ``positions`` [b, s] (default ``arange(s)`` in every row) are each
-        token's global position, the cache is written in place there, and
-        attention reads its first ``attend`` positions (default all)."""
+        token's global position, the cache is written in place there (at
+        ``cache_positions`` when given), and attention reads its first
+        ``attend`` positions (default all). ``prefix = (pk, pv, plen)``
+        adds a shared-prefix segment per row: pk/pv [layers, b, sp, kv, d],
+        plen [b] (``Attention._decode_attend``)."""
         cfg = self.cfg
         if positions is None:
             positions = torch.arange(tokens.shape[-1], device=tokens.device)
@@ -483,7 +523,10 @@ class Llama(nn.Module):
         auxes = []
         for i, blk in enumerate(self.layers):
             if cache is not None:
-                x, aux = blk(x, positions, cache, i, attend)
+                seg = None if prefix is None else (
+                    prefix[0][i], prefix[1][i], prefix[2])
+                x, aux = blk(x, positions, cache, i, attend, seg,
+                             cache_positions)
             elif not remat:
                 x, aux = blk(x, positions)
             elif cfg.remat_policy == "dots":

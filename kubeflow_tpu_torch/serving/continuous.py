@@ -18,6 +18,16 @@ forms, as in the reference:
   contiguous working view, runs the same math and scatters the written
   blocks back (``paged.py``).
 
+Prefix reuse (``prefix_cache``, on by default as in the reference): in
+the slot pool a prompt sharing ``min_prefix`` tokens with a slot's KV
+admits by an on-device row copy and its suffix prefill; in the paged pool
+full blocks of a live or retired sequence are shared by refcount and the
+boundary block forks with one copy (COW). Shared-prefix segments
+(``prefix_segments``) hold one immutable prefix for many short suffix
+slots. Speculative decoding (``spec_k``) verifies up to ``spec_k`` drafts
+a slot in one dispatch (``NgramProposer`` or an injected
+``DraftProposer``); greedy tokens equal plain decode's.
+
 Every program is a plain function on tensors that updates the pool in
 place (``make_*_program``). On the card the engine captures each program, at
 each static shape it runs (attend rung, admission group and bucket), as a
@@ -32,10 +42,17 @@ What differs from the reference, and why:
 
 - Out-of-range writes. The reference drops them (``mode="drop"``): an
   inactive slot pinned at ``max_seq_len``, an admission pad row merged into
-  slot ``num_slots``, a pad block id. A CUDA index out of range fires a
-  device-side assert, so every pool here holds scratch that nothing reads:
-  one slot row past ``num_slots``, one position past ``max_seq_len``, one
-  block past ``num_blocks``, and such writes land there.
+  slot ``num_slots``, a pad block id, a verify's tokens past
+  ``max_seq_len``. A CUDA index out of range fires a device-side assert,
+  so every pool here holds scratch that nothing reads: one slot row past
+  ``num_slots``, one position past ``max_seq_len``, one block past
+  ``num_blocks``, one segment row past ``prefix_segments``, and such
+  writes land there (the decode path clamps every write position to the
+  scratch position).
+- Warmup. The reference compiles a paged prefix hit's suffix prefill at
+  a deep attend rung on first use; here a first use is a capture while
+  serving, so warmup also captures the smallest bucket's chunk at every
+  rung a warmed prompt reaches.
 - ``lax.cond`` on "any slot filters top-k/top-p" cannot branch inside a
   graph. The host knows every slot's knobs, so it picks one of two
   captured variants; the outcome is the same.
@@ -48,13 +65,12 @@ What differs from the reference, and why:
 - Dispatch ahead. With ``pipeline_depth`` dispatches in flight, each
   dispatch's tokens are copied into their own pinned host buffer and
   ``_process`` waits on that dispatch's CUDA event; host inputs reach the
-  graphs' static buffers through a ring of pinned staging buffers.
+  graphs' static buffers through a ring of pinned staging buffers. A
+  verify's accept lengths travel in the same buffer, after its tokens.
 
 Knobs not ported yet raise ``NotImplementedError`` naming their ROADMAP
-item: the prefix cache and shared-prefix segments, the host KV tier,
-speculative decoding, admission policies and roles, serving meshes and the
-program-artifact cache. ``prefix_cache`` defaults to False here (True in the
-reference) until the prefix cache is ported.
+item: the host KV tier (``host_blocks``, ``host_watermark``), admission
+policies and roles, serving meshes and the program-artifact cache.
 
 Thread contract, as in the reference: scheduler state (the slot table,
 ``_waiting``, the allocator, the pool) is owned by the scheduler thread,
@@ -87,6 +103,7 @@ from ..ops import grouped_matmul as _gm
 from .paged import (
     BlockAllocator,
     gather_working_view,
+    lcp,
     scatter_working_view,
     write_window_tables,
 )
@@ -259,21 +276,28 @@ def _chunk_prefill_body(cfg: LlamaConfig, attend: int, budget: int):
 
 def _decode_scan(model, cache, logits, pos, active, temps, top_ps, top_ks,
                  noise, *, attend: int, chunk: int, filtered: bool,
-                 sentinel: int, keep_inactive: bool):
+                 sentinel: int, keep_inactive: bool, prefix=None):
     """``chunk`` sampling steps over the pool's slots (every row but the
     scratch one): sample from the carried logits, forward the sampled
     tokens at ``pos``, advance active rows (inactive ones stay pinned at
     ``sentinel``). ``keep_inactive`` keeps inactive rows' logits (the fused
-    step: the admitting row's fresh prefill logits must survive). Returns
-    the tokens [slots, chunk]."""
+    step: the admitting row's fresh prefill logits must survive). With
+    ``prefix = (pk, pv, plens)`` every row attends its shared segment
+    first and ``pos`` is slot-local (global = pos + plens). Returns the
+    tokens [slots, chunk]."""
     slots = active.shape[0]
     view, lg = cache.head_rows(slots), logits[:slots]
     out = []
     for i in range(chunk):
         tok = _sample_step(lg, temps, top_ps, top_ks, noise[i],
                            filtered=filtered)
-        new = model(tok[:, None], pos[:, None], cache=view,
-                    attend=attend)[:, -1]
+        if prefix is None:
+            new = model(tok[:, None], pos[:, None], cache=view,
+                        attend=attend)[:, -1]
+        else:
+            new = model(tok[:, None], (pos + prefix[2])[:, None],
+                        cache=view, attend=attend, prefix=prefix,
+                        cache_positions=pos[:, None])[:, -1]
         pos = torch.where(active, pos + 1, sentinel)
         lg.copy_(torch.where(active[:, None], new, lg) if keep_inactive
                  else new)
@@ -393,6 +417,220 @@ def make_paged_fused_step_program(cfg: LlamaConfig, attend: int, chunk: int,
         return out
 
     return fused
+
+
+def _verify_math(model, cache, logits, drafts, banned, positions, active,
+                 temps, top_ps, top_ks, noise, *, attend: int, k: int,
+                 filtered: bool, sentinel: int):
+    """One speculative verify of every slot (the reference's
+    ``_verify_math``): t1 samples from the carried logits with the slot's
+    residual ``banned`` token masked after the warp; one [slots, k+1]
+    forward of [t1, drafts] at [front, front+k] writes every token's KV;
+    candidate i samples from the logits after token i, and a slot accepts
+    the longest run of candidates equal to its drafts (-1 pads never
+    match). Active rows carry the logits after their last accepted token;
+    inactive rows keep theirs (the fused-step rule). Rejected tokens' KV
+    stays past the front, hidden by the causal mask until overwritten: the
+    host's position pointer is the only rollback. The k+1 draws read noise
+    planes 0..k. Returns [slots, k+2]: the tokens [t1, drafts] and, last,
+    the accept length, so one copy brings both to the host."""
+    slots = active.shape[0]
+    view, lg = cache.head_rows(slots), logits[:slots]
+    safe = torch.where(active, positions, sentinel)
+    final, greedy = sample_filter(lg, temps, top_ps, top_ks, banned,
+                                  filtered=filtered)
+    t1 = sample_draw(final, greedy, temps, noise[0])
+    toks = torch.cat([t1[:, None], drafts], dim=1)
+    grid = safe[:, None] + torch.arange(k + 1, device=safe.device)[None, :]
+    out = model(toks, grid, cache=view, attend=attend)   # [slots, k+1, v]
+    cand = torch.stack([
+        _sample_step(out[:, i], temps, top_ps, top_ks, noise[i + 1],
+                     filtered=filtered) for i in range(k)], dim=1)
+    accept = (cand == drafts).long().cumprod(dim=1).sum(dim=1)
+    sel = out.gather(1, accept[:, None, None].expand(
+        slots, 1, out.shape[-1]))[:, 0]
+    lg.copy_(torch.where(active[:, None], sel.to(lg.dtype), lg))
+    return torch.cat([toks, accept[:, None]], dim=1)
+
+
+def make_verify_program(cfg: LlamaConfig, attend: int, k: int,
+                        filtered: bool):
+    """Speculative verify of the whole slot pool in one dispatch (see
+    ``_verify_math``); inactive rows pin at the scratch position
+    ``max_seq_len``."""
+
+    def verify(model, cache, logits, drafts, banned, positions, active,
+               temps, top_ps, top_ks, noise):
+        return _verify_math(model, cache, logits, drafts, banned, positions,
+                            active, temps, top_ps, top_ks, noise,
+                            attend=attend, k=k, filtered=filtered,
+                            sentinel=cfg.max_seq_len)
+
+    return verify
+
+
+def make_fused_verify_program(cfg: LlamaConfig, attend: int, k: int,
+                              budget: int, filtered: bool):
+    """One prefill chunk of the admitting request + one verify of the
+    whole pool in one dispatch; the verify keeps inactive rows' logits, so
+    the final chunk's logits survive to seed the slot's first token."""
+    body = _chunk_prefill_body(cfg, attend, budget)
+    verify = make_verify_program(cfg, attend, k, filtered)
+
+    def fused(model, cache, logits, slot, toks, start, length, write_slot,
+              drafts, banned, positions, active, temps, top_ps, top_ks,
+              noise):
+        body(model, cache, logits, slot, toks, start, length, write_slot)
+        return verify(model, cache, logits, drafts, banned, positions,
+                      active, temps, top_ps, top_ks, noise)
+
+    return fused
+
+
+def make_paged_verify_program(cfg: LlamaConfig, attend: int, k: int,
+                              block_size: int, filtered: bool):
+    """Paged twin of ``make_verify_program``: gather, the same verify with
+    inactive rows pinned at the view's length, scatter the window the
+    verify wrote ([position, position + k] of each active row)."""
+    view_len = _paged_view_len(attend, block_size)
+
+    def verify(model, pool, logits, bt, drafts, banned, positions, active,
+               temps, top_ps, top_ks, noise):
+        view = gather_working_view(pool, bt)
+        out = _verify_math(model, view, logits, drafts, banned, positions,
+                           active, temps, top_ps, top_ks, noise,
+                           attend=attend, k=k, filtered=filtered,
+                           sentinel=view_len)
+        front = torch.where(active, positions, view_len)
+        scatter_working_view(pool, view,
+                             write_window_tables(bt, front, block_size))
+        return out
+
+    return verify
+
+
+def make_paged_fused_verify_program(cfg: LlamaConfig, attend: int, k: int,
+                                    budget: int, block_size: int,
+                                    filtered: bool):
+    """Paged twin of ``make_fused_verify_program``: one gather, the chunk
+    body, the verify, one scatter."""
+    body = _chunk_prefill_body(cfg, attend, budget)
+    view_len = _paged_view_len(attend, block_size)
+
+    def fused(model, pool, logits, bt, slot, toks, start, length, write_slot,
+              drafts, banned, positions, active, temps, top_ps, top_ks,
+              noise):
+        view = gather_working_view(pool, bt)
+        body(model, view, logits, slot, toks, start, length, write_slot)
+        out = _verify_math(model, view, logits, drafts, banned, positions,
+                           active, temps, top_ps, top_ks, noise,
+                           attend=attend, k=k, filtered=filtered,
+                           sentinel=view_len)
+        base = torch.where(active, positions, view_len)
+        rows = torch.arange(bt.shape[0], device=bt.device)
+        front = torch.where(rows == slot, torch.minimum(base, start), base)
+        scatter_working_view(pool, view,
+                             write_window_tables(bt, front, block_size))
+        return out
+
+    return fused
+
+
+def _seq_dim(leaf: str) -> int:
+    """The position axis of a ``KvCache`` leaf: k/v keep it after the row
+    axis, the int8-KV scales keep it last."""
+    return 2 if leaf in ("k", "v") else 3
+
+
+def make_prefix_admit_program(cfg: LlamaConfig, attend: int,
+                              suffix_bucket: int):
+    """Admission with prefix reuse in one dispatch: the masked row copy
+    ``pool[dst, :lp] <- pool[src, :lp]`` over the first ``attend``
+    positions (``attend >= lp``: the engine builds it at the rung of
+    ``lp + suffix_bucket``), then the suffix forward at positions
+    [lp, lp + bucket) against the copied prefix, and the dst row's logits
+    of the suffix's last token. ``src``, ``dst``, ``lp`` and ``slen`` are
+    device scalars ([1]); the warmup's dst is the scratch row."""
+    body = _chunk_prefill_body(cfg, attend, suffix_bucket)
+
+    def admit(model, pool, logits, src, dst, lp, suffix, slen):
+        keep = torch.arange(attend, device=lp.device) < lp
+        for name, t in pool.leaves().items():
+            ax = _seq_dim(name)
+            head = t.narrow(ax, 0, attend)
+            mask = keep.view([attend if i == ax else 1
+                              for i in range(t.dim())])
+            head.index_copy_(1, dst, torch.where(
+                mask, head.index_select(1, src), head.index_select(1, dst)))
+        body(model, pool, logits, dst, suffix, lp, slen, dst)
+
+    return admit
+
+
+def make_block_copy_program():
+    """The COW fork: block ``dst`` <- block ``src`` in every leaf of the
+    block pool. ``src`` clips to the real blocks; an out-of-range ``dst``
+    (the warmup's pad id) writes the scratch block."""
+
+    def copy(pool, src, dst):
+        n = pool.k.shape[1] - 1
+        src, dst = src.clamp(0, n - 1), dst.clamp(0, n)
+        for t in pool.leaves().values():
+            t.index_copy_(1, dst, t.index_select(1, src))
+
+    return copy
+
+
+def _seg_kv(seg: KvCache, seg_ids, seg_att: int) -> tuple:
+    """(pk, pv) [layers, rows, seg_att, kv, d]: the segment rows
+    ``seg_ids`` of the segment pool, cut to ``seg_att`` positions."""
+    return (seg.k.index_select(1, seg_ids)[:, :, :seg_att],
+            seg.v.index_select(1, seg_ids)[:, :, :seg_att])
+
+
+def make_suffix_admit_program(cfg: LlamaConfig, attend: int, seg_att: int,
+                              suffix_bucket: int):
+    """Batched admission against shared segments: [g, bucket] suffix
+    forwards attending each row's segment (``seg_ids``, live length
+    ``plens``) first, into fresh row caches at slot-local positions
+    [0, bucket) (global ``plens + i``). Rows with plen 0 (group padding)
+    attend nothing of the segment. Returns (last-token logits [g, v], the
+    row cache), for ``merge``."""
+
+    def admit(model, seg, toks, seg_ids, plens, slens):
+        g = toks.shape[0]
+        pk, pv = _seg_kv(seg, seg_ids, seg_att)
+        cache = KvCache.zeros(cfg, g, cfg.max_seq_len, device=toks.device)
+        local = torch.arange(suffix_bucket, device=toks.device).expand(
+            g, suffix_bucket)
+        logits_all = model(toks, plens[:, None] + local, cache=cache,
+                           attend=attend, prefix=(pk, pv, plens),
+                           cache_positions=local)
+        idx = (slens - 1)[:, None, None].expand(g, 1, logits_all.shape[-1])
+        return logits_all.gather(1, idx)[:, 0], cache
+
+    return admit
+
+
+def make_prefix_decode_program(cfg: LlamaConfig, attend: int, seg_att: int,
+                               chunk: int, filtered: bool):
+    """``chunk`` sampling steps for the whole pool where slots may attend a
+    shared segment: each row's segment KV (``seg_ids``, ``plens``) is
+    gathered once a dispatch, positions are slot-local (the private cache
+    holds suffixes only). Rows with plen 0 attend an empty segment.
+    Returns the tokens [slots, chunk]."""
+
+    def decode(model, cache, logits, seg, positions, plens, seg_ids, active,
+               temps, top_ps, top_ks, noise):
+        safe = torch.where(active, positions, cfg.max_seq_len)
+        pk, pv = _seg_kv(seg, seg_ids, seg_att)
+        return _decode_scan(model, cache, logits, safe, active, temps,
+                            top_ps, top_ks, noise, attend=attend,
+                            chunk=chunk, filtered=filtered,
+                            sentinel=cfg.max_seq_len, keep_inactive=False,
+                            prefix=(pk, pv, plens))
+
+    return decode
 
 
 # -- dispatch -------------------------------------------------------------
@@ -565,17 +803,77 @@ class _Dispatch:
         return out.numpy().copy()
 
 
+# -- drafts (host only) ---------------------------------------------------
+
+
+class DraftProposer:
+    """Draft-token source for speculative decoding, copied from the
+    reference.
+
+    ``propose(history, k)`` returns up to ``k`` guessed continuation tokens
+    for a request whose prompt + generated history is ``history`` (host
+    ints, the slot's KV ground truth), or ``[]``. Alignment contract: the
+    verify always emits the true next token itself (t1, sampled from the
+    carried logits), so ``propose`` guesses the ``k`` tokens after it. The
+    verifier treats a proposal as a point-mass draft, so any proposer is
+    sound: a wrong guess costs verify work, never correctness."""
+
+    def propose(self, history: list[int], k: int) -> list[int]:
+        raise NotImplementedError
+
+
+class NgramProposer(DraftProposer):
+    """Prompt-lookup drafts, copied from the reference: match the last
+    ``n`` tokens of the history against the history and propose what
+    followed the most recent earlier match, scanning at most the trailing
+    ``window`` tokens (host numpy, between dispatches)."""
+
+    def __init__(self, n: int = 3, window: int = 4096):
+        if n < 1:
+            raise ValueError("ngram length must be >= 1")
+        if window < 1:
+            raise ValueError("lookup window must be >= 1")
+        self.n = int(n)
+        self.window = int(window)
+
+    @staticmethod
+    def _lookup(arr: np.ndarray, n: int, k: int) -> list[int]:
+        """Up to ``k`` tokens that followed the most recent earlier
+        occurrence of ``arr``'s last-``n`` tail, [] if none."""
+        m = len(arr) - n
+        if m <= 0 or k <= 0:
+            return []
+        tail = arr[-n:]
+        windows = np.lib.stride_tricks.sliding_window_view(arr, n)[:m]
+        hits = np.nonzero((windows == tail).all(axis=1))[0]
+        if hits.size == 0:
+            return []
+        j = int(hits[-1])
+        return arr[j + n: j + n + k].astype(int).tolist()
+
+    def propose(self, history: list[int], k: int) -> list[int]:
+        n = self.n
+        arr = np.asarray(history[-self.window:], np.int64)
+        # guess[0] sits at t1's position (the alignment contract): the
+        # drafts are the k tokens after it. A match that abuts the tail
+        # keeps drafting by matching again on history + the guess so far.
+        guess = self._lookup(arr, n, k + 1)
+        if not guess:
+            return []
+        while len(guess) < k + 1:
+            more = self._lookup(
+                np.concatenate([arr, np.asarray(guess, np.int64)]), n,
+                k + 1 - len(guess))
+            if not more:
+                break
+            guess.extend(more)
+        return guess[1: k + 1]
+
+
 #: knob -> (its default, the ROADMAP item that ports it)
 _UNPORTED = {
-    "prefix_cache": (False, "A4(c)"),
-    "min_prefix": (32, "A4(c)"),
-    "prefix_segments": (0, "A4(c)"),
-    "segment_len": (0, "A4(c)"),
     "host_blocks": (0, "A4(c)"),
     "host_watermark": (0.25, "A4(c)"),
-    "spec_k": (0, "A4(b)"),
-    "spec_ngram": (3, "A4(b)"),
-    "draft_proposer": (None, "A4(b)"),
     "admission_policy": (None, "A4(d)"),
     "role": ("mixed", "A4(d)"),
     "mesh_axes": (None, "A7"),
@@ -601,6 +899,23 @@ class ContinuousEngine:
     - ``block_size``: 0 = the slot pool; > 0 = the paged pool of
       ``num_blocks`` blocks (0 = the slot pool's capacity); admission
       reserves a request's whole span (prompt + max_new_tokens) or waits;
+    - ``prefix_cache``: reuse KV across requests sharing ``min_prefix``
+      tokens or more of a prompt prefix. In the slot pool, with any slot's
+      content: an on-device row copy, then the suffix prefill alone (taken
+      under ``prefill_budget`` only when the suffix fits one budget). In
+      the paged pool, at block granularity with live and retired
+      sequences: full blocks shared by refcount, the boundary block forked
+      with one copy (COW);
+    - ``prefix_segments``/``segment_len``: refcounted immutable segments
+      of a shared prefix (slot pool only); ``max_seq_len`` is then the
+      slots' suffix capacity;
+    - ``spec_k``: 0 = off; > 0 = speculative decoding, up to ``spec_k``
+      drafts a slot verified in one dispatch, from an ``NgramProposer`` of
+      ``spec_ngram`` tokens or ``draft_proposer``. Greedy tokens equal
+      plain decode's. The accept length decides the schedule, so the
+      pipeline runs at depth 1 while ``spec_k > 0``; dispatches where no
+      slot has a draft (and no residual ban waits) run the plain decode;
+      segment-backed slots decode unspeculated;
     - ``temperature``, ``eos_id``, ``seq_buckets``,
       ``default_max_new_tokens`` as in the reference.
 
@@ -620,6 +935,13 @@ class ContinuousEngine:
         seq_buckets: Optional[list[int]] = None,
         default_max_new_tokens: int = 16,
         pipeline_depth: int = 2,
+        prefix_cache: bool = True,
+        min_prefix: int = 32,
+        prefix_segments: int = 0,
+        segment_len: int = 0,
+        spec_k: int = 0,
+        spec_ngram: int = 3,
+        draft_proposer: Optional[DraftProposer] = None,
         block_size: int = 0,
         num_blocks: int = 0,
         device=None,
@@ -640,10 +962,26 @@ class ContinuousEngine:
             raise ValueError("prefill_budget must be >= 0 (0 = off)")
         if pipeline_depth < 1:
             raise ValueError("pipeline_depth must be >= 1")
+        if spec_k < 0:
+            raise ValueError("spec_k must be >= 0 (0 = off)")
+        if spec_ngram < 1:
+            raise ValueError("spec_ngram must be >= 1")
         if block_size < 0:
             raise ValueError("block_size must be >= 0 (0 = slot pool)")
         if num_blocks < 0:
             raise ValueError("num_blocks must be >= 0 (0 = derived)")
+        if block_size > 0 and prefix_segments > 0:
+            raise ValueError(
+                "prefix_segments is superseded by the paged pool: "
+                "block-granular sharing subsumes whole-segment LCP — "
+                "drop prefix_segments or set block_size=0")
+        if prefix_segments > 0:
+            if segment_len <= 0:
+                raise ValueError("prefix_segments needs segment_len > 0")
+            if segment_len < min_prefix:
+                raise ValueError(
+                    f"segment_len {segment_len} < min_prefix {min_prefix}:"
+                    " every created segment would be unusable")
         if 0 < cfg.max_seq_len <= block_size:
             raise ValueError(
                 f"block_size {block_size} must be < max_seq_len "
@@ -658,6 +996,13 @@ class ContinuousEngine:
         self.num_slots = num_slots
         self.decode_chunk = decode_chunk
         self.prefill_budget = int(prefill_budget)
+        self.prefix_cache = bool(prefix_cache)
+        self.min_prefix = int(min_prefix)
+        self.prefix_segments = int(prefix_segments)
+        self.segment_len = int(segment_len)
+        self.spec_k = int(spec_k)
+        self.spec_ngram = int(spec_ngram)
+        self._proposer = draft_proposer or NgramProposer(self.spec_ngram)
         self.block_size = int(block_size)
         self.paged = self.block_size > 0
         if self.paged and num_blocks == 0:
@@ -686,6 +1031,15 @@ class ContinuousEngine:
         self.attend_buckets = tuple(
             [b for b in (128, 256, 512, 1024, 2048) if b < cfg.max_seq_len]
             + [cfg.max_seq_len])
+        if self.prefix_segments > 0:
+            #: the segment pool holds prefixes at segment_len, in the
+            #: activation dtype whatever quant_kv says (the prefix feeds the
+            #: f32 attention directly; int8 slots still compose)
+            self._seg_cfg = dataclasses.replace(
+                cfg, max_seq_len=self.segment_len, quant_kv=False)
+            self._seg_attends = tuple(
+                [b for b in (128, 256, 512, 1024, 2048)
+                 if b < self.segment_len] + [self.segment_len])
 
         #: the slot pool's KV bytes at max_seq_len, scratch not counted
         self.kv_pool_bytes = sum(
@@ -709,11 +1063,40 @@ class ContinuousEngine:
         self._temps = np.zeros(num_slots, dtype=np.float32)
         self._top_ps = np.ones(num_slots, dtype=np.float32)
         self._top_ks = np.zeros(num_slots, dtype=np.int64)
+        self.prefix_hits = 0
+        self.prefix_tokens_saved = 0
+        #: shared-prefix segments: each row's tokens (empty = free), its
+        #: live references and last use; each slot's segment and prefix
+        #: length (0 = a plain slot)
+        self._seg_content: list[list[int]] = [
+            [] for _ in range(self.prefix_segments)]
+        self._seg_refs = np.zeros(max(self.prefix_segments, 1), np.int64)
+        self._seg_used = np.zeros(max(self.prefix_segments, 1), np.float64)
+        self._slot_plen = np.zeros(num_slots, np.int64)
+        self._slot_seg = np.zeros(num_slots, np.int64)
+        self.segment_hits = 0
+        self.segment_tokens_shared = 0
+        self.segment_evictions = 0
+        #: segments planned into this admission cycle's batched suffix
+        #: prefill: not evictable until it is dispatched
+        self._seg_reserved: set[int] = set()
+        #: speculation: each slot's residual ban (the draft the last verify
+        #: rejected at its front, -1 = none), and the zero-accept backoff
+        #: (a slot whose real drafts all failed sits out a cooldown that
+        #: doubles from 2 to 32 dispatches; any accept resets it)
+        self._spec_ban = np.full(num_slots, -1, dtype=np.int64)
+        self._spec_backoff = np.zeros(num_slots, dtype=np.int64)
+        self._spec_cool = np.zeros(num_slots, dtype=np.int64)
+        self.spec_tokens_proposed_total = 0
+        self.spec_tokens_accepted_total = 0
+        self.spec_dispatches_total = 0
         #: chunked admission: [req, slot, prompt, next_offset] entries whose
         #: slot is reserved but not yet active
         self._prefilling: "deque[list]" = deque()
-        #: (group, bucket) admission shapes known captured
+        #: (group, bucket) admission shapes known captured, whole-prompt
+        #: and segment-suffix
         self._warm_plain: set = set()
+        self._warm_seg: set = set()
         self._prefill_tokens_inflight = 0
         self.prefill_chunks_dispatched = 0
         self.decode_stall_ms_total = 0.0
@@ -740,14 +1123,20 @@ class ContinuousEngine:
                                        cfg.max_seq_len, device=dev)
         self._pool_logits = torch.zeros(self.num_slots + 1, cfg.vocab_size,
                                         dtype=cfg.dtype, device=dev)
-        #: the uniform noise of one dispatch's draws, filled only when a
-        #: slot samples
-        self._noise = torch.zeros(self.decode_chunk, self.num_slots,
-                                  cfg.vocab_size, device=dev)
-        #: pinned host buffers for dispatches' tokens, one per dispatch in
-        #: flight
+        if self.prefix_segments > 0:
+            # one scratch row past the segments, for the warmup's writes
+            self._seg = KvCache.zeros(self._seg_cfg, self.prefix_segments + 1,
+                                      self.segment_len, device=dev)
+        #: the uniform noise of one dispatch's draws (a verify draws
+        #: spec_k + 1 times), filled only when a slot samples
+        self._noise = torch.zeros(max(self.decode_chunk, self.spec_k + 1),
+                                  self.num_slots, cfg.vocab_size, device=dev)
+        #: pinned host buffers for dispatches' tokens (a verify's: its
+        #: spec_k + 1 tokens and the accept length), one per dispatch in
+        #: flight; flat, so each dispatch's view is contiguous
+        width = max(self.decode_chunk, self.spec_k + 2 if self.spec_k else 0)
         self._out_ring = [
-            torch.zeros(self.num_slots, self.decode_chunk, dtype=torch.int64,
+            torch.zeros(self.num_slots * width, dtype=torch.int64,
                         pin_memory=self._dispatch.cuda)
             for _ in range(self.pipeline_depth + 1)]
         self._out_n = 0
@@ -892,6 +1281,141 @@ class ContinuousEngine:
             key = ("chunk", attend)
         self._dispatch.run(key, build, host)
 
+    def _verify_spec(self) -> dict:
+        s = self.num_slots
+        return {"drafts": ((s, self.spec_k), "i"), "banned": ((s,), "i")}
+
+    def _run_verify(self, attend: int, filtered: bool, host: dict):
+        cfg, m, k = self.cfg, self.model, self.spec_k
+        if self.paged:
+            nblk = -(-attend // self.block_size)
+            prog = make_paged_verify_program(cfg, attend, k, self.block_size,
+                                             filtered)
+
+            def build():
+                return (lambda v: prog(m, self._pool, self._pool_logits,
+                                       v["bt"], v["drafts"], v["banned"],
+                                       *self._decode_args(v)),
+                        {"bt": ((self.num_slots, nblk), "i"),
+                         **self._verify_spec(), **self._decode_spec()})
+            key = ("paged_verify", attend, filtered)
+        else:
+            prog = make_verify_program(cfg, attend, k, filtered)
+
+            def build():
+                return (lambda v: prog(m, self._pool, self._pool_logits,
+                                       v["drafts"], v["banned"],
+                                       *self._decode_args(v)),
+                        {**self._verify_spec(), **self._decode_spec()})
+            key = ("verify", attend, filtered)
+        return self._dispatch.run(key, build, host)
+
+    def _run_fused_verify(self, attend: int, filtered: bool, host: dict):
+        cfg, m, k, b = self.cfg, self.model, self.spec_k, self.prefill_budget
+        if self.paged:
+            nblk = -(-attend // self.block_size)
+            prog = make_paged_fused_verify_program(
+                cfg, attend, k, b, self.block_size, filtered)
+
+            def build():
+                return (lambda v: prog(m, self._pool, self._pool_logits,
+                                       v["bt"], v["slot"],
+                                       *self._chunk_args(v), v["drafts"],
+                                       v["banned"], *self._decode_args(v)),
+                        {"bt": ((self.num_slots, nblk), "i"),
+                         **self._chunk_spec(b), **self._verify_spec(),
+                         **self._decode_spec()})
+            key = ("paged_fused_verify", attend, filtered)
+        else:
+            prog = make_fused_verify_program(cfg, attend, k, b, filtered)
+
+            def build():
+                return (lambda v: prog(m, self._pool, self._pool_logits,
+                                       v["slot"], *self._chunk_args(v),
+                                       v["drafts"], v["banned"],
+                                       *self._decode_args(v)),
+                        {**self._chunk_spec(b), **self._verify_spec(),
+                         **self._decode_spec()})
+            key = ("fused_verify", attend, filtered)
+        return self._dispatch.run(key, build, host)
+
+    def _run_prefix_admit(self, attend: int, bucket: int, host: dict) -> None:
+        m = self.model
+        prog = make_prefix_admit_program(self.cfg, attend, bucket)
+
+        def build():
+            return (lambda v: prog(m, self._pool, self._pool_logits,
+                                   v["src"], v["dst"], v["lp"], v["suffix"],
+                                   v["slen"]),
+                    {"src": ((1,), "i"), "dst": ((1,), "i"),
+                     "lp": ((1,), "i"), "suffix": ((bucket,), "i"),
+                     "slen": ((1,), "i")})
+
+        self._dispatch.run(("prefix_admit", attend, bucket), build, host)
+
+    def _run_block_copy(self, src: int, dst: int) -> None:
+        copy = make_block_copy_program()
+
+        def build():
+            return (lambda v: copy(self._pool, v["src"], v["dst"]),
+                    {"src": ((1,), "i"), "dst": ((1,), "i")})
+
+        self._dispatch.run(("block_copy",), build,
+                           {"src": [src], "dst": [dst]})
+
+    def _seg_rung(self, needed: int) -> int:
+        return next(x for x in self._seg_attends if x >= needed)
+
+    def _run_seg_prefill(self, bucket: int, host: dict) -> None:
+        """Prefill one segment row (``toks`` [1, bucket], ``length``) into
+        the segment pool at ``row``."""
+        m = self.model
+        prefill = make_prefill_program(self._seg_cfg, bucket)
+
+        def build():
+            def fn(v):
+                _, rows = prefill(m, v["toks"], v["length"])
+                self._seg.put_rows(v["row"], rows)
+            return fn, {"toks": ((1, bucket), "i"), "length": ((1,), "i"),
+                        "row": ((1,), "i")}
+
+        self._dispatch.run(("seg_prefill", bucket), build, host)
+
+    def _run_seg_admit(self, g: int, attend: int, seg_att: int, bucket: int,
+                       host: dict) -> None:
+        m = self.model
+        admit = make_suffix_admit_program(self.cfg, attend, seg_att, bucket)
+
+        def build():
+            def fn(v):
+                row_logits, rows = admit(m, self._seg, v["toks"],
+                                         v["seg_ids"], v["plens"],
+                                         v["slens"])
+                merge(self._pool, self._pool_logits, rows, row_logits,
+                      v["slots"])
+            return fn, {"toks": ((g, bucket), "i"), "seg_ids": ((g,), "i"),
+                        "plens": ((g,), "i"), "slens": ((g,), "i"),
+                        "slots": ((g,), "i")}
+
+        self._dispatch.run(("seg_admit", g, attend, seg_att, bucket), build,
+                           host)
+
+    def _run_prefix_decode(self, attend: int, seg_att: int, filtered: bool,
+                           host: dict):
+        m, s = self.model, self.num_slots
+        prog = make_prefix_decode_program(self.cfg, attend, seg_att,
+                                          self.decode_chunk, filtered)
+
+        def build():
+            return (lambda v: prog(m, self._pool, self._pool_logits,
+                                   self._seg, v["positions"], v["plens"],
+                                   v["seg_ids"], *self._decode_args(v)[1:]),
+                    {**self._decode_spec(), "plens": ((s,), "i"),
+                     "seg_ids": ((s,), "i")})
+
+        return self._dispatch.run(("prefix_decode", attend, seg_att,
+                                   filtered), build, host)
+
     def _draw_noise(self) -> None:
         """Fill the draw's noise when an active slot samples (greedy slots
         never read it)."""
@@ -900,8 +1424,9 @@ class ContinuousEngine:
                        device=self.device, out=self._noise)
 
     def _fetch_start(self, toks):
-        host = self._out_ring[self._out_n % len(self._out_ring)]
+        flat = self._out_ring[self._out_n % len(self._out_ring)]
         self._out_n += 1
+        host = flat[:toks.numel()].view(toks.shape)
         return self._dispatch.fetch_start(toks, host)
 
     # -- public API ----------------------------------------------------------
@@ -933,7 +1458,7 @@ class ContinuousEngine:
         if self.paged:
             self._warmup_paged(groups)
             return
-        sentinel = self.num_slots
+        sentinel, sb = self.num_slots, self.seq_buckets[0]
         warm_attends = set()
         for g, bucket in groups:
             bucket = next(b for b in self.seq_buckets if b >= bucket)
@@ -947,48 +1472,117 @@ class ContinuousEngine:
         for needed in sorted(warm_attends):
             for filtered in (False, True):
                 self._run_decode(self._rung(needed), filtered, idle)
+        chunk = {"toks": np.zeros(self.prefill_budget), "start": [0],
+                 "length": [1], "write_slot": [sentinel], "slot": [sentinel]}
         if self.prefill_budget > 0 and warm_attends:
             cover = self._rung(max(warm_attends))
-            chunk = {"toks": np.zeros(self.prefill_budget), "start": [0],
-                     "length": [1], "write_slot": [sentinel],
-                     "slot": [sentinel]}
             for attend in [a for a in self.attend_buckets if a <= cover]:
                 self._run_chunk(attend, self.prefill_budget, chunk)
                 for filtered in (False, True):
                     self._run_fused(attend, filtered, {**chunk, **idle})
+        if self.spec_k > 0 and warm_attends:
+            # a verify reads front + spec_k + 1, so it climbs the attend
+            # ladder ahead of the decode: every rung up to what the warmed
+            # buckets imply, both sampling variants
+            cover = self._rung(max(warm_attends) - self.decode_chunk
+                               + self.spec_k + 1)
+            spec = {**idle, **self._idle_verify()}
+            for attend in [a for a in self.attend_buckets if a <= cover]:
+                for filtered in (False, True):
+                    self._run_verify(attend, filtered, spec)
+                    if self.prefill_budget > 0:
+                        self._run_fused_verify(attend, filtered,
+                                               {**chunk, **spec})
+        if self.prefix_segments > 0:
+            # the segment path: creation prefill at every segment rung, the
+            # batched suffix admission at group sizes 1 and num_slots, the
+            # segment decode; every write goes to a scratch row
+            s = self.num_slots
+            for sa in self._seg_attends:
+                self._run_seg_prefill(sa, {"toks": np.zeros((1, sa)),
+                                           "length": [1],
+                                           "row": [self.prefix_segments]})
+                for g in sorted({1, s}):
+                    self._run_seg_admit(g, self._rung(sb), sa, sb, {
+                        "toks": np.zeros((g, sb)), "seg_ids": np.zeros(g),
+                        "plens": np.full(g, sa), "slens": np.ones(g),
+                        "slots": np.full(g, sentinel)})
+                    self._warm_seg.add((g, sb))
+                for filtered in (False, True):
+                    self._run_prefix_decode(
+                        self._rung(sb + self.decode_chunk), sa, filtered,
+                        {**idle, "plens": np.zeros(s),
+                         "seg_ids": np.zeros(s)})
+        if self.prefix_cache:
+            # a prompt of any length L <= bucket admits by prefix with
+            # total (L - 1) + the suffix bucket: every rung up to that
+            totals = set()
+            for _, bucket in groups:
+                b = next(x for x in self.seq_buckets if x >= bucket)
+                cover = self._rung(b - 1 + sb)
+                totals.update(a for a in self.attend_buckets if a <= cover)
+            for attend in sorted(totals):
+                self._run_prefix_admit(attend, sb, {
+                    "src": [sentinel], "dst": [sentinel], "lp": [1],
+                    "suffix": np.zeros(sb), "slen": [1]})
+
+    def _idle_verify(self) -> dict:
+        s = self.num_slots
+        return {"drafts": np.full((s, self.spec_k), -1),
+                "banned": np.full(s, -1)}
 
     def _warmup_paged(self, groups) -> None:
-        warm_attends = set()
-        for g, bucket in groups:
-            bucket = next(b for b in self.seq_buckets if b >= bucket)
-            warm_attends.add(bucket + self.decode_chunk)
-        if not warm_attends:
+        buckets = [next(b for b in self.seq_buckets if b >= bucket)
+                   for _, bucket in groups]
+        if not buckets:
             return
-        cover = self._rung(max(warm_attends))
+        top = max(buckets) + self.decode_chunk
+        if self.spec_k > 0:
+            top = max(top, max(buckets) + self.spec_k + 1)
+        cover = self._rung(top)
         pad, sent = self._alloc.pad_block, self.num_slots
         for a in [x for x in self.attend_buckets if x <= cover]:
             nblk = -(-a // self.block_size)
             bt = np.full((self.num_slots, nblk), pad)
             idle = {"bt": bt, **self._idle_decode(0)}
+            chunk = {"toks": np.zeros(self.prefill_budget), "start": [0],
+                     "length": [1], "write_slot": [sent]}
             for filtered in (False, True):
                 self._run_decode(a, filtered, idle)
             if self.prefill_budget > 0:
-                chunk = {"toks": np.zeros(self.prefill_budget),
-                         "start": [0], "length": [1], "write_slot": [sent]}
                 self._run_chunk(a, self.prefill_budget,
                                 {**chunk, "bt": np.full((1, nblk), pad)})
                 for filtered in (False, True):
                     self._run_fused(a, filtered,
                                     {**chunk, **idle, "slot": [sent]})
+            if self.spec_k > 0:
+                spec = {**idle, **self._idle_verify()}
+                for filtered in (False, True):
+                    self._run_verify(a, filtered, spec)
+                    if self.prefill_budget > 0:
+                        self._run_fused_verify(
+                            a, filtered, {**chunk, **spec, "slot": [sent]})
         if self.prefill_budget == 0:
             # monolithic paged admission: one chunk covers the prompt,
             # programs keyed (rung, bucket)
-            for bucket in [b for b in self.seq_buckets if b <= cover]:
-                a = self._rung(bucket)
+            chunks = {(self._rung(b), b) for b in self.seq_buckets
+                      if b <= cover}
+            if self.prefix_cache:
+                # a prefix hit prefills its suffix from deep in the prompt:
+                # the smallest bucket at every rung a warmed prompt reaches
+                # (the reference compiles these at first use, which here
+                # would be a capture while serving)
+                sb = self.seq_buckets[0]
+                deep = self._rung(max(buckets) - 1 + sb)
+                chunks |= {(a, sb) for a in self.attend_buckets if a <= deep}
+            for a, bucket in sorted(chunks):
                 self._run_chunk(a, bucket, {
                     "bt": np.full((1, -(-a // self.block_size)), pad),
                     "toks": np.zeros(bucket), "start": [0], "length": [1],
                     "write_slot": [sent]})
+        if self.prefix_cache:
+            # the COW fork (dst = the pad id: the scratch block)
+            self._run_block_copy(0, pad)
 
     def submit(self, prompt: list[int], max_new_tokens: Optional[int] = None,
                temperature: Optional[float] = None,
@@ -1036,7 +1630,9 @@ class ContinuousEngine:
             }
         else:
             paged = {"kv_block_size": 0, "kv_blocks_total": 0,
-                     "kv_blocks_free": 0, "kv_blocks_leaked_total": 0}
+                     "kv_blocks_free": 0, "kv_blocks_cow_copies_total": 0,
+                     "prefix_block_hits_total": 0,
+                     "kv_blocks_leaked_total": 0}
         return {
             **paged,
             "slots_capacity": self.num_slots,
@@ -1049,6 +1645,21 @@ class ContinuousEngine:
             "prefill_chunks_dispatched": self.prefill_chunks_dispatched,
             "prefill_tokens_inflight": self._prefill_tokens_inflight,
             "decode_stall_ms_total": round(self.decode_stall_ms_total, 3),
+            # speculative decoding: drafts offered and accepted, and the
+            # dispatches that verified
+            "spec_tokens_proposed_total": self.spec_tokens_proposed_total,
+            "spec_tokens_accepted_total": self.spec_tokens_accepted_total,
+            "spec_dispatches_total": self.spec_dispatches_total,
+            "spec_acceptance_rate": round(
+                self.spec_tokens_accepted_total
+                / max(self.spec_tokens_proposed_total, 1), 4),
+            "prefix_hits": self.prefix_hits,
+            "prefix_tokens_saved": self.prefix_tokens_saved,
+            "segments_capacity": self.prefix_segments,
+            "segments_live": sum(1 for c in self._seg_content if c),
+            "segment_hits": self.segment_hits,
+            "segment_tokens_shared": self.segment_tokens_shared,
+            "segment_evictions": self.segment_evictions,
             # captures after warmup stall every live request: must stay 0
             "graph_captures_total": self._captures.count,
             "graph_captures_warmup": self._captures.warmup,
@@ -1161,25 +1772,91 @@ class ContinuousEngine:
             return
         stall_t0 = time.perf_counter()
         had_live = bool(self._active.any())
+        dispatched = False
+        # the segment route sees the whole prompt (a suffix-slot pool's
+        # truncation is what segments exist to avoid); then the prefix
+        # cache: a prompt sharing >= min_prefix tokens with some slot's KV
+        # admits by a row copy and the suffix prefill (src == dst is the
+        # conversation that continues)
         grouped = []
+        seg_groups: dict[int, list] = {}
         for req, slot in taken:
+            if self.prefix_segments > 0:
+                try:
+                    plan = self._plan_segment(req)
+                except Exception as e:  # noqa: BLE001 — fail this request
+                    req.error = e
+                    req.done.set()
+                    continue
+                if plan is not None:
+                    seg, blen, suffix = plan
+                    bucket = next(b for b in self.seq_buckets
+                                  if b >= len(suffix))
+                    seg_groups.setdefault(bucket, []).append(
+                        (req, slot, seg, blen, suffix))
+                    continue
             cap = min(self.seq_buckets[-1],
                       self.cfg.max_seq_len - req.max_new_tokens)
-            grouped.append((req, req.prompt[-cap:], slot))
+            prompt = req.prompt[-cap:]
+            src, lp = (self._best_prefix(prompt) if self.prefix_cache
+                       else (-1, 0))
+            # under chunked admission the prefix route is taken only when
+            # its one suffix prefill fits the per-dispatch budget
+            if (src < 0 or lp < self.min_prefix
+                    or (self.prefill_budget > 0
+                        and len(prompt) - lp > self.prefill_budget)):
+                grouped.append((req, prompt, slot))
+                continue
+            try:
+                self._admit_with_prefix(req, prompt, slot, src, lp)
+                dispatched = True
+            except Exception as e:  # noqa: BLE001 — fail this request only
+                req.error = e
+                req.done.set()
+        # one batched suffix prefill and merge per bucket; pad rows carry
+        # plen 0 and the scratch slot
+        for bucket, members in seg_groups.items():
+            g = self._pad_group(len(members), bucket, self._warm_seg)
+            toks = np.zeros((g, bucket), np.int64)
+            seg_ids = np.zeros(g, np.int64)
+            plens = np.zeros(g, np.int64)
+            slens = np.ones(g, np.int64)
+            slots = np.full(g, self.num_slots, np.int64)
+            for j, (req, slot, seg, blen, suffix) in enumerate(members):
+                toks[j, :len(suffix)] = suffix
+                seg_ids[j], plens[j], slens[j] = seg, blen, len(suffix)
+                slots[j] = slot
+            try:
+                self._run_seg_admit(
+                    g, self._rung(bucket), self._seg_rung(int(plens.max())),
+                    bucket, {"toks": toks, "seg_ids": seg_ids,
+                             "plens": plens, "slens": slens, "slots": slots})
+            except Exception as e:  # noqa: BLE001 — fail this group only
+                for req, *_ in members:
+                    req.error = e
+                    req.done.set()
+                continue
+            for req, slot, seg, blen, suffix in members:
+                self._occupy(req, req.prompt, slot, plen=blen, seg=seg,
+                             local_len=len(suffix))
+            dispatched = True
+        self._seg_reserved.clear()
         if self.prefill_budget > 0:
             for req, prompt, slot in grouped:
                 self._slot_content[slot] = []
                 self._slot_owner[slot] = None
                 self._prefilling.append([req, slot, list(prompt), 0])
                 self._prefill_tokens_inflight += len(prompt)
+            if had_live and dispatched:
+                self.decode_stall_ms_total += (
+                    time.perf_counter() - stall_t0) * 1e3
             return
         groups: dict[int, list] = {}
         for req, prompt, slot in grouped:
             bucket = next(b for b in self.seq_buckets if b >= len(prompt))
             groups.setdefault(bucket, []).append((req, prompt, slot))
-        dispatched = False
         for bucket, members in groups.items():
-            g = self._pad_group(len(members), bucket)
+            g = self._pad_group(len(members), bucket, self._warm_plain)
             toks = np.zeros((g, bucket), np.int64)
             lengths = np.ones(g, np.int64)
             slots = np.full(g, self.num_slots, np.int64)
@@ -1203,37 +1880,161 @@ class ContinuousEngine:
             self.decode_stall_ms_total += (
                 time.perf_counter() - stall_t0) * 1e3
 
-    def _pad_group(self, need: int, bucket: int) -> int:
-        """Admission group size: pad up to a captured shape, else the next
-        power of two (captured on first use)."""
-        cands = [g for (g, b) in self._warm_plain if b == bucket and g >= need]
+    def _best_prefix(self, prompt: list[int]) -> tuple[int, int]:
+        """(src slot, lp): the longest prefix of ``prompt`` some slot's KV
+        holds, capped at len(prompt) - 1 (one suffix token must run for
+        the next-token logits)."""
+        best_slot, best_lp = -1, 0
+        cap = len(prompt) - 1
+        p = np.asarray(prompt, np.int64)
+        for s, content in enumerate(self._slot_content):
+            if min(len(content), cap) <= best_lp:
+                continue
+            n = lcp(content, p, cap)
+            if n > best_lp:
+                best_slot, best_lp = s, n
+        return best_slot, best_lp
+
+    def _admit_with_prefix(self, req: Request, prompt: list[int], slot: int,
+                           src: int, lp: int) -> None:
+        suffix = prompt[lp:]
+        bucket = next(b for b in self.seq_buckets if b >= len(suffix))
+        toks = np.zeros(bucket, np.int64)
+        toks[:len(suffix)] = suffix
+        self._run_prefix_admit(self._rung(lp + bucket), bucket, {
+            "src": [src], "dst": [slot], "lp": [lp], "suffix": toks,
+            "slen": [len(suffix)]})
+        self._occupy(req, prompt, slot)
+        self.prefix_hits += 1
+        self.prefix_tokens_saved += lp
+
+    def _pad_group(self, need: int, bucket: int, warmed: set) -> int:
+        """Admission group size: pad up to a captured shape in ``warmed``,
+        else the next power of two (captured on first use)."""
+        cands = [g for (g, b) in warmed if b == bucket and g >= need]
         if cands:
             return min(cands)
         g = 1
         while g < need:
             g *= 2
         g = min(g, self.num_slots)
-        self._warm_plain.add((g, bucket))
+        warmed.add((g, bucket))
         return g
 
-    def _occupy(self, req: Request, prompt: list[int], slot: int) -> None:
+    def _occupy(self, req: Request, prompt: list[int], slot: int, *,
+                plen: int = 0, seg: int = 0,
+                local_len: Optional[int] = None) -> None:
+        """Activate ``slot`` for ``req``. A segment-backed slot (``plen``
+        > 0) holds its suffix at slot-local positions [0, local_len)."""
         self._slots[slot] = req
         self._active[slot] = True
-        self._positions[slot] = len(prompt)
+        self._positions[slot] = len(prompt) if local_len is None else local_len
         self._remaining[slot] = req.max_new_tokens
         self._temps[slot] = (self.temperature if req.temperature is None
                              else req.temperature)
         self._top_ps[slot] = 1.0 if req.top_p is None else req.top_p
         self._top_ks[slot] = 0 if req.top_k is None else req.top_k
-        self._slot_content[slot] = list(prompt)
-        self._slot_owner[slot] = req
+        self._spec_ban[slot] = -1  # residual bans do not cross occupants
+        self._spec_backoff[slot] = 0
+        self._spec_cool[slot] = 0
+        if plen > 0:
+            self._slot_plen[slot] = plen
+            self._slot_seg[slot] = seg
+            self._seg_refs[seg] += 1
+            self._seg_used[seg] = time.monotonic()
+            # its KV sits at offset positions: the slot matcher must not
+            # match it
+            self._slot_content[slot] = []
+            self._slot_owner[slot] = None
+        else:
+            self._slot_content[slot] = list(prompt)
+            self._slot_owner[slot] = req
         req.slot = slot
         req.admitted_step = self.step_counter
 
+    def _release_seg(self, slot: int) -> None:
+        """Drop a freed slot's segment reference."""
+        if self._slot_plen[slot] > 0:
+            self._seg_refs[self._slot_seg[slot]] -= 1
+            self._slot_plen[slot] = 0
+            self._slot_seg[slot] = 0
+
+    def _create_segment(self, tokens: list[int]) -> int:
+        """Prefill ``tokens`` into a free segment row (or the least recently
+        used one no slot references); the row, or -1 when every segment is
+        referenced."""
+        free = [i for i, c in enumerate(self._seg_content) if not c]
+        if not free:
+            evictable = [i for i in range(self.prefix_segments)
+                         if self._seg_refs[i] == 0 and self._seg_content[i]
+                         and i not in self._seg_reserved]
+            if not evictable:
+                return -1
+            victim = min(evictable, key=lambda i: self._seg_used[i])
+            self._seg_content[victim] = []
+            self.segment_evictions += 1
+            free = [victim]
+        seg = free[0]
+        bucket = self._seg_rung(len(tokens))
+        toks = np.zeros((1, bucket), np.int64)
+        toks[0, :len(tokens)] = tokens
+        self._run_seg_prefill(bucket, {"toks": toks, "length": [len(tokens)],
+                                       "row": [seg]})
+        self._seg_content[seg] = list(tokens)
+        self._seg_used[seg] = time.monotonic()
+        return seg
+
+    def _plan_segment(self, req: Request) -> Optional[tuple]:
+        """The segment route of one request: (segment, prefix length,
+        suffix), or None (the plain routes take it). May create a segment
+        (one prefill dispatch); segments planned this cycle are reserved
+        until their batched suffix prefill is dispatched."""
+        prompt = req.prompt
+        cap = len(prompt) - 1  # one suffix token must run for the logits
+        # segment KV at positions < lcp depends only on tokens < lcp, so any
+        # prompt sharing them may attend that much of the segment
+        best, blen = -1, 0
+        p_arr = np.asarray(prompt, np.int64)
+        for i, content in enumerate(self._seg_content):
+            if min(len(content), cap) <= blen:
+                continue
+            n = lcp(content, p_arr, cap)
+            if n > blen:
+                best, blen = i, n
+
+        def feasible(bl: int) -> bool:
+            # the whole generation must fit the suffix slot: a shrunk
+            # max_new_tokens would make token counts depend on cache state
+            sfx = len(prompt) - bl
+            return (0 < sfx <= self.seq_buckets[-1]
+                    and sfx + req.max_new_tokens <= self.cfg.max_seq_len - 1)
+
+        created = False
+        if blen < self.min_prefix and cap >= self.min_prefix:
+            # too little shared with any segment: this prompt gets its own
+            # (feasibility first: an abandoned plan burns no dispatch)
+            want = min(self.segment_len, cap)
+            if want >= self.min_prefix and feasible(want):
+                made = self._create_segment(prompt[:want])
+                if made >= 0:
+                    best, blen, created = made, want, True
+        if best < 0 or blen < self.min_prefix or not feasible(blen):
+            return None
+        self._seg_reserved.add(best)
+        if not created:
+            self.segment_hits += 1
+            self.segment_tokens_shared += blen
+        return best, blen, prompt[blen:]
+
     def _plan_paged(self, req: Request) -> Optional[tuple]:
-        """(prompt, start, table) with the request's whole span (prompt +
-        max_new_tokens) reserved, or None when the free list cannot host
-        it. A span no empty pool could host fails the request."""
+        """(prompt, start, table, cow_src, shared) with the request's whole
+        span (prompt + max_new_tokens) reserved, or None when the free list
+        cannot host it. A span no empty pool could host fails the request.
+
+        Prefix reuse at block granularity: the full blocks of the best
+        matching live or retired sequence are shared by refcount; a match
+        that ends inside a block forks that block (``cow_src``) into the
+        first fresh one, and the prefill starts at the divergence."""
         bs = self.block_size
         cap = min(self.seq_buckets[-1],
                   self.cfg.max_seq_len - req.max_new_tokens)
@@ -1247,23 +2048,85 @@ class ContinuousEngine:
                 f"prompt + max_new_tokens = {total} at block_size {bs})")
             req.done.set()
             return None
-        fresh = self._alloc.alloc(nb_total)
+        start, shared, cow_src = 0, [], None
+        if self.prefix_cache:
+            blocks, n = self._paged_match(prompt)
+            n = min(n, len(prompt) - 1)
+            if n >= self.min_prefix:
+                nfull = n // bs
+                shared = [int(b) for b in blocks[:nfull]]
+                start = nfull * bs
+                if n > start and nfull < len(blocks):
+                    cow_src = int(blocks[nfull])
+                    start = n
+        # pin the shared blocks out of the free list before allocating
+        self._alloc.ref(shared)
+        fresh = self._alloc.alloc(nb_total - len(shared))
         if fresh is None:
+            self._alloc.release(shared)
             return None
-        return prompt, 0, fresh
+        if shared:
+            self._alloc.prefix_block_hits_total += len(shared)
+        return prompt, start, shared + fresh, cow_src, len(shared)
+
+    def _paged_match(self, prompt: list[int]) -> tuple[tuple, int]:
+        """(blocks, lcp): the best block-backed prefix of ``prompt``, from
+        the live slots' content first, then the allocator's registry of
+        retired sequences (freed blocks not yet reused)."""
+        cap = len(prompt) - 1
+        if cap <= 0:
+            return (), 0
+        p = np.asarray(prompt, np.int64)
+        best_blocks: tuple = ()
+        best = 0
+        for s in range(self.num_slots):
+            content, blocks = self._slot_content[s], self._slot_blocks[s]
+            if not blocks or min(len(content), cap) <= best:
+                continue
+            n = lcp(content, p, cap)
+            if n > best:
+                best_blocks, best = tuple(blocks), n
+        reg_blocks, reg = self._alloc.match(p, cap)
+        if reg > best:
+            best_blocks, best = reg_blocks, reg
+        return best_blocks, best
 
     def _admit_paged(self, taken, plans) -> None:
-        """Install planned admissions; paged admission is always chunk
-        driven (with ``prefill_budget == 0`` one chunk covers the prompt)."""
-        for (req, slot), (prompt, start, table) in zip(taken, plans):
+        """Install planned admissions: fork COW boundaries on the card and
+        queue the prefill from each plan's start; paged admission is always
+        chunk driven (with ``prefill_budget == 0`` one chunk covers the
+        rest of the prompt)."""
+        stall_t0 = time.perf_counter()
+        had_live = bool(self._active.any())
+        dispatched = False
+        for (req, slot), (prompt, start, table, cow_src, shared) in zip(
+                taken, plans):
+            if cow_src is not None:
+                try:
+                    self._run_block_copy(cow_src, table[shared])
+                except Exception as e:  # noqa: BLE001 — fail THIS request
+                    req.error = e
+                    req.done.set()
+                    self._slots[slot] = None
+                    self._alloc.release(table)
+                    continue
+                self._alloc.cow_copies_total += 1
+                dispatched = True
             self._slot_blocks[slot] = table
             if self.block_ledger is not None:
                 self.block_ledger.annotate(self._alloc, table,
                                            f"slot{slot}:admit")
+            # the shared prefix is real KV at [0, start) from now on
             self._slot_content[slot] = list(prompt[:start])
             self._slot_owner[slot] = None
             self._prefilling.append([req, slot, list(prompt), start])
             self._prefill_tokens_inflight += len(prompt) - start
+            if start > 0:
+                self.prefix_hits += 1
+                self.prefix_tokens_saved += start
+        if had_live and dispatched:
+            self.decode_stall_ms_total += (
+                time.perf_counter() - stall_t0) * 1e3
 
     def _block_tables(self, attend: int) -> np.ndarray:
         """[num_slots, nblk] block tables for an attend rung, padded with
@@ -1277,13 +2140,20 @@ class ContinuousEngine:
         return bt
 
     def _retire_slot(self, slot: int) -> None:
-        """Free a slot for reuse (and, paged, its blocks: freed blocks are
-        reused uncleared; the causal mask hides their bytes)."""
+        """Free a slot for reuse: its segment reference and, paged, its
+        blocks. Freed blocks are reused uncleared (the causal mask hides
+        their bytes); with the prefix cache the sequence is registered
+        over them, so a later prompt sharing its prefix takes them back
+        instead of prefilling again."""
         self._slots[slot] = None
         self._active[slot] = False
         self._remaining[slot] = 0
+        self._release_seg(slot)
         if self.paged and self._slot_blocks[slot]:
-            self._alloc.release(self._slot_blocks[slot])
+            blocks = self._slot_blocks[slot]
+            if self.prefix_cache:
+                self._alloc.register(self._slot_content[slot], blocks)
+            self._alloc.release(blocks)
             self._slot_blocks[slot] = []
 
     # -- scheduler: the loop -------------------------------------------------
@@ -1365,8 +2235,9 @@ class ContinuousEngine:
             self._occupy(req, prompt, slot)
 
     def _loop_inner(self) -> None:
-        # dispatches in flight: (token fetch handle, [(slot, req, take)])
-        pending: list[tuple[Any, list]] = []
+        # dispatches in flight: (fetch handle, [(slot, req, take)], the
+        # verify's drafts or None)
+        pending: list[tuple[Any, list, Any]] = []
         while not self._stop.is_set():
             self._admit()
             for slot in range(self.num_slots):
@@ -1397,32 +2268,56 @@ class ContinuousEngine:
                 for slot in range(self.num_slots)
                 if self._active[slot] and self._slots[slot] is not None
             ]
-            needed = ((int(self._positions[self._active].max())
-                       + self.decode_chunk) if live else self.decode_chunk)
+            live_seg = (live and self.prefix_segments > 0
+                        and bool((self._slot_plen[self._active] > 0).any()))
+            use_spec, drafts, proposed = (
+                self._plan_spec() if live and self.spec_k > 0 and not live_seg
+                else (False, None, 0))
+            # the window covers every live position plus this dispatch's
+            # writes: decode_chunk steps, or the verify's t1 + spec_k drafts
+            span = self.spec_k + 1 if use_spec else self.decode_chunk
+            needed = ((int(self._positions[self._active].max()) + span)
+                      if live else self.decode_chunk)
             filtered = self._filtered()
+            spec = ({"drafts": drafts, "banned": self._spec_ban.copy()}
+                    if use_spec else {})
             toks = None
-            if live and can_fuse:
+            if live_seg:
+                # the segment decode advances every active slot without the
+                # verify's residual mask: pending bans would go stale
+                self._spec_ban[:] = -1
+                seg_att = self._seg_rung(
+                    int(self._slot_plen[self._active].max()))
+                host = {**self._host_decode(),
+                        "plens": np.where(self._active, self._slot_plen, 0),
+                        "seg_ids": self._slot_seg.copy()}
+                toks = self._run_prefix_decode(self._rung(needed), seg_att,
+                                               filtered, host)
+            elif live and can_fuse:
                 entry, chunk, take, final, p_needed = (
                     self._prefill_chunk_args())
                 a = self._rung(max(needed, p_needed))
-                host = {**chunk, **self._host_decode()}
+                host = {**chunk, **self._host_decode(), **spec}
                 if self.paged:
                     host["bt"] = self._block_tables(a)
+                run = self._run_fused_verify if use_spec else self._run_fused
                 try:
-                    toks = self._run_fused(a, filtered, host)
+                    toks = run(a, filtered, host)
                 except Exception as e:  # noqa: BLE001 — fail THIS request
                     self._fail_prefill_head(entry, e)
                     continue
                 self._advance_prefill(entry, take, final)
             elif live:
                 a = self._rung(needed)
-                host = self._host_decode()
+                host = {**self._host_decode(), **spec}
                 if self.paged:
                     host["bt"] = self._block_tables(a)
-                toks = self._run_decode(a, filtered, host)
-            if has_prefill and (not live or not can_fuse):
-                # no decode dispatch to ride: the chunk runs alone, after
-                # the decode (which rewrites every slot's logits); paged
+                run = self._run_verify if use_spec else self._run_decode
+                toks = run(a, filtered, host)
+            if has_prefill and (not live or live_seg or not can_fuse):
+                # no decode dispatch to ride (or the pool decodes through
+                # the segment program): the chunk runs alone, after the
+                # decode (which rewrites every slot's logits); paged
                 # whole-prompt admission drains the queue here
                 while self._prefilling:
                     entry, chunk, take, final, p_needed = (
@@ -1446,23 +2341,73 @@ class ContinuousEngine:
                 while pending:
                     self._process(*pending.pop(0))
                 continue
-            # advance the value-independent schedule now, so the next
-            # dispatch can go before this one's tokens are fetched
-            for slot, req, take in snapshot:
-                self._positions[slot] += self.decode_chunk
-                self._remaining[slot] -= take
-                if self._remaining[slot] <= 0:
-                    self._retire_slot(slot)
-            pending.append((self._fetch_start(toks), snapshot))
-            if len(pending) >= self.pipeline_depth:
+            if use_spec:
+                # counted here, not when planned: a failed fused verify
+                # verified nothing
+                self.spec_dispatches_total += 1
+                self.spec_tokens_proposed_total += proposed
+                # the advance depends on the accept lengths: _process
+                # applies it once the tokens are on the host
+                pending.append((self._fetch_start(toks), snapshot, drafts))
+            else:
+                # advance the value-independent schedule now, so the next
+                # dispatch can go before this one's tokens are fetched
+                for slot, req, take in snapshot:
+                    self._positions[slot] += self.decode_chunk
+                    self._remaining[slot] -= take
+                    if self._remaining[slot] <= 0:
+                        self._retire_slot(slot)
+                pending.append((self._fetch_start(toks), snapshot, None))
+            if self.spec_k > 0:
+                # the next dispatch's positions, drafts and bans need this
+                # one's accept lengths: a speculating pool runs at depth 1
+                while pending:
+                    self._process(*pending.pop(0))
+            elif len(pending) >= self.pipeline_depth:
                 self._process(*pending.pop(0))
         while pending:
             self._process(*pending.pop(0))
 
-    def _process(self, handle, snapshot) -> None:
-        """Wait for one dispatch's tokens and deliver them."""
+    def _plan_spec(self):
+        """(use a verify, drafts [slots, spec_k] -1-padded, drafts
+        proposed). A verify is worth its (spec_k + 1)-wide forward when a
+        slot has a real draft or a residual ban waits (only a verify's
+        masked first draw consumes it); otherwise the plain decode runs."""
+        k = self.spec_k
+        drafts = np.full((self.num_slots, k), -1, np.int64)
+        proposed = 0
+        for slot in range(self.num_slots):
+            if not self._active[slot] or self._slots[slot] is None:
+                continue
+            if self._spec_cool[slot] > 0:
+                self._spec_cool[slot] -= 1  # the zero-accept backoff
+                continue
+            # draft only what the request can still emit beyond t1
+            lim = min(k, int(self._remaining[slot]) - 1)
+            if lim <= 0:
+                continue
+            try:
+                p = self._proposer.propose(self._slot_content[slot], lim)
+            except Exception:  # noqa: BLE001 — drafts are guesses: a
+                # proposer that raises means no draft, never a dead engine
+                log.debug("draft proposer failed for slot %d", slot,
+                          exc_info=True)
+                continue
+            if p:
+                p = list(p)[:lim]  # an overlong proposal is clamped
+                drafts[slot, :len(p)] = p
+                proposed += len(p)
+        use = proposed > 0 or bool((self._spec_ban[self._active] >= 0).any())
+        return use, drafts, proposed
+
+    def _process(self, handle, snapshot, drafts=None) -> None:
+        """Wait for one dispatch's tokens and deliver them (a verify's
+        through ``_deliver_verify``)."""
         toks = self._dispatch.fetch(handle)  # [slots, chunk]
         now = time.perf_counter()
+        if drafts is not None:
+            self._deliver_verify(toks, snapshot, drafts, now)
+            return
         for slot, req, take in snapshot:
             if req.done.is_set():
                 self.tokens_discarded += take
@@ -1486,11 +2431,64 @@ class ContinuousEngine:
             if done or len(req.tokens) >= req.max_new_tokens:
                 req.done.set()
 
+    def _deliver_verify(self, out, snapshot, drafts, now) -> None:
+        """Deliver one verify ([slots, spec_k + 2]: the tokens, then the
+        accept length): each slot emits 1 + accept tokens (EOS inside the
+        run cuts at the exact token) and its front advances as far; a
+        rejected draft arms the slot's residual ban, an all-rejected one
+        its backoff."""
+        k = self.spec_k
+        toks, acc = out[:, :k + 1], out[:, k + 1]
+        for slot, req, _take in snapshot:
+            a = int(acc[slot])
+            self.spec_tokens_accepted_total += a
+            if int(drafts[slot, 0]) >= 0:  # this slot offered real drafts
+                if a == 0:
+                    self._spec_backoff[slot] = min(
+                        max(2 * self._spec_backoff[slot], 2), 32)
+                    self._spec_cool[slot] = self._spec_backoff[slot]
+                else:
+                    self._spec_backoff[slot] = 0
+            # the first rejected draft's candidate was discarded on the
+            # condition that it differs: the next draw must exclude it
+            ban = int(drafts[slot, a]) if a < k else -1
+            if req.done.is_set():
+                self.tokens_discarded += 1 + a
+                self._spec_ban[slot] = -1
+                continue
+            take = min(1 + a, int(self._remaining[slot]))
+            self.tokens_discarded += (1 + a) - take
+            emitted = toks[slot, :take].tolist()
+            self._positions[slot] += take
+            self._remaining[slot] -= take
+            if self._slot_owner[slot] is req:
+                self._slot_content[slot].extend(emitted)
+            done = False
+            if self.eos_id is not None and self.eos_id in emitted:
+                cut = emitted.index(self.eos_id) + 1
+                self.tokens_discarded += take - cut
+                emitted = emitted[:cut]
+                done = True
+            if emitted and req.first_token_at is None:
+                req.first_token_at = now
+            req.tokens.extend(emitted)
+            if emitted:
+                req.last_token_at = now
+            self.tokens_emitted += len(emitted)
+            if (done or len(req.tokens) >= req.max_new_tokens
+                    or self._remaining[slot] <= 0):
+                req.done.set()
+                done = True
+            if done and self._slots[slot] is req:
+                self._retire_slot(slot)
+                ban = -1
+            self._spec_ban[slot] = ban
+
 
 def engine_kwargs(config: dict, *, default_eos=None,
                   default_max_new_tokens: int = 16) -> dict:
     """ContinuousEngine kwargs from a serving-config dict (the reference's
-    keys and defaults, but ``prefix_cache`` off until it is ported)."""
+    keys and defaults)."""
     return dict(
         num_slots=int(config.get("num_slots", 8)),
         decode_chunk=int(config.get("decode_chunk", 4)),
@@ -1499,7 +2497,7 @@ def engine_kwargs(config: dict, *, default_eos=None,
         eos_id=config.get("eos_id", default_eos),
         pipeline_depth=int(config.get("pipeline_depth", 2)),
         mesh_axes=config.get("mesh_axes"),
-        prefix_cache=bool(config.get("prefix_cache", False)),
+        prefix_cache=bool(config.get("prefix_cache", True)),
         min_prefix=int(config.get("min_prefix", 32)),
         prefix_segments=int(config.get("prefix_segments", 0)),
         segment_len=int(config.get("segment_len", 0)),

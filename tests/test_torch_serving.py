@@ -89,9 +89,10 @@ def _port_engine(models, moe=False, **kw):
     _, llama, convert, continuous, _ = _port()
     _, params = models[moe]
     cfg = llama.tiny(**(MOE if moe else {}))
+    # the reference engines above run with the prefix cache off
     return continuous.ContinuousEngine(
         cfg, convert.state_dict_from_jax(params, cfg), num_slots=2,
-        decode_chunk=4, device="cpu", **kw)
+        decode_chunk=4, device="cpu", **{"prefix_cache": False, **kw})
 
 
 @pytest.mark.parametrize("variant", list(VARIANTS))
@@ -172,10 +173,8 @@ def test_eos_stops_a_request(models, reference_tokens):
 
 
 @pytest.mark.parametrize("knob,value,item", [
-    ("prefix_cache", True, "A4(c)"),
-    ("prefix_segments", 2, "A4(c)"),
     ("host_blocks", 4, "A4(c)"),
-    ("spec_k", 2, "A4(b)"),
+    ("host_watermark", 0.5, "A4(c)"),
     ("role", "prefill", "A4(d)"),
     ("admission_policy", lambda r: True, "A4(d)"),
     ("mesh_axes", {"model": 2}, "A7"),
