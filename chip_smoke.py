@@ -20,7 +20,11 @@ errors, and the serving engine (``kubeflow_tpu_torch.serving``, every program
 a CUDA graph) serves the bench model as ``bench.py``'s serving row does
 (``serve``), in its three pool and admission variants (``serve_variants``),
 and serves the MoE bench model (``moe_serve``, on ``gmm``, which is also
-checked and timed at the serving shapes). Each phase prints one JSON
+checked and timed at the serving shapes); then speculation and prefix reuse
+(``spec_serve``, ``moe_spec_serve``, ``prefix_serve``) and moving and
+storing sequences (``migrate_serve``, ``moe_migrate_serve``,
+``hibernate_serve``, ``host_tier_serve``, ``disagg_serve``). Each phase
+prints one JSON
 line; the line before the last is the card's name and power limit from
 nvidia-smi, the last line is ``{"ok": true, "device": {...}}``. Any failure
 raises and exits non-zero before that line. Needs a CUDA card; imports
@@ -1261,14 +1265,18 @@ def _replay_proposer(prompts, streams):
 
 def _spec_runs(phase: str, model_name: str, n_prompts: int, new: int,
                counters: bool) -> dict:
-    """Three runs of ``n_prompts`` x 128-token prompts, ``new`` tokens
+    """Four runs of ``n_prompts`` x 128-token prompts, ``new`` tokens
     each, through ``SPEC_ENGINE``: speculation off, ``spec_k=4`` with the
-    NgramProposer, and ``spec_k=4`` with a replay proposer that drafts the
-    first run's own tokens. Every stream of a speculating run must equal
-    the plain run's, or first differ where the top-2 margin is below 2e-2
-    relative (a [slots, 5] forward runs other GEMM shapes than a [slots, 1]
-    one); the replay run must accept more than half of its drafts in fewer
-    decode dispatches; no run may capture after warmup."""
+    NgramProposer, and ``spec_k=4`` twice with a replay proposer that
+    drafts a run's own tokens. ``replay_first`` drafts the plain run's;
+    where a near tie rounds its way apart from them, that slot has no draft
+    to the end of the round, so one early tie could leave the round with
+    no dispatch saved. ``replay`` drafts ``replay_first``'s tokens,
+    computed in the verify's shapes. Every stream of a speculating run must
+    equal the plain run's, or first differ where the top-2 margin is below
+    2e-2 relative (a [slots, 5] forward runs other GEMM shapes than a
+    [slots, 1] one); the replay run must accept more than half of its
+    drafts in fewer decode dispatches; no run may capture after warmup."""
     cfg, model = _serve_model(model_name)
     prompts = _prompts(cfg, n_prompts, 128)
     warm = [(n_prompts, 128), (1, 128)]
@@ -1276,10 +1284,11 @@ def _spec_runs(phase: str, model_name: str, n_prompts: int, new: int,
                           **SPEC_ENGINE)}
     runs["ngram"] = _serve(cfg, model, prompts, new, warm,
                            counters=counters, spec_k=SPEC_K, **SPEC_ENGINE)
-    runs["replay"] = _serve(
-        cfg, model, prompts, new, warm, counters=counters, spec_k=SPEC_K,
-        draft_proposer=_replay_proposer(prompts, runs["off"]["tokens"]),
-        **SPEC_ENGINE)
+    for name, base in (("replay_first", "off"), ("replay", "replay_first")):
+        runs[name] = _serve(
+            cfg, model, prompts, new, warm, counters=counters, spec_k=SPEC_K,
+            draft_proposer=_replay_proposer(prompts, runs[base]["tokens"]),
+            **SPEC_ENGINE)
     keys = ("spec_dispatches_total", "spec_tokens_proposed_total",
             "spec_tokens_accepted_total", "spec_acceptance_rate",
             "graph_captures_total", "graph_captures_warmup")
@@ -1443,6 +1452,443 @@ def phase_prefix_serve() -> None:
                 f"is not small: {d}")
 
 
+#: the migration and KV-tier phases: the paged pool, block_size 16
+MIGRATE_ENGINE = dict(num_slots=8, decode_chunk=4, block_size=16,
+                      prefix_cache=False)
+MIGRATE = dict(prompts=8, prompt_len=128, new=64, at=32)
+
+
+def _paged_engine(cfg, model, ledger=None, **kw):
+    """A ContinuousEngine with ``MIGRATE_ENGINE``'s knobs (``kw`` override
+    them), ``ledger`` attached before traffic."""
+    from kubeflow_tpu_torch.serving.continuous import ContinuousEngine
+
+    eng = ContinuousEngine(cfg, model, **{**MIGRATE_ENGINE, **kw})
+    if ledger is not None:
+        eng.attach_block_ledger(ledger)
+    return eng
+
+
+def _wait_tokens(reqs, n: int, what: str) -> None:
+    deadline = time.perf_counter() + 600
+    while min(len(r.tokens) for r in reqs) < n:
+        require(time.perf_counter() < deadline, f"{what}: no progress")
+        require(not any(r.done.is_set() for r in reqs),
+                f"{what}: a request finished before {n} tokens")
+        time.sleep(0.0005)
+
+
+def _serve_all(eng, prompts, new: int) -> tuple[list, float]:
+    """(streams, seconds) of one round of ``prompts`` through ``eng``."""
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, max_new_tokens=new) for p in prompts]
+    streams = [r.wait(600) for r in reqs]
+    return streams, time.perf_counter() - t0
+
+
+def _require_streams(name: str, diffs: list) -> None:
+    require(all(map(_near_tie, diffs)),
+            f"{name}: a stream differs from the uninterrupted one where no "
+            f"margin is small: {diffs}")
+
+
+def _require_clean(name: str, ledger, *engines) -> dict:
+    """0 captures after warmup and 0 leaked blocks (a consistent-boundary
+    audit on each engine and the shared ledger's books)."""
+    leaks = [eng.audit_blocks() for eng in engines]
+    out = {"captures_after_warmup": [e.stats()["graph_captures_total"]
+                                     for e in engines],
+           "blocks_leaked": ledger.leaked_total,
+           "ledger_errors": list(ledger.conservation_errors)}
+    require(all(n == 0 for n in out["captures_after_warmup"]),
+            f"{name}: captures after warmup {out['captures_after_warmup']}")
+    require(not any(leaks) and ledger.leaked_total == 0
+            and not ledger.conservation_errors, f"{name}: leaked blocks "
+            f"{leaks} {ledger.conservation_errors}")
+    return out
+
+
+def pinned_copy_rate(nbytes: int = 64 << 20) -> dict:
+    """The host-card copy rate on ``nbytes``, pinned each way and pageable
+    to the host (device time from CUDA events, median of 5): the bound of
+    a migration's copies."""
+    import torch
+
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    pinned = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    pageable = torch.empty(nbytes, dtype=torch.uint8)
+    ms = {"d2h": time_ms(lambda: pinned.copy_(dev, non_blocking=True), 5),
+          "h2d": time_ms(lambda: dev.copy_(pinned, non_blocking=True), 5),
+          "d2h_pageable": time_ms(lambda: pageable.copy_(dev), 5)}
+    return {"bytes": nbytes, **{f"{k}_ms": v for k, v in ms.items()},
+            **{f"{k}_gb_per_s": nbytes / v / 1e6 for k, v in ms.items()}}
+
+
+def phase_migrate_serve() -> None:
+    """Live migration on the 271M bench model: 8 x 128-token prompts, 64
+    new tokens, served uninterrupted on engine A, then again with
+    ``migrate_live_sequences(A, B)`` after 32 tokens (export and import
+    timed per sequence on the host clock); one held import into the idle
+    B, resumed; one sequence moved mid-prefill between two chunked engines
+    (prefill_budget 64, a 960-token prompt: 15 chunks, so the export lands
+    between two of them however the host is scheduled). One BlockLedger
+    spans the engines."""
+    import torch
+
+    from kubeflow_tpu_torch.analysis.runtime import BlockLedger
+    from kubeflow_tpu_torch.serving.continuous import migrate_live_sequences
+
+    cfg, model = _serve_model("bench_model")
+    prompts = _prompts(cfg, MIGRATE["prompts"], MIGRATE["prompt_len"])
+    new, warm = MIGRATE["new"], [(8, 128), (1, 128)]
+    ledger = BlockLedger()
+    a, b = _paged_engine(cfg, model, ledger), _paged_engine(cfg, model, ledger)
+    c = _paged_engine(cfg, model, ledger, prefill_budget=64)
+    d = _paged_engine(cfg, model, ledger, prefill_budget=64)
+    out = {}
+    try:
+        for eng in (a, b):
+            eng.warmup(warm)
+        for eng in (c, d):
+            eng.warmup([(1, 960)])
+        plain, _ = _serve_all(a, prompts, new)
+        reqs = [a.submit(p, max_new_tokens=new) for p in prompts]
+        _wait_tokens(reqs, MIGRATE["at"], "migrate_serve")
+        export_ms, import_ms, latency_ms = [], [], []
+        export = a.export_sequence
+
+        def timed_export(req, timeout=60.0):
+            t0 = time.perf_counter()
+            snap = export(req, timeout)
+            export_ms.append((time.perf_counter() - t0) * 1e3)
+            return snap
+
+        def send(snap, req):
+            t0 = time.perf_counter()
+            b.import_sequence(snap, req=req)
+            import_ms.append((time.perf_counter() - t0) * 1e3)
+            return True
+
+        bytes0 = a.kv_migrate_bytes_total, b.kv_migrate_bytes_total
+        a.export_sequence = timed_export
+        t0 = time.perf_counter()
+        try:
+            moved, failed = migrate_live_sequences(
+                a, b, send=send, on_latency=latency_ms.append)
+        finally:
+            del a.export_sequence
+        drain_ms = (time.perf_counter() - t0) * 1e3
+        migrated = [r.wait(600) for r in reqs]
+        out_bytes = a.kv_migrate_bytes_total - bytes0[0]
+        in_bytes = b.kv_migrate_bytes_total - bytes0[1]
+        # a held import into the idle B, timed to the end of its copies
+        req = a.submit(prompts[0], max_new_tokens=new)
+        _wait_tokens([req], MIGRATE["at"], "migrate_serve hold")
+        snap = a.export_sequence(req)
+        hold_bytes = (sum(x.nbytes for blk in snap["blocks"] for x in blk)
+                      + snap["logits"].nbytes)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b.import_sequence(snap, req=req, hold=True)
+        torch.cuda.synchronize()
+        hold_ms = (time.perf_counter() - t0) * 1e3
+        a.release_sequence(req)
+        n = len(req.tokens)
+        time.sleep(0.05)
+        held_still = len(req.tokens) == n and not req.done.is_set()
+        b.resume_sequence(req)
+        held = req.wait(600)
+        # mid-prefill, between chunked engines
+        long_prompt = _prompts(cfg, 1, 960)
+        plain_long, _ = _serve_all(c, long_prompt, 32)
+        chunks0 = c.prefill_chunks_dispatched
+        req = c.submit(long_prompt[0], max_new_tokens=32)
+        deadline = time.perf_counter() + 600
+        while c.prefill_chunks_dispatched - chunks0 < 2:
+            require(time.perf_counter() < deadline, "prefill never started")
+            time.sleep(0.0002)
+        snap = c.export_sequence(req)
+        mid_position = snap["position"]
+        require(snap["phase"] == "prefill" and 0 < mid_position < 960,
+                f"mid-prefill export at {snap['phase']} {mid_position}")
+        d.import_sequence(snap, req=req)
+        c.release_sequence(req)
+        mid = [req.wait(600)]
+        clean = _require_clean("migrate_serve", ledger, a, b, c, d)
+    finally:
+        for eng in (a, b, c, d):
+            eng.stop()
+    copy = pinned_copy_rate()
+    diffs = {"drain": _first_difference(cfg, model, prompts, plain,
+                                        migrated),
+             "held": _first_difference(cfg, model, prompts[:1], plain[:1],
+                                       [held]),
+             "mid_prefill": _first_difference(cfg, model, long_prompt,
+                                              plain_long, mid)}
+    out.update(
+        moved=moved, failed=failed, bytes_exported=out_bytes,
+        bytes_imported=in_bytes, export_ms=export_ms, import_ms=import_ms,
+        export_ms_median=statistics.median(export_ms),
+        import_ms_median=statistics.median(import_ms),
+        cutover_ms=latency_ms, drain_ms=drain_ms,
+        export_gb_per_s=out_bytes / sum(export_ms) / 1e6,
+        import_gb_per_s=in_bytes / sum(import_ms) / 1e6,
+        held_import_bytes=hold_bytes, held_import_ms=hold_ms,
+        held_import_gb_per_s=hold_bytes / hold_ms / 1e6,
+        held_until_resume=held_still, mid_prefill_position=mid_position,
+        pinned_copy=copy, differences=diffs, **clean)
+    emit("migrate_serve", model="bench_model", engine=MIGRATE_ENGINE,
+         **MIGRATE, **out)
+    require(moved == MIGRATE["prompts"] and failed == 0,
+            f"moved {moved}, failed {failed}")
+    require(held_still, "a held import decoded before its resume")
+    for name, d in diffs.items():
+        _require_streams(f"migrate_serve {name}", d)
+
+
+def phase_moe_migrate_serve() -> dict:
+    """Live migration on the MoE bench model: 4 x 128-token prompts, 32 new
+    tokens, migrated from A to B after 16; the kernel counts are set to 0
+    once the drain returns (A then holds nothing) and read when the streams
+    end: B's decode runs the experts on K4a ``gmm``."""
+    from kubeflow_tpu_torch.analysis.runtime import BlockLedger
+    from kubeflow_tpu_torch.serving.continuous import migrate_live_sequences
+
+    cfg, model = _serve_model("bench_moe_model")
+    prompts = _prompts(cfg, 4, 128)
+    ledger = BlockLedger()
+    a, b = _paged_engine(cfg, model, ledger), _paged_engine(cfg, model, ledger)
+    try:
+        for eng in (a, b):
+            eng.warmup([(4, 128), (1, 128)])
+        plain, _ = _serve_all(a, prompts, 32)
+        reqs = [a.submit(p, max_new_tokens=32) for p in prompts]
+        _wait_tokens(reqs, 16, "moe_migrate_serve")
+        moved, failed = migrate_live_sequences(a, b)
+        for counter in _counters():
+            for key in counter:
+                counter[key] = 0
+        migrated = [r.wait(600) for r in reqs]
+        launches = {k: v for c in _counters() for k, v in c.items()}
+        clean = _require_clean("moe_migrate_serve", ledger, a, b)
+    finally:
+        a.stop()
+        b.stop()
+    diffs = _first_difference(cfg, model, prompts, plain, migrated)
+    emit("moe_migrate_serve", model="bench_moe_model", prompts=4,
+         prompt_len=128, new=32, at=16, engine=MIGRATE_ENGINE, moved=moved,
+         failed=failed, launches_on_b_after_the_drain=launches,
+         differences=diffs, **clean)
+    require(moved == 4 and failed == 0, f"moved {moved}, failed {failed}")
+    require(launches["gmm"] > 0, "B launched no gmm after the import")
+    _require_streams("moe_migrate_serve", diffs)
+    return launches
+
+
+def phase_hibernate_serve() -> None:
+    """Hibernate and thaw on the bench model: 5 sessions of 128-token
+    prompts and 380 new tokens on A (the last hibernation must find its
+    session still decoding); after 16 tokens each is hibernated into a
+    ``KvSpillStore`` under a temporary directory; four thaw on B from the
+    store, and the fifth, its ``blocks.bin`` cut in half, thaws degraded
+    (re-prefilled from the manifest's tokens)."""
+    import os
+    import tempfile
+
+    from kubeflow_tpu_torch.analysis.runtime import BlockLedger
+    from kubeflow_tpu_torch.serving.storage import KvSpillStore
+
+    cfg, model = _serve_model("bench_model")
+    prompts = _prompts(cfg, 5, 128)
+    new, warm = 380, [(8, 128), (1, 256)]
+    ledger = BlockLedger()
+    a, b = _paged_engine(cfg, model, ledger), _paged_engine(cfg, model, ledger)
+    with tempfile.TemporaryDirectory() as root:
+        store = KvSpillStore(root)
+        write_ms, thaw_ms = [], []
+        write = store.write
+
+        def timed_write(*args, **kw):
+            t0 = time.perf_counter()
+            entry = write(*args, **kw)
+            write_ms.append((time.perf_counter() - t0) * 1e3)
+            return entry
+
+        store.write = timed_write
+        try:
+            for eng in (a, b):
+                eng.warmup(warm)
+                eng.attach_spill_store(store)
+            plain, _ = _serve_all(a, prompts, new)
+            reqs = [a.submit(p, max_new_tokens=new, session_id=f"s{i}")
+                    for i, p in enumerate(prompts)]
+            _wait_tokens(reqs, 16, "hibernate_serve")
+            hibernated = [a.hibernate_sequence(r, r.session_id)
+                          for r in reqs]
+            blocks = os.path.join(store._entry_dir("s4"), "blocks.bin")
+            os.truncate(blocks, os.path.getsize(blocks) // 2)
+            for r in reqs[:4]:
+                t0 = time.perf_counter()
+                b.thaw_sequence(r.session_id, req=r)
+                thaw_ms.append((time.perf_counter() - t0) * 1e3)
+            torn = reqs[4]
+            prior = len(torn.tokens)
+            t0 = time.perf_counter()
+            _, info = b.thaw_sequence("s4", req=torn)
+            _wait_tokens([torn], prior + 1, "degraded thaw")
+            reprefill_ms = (time.perf_counter() - t0) * 1e3
+            thawed = [r.wait(600) for r in reqs]
+            st_a, st_b = a.stats(), b.stats()
+            clean = _require_clean("hibernate_serve", ledger, a, b)
+        finally:
+            a.stop()
+            b.stop()
+    diffs = _first_difference(cfg, model, prompts, plain, thawed)
+    keys = ("kv_spills_total", "kv_thaws_total", "kv_thaws_degraded_total",
+            "kv_spill_verify_failures_total", "kv_sessions_hibernated")
+    emit("hibernate_serve", model="bench_model", sessions=5, prompt_len=128,
+         new=new, at=16, engine=MIGRATE_ENGINE, hibernated=hibernated,
+         spill_write_ms=write_ms, thaw_ms=thaw_ms,
+         degraded_reprefill_ms=reprefill_ms, degraded=info["degraded"],
+         stats_a={k: st_a[k] for k in keys},
+         stats_b={k: st_b[k] for k in keys}, differences=diffs, **clean)
+    require(all(hibernated), f"hibernated {hibernated}")
+    require(info["degraded"] and st_b["kv_thaws_degraded_total"] == 1,
+            "the torn spill did not thaw degraded")
+    require(st_b["kv_thaws_total"] == 5 and st_a["kv_spills_total"] == 5,
+            "spill and thaw counts")
+    _require_streams("hibernate_serve", diffs)
+
+
+HOST_TIER = dict(rounds=8, shared=512, tail=16, new=32, churn_new=64)
+HOST_ENGINE = dict(num_slots=8, decode_chunk=4, block_size=16,
+                   prefix_cache=True, num_blocks=96, host_blocks=256,
+                   host_watermark=0.5)
+
+
+def phase_host_tier_serve() -> None:
+    """The host KV tier on the bench model: a pool of 96 blocks (1,536
+    tokens), a host tier of 256 (256 MiB), watermark 0.5. Each of 8 rounds
+    serves a prompt of a shared 512-token prefix and its own 16-token tail
+    (32 new) beside an unrelated 512-token prompt (64 new): the shared
+    prompt retires with the free list under the watermark and spills, and
+    the next round's unrelated prompt reuses its blocks, so the next shared
+    prompt restores the prefix from host RAM. Streams are held against
+    the same prompts on a prefix-off engine."""
+    import numpy as np
+
+    from kubeflow_tpu_torch.analysis.runtime import BlockLedger
+
+    cfg, model = _serve_model("bench_model")
+    rng = np.random.default_rng(SEED + 8)
+    v = cfg.vocab_size
+    n = HOST_TIER["rounds"]
+    shared = rng.integers(1, v, size=HOST_TIER["shared"]).tolist()
+    prompts = [shared + rng.integers(1, v, size=HOST_TIER["tail"]).tolist()
+               for _ in range(n)]
+    churn = rng.integers(1, v, size=(n, HOST_TIER["shared"])).tolist()
+    ledger = BlockLedger()
+    eng = _paged_engine(cfg, model, ledger, **HOST_ENGINE)
+    base = _paged_engine(cfg, model)
+    rounds = []
+    try:
+        eng.warmup([(1, 1023)])
+        base.warmup([(8, 1023)])
+        plain, _ = _serve_all(base, prompts, HOST_TIER["new"])
+        streams = []
+        for i in range(n):
+            restores0 = eng.stats()["kv_host_restores_total"]
+            c = eng.submit(churn[i], max_new_tokens=HOST_TIER["churn_new"])
+            s = eng.submit(prompts[i], max_new_tokens=HOST_TIER["new"])
+            streams.append(s.wait(600))
+            c.wait(600)
+            st = eng.stats()
+            rounds.append({"ttft_ms": s.ttft_s * 1e3, "restored":
+                           st["kv_host_restores_total"] - restores0})
+        clean = _require_clean("host_tier_serve", ledger, eng, base)
+    finally:
+        eng.stop()
+        base.stop()
+    st = eng.stats()
+    keys = ("kv_blocks_host_tier", "kv_host_bytes", "kv_host_spills_total",
+            "kv_host_restores_total", "kv_host_evictions_total",
+            "kv_spills_total", "kv_thaws_total", "prefix_hits",
+            "prefix_block_hits_total")
+    restored = [r["ttft_ms"] for r in rounds if r["restored"]]
+    diffs = _first_difference(cfg, model, prompts, plain, streams)
+    emit("host_tier_serve", model="bench_model", **HOST_TIER,
+         engine=HOST_ENGINE, rounds_detail=rounds,
+         ttft_ms_cold=rounds[0]["ttft_ms"],
+         ttft_ms_restored_median=(statistics.median(restored)
+                                  if restored else None),
+         stats={k: st[k] for k in keys}, differences=diffs, **clean)
+    require(st["kv_host_restores_total"] > 0, "no host-tier restore")
+    _require_streams("host_tier_serve", diffs)
+
+
+def phase_disagg_serve() -> None:
+    """Prefill/decode disaggregation on the bench model: 8 x 128-token
+    prompts, 64 new, through a ``DisaggregatedPool`` of one prefill and one
+    decode engine in process, and through ``build_engine`` with
+    ``tier_lens`` [256] (the ladder), each against a mixed engine."""
+    from kubeflow_tpu_torch.analysis.runtime import BlockLedger
+    from kubeflow_tpu_torch.serving.continuous import (
+        DisaggregatedPool,
+        build_engine,
+    )
+
+    cfg, model = _serve_model("bench_model")
+    prompts = _prompts(cfg, 8, 128)
+    warm = [(8, 128), (1, 128)]
+    mixed = _paged_engine(cfg, model)
+    pool = DisaggregatedPool(cfg, model, prefill_replicas=1,
+                             decode_replicas=1, **MIGRATE_ENGINE)
+    ledger = BlockLedger()
+    for eng in pool.pools:
+        eng.attach_block_ledger(ledger)
+    tiered = build_engine(cfg, model, {**MIGRATE_ENGINE, "tier_lens": [256],
+                                       "warmup_groups": warm})
+    try:
+        mixed.warmup(warm)
+        pool.warmup(warm)
+        want, mixed_s = _serve_all(mixed, prompts, 64)
+        got, pool_s = _serve_all(pool, prompts, 64)
+        ladder, ladder_s = _serve_all(tiered, prompts, 64)
+        # the worker records a handoff after the prefill engine released
+        # it, which may land after the decode engine finished the stream
+        deadline = time.perf_counter() + 600
+        while len(pool.migration_latencies_ms) < len(prompts):
+            require(time.perf_counter() < deadline, "handoffs unrecorded")
+            time.sleep(0.001)
+        st = pool.stats()
+        clean = _require_clean("disagg_serve", ledger, *pool.pools)
+        require(mixed.stats()["graph_captures_total"] == 0
+                and tiered.stats()["graph_captures_total"] == 0,
+                "captures after warmup")
+        handoff = list(pool.migration_latencies_ms)
+    finally:
+        mixed.stop()
+        pool.stop()
+        tiered.stop()
+    tokens = len(prompts) * 64
+    diffs = {"disagg": _first_difference(cfg, model, prompts, want, got),
+             "tier_ladder": _first_difference(cfg, model, prompts, want,
+                                              ladder)}
+    emit("disagg_serve", model="bench_model", prompts=8, prompt_len=128,
+         new=64, engine=MIGRATE_ENGINE,
+         tokens_per_sec={"mixed": tokens / mixed_s,
+                         "disaggregated": tokens / pool_s,
+                         "tier_ladder": tokens / ladder_s},
+         handoff_ms_median=statistics.median(handoff), handoff_ms=handoff,
+         kv_migrations_total=st["kv_migrations_total"],
+         kv_migrate_bytes_total=st["kv_migrate_bytes_total"],
+         differences=diffs, **clean)
+    require(st["kv_migrations_total"] == len(prompts),
+            f"{st['kv_migrations_total']} handoffs")
+    for name, d in diffs.items():
+        _require_streams(f"disagg_serve {name}", d)
+
+
 def run() -> int:
     import torch
 
@@ -1474,8 +1920,15 @@ def run() -> int:
     phase_spec_serve()
     phase_moe_spec_serve()
     phase_prefix_serve()
-    emit("phase_seconds", total=time.perf_counter() - started,
-         speculation_and_prefix=time.perf_counter() - t0)
+    t1 = time.perf_counter()
+    phase_migrate_serve()
+    phase_moe_migrate_serve()
+    phase_hibernate_serve()
+    phase_host_tier_serve()
+    phase_disagg_serve()
+    now = time.perf_counter()
+    emit("phase_seconds", total=now - started,
+         speculation_and_prefix=t1 - t0, migration_and_tiers=now - t1)
     # each kernel's launches from the run of the path that carries it
     launches.update(gmm=moe_launches["gmm"], tgmm=moe_launches["tgmm"])
     kernels = []

@@ -9,10 +9,10 @@
   warmup's paid-once set; the engine arms it when warmup ends, and every
   later capture counts: a capture stalls every live request, so the
   engine's ``graph_captures_total`` gauge must stay 0.
-- :class:`BlockLedger`: copied from the reference (its host-tier half
-  waits for the port of the host KV tier): shadow refcounts over a
-  ``BlockAllocator``'s ``alloc``/``ref``/``release`` and the
-  zero-leaked-blocks audit.
+- :class:`BlockLedger`: copied from the reference: shadow refcounts over a
+  ``BlockAllocator``'s ``alloc``/``ref``/``release``, the
+  zero-leaked-blocks audit, and the host tier's conservation check over a
+  ``HostBlockPool`` (``attach_host_pool``/``audit_host``).
 """
 
 from __future__ import annotations
@@ -111,7 +111,8 @@ class BlockLedger:
         # other threads (a test auditing a stopped engine) then iterate
         # the same books safely
         self._mu = threading.RLock()
-        self._books: dict[int, _Books] = {}
+        #: books by id(allocator), and by ("host", id(pool)) for host tiers
+        self._books: dict[Any, _Books] = {}
         self.leaked_total = 0
         self.ops_total = 0
         #: conservation violations observed (bounded; each is one
@@ -320,3 +321,68 @@ class BlockLedger:
                     books.reported.add(b)
                     self.leaked_total += 1
         return leaks
+
+    # -- host tier -----------------------------------------------------------
+
+    def attach_host_pool(self, pool: Any, name: str = "host") -> Any:
+        """Extend the shadow count to a ``HostBlockPool`` (the host-RAM KV
+        tier): ``put`` and the LRU eviction are wrapped so the pool's
+        ``blocks_held`` gauge is conservation-checked against its entry
+        map after every op. Idempotent."""
+        with self._mu:
+            key = ("host", id(pool))
+            if key in self._books:
+                return pool
+            books = _Books(pool, name)
+            self._books[key] = books
+
+            orig_put, orig_evict = pool.put, pool._evict_oldest
+
+            def put_wrapped(tokens, blocks, nbytes=None):
+                out = orig_put(tokens, blocks, nbytes)
+                self.ops_total += 1
+                with pool._lock:
+                    # put has returned: the eviction loop converged, so the
+                    # capacity bound holds here
+                    self._check_host(books, pool, check_capacity=True)
+                return out
+
+            def evict_wrapped():
+                # runs inside put with pool._lock held (the only eviction
+                # site): check without re-locking and without the capacity
+                # bound, which mid-loop is legitimately exceeded
+                orig_evict()
+                self._check_host(books, pool)
+
+            pool.put = put_wrapped
+            pool._evict_oldest = evict_wrapped
+        return pool
+
+    def _check_host(self, books: _Books, pool: Any,
+                    check_capacity: bool = False) -> None:
+        actual = sum(len(e["blocks"]) for e in pool._seqs.values())
+        if actual != pool.blocks_held:
+            self._error(
+                books, f"host tier holds {actual} blocks but the gauge "
+                f"says {pool.blocks_held} — a spill/evict path mutates "
+                "the tier around the wrapped verbs")
+            pool.blocks_held = actual  # resync: one drift reports once
+        if check_capacity and pool.blocks_held > pool.capacity_blocks:
+            self._error(
+                books, f"host tier over capacity: {pool.blocks_held} > "
+                f"{pool.capacity_blocks} — eviction did not converge")
+
+    def audit_host(self, pool: Any) -> list[str]:
+        """Boundary check of the host tier: re-run the conservation count
+        and return the NEW error lines (empty = the gauges are honest and
+        occupancy is within capacity). Lock order: ``pool._lock`` before
+        the ledger's, as on the wrapped verbs' paths."""
+        with self._mu:
+            books = self._books.get(("host", id(pool)))
+        if books is None:
+            return []
+        with pool._lock:
+            with self._mu:
+                before = len(self.conservation_errors)
+                self._check_host(books, pool, check_capacity=True)
+                return self.conservation_errors[before:]

@@ -68,9 +68,24 @@ What differs from the reference, and why:
   graphs' static buffers through a ring of pinned staging buffers. A
   verify's accept lengths travel in the same buffer, after its tokens.
 
+Moving and storing sequences (the paged pool): ``export_sequence`` and
+``import_sequence`` move a live sequence between engines, copy then
+cutover (``migrate_live_sequences`` drains one); ``host_blocks`` spills
+retired prefixes to a host-RAM tier (``paged.HostBlockPool``) and restores
+them at admission; ``hibernate_sequence``/``thaw_sequence`` park a session
+in a ``storage.KvSpillStore`` and resume it on any engine. On that path
+the scheduler only enqueues, on the engine's stream, the block gathers
+(``paged.kv_export``) and their copy into pinned host memory; the caller's
+thread or the ``kv-host-tier`` worker waits on a CUDA event recorded after
+the copy. These few gathers and scatters run eagerly, not as graphs, so
+nothing aliases a graph's static output. ``TieredEngine`` (the tier ladder
+as an admission policy) and ``DisaggregatedPool`` (prefill engines handing
+each sequence to a decode engine, in process) sit on top.
+
 Knobs not ported yet raise ``NotImplementedError`` naming their ROADMAP
-item: the host KV tier (``host_blocks``, ``host_watermark``), admission
-policies and roles, serving meshes and the program-artifact cache.
+item: serving meshes and the program-artifact cache, and the
+disaggregated pool's wire transport. Tracing is not ported:
+``Request.trace`` is always None.
 
 Thread contract, as in the reference: scheduler state (the slot table,
 ``_waiting``, the allocator, the pool) is owned by the scheduler thread,
@@ -101,8 +116,13 @@ from ..models.llama import KvCache, Llama, LlamaConfig
 from ..ops import flash_attention as _fa
 from ..ops import grouped_matmul as _gm
 from .paged import (
+    KV_MIGRATE_GROUP,
     BlockAllocator,
+    HostBlockPool,
+    block_keys,
     gather_working_view,
+    kv_export,
+    kv_import,
     lcp,
     scatter_working_view,
     write_window_tables,
@@ -135,6 +155,10 @@ class Request:
     cancelled: threading.Event = field(default_factory=threading.Event)
     #: request-lifecycle trace; always None here (tracing is not ported)
     trace: Optional[Any] = None
+    #: durable-session binding: an idle sequence with a session id may be
+    #: hibernated under it (``idle_sessions``)
+    session_id: Optional[str] = None
+    #: stamped at every token delivery (and at resume): the idle clock
     last_token_at: float = field(default_factory=time.perf_counter)
 
     def cancel(self) -> None:
@@ -633,6 +657,50 @@ def make_prefix_decode_program(cfg: LlamaConfig, attend: int, seg_att: int,
     return decode
 
 
+def logits_take(logits, slot: int):
+    """One slot's next-token logits row, as a copy (migration export; the
+    slot clips into the pool, so the warmup's scratch row reads
+    harmlessly)."""
+    return logits[min(max(int(slot), 0), logits.shape[0] - 1)].clone()
+
+
+def logits_set(logits, row, slot: int) -> None:
+    """Install a logits row at ``slot`` (migration import and resume); the
+    warmup's out-of-range slot writes the scratch row."""
+    logits[min(max(int(slot), 0), logits.shape[0] - 1)].copy_(row)
+
+
+def _block_rows(host: list, n: int) -> list[list]:
+    """Per block, its leaf list: row ``j`` of each host leaf [n, ...] as a
+    [1, ...] view (the snapshot's and the host tier's block format)."""
+    return [[x[j:j + 1] for x in host] for j in range(n)]
+
+
+def _stack_leaves(blocks: list) -> list[torch.Tensor]:
+    """The inverse of ``_block_rows``: per leaf, the blocks' rows as one
+    host tensor [n, ...]. Rows that are consecutive views of one tensor
+    (an export's, a spill's) come back as a view of it, without a copy;
+    numpy leaves (the reference's) are taken as they are."""
+    out = []
+    for li in range(len(blocks[0])):
+        parts = [b[li] if isinstance(b[li], torch.Tensor)
+                 else torch.from_numpy(np.array(b[li]))
+                 for b in blocks]
+        first = parts[0]
+        base = first.untyped_storage().data_ptr()
+        step = first.numel()
+        if first.is_contiguous() and all(
+                p.is_contiguous() and p.shape == first.shape
+                and p.untyped_storage().data_ptr() == base
+                and p.storage_offset() == first.storage_offset() + k * step
+                for k, p in enumerate(parts)):
+            out.append(first.as_strided((len(parts), *first.shape[1:]),
+                                        first.stride()))
+        else:
+            out.append(torch.cat(parts))
+    return out
+
+
 # -- dispatch -------------------------------------------------------------
 
 
@@ -872,10 +940,6 @@ class NgramProposer(DraftProposer):
 
 #: knob -> (its default, the ROADMAP item that ports it)
 _UNPORTED = {
-    "host_blocks": (0, "A4(c)"),
-    "host_watermark": (0.25, "A4(c)"),
-    "admission_policy": (None, "A4(d)"),
-    "role": ("mixed", "A4(d)"),
     "mesh_axes": (None, "A7"),
     "program_cache": (None, "A12"),
 }
@@ -916,6 +980,19 @@ class ContinuousEngine:
       pipeline runs at depth 1 while ``spec_k > 0``; dispatches where no
       slot has a draft (and no residual ban waits) run the plain decode;
       segment-backed slots decode unspeculated;
+    - ``host_blocks``: 0 = no host tier; > 0 = a host-RAM mirror of that
+      many blocks (paged pool only): while the free list is below
+      ``host_watermark`` of the pool, a retiring sequence's full blocks
+      spill there, and an admission whose prefix the host tier holds
+      deeper than any block in the pool restores it instead of
+      prefilling;
+    - ``admission_policy``: an optional host callable(req) -> bool
+      consulted at admission (scheduler thread); False defers the request
+      without taking a slot (the tier ladder rides it);
+    - ``role``: ``mixed`` (default), ``prefill`` or ``decode`` (paged pool
+      only). A ``prefill`` engine freezes each sequence at its final chunk
+      and calls ``on_prefilled`` (set by ``DisaggregatedPool``), which
+      hands it to a decode engine by migration;
     - ``temperature``, ``eos_id``, ``seq_buckets``,
       ``default_max_new_tokens`` as in the reference.
 
@@ -944,6 +1021,10 @@ class ContinuousEngine:
         draft_proposer: Optional[DraftProposer] = None,
         block_size: int = 0,
         num_blocks: int = 0,
+        host_blocks: int = 0,
+        host_watermark: float = 0.25,
+        admission_policy: Optional[Callable[[Request], bool]] = None,
+        role: str = "mixed",
         device=None,
         **unported,
     ):
@@ -970,6 +1051,20 @@ class ContinuousEngine:
             raise ValueError("block_size must be >= 0 (0 = slot pool)")
         if num_blocks < 0:
             raise ValueError("num_blocks must be >= 0 (0 = derived)")
+        if host_blocks < 0:
+            raise ValueError("host_blocks must be >= 0 (0 = no host tier)")
+        if host_blocks > 0 and block_size <= 0:
+            raise ValueError(
+                "the host KV tier requires the paged pool "
+                "(block_size > 0): the spill unit is the block")
+        if not (0.0 <= float(host_watermark) <= 1.0):
+            raise ValueError("host_watermark must be in [0, 1]")
+        if role not in ("mixed", "prefill", "decode"):
+            raise ValueError(f"role {role!r}: must be mixed|prefill|decode")
+        if role != "mixed" and block_size <= 0:
+            raise ValueError(
+                f"role={role} requires the paged pool (block_size > 0): "
+                "the KV migration unit is the block")
         if block_size > 0 and prefix_segments > 0:
             raise ValueError(
                 "prefix_segments is superseded by the paged pool: "
@@ -1010,9 +1105,50 @@ class ContinuousEngine:
         self.num_blocks = int(num_blocks)
         self._alloc = (BlockAllocator(self.num_blocks, self.block_size)
                        if self.paged else None)
+        #: the host-RAM tier: retired sequences' block bytes, spilled under
+        #: free-list pressure (the scheduler enqueues the gathers, the
+        #: ``kv-host-tier`` worker takes the fetched leaves in)
+        self.host_blocks = int(host_blocks)
+        self._host_pool = (HostBlockPool(self.host_blocks, self.block_size)
+                           if self.paged and self.host_blocks > 0 else None)
+        #: free-block count below which retirement spills to host RAM
+        self._host_watermark_blocks = int(self.num_blocks
+                                          * float(host_watermark))
+        self._spill_q: "queue.Queue" = queue.Queue()
+        self._spill_thread: Optional[threading.Thread] = None
+        #: the storage tier (``storage.KvSpillStore``) for hibernate/thaw
+        self.spill_store = None
+        #: the tier and migration counters tick on the host-tier worker, on
+        #: callers' threads and on the scheduler: one lock
+        self._tier_mu = threading.Lock()
+        self.kv_spills_total = 0
+        self.kv_thaws_total = 0
+        self.kv_thaws_degraded_total = 0
         #: optional ``analysis.runtime.BlockLedger`` (attach_block_ledger)
         self.block_ledger = None
         self._slot_blocks: list[list[int]] = [[] for _ in range(num_slots)]
+        self.admission_policy = admission_policy
+        self.role = role
+        #: the disaggregation handoff hook (scheduler thread, must not
+        #: block): called with the Request when a prefill-role engine's
+        #: sequence finishes its final chunk, frozen at that boundary
+        self.on_prefilled: Optional[Callable[[Request], None]] = None
+        #: live migration: slots frozen pending cutover (slot -> {"req",
+        #: "entry", "logits"}) and the mailbox the scheduler services
+        #: between dispatches (every op mutates scheduler state)
+        self._migrating: dict[int, dict] = {}
+        self._migrate_q: "queue.Queue[tuple]" = queue.Queue()
+        self.kv_migrations_total = 0
+        self.kv_migrate_failures_total = 0
+        self.kv_migrate_bytes_total = 0
+        #: export -> acknowledged import latencies (ms), fixed buckets + inf
+        self._mig_buckets = (5.0, 10.0, 25.0, 50.0, 100.0, 250.0, 500.0,
+                             1000.0)
+        self._mig_lat_counts = [0] * (len(self._mig_buckets) + 1)
+        self._mig_lat_sum = 0.0
+        #: pinned host tensors of imports and restores in flight, each with
+        #: the event recorded after its copy to the card
+        self._staged: list[tuple[Any, Any]] = []
         self.temperature = float(temperature)
         self.eos_id = eos_id
         self.default_max_new_tokens = default_max_new_tokens
@@ -1149,6 +1285,11 @@ class ContinuousEngine:
             self._thread = threading.Thread(
                 target=self._loop, name="continuous-engine", daemon=True)
             self._thread.start()
+        if self._host_pool is not None and self._spill_thread is None:
+            self._spill_thread = threading.Thread(
+                target=self._host_tier_loop, name="kv-host-tier",
+                daemon=True)
+            self._spill_thread.start()
 
     # -- programs ------------------------------------------------------------
 
@@ -1541,6 +1682,16 @@ class ContinuousEngine:
             top = max(top, max(buckets) + self.spec_k + 1)
         cover = self._rung(top)
         pad, sent = self._alloc.pad_block, self.num_slots
+        # the migration gather and scatter and the logits take and set run
+        # eagerly (no capture): exercise them as the reference's warmup
+        # does, on pad ids (the gather clips, the scatter writes the
+        # scratch block) and the scratch slot row
+        ids = torch.full((KV_MIGRATE_GROUP,), pad, dtype=torch.long,
+                         device=self.device)
+        kv_import(self._pool, ids,
+                  [torch.zeros_like(x) for x in kv_export(self._pool, ids)])
+        logits_set(self._pool_logits, logits_take(self._pool_logits, sent),
+                   sent)
         for a in [x for x in self.attend_buckets if x <= cover]:
             nblk = -(-a // self.block_size)
             bt = np.full((self.num_slots, nblk), pad)
@@ -1587,7 +1738,8 @@ class ContinuousEngine:
     def submit(self, prompt: list[int], max_new_tokens: Optional[int] = None,
                temperature: Optional[float] = None,
                top_p: Optional[float] = None, top_k: Optional[int] = None,
-               priority: Optional[int] = None) -> Request:
+               priority: Optional[int] = None,
+               session_id: Optional[str] = None) -> Request:
         req = Request(
             prompt=list(map(int, prompt)),
             max_new_tokens=int(
@@ -1597,6 +1749,7 @@ class ContinuousEngine:
             top_p=(None if top_p is None else float(top_p)),
             top_k=(None if top_k is None else int(top_k)),
             priority=(1 if priority is None else int(priority)),
+            session_id=(None if session_id is None else str(session_id)),
         )
         req.submitted_step = self.step_counter
         with self._gate:
@@ -1620,19 +1773,61 @@ class ContinuousEngine:
                            top_p=top_p, top_k=top_k).wait(timeout)
 
     def stats(self) -> dict:
-        """Engine observability snapshot."""
+        """Engine observability snapshot (the reference's keys, less the
+        program-cache ones)."""
         if self.paged:
+            a = self._alloc
+            allocated = a.num_blocks - a.free_blocks
+            live_tokens = sum(
+                len(self._slot_content[s]) for s in range(self.num_slots)
+                if self._slot_blocks[s])
+            host = (self._host_pool.stats() if self._host_pool is not None
+                    else {"kv_blocks_host_tier": 0, "kv_host_bytes": 0,
+                          "kv_host_capacity_blocks": 0,
+                          "kv_host_spills_total": 0,
+                          "kv_host_restores_total": 0,
+                          "kv_host_evictions_total": 0})
             paged = {
-                **self._alloc.stats(),
+                **a.stats(),
+                # the KV tiers: host-RAM occupancy and traffic, spills and
+                # thaws through every tier (host and storage), torn spills
+                # found at thaw, and the hibernated sessions
+                **host,
+                "kv_spills_total": self.kv_spills_total,
+                "kv_thaws_total": self.kv_thaws_total,
+                "kv_thaws_degraded_total": self.kv_thaws_degraded_total,
+                "kv_spill_verify_failures_total": (
+                    self.spill_store.verify_failures_total
+                    if self.spill_store is not None else 0),
+                "kv_sessions_hibernated": (
+                    self.spill_store.session_count()
+                    if self.spill_store is not None else 0),
+                # reserved-but-unwritten span across live tables, as a
+                # share of the allocated bytes
+                "kv_fragmentation_ratio": (
+                    0.0 if allocated == 0 else round(max(
+                        0.0, 1.0 - live_tokens
+                        / (allocated * self.block_size)), 4)),
                 "kv_blocks_leaked_total": (
                     self.block_ledger.leaked_total
                     if self.block_ledger is not None else 0),
             }
         else:
-            paged = {"kv_block_size": 0, "kv_blocks_total": 0,
-                     "kv_blocks_free": 0, "kv_blocks_cow_copies_total": 0,
-                     "prefix_block_hits_total": 0,
-                     "kv_blocks_leaked_total": 0}
+            paged = {
+                "kv_block_size": 0, "kv_blocks_total": 0,
+                "kv_blocks_free": 0, "kv_blocks_cow_copies_total": 0,
+                "prefix_block_hits_total": 0,
+                "kv_fragmentation_ratio": 0.0,
+                "kv_blocks_leaked_total": 0,
+                "kv_blocks_host_tier": 0, "kv_host_bytes": 0,
+                "kv_host_capacity_blocks": 0, "kv_host_spills_total": 0,
+                "kv_host_restores_total": 0,
+                "kv_host_evictions_total": 0,
+                "kv_spills_total": 0, "kv_thaws_total": 0,
+                "kv_thaws_degraded_total": 0,
+                "kv_spill_verify_failures_total": 0,
+                "kv_sessions_hibernated": 0,
+            }
         return {
             **paged,
             "slots_capacity": self.num_slots,
@@ -1653,6 +1848,13 @@ class ContinuousEngine:
             "spec_acceptance_rate": round(
                 self.spec_tokens_accepted_total
                 / max(self.spec_tokens_proposed_total, 1), 4),
+            # live migration: sequences imported here (one count a
+            # migration), payload bytes both ways, failures counted by the
+            # orchestrating layer, and the export -> ack latency histogram
+            "kv_migrations_total": self.kv_migrations_total,
+            "kv_migrate_bytes_total": self.kv_migrate_bytes_total,
+            "kv_migrate_failures_total": self.kv_migrate_failures_total,
+            **self._migration_histogram(),
             "prefix_hits": self.prefix_hits,
             "prefix_tokens_saved": self.prefix_tokens_saved,
             "segments_capacity": self.prefix_segments,
@@ -1668,12 +1870,28 @@ class ContinuousEngine:
             "kv_pool_bytes_allocated": self._pool.nbytes,
         }
 
+    def _migration_histogram(self) -> dict:
+        out = {}
+        cum = 0
+        for b, c in zip(self._mig_buckets, self._mig_lat_counts):
+            cum += c
+            out[f"kv_migrate_latency_ms_bucket_le_{b:g}"] = cum
+        cum += self._mig_lat_counts[-1]
+        out["kv_migrate_latency_ms_bucket_le_inf"] = cum
+        out["kv_migrate_latency_ms_count"] = cum
+        out["kv_migrate_latency_ms_sum"] = round(self._mig_lat_sum, 3)
+        return out
+
     def stop(self) -> None:
         with self._gate:
             self._stop.set()
         self._wake.set()
         if self._thread is not None:
             self._thread.join(timeout=30)
+        if self._spill_thread is not None:
+            # the host-tier worker drains its queue, then exits
+            self._spill_thread.join(timeout=30)
+            self._spill_thread = None
         while True:
             try:
                 req = self._queue.get_nowait()
@@ -1686,6 +1904,7 @@ class ContinuousEngine:
                 req.error = RuntimeError("engine shut down")
                 req.done.set()
         self._waiting.clear()
+        self._fail_migration_waiters(RuntimeError("engine shut down"))
         if self._thread is None or not self._thread.is_alive():
             self._dispatch.close()
         if self.block_ledger is not None and self._alloc is not None:
@@ -1703,30 +1922,818 @@ class ContinuousEngine:
             raise RuntimeError(
                 "block ledger requires the paged pool (block_size > 0)")
         ledger.attach(self._alloc)
+        if self._host_pool is not None:
+            # the host tier joins the audit: its gauges are conservation
+            # checked like the pool's refcounts
+            ledger.attach_host_pool(self._host_pool)
         self.block_ledger = ledger
 
-    def audit_blocks(self) -> list:
-        """Zero-leak audit; leak records (empty = the invariant holds).
-        Runs only on a stopped engine or before traffic, where no
-        scheduler thread can be mid-mutation."""
+    def audit_blocks(self, timeout: float = 60.0) -> list:
+        """Zero-leak audit at a consistent boundary; leak records (empty =
+        the invariant holds). On a running engine it runs on the scheduler
+        thread through the migration mailbox, between dispatches; on a
+        stopped engine or before traffic, directly."""
         if self.block_ledger is None:
             return []
-        if self._thread is not None and self._thread.is_alive():
-            raise RuntimeError("audit_blocks() needs a stopped engine")
-        return self._audit_blocks_now()
+        if self._thread is None or not self._thread.is_alive():
+            return self._audit_blocks_now()
+        return self._post_migration_op("audit", None, None,
+                                       timeout)["leaks"]
 
     def _held_blocks(self) -> list[int]:
+        """Blocks legitimately referenced now: live and frozen slots'
+        tables (a frozen migrating slot keeps its blocks until the cutover,
+        and a chunked admission reserves its slot up front)."""
         held: list[int] = []
         for slot, blocks in enumerate(self._slot_blocks):
-            if blocks and self._slots[slot] is not None:
+            if blocks and (self._slots[slot] is not None
+                           or slot in self._migrating):
                 held.extend(blocks)
         return held
 
     def _audit_blocks_now(self) -> list:
         if self.block_ledger is None or self._alloc is None:
             return []
+        if self._host_pool is not None:
+            self.block_ledger.audit_host(self._host_pool)
         return self.block_ledger.audit_quiesced(
             self._alloc, held=self._held_blocks())
+
+    # -- moving blocks between the card and the host ---------------------------
+    #
+    # The scheduler only enqueues, on the engine's stream: the grouped block
+    # gathers and their copy into (pinned) host tensors, or the copy of
+    # pinned host tensors to the card and the grouped scatters. Whoever reads
+    # the host tensors waits on the CUDA event recorded after the copy.
+
+    def _record(self):
+        """An event after everything enqueued so far on the engine's stream
+        (None on the CPU, where every copy has happened already)."""
+        if not self._dispatch.cuda:
+            return None
+        ev = torch.cuda.Event()
+        ev.record(self._dispatch.stream)
+        return ev
+
+    def _to_device(self, arr) -> torch.Tensor:
+        """A small host int array on the engine's device, copied without a
+        host sync (a pageable copy would wait for the stream)."""
+        t = torch.from_numpy(np.ascontiguousarray(arr, np.int64))
+        if not self._dispatch.cuda:
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _to_host(self, x: torch.Tensor, out: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+        """Enqueue the copy of a device tensor into a host tensor (pinned on
+        the card); read it after ``_record``'s event."""
+        if out is None:
+            out = torch.empty(x.shape, dtype=x.dtype,
+                              pin_memory=self._dispatch.cuda)
+        out.copy_(x, non_blocking=True)
+        return out
+
+    def _export_blocks(self, ids: list[int]) -> list[torch.Tensor]:
+        """Enqueue the gathers of blocks ``ids`` in groups of
+        ``KV_MIGRATE_GROUP`` and their copy to the host: per leaf a host
+        tensor [len(ids), ...] in ``MIGRATE_LEAVES`` order. A group's pad
+        rows clip and stay on the card: only valid rows are copied."""
+        host: list[torch.Tensor] = []
+        g = KV_MIGRATE_GROUP
+        for i in range(0, len(ids), g):
+            grp = ids[i:i + g]
+            bt = np.full(g, self._alloc.pad_block, np.int64)
+            bt[:len(grp)] = grp
+            leaves = kv_export(self._pool, self._to_device(bt))
+            if not host:
+                host = [torch.empty((len(ids), *x.shape[1:]), dtype=x.dtype,
+                                    pin_memory=self._dispatch.cuda)
+                        for x in leaves]
+            for h, x in zip(host, leaves):
+                self._to_host(x[:len(grp)], h[i:i + len(grp)])
+        return host
+
+    def _hold(self, tensors: list) -> None:
+        """Keep the pinned host tensors of copies to the card alive until
+        their event; drop the ones whose copies have ended."""
+        if not self._dispatch.cuda:
+            return
+        self._staged = [(t, e) for t, e in self._staged if not e.query()]
+        self._staged.append((tensors, self._record()))
+
+    def _import_blocks(self, ids: list[int], leaves: list) -> None:
+        """Enqueue the copy of host leaves ([len(ids), ...] each, the
+        export's layout) to the card and their scatter into blocks ``ids``,
+        in groups of ``KV_MIGRATE_GROUP``."""
+        if self._dispatch.cuda:
+            leaves = [x if x.is_pinned() else x.pin_memory() for x in leaves]
+        g = KV_MIGRATE_GROUP
+        for i in range(0, len(ids), g):
+            m = min(g, len(ids) - i)
+            dev = [x[i:i + m].to(self.device, non_blocking=True)
+                   for x in leaves]
+            kv_import(self._pool, self._to_device(ids[i:i + m]), dev)
+        self._hold(leaves)
+
+    # -- the host-RAM tier -----------------------------------------------------
+
+    def _maybe_spill_host(self, slot: int, blocks: list) -> None:
+        """The scheduler's spill decision for a retiring sequence's full
+        blocks, and the enqueue of their gathers (the worker takes them
+        in)."""
+        hp = self._host_pool
+        if hp is None:
+            return
+        if self._alloc.free_blocks >= self._host_watermark_blocks:
+            return  # no pressure: the pool's free list keeps the prefix
+        content = self._slot_content[slot]
+        nfull = min(len(content) // self.block_size, len(blocks))
+        if nfull == 0:
+            return
+        toks = list(content[: nfull * self.block_size])
+        if hp.contains_prefix(toks, min_tokens=len(toks)):
+            return  # already held: a spill again would churn the LRU
+        host = self._export_blocks([int(b) for b in blocks[:nfull]])
+        self._spill_q.put((toks, host, nfull, self._record()))
+
+    def _host_tier_loop(self) -> None:
+        """The ``kv-host-tier`` worker: wait for each spill's copy, then
+        admit its blocks to the ``HostBlockPool``."""
+        while not (self._stop.is_set() and self._spill_q.empty()):
+            try:
+                toks, host, n, ev = self._spill_q.get(timeout=0.1)
+            except queue.Empty:
+                continue
+            try:
+                if ev is not None:
+                    ev.synchronize()
+                nbytes = sum(int(x.nbytes) for x in host)
+                if self._host_pool.put(toks, _block_rows(host, n),
+                                       nbytes) >= 0:
+                    with self._tier_mu:
+                        self.kv_spills_total += 1
+            except Exception as e:  # noqa: BLE001 — a failed spill costs
+                # only the cache entry; the tier never takes the engine down
+                log.debug("host-tier spill failed: %s", e)
+
+    def _scatter_host_blocks(self, ids: list, blocks: list) -> None:
+        """Scatter host block leaf-lists into pool blocks ``ids`` (the
+        host-tier restore and the prefix install; scheduler thread)."""
+        self._import_blocks([int(b) for b in ids[:len(blocks)]],
+                            _stack_leaves(blocks))
+
+    # -- the storage tier: hibernate and thaw ----------------------------------
+
+    def attach_spill_store(self, store) -> None:
+        """Attach the storage tier (``storage.KvSpillStore``):
+        hibernate/thaw default to it and ``stats()`` reads its gauges."""
+        self.spill_store = store
+
+    def idle_sessions(self, idle_s: float,
+                      now: Optional[float] = None) -> list:
+        """Live session-bound sequences whose token stream has been quiet
+        for ``idle_s``: the idle-session reaper's probe (a copy of the slot
+        table; ``hibernate_sequence``'s own export decides)."""
+        now = time.perf_counter() if now is None else now
+        out = []
+        for req in list(self._slots):
+            if req is None or req.done.is_set() or not req.session_id:
+                continue
+            if now - req.last_token_at >= float(idle_s):
+                out.append(req)
+        return out
+
+    def hibernate_sequence(self, req: Request, session_id: str,
+                           store=None, timeout: float = 60.0) -> bool:
+        """Spill a live sequence to the storage tier and retire it: the
+        export snapshot goes through the store's atomic, manifest-verified
+        write, then the slot is released (its blocks return to the free
+        list, prefix-registered). The handle stays unresolved;
+        ``thaw_sequence`` on any engine sharing the store resumes it. A
+        write that fails publishes nothing and the sequence resumes in
+        place. Runs on the caller's thread. False when the request already
+        finished."""
+        store = store or self.spill_store
+        if store is None:
+            raise RuntimeError("no spill store attached "
+                               "(attach_spill_store)")
+        snap = self.export_sequence(req, timeout)
+        if snap is None:
+            return False
+        toks = [int(t) for t in snap["prompt"]] + \
+            [int(t) for t in snap.get("generated", ())]
+        try:
+            store.write(session_id, snap,
+                        block_keys=block_keys(toks, self.block_size))
+        except Exception:
+            try:
+                self.resume_sequence(req, timeout)
+            except (RuntimeError, TimeoutError):
+                pass
+            raise
+        self.release_sequence(req, timeout)
+        with self._tier_mu:
+            self.kv_spills_total += 1
+        return True
+
+    def thaw_sequence(self, session_id: str, store=None,
+                      req: Optional[Request] = None,
+                      timeout: float = 60.0) -> tuple[Request, dict]:
+        """Resume a hibernated session from the storage tier (any engine
+        sharing the store), behind the optional ``thaw_gate`` (a context
+        manager that caps concurrent thaws). Returns ``(req, info)``:
+
+        - a verified payload: ``import_sequence`` scatters the spilled
+          blocks and decoding resumes at the exact position;
+        - a torn payload (a hash mismatch): never scattered; the session
+          re-prefills from the manifest's token record
+          (``info["degraded"]``, the same greedy tokens);
+        - an unreadable manifest: ``storage.SpillCorrupt``.
+
+        ``info["tokens"]`` holds the tokens generated before hibernation.
+        The spill entry is consumed."""
+        gate = getattr(self, "thaw_gate", None)
+        if gate is not None:
+            with gate:
+                return self._thaw_sequence_gated(
+                    session_id, store, req, timeout)
+        return self._thaw_sequence_gated(session_id, store, req, timeout)
+
+    def _thaw_sequence_gated(self, session_id: str, store=None,
+                             req: Optional[Request] = None,
+                             timeout: float = 60.0
+                             ) -> tuple[Request, dict]:
+        store = store or self.spill_store
+        if store is None:
+            raise RuntimeError("no spill store attached "
+                               "(attach_spill_store)")
+        snap, ok = store.read(session_id)
+        prior = [int(t) for t in snap.get("generated", ())]
+        if ok:
+            new_req = self.import_sequence(snap, req=req, timeout=timeout)
+        else:
+            prompt = [int(t) for t in snap["prompt"]]
+            remaining = (int(snap["remaining"])
+                         if snap.get("phase") == "decode"
+                         else int(snap["max_new_tokens"]))
+            # the handle's budget counts delivered tokens and the prior
+            # transcript rides the handle: prior + remainder; the
+            # snapshot's max_new_tokens below stays the remainder (it sizes
+            # the block span over the re-prefilled prompt)
+            if req is None:
+                req = Request(
+                    prompt=prompt, max_new_tokens=len(prior) + remaining,
+                    temperature=snap.get("temperature"),
+                    top_p=snap.get("top_p"), top_k=snap.get("top_k"),
+                    priority=int(snap.get("priority", 1)))
+                req.tokens = list(prior)
+            else:
+                req.max_new_tokens = len(prior) + remaining
+            re_snap = {
+                "v": 1, "phase": "prefill", "block_size": self.block_size,
+                # prompt and prior generation re-prefill as one prompt: the
+                # chunked-prefill math, so the continuation is the same
+                "prompt": prompt + prior, "generated": [],
+                "position": 0, "remaining": remaining,
+                "max_new_tokens": remaining,
+                "temperature": snap.get("temperature"),
+                "top_p": snap.get("top_p"), "top_k": snap.get("top_k"),
+                "priority": int(snap.get("priority", 1)),
+                "spec_ban": -1, "blocks": [],
+            }
+            new_req = self.import_sequence(re_snap, req=req,
+                                           timeout=timeout)
+            with self._tier_mu:
+                self.kv_thaws_degraded_total += 1
+        store.delete(session_id)
+        with self._tier_mu:
+            self.kv_thaws_total += 1
+        return new_req, {"degraded": not ok, "tokens": prior,
+                         "session": session_id}
+
+    # -- prefix export and install across engines ------------------------------
+
+    def export_prefix_blocks(self, tokens: list[int],
+                             timeout: float = 60.0) -> tuple[list[int], list]:
+        """(covered tokens, host block leaf-lists) of the longest full-block
+        prefix of ``tokens`` this pool holds (live slots or the registry of
+        retired sequences): what a cold engine installs instead of
+        prefilling a hot prefix. The gathers are enqueued on the
+        scheduler; the copy is awaited here, on the caller's thread."""
+        if not self.paged:
+            raise RuntimeError("prefix export requires the paged pool")
+        out = self._post_migration_op("export_prefix",
+                                      [int(t) for t in tokens], None,
+                                      timeout)
+        host, n, ev = out["fetch"]
+        if ev is not None:
+            ev.synchronize()
+        return out["covered"], _block_rows(host, n)
+
+    def install_prefix(self, tokens: list[int], blocks: list,
+                       timeout: float = 60.0) -> bool:
+        """Install a fetched prefix (host block leaf-lists, one per full
+        block of ``tokens``) into this pool's registry: alloc, scatter,
+        register, release; the next same-prefix admission shares the
+        blocks instead of prefilling. False when the pool has no room
+        (never evicts a live sequence)."""
+        if not self.paged:
+            raise RuntimeError("prefix install requires the paged pool")
+        out = self._post_migration_op(
+            "install_prefix", [int(t) for t in tokens], blocks, timeout)
+        return bool(out.get("ok"))
+
+    def prefix_census(self, timeout: float = 30.0) -> list:
+        """Copies of every block-registered token record (live slots and
+        the registry), taken at a scheduler boundary, for
+        ``paged.prefix_digest``. Empty when the scheduler has not started
+        (a probe must not start the pool)."""
+        if not self.paged or self._thread is None:
+            return []
+        try:
+            out = self._post_migration_op("prefix_census", None, None,
+                                          timeout)
+        except (RuntimeError, TimeoutError):
+            return []
+        return out.get("tokens", [])
+
+    def _mig_export_prefix(self, tokens: list[int], out: dict) -> None:
+        # uncapped: a prefix export may cover the whole token record
+        blocks, n = self._paged_match(tokens, cap=len(tokens))
+        nfull = n // self.block_size
+        host = self._export_blocks([int(b) for b in blocks[:nfull]])
+        out["covered"] = tokens[: nfull * self.block_size]
+        out["fetch"] = (host, nfull, self._record())
+
+    def _mig_prefix_census(self, out: dict) -> None:
+        records = []
+        for s in range(self.num_slots):
+            content = self._slot_content[s]
+            if self._slot_blocks[s] and len(content) >= self.block_size:
+                records.append(np.asarray(content, np.int64))
+        for toks, blocks in self._alloc._seqs.values():
+            records.append(np.asarray(
+                toks[: len(blocks) * self.block_size], np.int64))
+        out["tokens"] = records
+
+    def _mig_install_prefix(self, tokens: list[int], blocks: list,
+                            out: dict) -> None:
+        n = min(len(blocks), len(tokens) // self.block_size)
+        if n == 0:
+            out["ok"] = False
+            return
+        table = self._alloc.alloc(n)
+        if table is None:
+            out["ok"] = False  # no room: never evict a live sequence
+            return
+        self._scatter_host_blocks(table, blocks[:n])
+        if self.block_ledger is not None:
+            self.block_ledger.annotate(self._alloc, table,
+                                       "registry:install_prefix")
+        self._alloc.register(tokens[: n * self.block_size], table)
+        self._alloc.release(table)
+        with self._tier_mu:
+            self.kv_thaws_total += 1
+        out["ok"] = True
+
+    # -- live KV migration -------------------------------------------------------
+    #
+    # The unit is the paged block: export gathers a sequence's written
+    # blocks to the host, import allocates and scatters them on the
+    # destination, and the scheduler state (position, budget, sampling
+    # knobs, the next-token logits row) rides along, so the destination
+    # resumes at the exact position. Copy then cutover: export freezes the
+    # slot and frees nothing; release (after the destination acknowledged)
+    # retires it, and resume unfreezes it after a failed transfer. Every
+    # pool and scheduler mutation runs on the scheduler thread through the
+    # mailbox; the wait for the host copy runs on the caller's thread.
+
+    def export_sequence(self, req: Request,
+                        timeout: float = 60.0) -> Optional[dict]:
+        """Copy step: snapshot ``req``'s live KV and scheduler state.
+        Freezes the slot at a dispatch boundary (in-flight dispatches are
+        delivered first) and returns a host snapshot: block leaves as
+        torch CPU tensors (per block a list in ``MIGRATE_LEAVES`` order,
+        block axis first) and the logits row, ready for
+        ``import_sequence`` on any engine. None when the request already
+        finished. The source stays intact until ``release_sequence``."""
+        if not self.paged:
+            raise RuntimeError(
+                "KV migration requires the paged pool (block_size > 0)")
+        out = self._post_migration_op("export", req, None, timeout)
+        snap = out.get("snap")
+        if snap is None:
+            return None
+        host, n, row, ev = snap.pop("fetch")
+        if ev is not None:
+            ev.synchronize()
+        snap["blocks"] = _block_rows(host, n)
+        nbytes = sum(int(x.nbytes) for x in host)
+        if row is not None:
+            snap["logits"] = row
+            nbytes += int(row.nbytes)
+        with self._tier_mu:
+            self.kv_migrate_bytes_total += nbytes
+        return snap
+
+    def import_sequence(self, snapshot: dict, req: Optional[Request] = None,
+                        timeout: float = 60.0, hold: bool = False) -> Request:
+        """Cutover step: install an exported sequence into this pool.
+
+        Allocates the sequence's whole remaining span (exhaustion raises,
+        never a partial hold: the source then resumes), scatters the
+        blocks, installs the logits row and scheduler state and resumes
+        decoding at the exact position. ``req`` re-targets an existing
+        handle (in-process handoff); None builds a fresh one from the
+        snapshot. ``hold=True`` installs the sequence frozen until
+        ``resume_sequence``. The snapshot's leaves (this port's or the
+        reference's numpy ones) are staged into pinned host tensors here,
+        on the caller's thread."""
+        if not self.paged:
+            raise RuntimeError(
+                "KV migration requires the paged pool (block_size > 0)")
+        if snapshot is None:
+            raise ValueError(
+                "snapshot is None — the sequence had already finished "
+                "on the source (export_sequence returned None)")
+        blocks = snapshot.get("blocks", [])
+        leaves = _stack_leaves(blocks) if blocks else []
+        row = snapshot.get("logits")
+        if row is not None and not isinstance(row, torch.Tensor):
+            row = torch.from_numpy(np.array(row))
+        if self._dispatch.cuda:
+            leaves = [x if x.is_pinned() else x.pin_memory() for x in leaves]
+            if row is not None and not row.is_pinned():
+                row = row.pin_memory()
+        out = self._post_migration_op(
+            "import", snapshot, (req, hold, leaves, row), timeout)
+        return out["req"]
+
+    def take_waiting(self, timeout: float = 60.0) -> list:
+        """Withdraw every queued, unadmitted request (on the scheduler
+        thread, which owns the waiting list)."""
+        return self._post_migration_op("take_waiting", None, None,
+                                       timeout)["reqs"]
+
+    def quiesced_live_requests(self, timeout: float = 60.0) -> list:
+        """Every admitted, unfinished request, read on the scheduler thread
+        after any admission cycle in progress."""
+        return self._post_migration_op("live_slots", None, None,
+                                       timeout)["reqs"]
+
+    def adopt_request(self, req: Request) -> None:
+        """Queue an existing Request handle (its streamed tokens kept)."""
+        with self._gate:
+            if self._error is not None:
+                raise RuntimeError(
+                    f"engine failed: {self._error!r}") from self._error
+            if self._stop.is_set():
+                raise RuntimeError("engine is shutting down")
+            self._queue.put(req)
+            self._ensure_running()
+        self._wake.set()
+
+    def resume_sequence(self, req: Request, timeout: float = 60.0) -> None:
+        """Abort a migration: unfreeze the exported slot, so the source
+        decodes on as if the transfer never happened."""
+        self._post_migration_op("resume", req, None, timeout)
+
+    def release_sequence(self, req: Request, timeout: float = 60.0) -> None:
+        """Commit the cutover after the destination acknowledged: retire
+        the source slot. Its blocks join the free list with the sequence
+        registered, so it stays prefix-matchable here until they are
+        reused."""
+        self._post_migration_op("release", req, None, timeout)
+
+    def observe_migration_ms(self, ms: float) -> None:
+        """Record one completed migration's export -> ack latency."""
+        for i, b in enumerate(self._mig_buckets):
+            if ms <= b:
+                break
+        else:
+            i = len(self._mig_buckets)
+        with self._tier_mu:
+            self._mig_lat_counts[i] += 1
+            self._mig_lat_sum += float(ms)
+
+    def _note_migrate_failure(self) -> None:
+        with self._tier_mu:
+            self.kv_migrate_failures_total += 1
+
+    def _post_migration_op(self, kind: str, a, b, timeout: float) -> dict:
+        ev = threading.Event()
+        out: dict = {}
+        with self._gate:
+            if self._error is not None:
+                raise RuntimeError(
+                    f"engine failed: {self._error!r}") from self._error
+            if self._stop.is_set():
+                raise RuntimeError("engine is shutting down")
+            self._migrate_q.put((kind, a, b, ev, out))
+            self._ensure_running()
+        self._wake.set()
+        if not ev.wait(timeout):
+            # abandon the op so it never runs later: a stale import landing
+            # after the caller resumed the source would decode one request
+            # twice. Either the scheduler already took it (wait out its
+            # bounded run) or it will skip it.
+            out["abandoned"] = True
+            if not (out.get("taken") and ev.wait(60)):
+                raise TimeoutError(
+                    f"migration {kind} not serviced within {timeout}s")
+        err = out.get("error")
+        if err is not None:
+            raise err if isinstance(err, Exception) \
+                else RuntimeError(str(err))
+        return out
+
+    def _service_migrations(self, pending) -> None:
+        """The scheduler's mailbox pump, between dispatches."""
+        while True:
+            try:
+                kind, a, b, ev, out = self._migrate_q.get_nowait()
+            except queue.Empty:
+                return
+            out["taken"] = True
+            if out.get("abandoned"):
+                out["error"] = RuntimeError("migration op abandoned")
+                ev.set()
+                continue
+            try:
+                if kind == "export":
+                    self._mig_export(a, out, pending)
+                elif kind == "freeze":
+                    self._mig_freeze(a, pending)
+                elif kind == "import":
+                    self._mig_import(a, *b, out)
+                elif kind == "resume":
+                    self._mig_resume(a)
+                elif kind == "take_waiting":
+                    self._mig_take_waiting(out)
+                elif kind == "audit":
+                    out["leaks"] = self._audit_blocks_now()
+                elif kind == "export_prefix":
+                    self._mig_export_prefix(a, out)
+                elif kind == "prefix_census":
+                    self._mig_prefix_census(out)
+                elif kind == "install_prefix":
+                    self._mig_install_prefix(a, b, out)
+                elif kind == "live_slots":
+                    out["reqs"] = [r for r in self._slots
+                                   if r is not None and not r.done.is_set()]
+                else:
+                    self._mig_release(a)
+            except Exception as e:  # noqa: BLE001 — resolve THIS waiter
+                out["error"] = e
+            ev.set()
+
+    def _fail_migration_waiters(self, e: Exception) -> None:
+        """Resolve every queued mailbox op with ``e`` (engine death or
+        shutdown), so no caller hangs on the mailbox."""
+        while True:
+            try:
+                *_a, ev, out = self._migrate_q.get_nowait()
+            except queue.Empty:
+                return
+            out["error"] = e
+            ev.set()
+
+    def _find_req_slot(self, req: Request) -> Optional[int]:
+        for i, r in enumerate(self._slots):
+            if r is req:
+                return i
+        return None
+
+    def _mig_export(self, req: Request, out: dict, pending) -> None:
+        # deliver every dispatch in flight first (a verify's accept lengths
+        # included): position, delivered tokens and content must agree
+        # before the snapshot freezes them
+        while pending:
+            self._process(*pending.pop(0))
+        slot = self._find_req_slot(req)
+        if slot is None or req.done.is_set():
+            out["snap"] = None  # finished or cancelled: nothing to move
+            return
+        rec = self._migrating.get(slot) or self._freeze(slot, req)
+        out["snap"] = self._snapshot_slot(slot, req, rec.get("entry"), rec)
+
+    def _freeze(self, slot: int, req: Request) -> dict:
+        """Freeze a slot for migration (dispatches in flight delivered):
+        no later dispatch advances it until resume or release."""
+        # a sequence mid-prefill freezes at its chunk boundary: pull its
+        # admission entry so no later chunk advances it meanwhile
+        entry = next((e for e in self._prefilling if e[0] is req), None)
+        rec = {"req": req, "entry": entry}
+        if entry is not None:
+            self._prefilling.remove(entry)
+            self._prefill_tokens_inflight -= len(entry[2]) - entry[3]
+        else:
+            self._active[slot] = False
+            # every decode dispatch rewrites every slot's logits row, frozen
+            # ones too: the snapshot and a resume read the row as it was at
+            # the freeze
+            rec["logits"] = logits_take(self._pool_logits, slot)
+        self._migrating[slot] = rec
+        return rec
+
+    def _mig_freeze(self, reqs: list, pending) -> None:
+        """Freeze every live request of ``reqs`` in one boundary (a
+        drain's first step)."""
+        while pending:
+            self._process(*pending.pop(0))
+        for req in reqs:
+            slot = self._find_req_slot(req)
+            if (slot is not None and not req.done.is_set()
+                    and slot not in self._migrating):
+                self._freeze(slot, req)
+
+    def _snapshot_slot(self, slot: int, req: Request, entry, rec) -> dict:
+        """The snapshot, with its block gathers and their copy to the host
+        enqueued under ``"fetch"`` (the caller waits on its event)."""
+        bs = self.block_size
+        if entry is not None:
+            phase = "prefill"
+            prompt, position = list(entry[2]), int(entry[3])
+            generated: list[int] = []
+            remaining = int(req.max_new_tokens)
+            row = None
+            temp = (self.temperature if req.temperature is None
+                    else req.temperature)
+            top_p = 1.0 if req.top_p is None else req.top_p
+            top_k = 0 if req.top_k is None else req.top_k
+        else:
+            phase = "decode"
+            position = int(self._positions[slot])
+            generated = list(req.tokens)
+            content = list(self._slot_content[slot])
+            prompt = content[: max(position - len(generated), 0)]
+            remaining = int(self._remaining[slot])
+            row = rec.get("logits")
+            if row is None:
+                row = logits_take(self._pool_logits, slot)
+            temp = float(self._temps[slot])
+            top_p = float(self._top_ps[slot])
+            top_k = int(self._top_ks[slot])
+        nwritten = (min(-(-position // bs), len(self._slot_blocks[slot]))
+                    if position > 0 else 0)
+        ids = [int(b) for b in self._slot_blocks[slot][:nwritten]]
+        host = self._export_blocks(ids)
+        host_row = None if row is None else self._to_host(row)
+        return {
+            "v": 1, "phase": phase, "block_size": bs,
+            "prompt": [int(t) for t in prompt],
+            "generated": [int(t) for t in generated],
+            "position": position, "remaining": remaining,
+            "max_new_tokens": int(req.max_new_tokens),
+            "temperature": float(temp), "top_p": float(top_p),
+            "top_k": int(top_k), "priority": int(req.priority),
+            "spec_ban": int(self._spec_ban[slot]),
+            "fetch": (host, len(ids), host_row, self._record()),
+        }
+
+    def _mig_take_waiting(self, out: dict) -> None:
+        reqs = [r for r in self._waiting if not r.done.is_set()]
+        self._waiting.clear()
+        while True:
+            try:
+                r = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            if not r.done.is_set():
+                reqs.append(r)
+        out["reqs"] = reqs
+
+    def _mig_import(self, snap: dict, req: Optional[Request], hold: bool,
+                    leaves: list, row, out: dict) -> None:
+        bs = int(snap["block_size"])
+        if bs != self.block_size:
+            raise ValueError(
+                f"block_size mismatch: snapshot {bs} vs pool "
+                f"{self.block_size}")
+        phase = snap.get("phase", "decode")
+        position = int(snap["position"])
+        remaining = int(snap["remaining"])
+        prompt = [int(t) for t in snap["prompt"]]
+        generated = [int(t) for t in snap.get("generated", ())]
+        nblocks = len(snap.get("blocks", ()))
+        if phase == "prefill":
+            total = len(prompt) + int(snap["max_new_tokens"])
+        else:
+            total = position + remaining
+        nb_total = max(-(-total // bs), nblocks, 1)
+        if nb_total > self._alloc.num_blocks:
+            raise RuntimeError(
+                f"sequence needs {nb_total} KV blocks but the pool has "
+                f"{self._alloc.num_blocks}")
+        free = [i for i, r in enumerate(self._slots) if r is None]
+        if not free:
+            raise RuntimeError("no free slot on the destination pool")
+        table = self._alloc.alloc(nb_total)
+        if table is None:
+            raise RuntimeError(
+                f"destination pool exhausted: {self._alloc.free_blocks} "
+                f"free blocks < {nb_total} needed")
+        slot = free[0]
+        try:
+            nbytes = sum(int(x.nbytes) for x in leaves)
+            if nblocks:
+                self._import_blocks([int(b) for b in table[:nblocks]],
+                                    leaves)
+            if req is None:
+                req = Request(
+                    prompt=prompt,
+                    max_new_tokens=int(snap["max_new_tokens"]),
+                    temperature=snap.get("temperature"),
+                    top_p=snap.get("top_p"), top_k=snap.get("top_k"),
+                    priority=int(snap.get("priority", 1)))
+                req.tokens = list(generated)
+            self._slots[slot] = req
+            self._slot_blocks[slot] = [int(b) for b in table]
+            if self.block_ledger is not None:
+                self.block_ledger.annotate(self._alloc, table,
+                                           f"slot{slot}:import")
+            req.slot = slot
+            req.admitted_step = self.step_counter
+            if phase == "prefill":
+                self._slot_content[slot] = prompt[:position]
+                self._slot_owner[slot] = None
+                self._active[slot] = False
+                entry = [req, slot, prompt, position]
+                if hold:
+                    # installed frozen: the admission entry waits in the
+                    # freeze record, and resume queues it at the head
+                    self._migrating[slot] = {"req": req, "entry": entry}
+                else:
+                    self._prefilling.append(entry)
+                    self._prefill_tokens_inflight += len(prompt) - position
+            else:
+                nbytes += int(row.nbytes)
+                logits_set(self._pool_logits,
+                           row.to(self.device, non_blocking=True), slot)
+                self._hold([row])
+                self._slot_content[slot] = prompt + generated
+                self._slot_owner[slot] = req
+                self._positions[slot] = position
+                self._remaining[slot] = remaining
+                self._temps[slot] = float(snap.get("temperature") or 0.0)
+                self._top_ps[slot] = float(snap.get("top_p") or 1.0)
+                self._top_ks[slot] = int(snap.get("top_k") or 0)
+                self._spec_ban[slot] = int(snap.get("spec_ban", -1))
+                self._spec_backoff[slot] = 0
+                self._spec_cool[slot] = 0
+                if hold:
+                    self._active[slot] = False
+                    # resumed neighbours' dispatches rewrite a held row
+                    self._migrating[slot] = {
+                        "req": req, "entry": None,
+                        "logits": logits_take(self._pool_logits, slot)}
+                else:
+                    self._active[slot] = not req.done.is_set()
+            self.kv_migrations_total += 1
+            with self._tier_mu:
+                self.kv_migrate_bytes_total += nbytes
+            out["req"] = req
+        except Exception:
+            # unwind fully: no leaked block, no half-occupied slot (the
+            # source still owns the sequence)
+            self._slots[slot] = None
+            self._slot_blocks[slot] = []
+            self._slot_content[slot] = []
+            self._active[slot] = False
+            self._migrating.pop(slot, None)
+            self._alloc.release(table)
+            raise
+
+    def _mig_resume(self, req: Request) -> None:
+        slot = self._find_req_slot(req)
+        if slot is None:
+            return  # finished and swept while the transfer ran
+        rec = self._migrating.pop(slot, None)
+        if rec is None or req.done.is_set():
+            # never frozen (an abandoned export, or a resume racing a
+            # cutover): nothing to undo; a done request is swept next
+            return
+        if rec.get("entry") is not None:
+            e = rec["entry"]
+            # mid-admission: resume at the head of the queue
+            self._prefilling.appendleft(e)
+            self._prefill_tokens_inflight += len(e[2]) - e[3]
+        else:
+            if rec.get("logits") is not None:
+                # reinstall the row as it was at the freeze
+                logits_set(self._pool_logits, rec["logits"], slot)
+            self._active[slot] = True
+        # a freeze is not idleness: restart the idle clock
+        req.last_token_at = time.perf_counter()
+
+    def _mig_release(self, req: Request) -> None:
+        slot = self._find_req_slot(req)
+        if slot is None:
+            return
+        # the destination owns the sequence now; the handle is not
+        # resolved (it keeps taking tokens there). kv_migrations_total
+        # counts on the importing side only.
+        self._retire_slot(slot)
 
     # -- scheduler: admission ------------------------------------------------
 
@@ -1752,6 +2759,12 @@ class ContinuousEngine:
                 req.max_new_tokens = self.cfg.max_seq_len - 1
             if not req.prompt:
                 req.done.set()  # empty prompt -> empty continuation
+                continue
+            if (self.admission_policy is not None
+                    and not self.admission_policy(req)):
+                # the policy says not now (the tier ladder's class quota is
+                # full): defer without taking a slot
+                deferred.append(req)
                 continue
             if self.paged:
                 plan = self._plan_paged(req)
@@ -2027,14 +3040,17 @@ class ContinuousEngine:
         return best, blen, prompt[blen:]
 
     def _plan_paged(self, req: Request) -> Optional[tuple]:
-        """(prompt, start, table, cow_src, shared) with the request's whole
-        span (prompt + max_new_tokens) reserved, or None when the free list
-        cannot host it. A span no empty pool could host fails the request.
+        """(prompt, start, table, cow_src, shared, restore) with the
+        request's whole span (prompt + max_new_tokens) reserved, or None
+        when the free list cannot host it. A span no empty pool could host
+        fails the request.
 
         Prefix reuse at block granularity: the full blocks of the best
         matching live or retired sequence are shared by refcount; a match
         that ends inside a block forks that block (``cow_src``) into the
-        first fresh one, and the prefill starts at the divergence."""
+        first fresh one, and the prefill starts at the divergence. A deeper
+        full-block prefix in the host tier wins over both: ``restore`` =
+        (host entry, blocks) scattered into the first fresh blocks."""
         bs = self.block_size
         cap = min(self.seq_buckets[-1],
                   self.cfg.max_seq_len - req.max_new_tokens)
@@ -2048,7 +3064,7 @@ class ContinuousEngine:
                 f"prompt + max_new_tokens = {total} at block_size {bs})")
             req.done.set()
             return None
-        start, shared, cow_src = 0, [], None
+        start, shared, cow_src, restore = 0, [], None, None
         if self.prefix_cache:
             blocks, n = self._paged_match(prompt)
             n = min(n, len(prompt) - 1)
@@ -2059,6 +3075,17 @@ class ContinuousEngine:
                 if n > start and nfull < len(blocks):
                     cow_src = int(blocks[nfull])
                     start = n
+            if self._host_pool is not None:
+                # a deeper prefix than any in the pool may survive in host
+                # RAM: scattering it back beats prefilling it again (full
+                # blocks only, into fresh blocks)
+                hid, hlcp = self._host_pool.match(
+                    np.asarray(prompt, np.int64), len(prompt) - 1)
+                hstart = (hlcp // bs) * bs
+                if hstart > start and hstart >= self.min_prefix:
+                    shared, cow_src = [], None
+                    start = hstart
+                    restore = (hid, hstart // bs)
         # pin the shared blocks out of the free list before allocating
         self._alloc.ref(shared)
         fresh = self._alloc.alloc(nb_total - len(shared))
@@ -2067,13 +3094,16 @@ class ContinuousEngine:
             return None
         if shared:
             self._alloc.prefix_block_hits_total += len(shared)
-        return prompt, start, shared + fresh, cow_src, len(shared)
+        return prompt, start, shared + fresh, cow_src, len(shared), restore
 
-    def _paged_match(self, prompt: list[int]) -> tuple[tuple, int]:
+    def _paged_match(self, prompt: list[int],
+                     cap: Optional[int] = None) -> tuple[tuple, int]:
         """(blocks, lcp): the best block-backed prefix of ``prompt``, from
         the live slots' content first, then the allocator's registry of
-        retired sequences (freed blocks not yet reused)."""
-        cap = len(prompt) - 1
+        retired sequences (freed blocks not yet reused). The match is
+        capped at ``cap`` tokens, by default ``len(prompt) - 1`` (one
+        suffix token must run for the next-token logits)."""
+        cap = len(prompt) - 1 if cap is None else cap
         if cap <= 0:
             return (), 0
         p = np.asarray(prompt, np.int64)
@@ -2099,8 +3129,18 @@ class ContinuousEngine:
         stall_t0 = time.perf_counter()
         had_live = bool(self._active.any())
         dispatched = False
-        for (req, slot), (prompt, start, table, cow_src, shared) in zip(
-                taken, plans):
+        for (req, slot), (prompt, start, table, cow_src, shared,
+                          restore) in zip(taken, plans):
+            if restore is not None:
+                hid, nfull = restore
+                host_blk = self._host_pool.take(hid, nfull)
+                if host_blk is None or len(host_blk) < nfull:
+                    start = 0  # evicted since the match: prefill it all
+                else:
+                    self._scatter_host_blocks(table[:nfull], host_blk)
+                    with self._tier_mu:
+                        self.kv_thaws_total += 1
+                    dispatched = True
             if cow_src is not None:
                 try:
                     self._run_block_copy(cow_src, table[shared])
@@ -2148,11 +3188,17 @@ class ContinuousEngine:
         self._slots[slot] = None
         self._active[slot] = False
         self._remaining[slot] = 0
+        self._migrating.pop(slot, None)
         self._release_seg(slot)
         if self.paged and self._slot_blocks[slot]:
             blocks = self._slot_blocks[slot]
             if self.prefix_cache:
                 self._alloc.register(self._slot_content[slot], blocks)
+                # under free-list pressure this registration is about to
+                # be reused: enqueue the spill's gathers now, on the
+                # engine's stream, so they read today's bytes before any
+                # later dispatch overwrites the released blocks
+                self._maybe_spill_host(slot, blocks)
             self._alloc.release(blocks)
             self._slot_blocks[slot] = []
 
@@ -2184,6 +3230,7 @@ class ContinuousEngine:
                     req.error = e
                     req.done.set()
             self._waiting.clear()
+            self._fail_migration_waiters(e)
 
     def _purge_prefilling(self) -> None:
         """Drop chunked-admission entries whose request resolved out of
@@ -2233,12 +3280,29 @@ class ContinuousEngine:
         if final:
             self._prefilling.popleft()
             self._occupy(req, prompt, slot)
+            if self.role == "prefill" and self.on_prefilled is not None:
+                # the disaggregation handoff: freeze at the chunk boundary
+                # (the final chunk's logits are in the slot's row, stashed
+                # against later dispatches), so the destination samples the
+                # first token as this engine would have. The hook only
+                # queues; a hook that raises falls back to decoding here.
+                self._active[slot] = False
+                self._migrating[slot] = {
+                    "req": req, "entry": None,
+                    "logits": logits_take(self._pool_logits, slot)}
+                try:
+                    self.on_prefilled(req)
+                except Exception as e:  # noqa: BLE001 — degrade to mixed
+                    log.debug("on_prefilled hook failed: %s", e)
+                    self._migrating.pop(slot, None)
+                    self._active[slot] = True
 
     def _loop_inner(self) -> None:
         # dispatches in flight: (fetch handle, [(slot, req, take)], the
         # verify's drafts or None)
         pending: list[tuple[Any, list, Any]] = []
         while not self._stop.is_set():
+            self._service_migrations(pending)
             self._admit()
             for slot in range(self.num_slots):
                 req = self._slots[slot]
@@ -2251,9 +3315,12 @@ class ContinuousEngine:
                 while pending:
                     self._process(*pending.pop(0))
                 if (self._active.any() or self._waiting or self._prefilling
-                        or not self._queue.empty()):
+                        or not self._queue.empty()
+                        or not self._migrate_q.empty()):
                     continue
-                if self.block_ledger is not None:
+                if self.block_ledger is not None and not self._migrating:
+                    # fully idle, nothing frozen: every block still
+                    # referenced outside a slot table is a leak
                     self._audit_blocks_now()
                 self._wake.wait(timeout=0.05)
                 self._wake.clear()
@@ -2485,6 +3552,452 @@ class ContinuousEngine:
             self._spec_ban[slot] = ban
 
 
+def _shared_model(cfg: LlamaConfig, params: Any, device) -> Llama:
+    """One ``Llama`` for every engine of a pool (an engine uses its model
+    as it is, never modified)."""
+    if isinstance(params, Llama):
+        return params
+    model = Llama(cfg, device=resolve_device(device))
+    model.load_state_dict(params, strict=True)
+    return model
+
+
+class TieredEngine:
+    """The tier ladder as an admission policy over one paged pool, copied
+    from the reference.
+
+    ``tier_lens`` classifies requests by their known total length (prompt
+    + max_new_tokens) against an ascending ladder of bounds, and
+    ``tier_slots`` reserves each bounded class its share of the slots (the
+    rest is the unbounded class), enforced through the engine's
+    ``admission_policy``: a burst of long conversations cannot starve
+    short admissions. One pool means one prefix cache across the classes.
+    The classic two-tier API (``short_len``/``short_slots``) is the
+    one-bound case. Without a ``block_size`` the pool is paged at
+    ``min(16, short_len // 2)``."""
+
+    def __init__(self, cfg: LlamaConfig, params: Any, *, short_len: int = 512,
+                 short_slots: Optional[int] = None, num_slots: int = 8,
+                 tier_lens: Optional[list[int]] = None,
+                 tier_slots: Optional[list[int]] = None, **kw):
+        if tier_lens is None:
+            tier_lens = [int(short_len)]
+            tier_slots = [num_slots // 2 if short_slots is None
+                          else int(short_slots)]
+        tier_lens = [int(t) for t in tier_lens]
+        if sorted(set(tier_lens)) != tier_lens:
+            raise ValueError(f"tier_lens {tier_lens} must be strictly "
+                             "ascending")
+        for t in tier_lens:
+            if not (1 < t < cfg.max_seq_len):
+                raise ValueError(
+                    f"tier cap {t} must be in (1, {cfg.max_seq_len})")
+        if tier_slots is None:
+            per = max(1, num_slots // (len(tier_lens) + 1))
+            tier_slots = [per] * len(tier_lens)
+        tier_slots = [int(n) for n in tier_slots]
+        if len(tier_slots) != len(tier_lens) or any(
+                n < 1 for n in tier_slots):
+            raise ValueError("tier_slots must give every tier >= 1 slot")
+        if sum(tier_slots) >= num_slots:
+            raise ValueError("tier_slots must leave the uncapped pool "
+                             ">= 1 slot")
+        self.caps = list(tier_lens)
+        self.short_len = tier_lens[0]
+        self.quotas = tier_slots + [num_slots - sum(tier_slots)]
+        if kw.get("block_size", None) in (None, 0):
+            kw["block_size"] = max(1, min(16, self.short_len // 2))
+        self.engine = ContinuousEngine(
+            cfg, params, num_slots=num_slots,
+            admission_policy=self._admit_quota, **kw)
+        #: one pool: ``pools`` holds it, ``short``/``long`` alias it
+        self.pools = [self.engine]
+        self.short = self.engine
+        self.long = self.engine
+
+    def _classify(self, req: Request) -> int:
+        total = len(req.prompt) + req.max_new_tokens
+        for i, cap in enumerate(self.caps):
+            if total < cap:
+                return i
+        return len(self.caps)
+
+    def _admit_quota(self, req: Request) -> bool:
+        """Admit only while the request's class holds fewer slots than its
+        quota (live and reserved slots; scheduler thread)."""
+        cls = self._classify(req)
+        live = sum(1 for r in self.engine._slots
+                   if r is not None and self._classify(r) == cls)
+        return live < self.quotas[cls]
+
+    def submit(self, prompt, max_new_tokens=None, temperature=None,
+               top_p=None, top_k=None, priority=None,
+               session_id=None) -> Request:
+        return self.engine.submit(
+            prompt, max_new_tokens, temperature, top_p=top_p, top_k=top_k,
+            priority=priority, session_id=session_id)
+
+    def generate(self, prompt, max_new_tokens=None, timeout: float = 120.0,
+                 temperature=None, top_p=None, top_k=None) -> list[int]:
+        return self.submit(prompt, max_new_tokens, temperature,
+                           top_p=top_p, top_k=top_k).wait(timeout)
+
+    def warmup(self, groups=None) -> None:
+        self.engine.warmup(groups)
+
+    def stop(self) -> None:
+        self.engine.stop()
+
+    @property
+    def eos_id(self):
+        return self.engine.eos_id
+
+    @property
+    def default_max_new_tokens(self) -> int:
+        return self.engine.default_max_new_tokens
+
+    @property
+    def cfg(self):
+        return self.engine.cfg
+
+    @property
+    def tokens_emitted(self) -> int:
+        return self.engine.tokens_emitted
+
+    @property
+    def prefix_hits(self) -> int:
+        return self.engine.prefix_hits
+
+    @property
+    def prefix_tokens_saved(self) -> int:
+        return self.engine.prefix_tokens_saved
+
+    def stats(self) -> dict:
+        merged = dict(self.engine.stats())
+        live = [0] * len(self.quotas)
+        for r in self.engine._slots:
+            if r is not None:
+                live[self._classify(r)] += 1
+        merged["classes"] = [
+            {"cap": (self.caps[i] if i < len(self.caps) else 0),
+             "quota": q, "live": live[i]}
+            for i, q in enumerate(self.quotas)]
+        snap = dict(merged)
+        merged["pools"] = [snap]
+        merged["short_pool"] = snap
+        merged["long_pool"] = snap
+        return merged
+
+
+def migrate_live_sequences(src: ContinuousEngine, dst=None, *, send=None,
+                           on_latency=None) -> tuple[int, int]:
+    """Drain: migrate every live sequence off ``src``, copy then cutover
+    one by one (a failed transfer resumes decoding on ``src``: a drain can
+    fall short, never lose a sequence). ``dst`` imports in process;
+    ``send`` (callable(snapshot, req) -> bool) transfers another way and
+    must resolve an indeterminate outcome itself. Returns (moved,
+    failed).
+
+    Unlike the reference, every live sequence is frozen first, in one
+    scheduler boundary: exported one at a time, the sequences still
+    waiting would keep decoding on a busy source and could finish there
+    before their turn (each export waits for the dispatches in
+    flight)."""
+    if send is None and dst is None:
+        raise ValueError("migrate_live_sequences needs dst or send")
+    live = [r for r in list(src._slots)
+            if r is not None and not r.done.is_set()]
+    try:
+        src._post_migration_op("freeze", live, None, 60.0)
+    except (RuntimeError, TimeoutError) as e:
+        # each export below freezes its own sequence, or fails and resumes
+        log.debug("drain freeze failed: %s", e)
+    moved = failed = 0
+    for req in live:
+        if send is not None:
+            def transfer(snap, _r=req):
+                return send(snap, _r)
+        else:
+            def transfer(snap, _r=req):
+                return dst.import_sequence(snap, req=_r) is not None
+        outcome = _migrate_one(src, req, transfer, on_latency)
+        if outcome is True:
+            moved += 1
+        elif outcome is False:
+            failed += 1
+    return moved, failed
+
+
+def _migrate_one(src: ContinuousEngine, req: Request, transfer,
+                 on_latency=None) -> Optional[bool]:
+    """One copy-then-cutover attempt: export, ``transfer(snapshot)``
+    (True = installed, False = not, None = indeterminate, treated as a
+    failure), then release on success or resume on failure. Returns True
+    (moved), False (failed) or None (the request finished first)."""
+    t0 = time.perf_counter()
+    try:
+        snap = src.export_sequence(req)
+    except (RuntimeError, TimeoutError) as e:
+        log.debug("migration export failed: %s", e)
+        src._note_migrate_failure()
+        # a failed export may have frozen the slot; resuming a slot never
+        # frozen is a no-op
+        try:
+            src.resume_sequence(req)
+        except (RuntimeError, TimeoutError):
+            pass
+        return False
+    if snap is None:
+        return None
+    try:
+        ok = transfer(snap)
+    except Exception as e:  # noqa: BLE001 — a rejection is a per-sequence
+        # failure, not a drain abort: resume in place
+        log.debug("migration transfer failed: %s", e)
+        ok = False
+    if ok is None:
+        log.warning(
+            "kv_migrate transfer returned indeterminate without resolving "
+            "it; treating as failed — the destination may hold an orphaned "
+            "copy")
+        ok = False
+    try:
+        if ok:
+            src.release_sequence(req)
+            ms = (time.perf_counter() - t0) * 1e3
+            src.observe_migration_ms(ms)
+            if on_latency is not None:
+                on_latency(ms)
+            return True
+        src._note_migrate_failure()
+        src.resume_sequence(req)
+    except (RuntimeError, TimeoutError) as e:
+        log.debug("migration cutover failed: %s", e)
+    return False
+
+
+class DisaggregatedPool:
+    """Prefill/decode disaggregation over live paged-KV migration, in
+    process (the reference's ``wire=False``).
+
+    ``prefill_replicas`` engines of ``role="prefill"`` admit and
+    chunk-prefill only; each finished sequence (KV blocks, logits row,
+    scheduler state) is handed by the ``kv-migrate`` worker to the
+    ``role="decode"`` engine with the most free blocks. The handoff is a
+    copy-then-cutover migration, so a failed transfer decodes on the
+    prefill engine, and the request handle is re-targeted in place. The
+    engines share one ``Llama`` and each has its own stream and graphs.
+    Engine-shaped: ``submit``/``generate``/``warmup``/``stop``/``stats``.
+    ``wire=True`` (the ``kv_migrate`` TCP framing) is not ported (ROADMAP
+    A7)."""
+
+    def __init__(self, cfg: LlamaConfig, params: Any, *,
+                 prefill_replicas: int = 1, decode_replicas: int = 1,
+                 wire: bool = False, seq_buckets=None, device=None, **kw):
+        if wire:
+            raise NotImplementedError(
+                "disaggregation wire transport (gang.py's kv_migrate) is "
+                "not ported yet (ROADMAP A7)")
+        if int(kw.get("block_size", 0)) <= 0:
+            raise ValueError(
+                "disaggregation requires the paged pool (block_size > 0)")
+        if prefill_replicas < 1 or decode_replicas < 1:
+            raise ValueError("disaggregation needs >= 1 replica per role")
+        kw.pop("role", None)
+        model = _shared_model(cfg, params, device)
+        self.prefill = [
+            ContinuousEngine(cfg, model, role="prefill",
+                             seq_buckets=seq_buckets, device=device, **kw)
+            for _ in range(prefill_replicas)]
+        self.decode = [
+            ContinuousEngine(cfg, model, role="decode",
+                             seq_buckets=seq_buckets, device=device, **kw)
+            for _ in range(decode_replicas)]
+        self.pools = self.prefill + self.decode
+        #: guards the tier lists (which engine is on which) against
+        #: ``rebalance`` racing the worker's and ``submit``'s picks
+        self._tier_lock = threading.Lock()
+        self.tier_rebalances_total = 0
+        self._handoff_q: "queue.Queue" = queue.Queue()
+        self._stopping = threading.Event()
+        #: recent handoff latencies (ms); the engines keep the histogram
+        self.migration_latencies_ms: "deque[float]" = deque(maxlen=4096)
+        for eng in self.prefill:
+            eng.on_prefilled = (
+                lambda req, _e=eng: self._handoff_q.put((_e, req)))
+        self._worker = threading.Thread(
+            target=self._pump, name="kv-migrate", daemon=True)
+        self._worker.start()
+
+    def _pump(self) -> None:
+        """The handoff worker: the blocking half of every migration (the
+        host copy, the cutover waits) runs here, never on a scheduler."""
+        while not self._stopping.is_set():
+            try:
+                src, req = self._handoff_q.get(timeout=0.1)
+            except queue.Empty:
+                continue
+            with self._tier_lock:
+                deng = max(self.decode, key=lambda e: e._alloc.free_blocks)
+
+            def transfer(snap, _r=req, _e=deng):
+                return _e.import_sequence(snap, req=_r) is not None
+            # a failed transfer decodes on the prefill engine
+            _migrate_one(src, req, transfer,
+                         self.migration_latencies_ms.append)
+
+    def submit(self, prompt, max_new_tokens=None, temperature=None,
+               top_p=None, top_k=None, priority=None,
+               session_id=None) -> Request:
+        # only prefill engines take traffic, the least loaded first
+        with self._tier_lock:
+            eng = min(self.prefill,
+                      key=lambda e: e._queue.qsize() + len(e._prefilling)
+                      + int(e._active.sum()))
+        return eng.submit(prompt, max_new_tokens, temperature, top_p=top_p,
+                          top_k=top_k, priority=priority,
+                          session_id=session_id)
+
+    def generate(self, prompt, max_new_tokens=None, timeout: float = 120.0,
+                 temperature=None, top_p=None, top_k=None) -> list[int]:
+        return self.submit(prompt, max_new_tokens, temperature,
+                           top_p=top_p, top_k=top_k).wait(timeout)
+
+    def warmup(self, groups=None) -> None:
+        for eng in self.pools:
+            eng.warmup(groups)
+
+    def stop(self) -> None:
+        self._stopping.set()
+        self._worker.join(timeout=30)
+        for eng in self.pools:
+            eng.stop()
+
+    @property
+    def eos_id(self):
+        return self.prefill[0].eos_id
+
+    @eos_id.setter
+    def eos_id(self, value) -> None:
+        for eng in self.pools:
+            eng.eos_id = value
+
+    @property
+    def default_max_new_tokens(self) -> int:
+        return self.prefill[0].default_max_new_tokens
+
+    @property
+    def cfg(self):
+        return self.prefill[0].cfg
+
+    @property
+    def tokens_emitted(self) -> int:
+        return sum(e.tokens_emitted for e in self.pools)
+
+    @property
+    def prefix_hits(self) -> int:
+        return sum(e.prefix_hits for e in self.pools)
+
+    @property
+    def prefix_tokens_saved(self) -> int:
+        return sum(e.prefix_tokens_saved for e in self.pools)
+
+    def tier_pressure(self) -> dict:
+        """Load per tier for a rebalance decision: backlog per prefill
+        engine (queued and mid-prefill) against live sequences per decode
+        engine."""
+        with self._tier_lock:
+            prefill, decode = list(self.prefill), list(self.decode)
+        pb = sum(e._queue.qsize() + len(e._prefilling) for e in prefill)
+        dl = sum(int(e._active.sum()) for e in decode)
+        return {
+            "prefill_pressure": pb / max(len(prefill), 1),
+            "decode_pressure": dl / max(len(decode), 1),
+            "prefill_replicas": len(prefill),
+            "decode_replicas": len(decode),
+        }
+
+    def rebalance(self, prefill_replicas: int) -> bool:
+        """Move engines between the tiers until the prefill tier holds
+        ``prefill_replicas`` (both tiers keep >= 1). Prefill -> decode: the
+        least loaded prefill engine stops taking admissions and flips its
+        role (its prefills in flight finish and decode locally). Decode ->
+        prefill: the emptiest decode engine first drains its live
+        sequences onto the others (a failed move aborts the flip). Runs
+        on the caller's thread. True when the split changed."""
+        target = int(prefill_replicas)
+        if not 1 <= target <= len(self.pools) - 1:
+            raise ValueError(
+                f"prefill_replicas {target} out of range "
+                f"[1, {len(self.pools) - 1}]")
+        changed = False
+        while True:
+            with self._tier_lock:
+                delta = target - len(self.prefill)
+                if delta == 0:
+                    break
+                if delta < 0:
+                    eng = min(self.prefill,
+                              key=lambda e: e._queue.qsize()
+                              + len(e._prefilling))
+                    self.prefill.remove(eng)
+                    eng.on_prefilled = None
+                    eng.role = "decode"
+                    self.decode.append(eng)
+                    self.tier_rebalances_total += 1
+                    changed = True
+                    continue
+                # drain outside the lock (migration ops wait on mailboxes)
+                eng = max(self.decode, key=lambda e: e._alloc.free_blocks)
+                rest = [d for d in self.decode if d is not eng]
+            dst = max(rest, key=lambda e: e._alloc.free_blocks)
+            moved, failed = migrate_live_sequences(eng, dst)
+            if failed:
+                raise RuntimeError(
+                    f"tier rebalance aborted: {failed} sequences failed to "
+                    "drain off the donor decode engine")
+            with self._tier_lock:
+                if eng in self.decode and len(self.decode) > 1:
+                    self.decode.remove(eng)
+                    eng.role = "prefill"
+                    eng.on_prefilled = (
+                        lambda req, _e=eng: self._handoff_q.put((_e, req)))
+                    self.prefill.append(eng)
+                    self.tier_rebalances_total += 1
+                    changed = True
+        return changed
+
+    def stats(self) -> dict:
+        """Numeric stats summed across the engines (counters and capacity
+        gauges add), ratios recomputed from the sums, and the tier
+        split."""
+        merged: dict = {}
+        per: list[dict] = []
+        config_keys = {"kv_block_size", "prefill_budget"}
+        for eng in self.pools:
+            st = eng.stats()
+            per.append(st)
+            for k, v in st.items():
+                if isinstance(v, bool) or not isinstance(v, (int, float)):
+                    continue
+                if k in config_keys:
+                    merged.setdefault(k, v)
+                else:
+                    merged[k] = merged.get(k, 0) + v
+        merged["spec_acceptance_rate"] = round(
+            merged.get("spec_tokens_accepted_total", 0)
+            / max(merged.get("spec_tokens_proposed_total", 0), 1), 4)
+        allocated = (merged.get("kv_blocks_total", 0)
+                     - merged.get("kv_blocks_free", 0))
+        merged["kv_fragmentation_ratio"] = round(
+            sum((st["kv_blocks_total"] - st["kv_blocks_free"])
+                * st["kv_fragmentation_ratio"] for st in per)
+            / allocated, 4) if allocated > 0 else 0.0
+        merged["disagg_prefill_replicas"] = len(self.prefill)
+        merged["disagg_decode_replicas"] = len(self.decode)
+        return merged
+
+
 def engine_kwargs(config: dict, *, default_eos=None,
                   default_max_new_tokens: int = 16) -> dict:
     """ContinuousEngine kwargs from a serving-config dict (the reference's
@@ -2514,18 +4027,16 @@ def engine_kwargs(config: dict, *, default_eos=None,
 
 
 #: serving-config keys of engines and options not ported yet
-_UNPORTED_CONFIG = {
-    "short_pool_len": "A4(d)", "tier_lens": "A4(d)",
-    "disaggregation": "A4(d)", "aot": "A12", "quant_weights": "A11",
-}
+_UNPORTED_CONFIG = {"aot": "A12", "quant_weights": "A11"}
 
 
 def build_engine(cfg: LlamaConfig, params, config: dict, *, default_eos=None,
-                 default_max_new_tokens: int = 16,
-                 device=None) -> ContinuousEngine:
-    """Engine from a serving-config dict: the reference's plain
-    ``ContinuousEngine`` branch. ``quant_kv`` turns on the int8 KV cache;
-    ``"warmup_groups": []`` skips warmup."""
+                 default_max_new_tokens: int = 16, device=None):
+    """Engine from a serving-config dict, the reference's branches:
+    ``disaggregation`` ({"prefill": n, "decode": m}, in process) builds a
+    ``DisaggregatedPool``, ``tier_lens`` or ``short_pool_len`` a
+    ``TieredEngine``, else a ``ContinuousEngine``. ``quant_kv`` turns on
+    the int8 KV cache; ``"warmup_groups": []`` skips warmup."""
     for key, item in _UNPORTED_CONFIG.items():
         if config.get(key):
             raise NotImplementedError(
@@ -2534,8 +4045,33 @@ def build_engine(cfg: LlamaConfig, params, config: dict, *, default_eos=None,
                        default_max_new_tokens=default_max_new_tokens)
     if config.get("quant_kv"):
         cfg = dataclasses.replace(cfg, quant_kv=True)
-    engine = ContinuousEngine(cfg, params, seq_buckets=config.get(
-        "seq_buckets"), device=device, **kw)
+    short_len = config.get("short_pool_len")
+    tier_lens = config.get("tier_lens")
+    disagg = config.get("disaggregation")
+    buckets = config.get("seq_buckets")
+    if disagg:
+        if tier_lens or short_len:
+            raise ValueError(
+                "disaggregation does not compose with the tier ladder: "
+                "route tiers to separate ISvcs instead")
+        engine = DisaggregatedPool(
+            cfg, params, prefill_replicas=int(disagg.get("prefill", 1)),
+            decode_replicas=int(disagg.get("decode", 1)),
+            wire=bool(disagg.get("wire", False)), seq_buckets=buckets,
+            device=device, **kw)
+    elif tier_lens:
+        engine = TieredEngine(
+            cfg, params, tier_lens=[int(t) for t in tier_lens],
+            tier_slots=config.get("tier_slots"), seq_buckets=buckets,
+            device=device, **kw)
+    elif short_len:
+        engine = TieredEngine(
+            cfg, params, short_len=int(short_len),
+            short_slots=config.get("short_pool_slots"), seq_buckets=buckets,
+            device=device, **kw)
+    else:
+        engine = ContinuousEngine(cfg, params, seq_buckets=buckets,
+                                  device=device, **kw)
     groups = config.get("warmup_groups")
     if groups != []:
         engine.warmup([tuple(g) for g in groups] if groups else None)

@@ -14,10 +14,18 @@ Gathers clip an out-of-range id to the last real block, as the reference's
 every out-of-range id, the allocator's ``pad_block`` and the ``int32`` max of
 ``write_window_tables``, to the scratch block, where the reference's
 ``mode="drop"`` discards the write. Nothing reads the scratch block's bytes.
+
+Live migration and the KV tiers move blocks by ``kv_export``/``kv_import``
+(up to ``KV_MIGRATE_GROUP`` blocks a call, block axis first, the leaves in
+the reference's order). Their host side is copied from the reference:
+:class:`HostBlockPool` (the host-RAM tier) and ``prefix_digest``. Host
+leaves are torch CPU tensors (numpy has no bfloat16); numpy leaves from the
+reference are taken as they are.
 """
 
 from __future__ import annotations
 
+import threading
 from collections import OrderedDict
 from typing import Optional
 
@@ -28,6 +36,16 @@ from ..models.llama import KvCache
 
 #: what ``write_window_tables`` puts in place of a block not to write
 NO_WRITE = np.iinfo(np.int32).max
+
+#: blocks a migration gather or scatter moves at most (the reference's
+#: fixed [KV_MIGRATE_GROUP, 1] table: one program each way for sequences of
+#: any length)
+KV_MIGRATE_GROUP = 8
+
+#: the order of a moved block's leaves: the reference's tree order
+#: (cached_key, cached_key_scale, cached_value, cached_value_scale), so a
+#: snapshot or a spill of either framework carries its leaves alike
+MIGRATE_LEAVES = ("k", "k_scale", "v", "v_scale")
 
 
 def _real_blocks(pool: KvCache) -> int:
@@ -108,6 +126,33 @@ def scatter_working_view(pool: KvCache, view: KvCache, bt_w) -> None:
     _scatter(pool, view.leaves(), idx)
 
 
+def _migrate_leaves(pool: KvCache) -> list[torch.Tensor]:
+    leaves = pool.leaves()
+    return [leaves[n] for n in MIGRATE_LEAVES if n in leaves]
+
+
+def kv_export(pool: KvCache, ids) -> list[torch.Tensor]:
+    """The migration gather: blocks ``ids`` [g] (``g <= KV_MIGRATE_GROUP``)
+    of every leaf, block axis first (``[g, layers, bs, kv, d]``; scales
+    ``[g, layers, kv, bs]``), in ``MIGRATE_LEAVES`` order, as new
+    contiguous tensors. An out-of-range id (the allocator's pad) clips to
+    the last real block, as the reference's ``mode="clip"``; the caller
+    keeps only its valid rows."""
+    idx = ids.long().clamp(0, _real_blocks(pool) - 1)
+    return [t.index_select(1, idx).movedim(1, 0).contiguous()
+            for t in _migrate_leaves(pool)]
+
+
+def kv_import(pool: KvCache, ids, leaves) -> None:
+    """The exact inverse of ``kv_export``: write ``leaves`` (its layout and
+    order) into blocks ``ids`` [g], in place. An out-of-range id (a pad
+    row's ``num_blocks``) writes the scratch block, where the reference
+    drops it."""
+    idx = ids.long().clamp(0, _real_blocks(pool))
+    for t, x in zip(_migrate_leaves(pool), leaves):
+        t.index_copy_(1, idx, x.movedim(0, 1).to(t.dtype))
+
+
 def write_window_tables(bt, front, block_size: int):
     """Scatter-side block tables narrowed to the WRITTEN suffix window.
 
@@ -149,6 +194,24 @@ def block_keys(tokens, block_size: int, max_blocks: int = 64) -> list[int]:
         keys.append(int.from_bytes(h.digest(), "little"))
         h = hashlib.blake2b(h.digest(), digest_size=8)
     return keys
+
+
+def prefix_digest(token_records, block_size: int,
+                  max_entries: int = 64) -> dict[str, int]:
+    """``{hex key: block depth}`` for the deepest chained content key of
+    each token record: the replica's block-registry digest, copied from
+    the reference. The whole chain publishes per record (a query sharing
+    only the first i blocks probes ``key[i-1]``), deduped across records
+    and bounded at ``max_entries``, deepest first."""
+    depths: dict[str, int] = {}
+    for toks in token_records:
+        for i, k in enumerate(block_keys(toks, block_size)):
+            kh = f"{k:016x}"
+            depths[kh] = max(depths.get(kh, 0), i + 1)
+    if len(depths) > max_entries:
+        deepest = sorted(depths.items(), key=lambda kv: -kv[1])
+        depths = dict(deepest[:max_entries])
+    return depths
 
 
 def lcp(content, prompt_arr: np.ndarray, cap: int) -> int:
@@ -320,3 +383,111 @@ class BlockAllocator:
         }
 
 
+class HostBlockPool:
+    """Host-RAM tier of the paged-KV economy, copied from the reference: a
+    bounded mirror of spilled sequences' block bytes, content-addressed by
+    token prefix like the allocator's registry, LRU-evicted at
+    ``capacity_blocks``.
+
+    Thread contract as in the reference: everything here is host state
+    under one lock. The engine dispatches spill gathers on its scheduler
+    thread, its host-tier worker ``put``s the fetched leaves, and
+    admission's ``match``/``take`` walk host arrays on the scheduler
+    thread; no method blocks on the device or on I/O. A block is a list of
+    host leaves (torch CPU tensors, pinned on the card; numpy works too)."""
+
+    def __init__(self, capacity_blocks: int, block_size: int):
+        if capacity_blocks < 1:
+            raise ValueError("capacity_blocks must be >= 1")
+        self.capacity_blocks = int(capacity_blocks)
+        self.block_size = int(block_size)
+        self._lock = threading.Lock()
+        #: hid -> {"tokens": np.int64[], "blocks": [leaf-list per block],
+        #: "nbytes": int}, insertion/touch ordered (LRU eviction)
+        self._seqs: "OrderedDict[int, dict]" = OrderedDict()
+        self._next = 0
+        self.blocks_held = 0
+        self.bytes_held = 0
+        self.spills_total = 0
+        self.restores_total = 0
+        self.evictions_total = 0
+
+    def put(self, tokens, blocks: list, nbytes: Optional[int] = None) -> int:
+        """Admit one spilled sequence (``blocks`` = host leaf-lists, one
+        per FULL block of ``tokens``); LRU-evicts older entries to fit.
+        Returns the entry id. A sequence wider than the whole pool is
+        truncated to the capacity prefix: the hot part of a prefix is its
+        head."""
+        blocks = list(blocks)[: self.capacity_blocks]
+        n = len(blocks)
+        if n == 0:
+            return -1
+        if nbytes is None:
+            nbytes = sum(int(x.nbytes) for blk in blocks for x in blk)
+        toks = np.asarray(list(tokens)[: n * self.block_size], np.int64)
+        with self._lock:
+            hid = self._next
+            self._next += 1
+            self._seqs[hid] = {"tokens": toks, "blocks": blocks,
+                               "nbytes": int(nbytes)}
+            self.blocks_held += n
+            self.bytes_held += int(nbytes)
+            self.spills_total += 1
+            # the truncation above bounds any single entry at capacity,
+            # so evicting older entries always converges
+            while self.blocks_held > self.capacity_blocks:
+                self._evict_oldest()
+            return hid if hid in self._seqs else -1
+
+    def _evict_oldest(self) -> None:
+        _hid, entry = self._seqs.popitem(last=False)
+        self.blocks_held -= len(entry["blocks"])
+        self.bytes_held -= entry["nbytes"]
+        self.evictions_total += 1
+
+    def match(self, prompt_arr: np.ndarray, cap: int) -> tuple[int, int]:
+        """(hid, lcp tokens) of the deepest host-tier prefix of the
+        prompt; (-1, 0) on a miss. ``BlockAllocator.match``'s contract,
+        one tier down."""
+        best_hid, best = -1, 0
+        with self._lock:
+            for hid, entry in self._seqs.items():
+                toks = entry["tokens"]
+                lim = min(len(toks), cap)
+                if lim <= best:
+                    continue
+                n = lcp(toks, prompt_arr, lim)
+                if n > best:
+                    best_hid, best = hid, n
+        return best_hid, best
+
+    def take(self, hid: int, nblocks: int) -> Optional[list]:
+        """The first ``nblocks`` leaf-lists of entry ``hid`` (a restore
+        reads only the matched full blocks), LRU-touched; None when the
+        entry was evicted between match and take."""
+        with self._lock:
+            entry = self._seqs.get(hid)
+            if entry is None:
+                return None
+            self._seqs.move_to_end(hid)
+            self.restores_total += 1
+            return entry["blocks"][:nblocks]
+
+    def contains_prefix(self, tokens, min_tokens: int = 1) -> bool:
+        """True when some entry already covers >= ``min_tokens`` of
+        ``tokens``: the spill path's dedup probe (re-spilling a hot shared
+        prefix on every retirement would churn the LRU)."""
+        arr = np.asarray(list(tokens), np.int64)
+        _hid, n = self.match(arr, len(arr))
+        return n >= max(int(min_tokens), 1)
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {
+                "kv_blocks_host_tier": self.blocks_held,
+                "kv_host_bytes": self.bytes_held,
+                "kv_host_capacity_blocks": self.capacity_blocks,
+                "kv_host_spills_total": self.spills_total,
+                "kv_host_restores_total": self.restores_total,
+                "kv_host_evictions_total": self.evictions_total,
+            }

@@ -173,29 +173,37 @@ def test_eos_stops_a_request(models, reference_tokens):
 
 
 @pytest.mark.parametrize("knob,value,item", [
-    ("host_blocks", 4, "A4(c)"),
-    ("host_watermark", 0.5, "A4(c)"),
-    ("role", "prefill", "A4(d)"),
-    ("admission_policy", lambda r: True, "A4(d)"),
     ("mesh_axes", {"model": 2}, "A7"),
     ("program_cache", object(), "A12"),
-])
+], ids=["mesh_axes-value4-A7", "program_cache-value5-A12"])
 def test_unported_knobs_raise(models, knob, value, item):
-    with pytest.raises(NotImplementedError, match=item.replace("(", r"\(")
-                       .replace(")", r"\)")):
+    with pytest.raises(NotImplementedError, match=item):
         _port_engine(models, **{knob: value})
 
 
-@pytest.mark.parametrize("key,item", [
-    ("short_pool_len", "A4(d)"), ("tier_lens", "A4(d)"),
-    ("disaggregation", "A4(d)"), ("aot", "A12"), ("quant_weights", "A11")])
-def test_build_engine_refuses_unported_config(models, key, item):
+@pytest.mark.parametrize("knobs,match", [
+    ({"host_blocks": 4}, "paged pool"),
+    ({"role": "prefill"}, "paged pool"),
+], ids=["host_blocks_without_blocks", "prefill_role_on_the_slot_pool"])
+def test_paged_only_knobs_refuse_the_slot_pool(models, knobs, match):
+    """The host tier and the roles move blocks: as in the reference, the
+    slot pool (block_size 0) refuses them."""
+    with pytest.raises(ValueError, match=match):
+        _port_engine(models, **knobs)
+
+
+@pytest.mark.parametrize("config,item", [
+    ({"aot": {"root": "x"}}, "A12"), ({"quant_weights": True}, "A11"),
+    ({"block_size": 8, "disaggregation": {"prefill": 1, "decode": 1,
+                                          "wire": True}}, "A7")],
+    ids=["aot-A12", "quant_weights-A11", "disaggregation_wire-A7"])
+def test_build_engine_refuses_unported_config(models, config, item):
     _, llama, convert, continuous, _ = _port()
     cfg = llama.tiny()
-    with pytest.raises(NotImplementedError, match=key):
+    with pytest.raises(NotImplementedError, match=item):
         continuous.build_engine(
             cfg, convert.state_dict_from_jax(models[False][1], cfg),
-            {key: [64] if key == "tier_lens" else 1}, device="cpu")
+            config, device="cpu")
 
 
 def test_build_engine_serves_int8_kv(models):
