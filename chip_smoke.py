@@ -23,7 +23,14 @@ and serves the MoE bench model (``moe_serve``, on ``gmm``, which is also
 checked and timed at the serving shapes); then speculation and prefix reuse
 (``spec_serve``, ``moe_spec_serve``, ``prefix_serve``) and moving and
 storing sequences (``migrate_serve``, ``moe_migrate_serve``,
-``hibernate_serve``, ``host_tier_serve``, ``disagg_serve``). Each phase
+``hibernate_serve``, ``host_tier_serve``, ``disagg_serve``). Last, the
+fine-tune job on llama_1b (1.19B, full width and depth): ``finetune`` writes
+a base snapshot and runs the pod entry ``train_main`` twice (a rank-8 LoRA,
+8 x 2048, checkpointed, resumed at step 4, the adapter published),
+``adafactor_step`` trains every parameter with Adafactor and gradient
+accumulation (host syncs made errors; the first step held against the CPU),
+and ``finetune_serve`` serves the merged fine-tune with int8 weights and KV
+against the same model unquantized. Each phase
 prints one JSON
 line; the line before the last is the card's name and power limit from
 nvidia-smi, the last line is ``{"ok": true, "device": {...}}``. Any failure
@@ -37,9 +44,11 @@ import itertools
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -51,6 +60,8 @@ REL_TOL = 1e-2
 LSE_ATOL = 1e-3
 #: the bench shape: b=14 x seq 1024, h=kv=8, head_dim 128
 BENCH = dict(b=14, s=1024, h=8, kv=8, d=128)
+#: the fine-tune path's attention: llama_1b at 8 x 2048, h = kv = 16
+LLAMA_1B_ATTN = dict(b=8, s=2048, h=16, kv=16, d=128)
 #: the MoE bench's expert products: 14 x 1023 tokens x top-2 rows, hidden
 #: 1024, intermediate 2816, 8 experts
 GMM_BENCH = dict(b=14 * 1023 * 2, k=1024, n=2816, e=8)
@@ -457,6 +468,8 @@ def phase_kernels_check() -> dict[str, float]:
         ("one_row_tile_129", dict(b=2, s=129, h=8, kv=2, d=128), True),
         # the ragged key mask without the causal mask beside it
         ("ragged_333_noncausal", dict(b=2, s=333, h=8, kv=2, d=64), False),
+        # the fine-tune path's shape (llama_1b: s 2048, 16 heads, d 128)
+        ("llama_1b_causal", dict(LLAMA_1B_ATTN, b=2), True),
     ]
     results, bench_abs = {}, {}
     for name, shape, causal in cases:
@@ -493,13 +506,22 @@ def phase_kernels_check() -> dict[str, float]:
 
 
 def phase_kernels_time() -> dict[str, dict]:
+    """K1-K3 at the bench shape (the returned readings, the ``kernels``
+    line's) and at the fine-tune path's llama_1b shape."""
+    out = _kernels_time("kernels_time", BENCH, plain_reps=5)
+    _kernels_time("kernels_time_llama_1b", LLAMA_1B_ATTN, plain_reps=2)
+    return out
+
+
+def _kernels_time(phase: str, shape: dict, plain_reps: int
+                  ) -> dict[str, dict]:
     import torch
     import torch.nn.functional as F
 
     from kubeflow_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    q, k, v, do = _inputs(**BENCH, gen=gen)
+    q, k, v, do = _inputs(**shape, gen=gen)
     o, lse = fa.flash_fwd(q, k, v)
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
     runs = {
@@ -512,11 +534,11 @@ def phase_kernels_time() -> dict[str, dict]:
                          lambda: fa.flash_bwd_dq_plain(
                              q, k, v, do, lse, delta)),
     }
-    bnd = bounds(**BENCH)
+    bnd = bounds(**shape)
     out, detail = {}, {}
     for name, (kernel, plain) in runs.items():
         ms = time_ms(kernel, 30)
-        out[name] = {"ms": ms, "plain_ms": time_ms(plain, 5),
+        out[name] = {"ms": ms, "plain_ms": time_ms(plain, plain_reps),
                      "bound_ms": bnd[name]["bound_ms"],
                      "bound_by": bnd[name]["bound_by"], "library_ms": None}
         detail[name] = {"bytes": bnd[name]["bytes"],
@@ -539,7 +561,7 @@ def phase_kernels_time() -> dict[str, dict]:
     fwd_bwd_ms = time_ms(sdpa_fwd_bwd, 30)
     # no single call computes dK/dV (K2) or dQ (K3) alone: SDPA's backward,
     # its forward and backward less its forward, is the yardstick of the two
-    emit("kernels_time", shape=BENCH, kernels=out, work=detail,
+    emit(phase, shape=shape, kernels=out, work=detail,
          sdpa_fwd_bwd_ms=fwd_bwd_ms,
          kernels_fwd_bwd_ms=sum(r["ms"] for r in out.values()),
          sdpa_bwd_ms=fwd_bwd_ms - out["flash_fwd"]["library_ms"],
@@ -1889,6 +1911,470 @@ def phase_disagg_serve() -> None:
         _require_streams(f"disagg_serve {name}", d)
 
 
+#: the fine-tune job (phase ``finetune``): llama_1b at full width and
+#: depth from seed 0, a LoRA of rank 8 on wq/wv, 8 x 2048 a step, 4 steps
+#: checkpointed every 2, then a second incarnation to step 6
+FINETUNE = dict(lora_rank=8, batch=8, seq=2048, steps=4, resume_to=6,
+                save_every=2)
+#: remat "nothing" runs every flash forward again in the backward pass
+FINETUNE_PER_LAYER = {"flash_fwd": 2, "flash_bwd_dkv": 1, "flash_bwd_dq": 1}
+
+
+def _dir_bytes(path: str) -> int:
+    import os
+
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def _train_main(env: dict, status: str) -> tuple:
+    """``train_main`` of the pod entry in this process, configured by
+    ``env`` (restored after), its stdout kept out of this script's:
+    (trainer, metric rows, the launches of the run, seconds)."""
+    import contextlib
+    import io
+    import os
+
+    from kubeflow_tpu_torch.runtime import bootstrap
+    from kubeflow_tpu_torch.train import llm
+
+    env = {**env, "KFT_STATUS_DIR": status}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        for c in _counters():
+            for key in c:
+                c[key] = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            trainer = llm.train_main(bootstrap.initialize())
+        seconds = time.perf_counter() - t0
+        launches = {k: v for c in _counters() for k, v in c.items()}
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    path = os.path.join(status, "metrics.jsonl")
+    with open(path) as f:
+        rows = [json.loads(line) for line in f]
+    os.remove(path)
+    return trainer, rows, launches, seconds
+
+
+def _metric(rows: list, name: str) -> list:
+    return [r for r in rows if r["name"] == name]
+
+
+def _base_unchanged(base_model, trainer) -> bool:
+    import torch
+
+    from kubeflow_tpu_torch.models import llama
+
+    got = trainer.model.state_dict()
+    return all(torch.equal(got[k], v)
+               for k, v in base_model.state_dict().items()
+               if not llama.is_lora_path(k))
+
+
+def phase_finetune(work: str, card: str) -> dict:
+    """The fine-tune job end to end on llama_1b (1.19B, 21 layers, full
+    width, random weights from SEED): ``save_pretrained`` writes the base,
+    the pod entry ``train_main`` fine-tunes a rank-8 LoRA on it
+    (``KFT_INIT_FROM``, 8 x 2048, 4 steps, checkpoints every 2) and
+    publishes the adapter; a second ``train_main`` to step 6 resumes at
+    step 4. Each run launches K1-K3 (counted per run); the base stays bit
+    for bit the snapshot's; checkpoints hold the adapters only."""
+    import gc
+    import os
+
+    import torch
+
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.train.checkpoint import CheckpointManager
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = llama.llama_1b()
+    model = llama.Llama(cfg, device="cuda")
+    model.init_weights(SEED)
+    torch.cuda.synchronize()
+    base = os.path.join(work, "base")
+    t0 = time.perf_counter()
+    llama.save_pretrained(base, cfg, model)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    snap_cfg, snap = llama.load_pretrained(base)
+    load_s = time.perf_counter() - t0
+    require(snap_cfg == cfg, f"snapshot config {snap_cfg} != {cfg}")
+    require(all(torch.equal(snap[k], v.cpu())
+                for k, v in model.state_dict().items()),
+            "the snapshot does not read back bit for bit")
+    del snap
+    ft = FINETUNE
+    env = {"KFT_INIT_FROM": f"file://{base}",
+           "KFT_LORA_RANK": str(ft["lora_rank"]),
+           "KFT_STEPS": str(ft["steps"]), "KFT_BATCH": str(ft["batch"]),
+           "KFT_SEQ_LEN": str(ft["seq"]),
+           "KFT_CKPT_DIR": os.path.join(work, "ckpt"),
+           "KFT_SAVE_EVERY": str(ft["save_every"]), "KFT_LOG_EVERY": "1",
+           "KFT_PUBLISH_TO": os.path.join(work, "adapter")}
+    status = os.path.join(work, "status")
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for steps in (ft["steps"], ft["resume_to"]):
+        trainer, rows, launches, seconds = _train_main(
+            {**env, "KFT_STEPS": str(steps)}, status)
+        done = runs[-1]["steps"] if runs else 0
+        per_step = {k: FINETUNE_PER_LAYER.get(k, 0) * cfg.num_layers
+                    * (steps - done) for k in launches}
+        losses = [r["value"] for r in _metric(rows, "loss")]
+        runs.append({
+            "steps": steps, "seconds": seconds,
+            "resume_step": _metric(rows, "resume_step")[0]["value"],
+            "loss_steps": [r["step"] for r in _metric(rows, "loss")],
+            "losses": losses,
+            "tokens_per_sec": [r["value"] for r in _metric(
+                rows, "tokens_per_sec_per_chip")],
+            "mfu_reported": _metric(rows, "mfu")[0]["value"],
+            "published": _metric(rows, "published")[0]["value"],
+            "launches": launches, "launches_expected": per_step,
+            "base_unchanged": _base_unchanged(model, trainer),
+            "checkpoints": trainer.ckpt.all_steps(),
+        })
+        if steps != ft["resume_to"]:
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+    last = trainer
+    peak = torch.cuda.max_memory_allocated()
+    ckpt_dir = env["KFT_CKPT_DIR"]
+    ckpt_bytes = {s: _dir_bytes(os.path.join(ckpt_dir, str(s)))
+                  for s in runs[-1]["checkpoints"]}
+    adapter_bytes = _dir_bytes(env["KFT_PUBLISH_TO"])
+    base_bytes = _dir_bytes(base)
+    # the save, restore and publish of this state, timed alone
+    timing = CheckpointManager(os.path.join(work, "ckpt_timing"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timing.save(ft["resume_to"], last._to_ckpt(), force=True)
+    ckpt_save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    timing.restore(map_location="cuda")
+    torch.cuda.synchronize()
+    ckpt_restore_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    llama.save_adapter(os.path.join(work, "adapter_timing"), last.cfg.model,
+                       last.model)
+    publish_s = time.perf_counter() - t0
+    # steady steps: every run's steps after its first
+    steady = [t for r in runs for t in r["tokens_per_sec"][1:]]
+    tps = statistics.median(steady)
+    flops_tok = llama.flops_per_token(cfg, ft["seq"])
+    emit("finetune", model="llama_1b", params=llama.num_params(cfg),
+         lora_rank=ft["lora_rank"], lora_params=sum(
+             p.numel() for n, p in last.model.named_parameters()
+             if llama.is_lora_path(n)),
+         global_batch=ft["batch"], seq_len=ft["seq"], runs=runs,
+         tokens_per_sec=tps, tokens_per_sec_steps=steady,
+         mfu=tps * flops_tok / PEAK_FLOPS,
+         mfu_convention="6N + attention per token (the reference's "
+         "flops_per_token), frozen-base weight gradients included",
+         peak_mem_bytes=peak, snapshot_write_ms=save_s * 1e3,
+         snapshot_read_ms=load_s * 1e3, checkpoint_save_ms=ckpt_save_s * 1e3,
+         checkpoint_restore_ms=ckpt_restore_s * 1e3,
+         publish_ms=publish_s * 1e3, base_bytes=base_bytes,
+         checkpoint_bytes=ckpt_bytes, adapter_bytes=adapter_bytes, card=card)
+    first, second = runs
+    require(first["resume_step"] == 0 and second["resume_step"] ==
+            ft["steps"], f"resume steps {first['resume_step']}, "
+            f"{second['resume_step']}")
+    require(first["loss_steps"] == list(range(1, ft["steps"] + 1))
+            and second["loss_steps"] == list(
+                range(ft["steps"] + 1, ft["resume_to"] + 1)),
+            "the second run did not train only the steps after the resume")
+    for r in runs:
+        require(all(map(math.isfinite, r["losses"])),
+                f"fine-tune losses not finite: {r['losses']}")
+        require(r["launches"] == r["launches_expected"] and all(
+            r["launches"][k] > 0 for k in FINETUNE_PER_LAYER),
+            f"fine-tune launches {r['launches']} != "
+            f"{r['launches_expected']}")
+        require(r["base_unchanged"], "the frozen base changed")
+        require(r["published"] == 1.0, "the adapter was not published")
+    require(max(ckpt_bytes.values()) < base_bytes / 100,
+            f"checkpoints {ckpt_bytes} are not adapter-only")
+    require(adapter_bytes < base_bytes / 100,
+            f"the published adapter is {adapter_bytes} bytes")
+    del last, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"base": base, "adapter": env["KFT_PUBLISH_TO"]}
+
+
+#: Adafactor at full fine-tune: llama_1b, 8 x 2048 in two microbatches
+ADAFACTOR = dict(batch=8, seq=2048, accum=2, steps=3)
+
+
+def _adafactor_parity() -> dict:
+    """The first Adafactor step (accum 2) of llama_1b at full width and 2
+    layers on the card against the same step on the CPU (the kernels'
+    plain versions), both bf16, at 2 x 256 tokens. Held: the loss within
+    1e-2; every gradient within 5e-2 (max error over max value, as
+    ``parity_on_card``); the card's update within 5e-2 (|d_card - d| /
+    |d|, norms over the parameter) of the CPU optimizer's update from the
+    card's own gradients; and of the CPU's whole step, in every leaf
+    Adafactor factors (its update is proportional to the gradient). In a
+    leaf it does not factor (the norm scales) the update is lr x scale x
+    sign(gradient), so there an element may differ only where the
+    gradient is a near tie at zero: |g| within 5e-2 of the leaf's largest,
+    the gradient tolerance."""
+    import torch
+
+    from kubeflow_tpu_torch.models import convert, llama
+    from kubeflow_tpu_torch.train.data import SyntheticLm
+    from kubeflow_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    cfg = TrainConfig(model=llama.llama_1b(num_layers=2),
+                      optimizer="adafactor", accum_steps=2, global_batch=2,
+                      seq_len=256, steps=1, warmup_steps=0)
+    gpu, cpu = Trainer(cfg), Trainer(cfg, device="cpu")
+    gpu.init_state(SEED)
+    before = {k: v.detach().cpu().clone()
+              for k, v in gpu.model.state_dict().items()}
+    tree = convert.tree_from_state_dict(before, cfg.model)
+    cpu.load_params(tree)
+    tokens = SyntheticLm(cfg.global_batch, cfg.seq_len,
+                         cfg.model.vocab_size).local_batch(0)["tokens"]
+
+    def grads(t):
+        return {n: p.grad.detach().float().cpu().clone()
+                for n, p in t.model.named_parameters()}
+
+    def deltas(t):
+        return {k: v.detach().cpu() - before[k]
+                for k, v in t.model.state_dict().items()}
+
+    names = {id(p): n for n, p in gpu.model.named_parameters()}
+    factored = {names[id(p)]: dims is not None
+                for parts, dims, _ in gpu.opt.groups for p in parts}
+    loss_g = float(gpu.loss_and_grads(tokens))
+    g_card = grads(gpu)
+    gpu.opt.step()
+    d_card = deltas(gpu)
+    # the CPU's optimizer alone, on the card's gradients
+    for n, p in cpu.model.named_parameters():
+        p.grad = g_card[n].clone()
+    cpu.opt.step()
+    d_same = deltas(cpu)
+    cpu.model.zero_grad(set_to_none=True)
+    # the whole step on the CPU
+    cpu.load_params(tree)
+    t0 = time.perf_counter()
+    loss_c = float(cpu.loss_and_grads(tokens))
+    g_cpu = grads(cpu)
+    cpu.opt.step()
+    cpu_s = time.perf_counter() - t0
+    d_cpu = deltas(cpu)
+
+    def norm_rel(x, ref):
+        return float((x - ref).norm() / ref.norm())
+
+    grad_rel = {n: rel_err(g_card[n], g_cpu[n]) for n in g_cpu}
+    opt_rel = {n: norm_rel(d_card[n], d_same[n]) for n in d_same}
+    step_rel = {n: norm_rel(d_card[n], d_cpu[n]) for n in d_cpu}
+    flips, flips_off_tie = {}, {}
+    for n, is_factored in factored.items():
+        if is_factored:
+            continue
+        differ = d_card[n].sign() != d_cpu[n].sign()
+        tie = g_cpu[n].abs() <= 5e-2 * g_cpu[n].abs().max()
+        flips[n] = int(differ.sum())
+        flips_off_tie[n] = int((differ & ~tie).sum())
+
+    def worst(errs, keys=None):
+        keys = list(errs) if keys is None else keys
+        if not keys:
+            return {"name": None, "rel": 0.0}
+        k = max(keys, key=errs.get)
+        return {"name": k, "rel": errs[k]}
+
+    return {"loss_card": loss_g, "loss_cpu": loss_c,
+            "loss_rel": abs(loss_g - loss_c) / abs(loss_c),
+            "worst_grad": worst(grad_rel),
+            "worst_update_same_grads": worst(opt_rel),
+            "worst_update_factored": worst(
+                step_rel, [n for n, f in factored.items() if f]),
+            "worst_update_unfactored": worst(
+                step_rel, [n for n, f in factored.items() if not f]),
+            "unfactored_sign_flips": flips,
+            "unfactored_flips_off_tie": flips_off_tie,
+            "cpu_step_s": cpu_s}
+
+
+def phase_adafactor_step(base: str, card: str) -> None:
+    """A full fine-tune of llama_1b from the base snapshot with optax's
+    Adafactor and gradient accumulation (2 microbatches of 4 x 2048): the
+    first step, then two more with host syncs made errors (each batch on
+    the card before); the first step held against the CPU
+    (``_adafactor_parity``)."""
+    import gc
+
+    import torch
+
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.train.data import SyntheticLm
+    from kubeflow_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    af = ADAFACTOR
+    cfg = TrainConfig(model=llama.llama_1b(), init_from=base,
+                      optimizer="adafactor", accum_steps=af["accum"],
+                      global_batch=af["batch"], seq_len=af["seq"],
+                      steps=af["steps"], warmup_steps=0)
+    trainer = Trainer(cfg)
+    trainer.init_state()
+    data = SyntheticLm(cfg.global_batch, cfg.seq_len, cfg.model.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [trainer.step(data.local_batch(0)["tokens"])[0]]
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    batches = [torch.as_tensor(data.local_batch(i)["tokens"], device="cuda")
+               for i in range(1, af["steps"])]
+    for c in _counters():
+        for key in c:
+            c[key] = 0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        start.record()
+        for b in batches:
+            losses.append(trainer.step(b)[0])
+        end.record()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    launches = {k: v for c in _counters() for k, v in c.items()}
+    step_s = start.elapsed_time(end) / 1e3 / len(batches)
+    losses = [float(x) for x in losses]
+    tps = cfg.global_batch * cfg.seq_len / step_s
+    peak = torch.cuda.max_memory_allocated()
+    del trainer, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    parity = _adafactor_parity()
+    # every microbatch of the checked steps runs each layer's kernels
+    per_step = {k: FINETUNE_PER_LAYER.get(k, 0) * cfg.model.num_layers
+                * af["accum"] * (af["steps"] - 1) for k in launches}
+    emit("adafactor_step", model="llama_1b", optimizer="adafactor",
+         accum_steps=af["accum"], global_batch=af["batch"],
+         seq_len=af["seq"], steps=af["steps"], trained="all parameters",
+         sync_debug_mode="error", losses=losses, first_step_ms=first_s * 1e3,
+         step_ms=step_s * 1e3, tokens_per_sec=tps,
+         mfu=tps * llama.flops_per_token(cfg.model, af["seq"]) / PEAK_FLOPS,
+         peak_mem_bytes=peak, launches=launches,
+         launches_expected=per_step, parity=parity, card=card)
+    require(all(map(math.isfinite, losses)), f"losses {losses}")
+    require(launches == per_step, f"launches {launches} != {per_step}")
+    require(parity["loss_rel"] <= 1e-2
+            and parity["worst_grad"]["rel"] <= 5e-2
+            and parity["worst_update_same_grads"]["rel"] <= 5e-2
+            and parity["worst_update_factored"]["rel"] <= 5e-2
+            and not any(parity["unfactored_flips_off_tie"].values()),
+            f"Adafactor step card vs cpu: {parity}")
+
+
+#: the published fine-tune served: the base snapshot plus the adapter,
+#: merged at load, 8 prompts x 128 tokens, 64 new, greedy, paged pool
+FINETUNE_SERVE = dict(prompts=8, prompt_len=128, new=64, rounds=2)
+
+
+def phase_finetune_serve(base: str, adapter: str, card: str) -> None:
+    """``resolve_model_source`` of ``storage_path`` (the base) and
+    ``adapter_path`` (the published adapter, merged), then ``build_engine``
+    twice on it: with ``quant_weights`` and ``quant_kv`` (every projection
+    and the head int8, inside the captured programs) and without. Every
+    first difference of the two engines' greedy streams must sit where the
+    plain model's top-2 margin is small; 0 captures after warmup and 0
+    leaked blocks in both."""
+    import gc
+
+    import torch
+
+    from kubeflow_tpu_torch.analysis.runtime import BlockLedger
+    from kubeflow_tpu_torch.serving.continuous import (
+        build_engine, resolve_model_source)
+
+    fs = FINETUNE_SERVE
+    common = {"storage_path": base, "adapter_path": adapter,
+              "max_seq_len": 512, "num_slots": 8, "decode_chunk": 16,
+              "pipeline_depth": 3, "block_size": 16, "prefix_cache": False,
+              "warmup_groups": []}
+    t0 = time.perf_counter()
+    cfg, params = resolve_model_source(common)
+    resolve_s = time.perf_counter() - t0
+    prompts = _prompts(cfg, fs["prompts"], fs["prompt_len"])
+    runs, plain_model = {}, None
+    for name, extra in (("int8", {"quant_weights": True, "quant_kv": True}),
+                        ("plain", {})):
+        ledger = BlockLedger()
+        t0 = time.perf_counter()
+        eng = build_engine(cfg, params, {**common, **extra})
+        build_s = time.perf_counter() - t0
+        eng.attach_block_ledger(ledger)
+        t0 = time.perf_counter()
+        eng.warmup([(fs["prompts"], fs["prompt_len"]),
+                    (1, fs["prompt_len"])])
+        warmup_s = time.perf_counter() - t0
+        try:
+            rounds = [_serve_all(eng, prompts, fs["new"])
+                      for _ in range(fs["rounds"])]
+            clean = _require_clean(f"finetune_serve {name}", ledger, eng)
+            st = eng.stats()
+        finally:
+            eng.stop()
+        weights = {}
+        for p in eng.model.parameters():
+            key = str(p.dtype).removeprefix("torch.")
+            weights[key] = weights.get(key, 0) + p.numel() * p.element_size()
+        runs[name] = {
+            "tokens": rounds[0][0], "build_s": build_s, "warmup_s": warmup_s,
+            "tokens_per_sec": statistics.median(
+                len(prompts) * fs["new"] / s for _, s in rounds),
+            "seconds": [s for _, s in rounds], "weight_bytes": weights,
+            "quant_weights": eng.cfg.quant_weights,
+            "quant_kv": eng.cfg.quant_kv,
+            "graph_captures_warmup": st["graph_captures_warmup"], **clean}
+        require(all(t == rounds[0][0] for t, _ in rounds),
+                f"finetune_serve {name}: rounds differ")
+        if name == "plain":
+            plain_model = eng.model
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    diffs = _first_difference(cfg, plain_model, prompts,
+                              runs["plain"]["tokens"], runs["int8"]["tokens"])
+    for r in runs.values():
+        r.pop("tokens")
+    emit("finetune_serve", model="llama_1b", merged_adapter=adapter,
+         prompts=fs["prompts"], prompt_len=fs["prompt_len"], new=fs["new"],
+         resolve_s=resolve_s, runs=runs,
+         int8_vs_plain_differences=diffs,
+         int8_weight_bytes=sum(runs["int8"]["weight_bytes"].values()),
+         plain_weight_bytes=sum(runs["plain"]["weight_bytes"].values()),
+         card=card)
+    require(runs["int8"]["quant_weights"] and runs["int8"]["quant_kv"],
+            "the quantized engine does not run int8")
+    _require_streams("finetune_serve int8 vs plain", diffs)
+    del plain_model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def run() -> int:
     import torch
 
@@ -1926,9 +2412,20 @@ def run() -> int:
     phase_hibernate_serve()
     phase_host_tier_serve()
     phase_disagg_serve()
+    t2 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="kft-finetune-")
+    try:
+        ft = phase_finetune(work, line)
+        t3 = time.perf_counter()
+        phase_adafactor_step(ft["base"], line)
+        t4 = time.perf_counter()
+        phase_finetune_serve(ft["base"], ft["adapter"], line)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     now = time.perf_counter()
     emit("phase_seconds", total=now - started,
-         speculation_and_prefix=t1 - t0, migration_and_tiers=now - t1)
+         speculation_and_prefix=t1 - t0, migration_and_tiers=t2 - t1,
+         finetune=t3 - t2, adafactor_step=t4 - t3, finetune_serve=now - t4)
     # each kernel's launches from the run of the path that carries it
     launches.update(gmm=moe_launches["gmm"], tgmm=moe_launches["tgmm"])
     kernels = []

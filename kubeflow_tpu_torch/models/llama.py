@@ -9,13 +9,22 @@ w_gate/w_up ``[E,M]``, w_down ``[M,E]``, unembedding ``[E,V]``; MoE router
 ``[E,X]`` and experts ``[X,E,M]``/``[X,M,E]``) in f32 and are cast to the
 activation dtype before each product, as the reference does, so
 ``convert.py`` maps weights by name alone.
+
+A projection ``w`` may carry LoRA adapters ``w_lora_a`` ``[in..., r]`` and
+``w_lora_b`` ``[r, out...]`` (``lora_rank``; the reference's
+``lora_a``/``lora_b`` leaves) and, for serving, be stored int8 with a
+per-output-channel f32 ``w_scale`` (``quant_weights``; the reference's
+``kernel``/``scale``). The snapshot I/O, the adapter functions and
+``quantize_for_serving`` are the reference's, on the port's state dicts.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import json
 import math
+import os
 
 import torch
 import torch.nn.functional as F
@@ -63,9 +72,23 @@ class LlamaConfig:
     #: "dense" = capacity dispatch (tokens past capacity dropped); "ragged" =
     #: dropless sort-by-expert dispatch
     moe_dispatch: str = "dense"
+    #: serving only: every projection kernel and the unembedding stored
+    #: int8 with per-output-channel f32 scales applied to the product
+    #: (``quantize_for_serving``)
+    quant_weights: bool = False
     #: serving only: the KV cache in int8 with one f32 absmax scale per
     #: (row, kv head, position), dequantized into the f32 attend math
     quant_kv: bool = False
+    #: LoRA: rank > 0 adds ``y += ((x @ a) @ b) * lora_scale`` to each
+    #: projection named in ``lora_targets`` (never merged while training)
+    lora_rank: int = 0
+    lora_alpha: float = 0.0  # 0 -> alpha = rank (scale 1.0)
+    lora_targets: tuple[str, ...] = ("wq", "wv")
+
+    @property
+    def lora_scale(self) -> float:
+        return (self.lora_alpha or float(self.lora_rank)) / max(
+            self.lora_rank, 1)
 
     @property
     def q_per_kv(self) -> int:
@@ -90,6 +113,56 @@ def tiny(**kw) -> LlamaConfig:
                max_seq_len=128, dtype=torch.float32, remat=False),
         **kw,
     })
+
+
+def llama2_7b(**kw) -> LlamaConfig:
+    return LlamaConfig(**kw)
+
+
+def llama_1b(**kw) -> LlamaConfig:
+    """~1.19B: the 7B recipe at half width, 21L / 2048h / 16 heads / 5504
+    ffn, full-recompute remat and flash attention."""
+    return LlamaConfig(**{
+        **dict(hidden_size=2048, intermediate_size=5504, num_layers=21,
+               num_heads=16, num_kv_heads=16, max_seq_len=2048,
+               remat_policy="nothing", attention_impl="flash"),
+        **kw,
+    })
+
+
+def llama2_13b(**kw) -> LlamaConfig:
+    return LlamaConfig(**{
+        **dict(hidden_size=5120, intermediate_size=13824, num_layers=40,
+               num_heads=40, num_kv_heads=40),
+        **kw,
+    })
+
+
+def llama2_70b(**kw) -> LlamaConfig:
+    return LlamaConfig(**{
+        **dict(hidden_size=8192, intermediate_size=28672, num_layers=80,
+               num_heads=64, num_kv_heads=8),
+        **kw,
+    })
+
+
+def llama3_8b(**kw) -> LlamaConfig:
+    return LlamaConfig(**{
+        **dict(vocab_size=128256, hidden_size=4096, intermediate_size=14336,
+               num_layers=32, num_heads=32, num_kv_heads=8, max_seq_len=8192,
+               rope_theta=500000.0),
+        **kw,
+    })
+
+
+#: the reference's preset table (no ``llama_1b`` entry, as there)
+PRESETS = {
+    "tiny": tiny,
+    "llama2-7b": llama2_7b,
+    "llama2-13b": llama2_13b,
+    "llama2-70b": llama2_70b,
+    "llama3-8b": llama3_8b,
+}
 
 
 def bench_model(**kw) -> LlamaConfig:
@@ -263,22 +336,85 @@ def _quantize(x):
     return q8, s
 
 
-class Attention(nn.Module):
+class _Projections(nn.Module):
+    """A module of Einsum projections: each kernel ``[in..., out...]`` in
+    f32 (int8 plus ``{name}_scale`` ``[out...]`` with ``quant_weights``),
+    and with ``lora_rank`` > 0 the adapters ``{name}_lora_a`` ``[in...,
+    r]`` (normal 0.02) and ``{name}_lora_b`` ``[r, out...]`` (zeros) of
+    every name in ``lora_targets``."""
+
+    #: name -> (in dims, out dims), set by each subclass's __init__
+    shapes: dict[str, tuple[tuple[int, ...], tuple[int, ...]]]
+
+    def _make_projections(self, cfg: LlamaConfig, device) -> None:
+        #: fan-in of each kernel, and the names that carry adapters
+        self._fan_in = {n: math.prod(ins) for n, (ins, _) in
+                        self.shapes.items()}
+        self._lora = []
+        for name, (ins, outs) in self.shapes.items():
+            if cfg.quant_weights:
+                self.register_parameter(name, nn.Parameter(torch.zeros(
+                    *ins, *outs, dtype=torch.int8, device=device),
+                    requires_grad=False))
+                self.register_parameter(f"{name}_scale", nn.Parameter(
+                    torch.ones(*outs, device=device)))
+            else:
+                self.register_parameter(name, nn.Parameter(
+                    torch.empty(*ins, *outs, device=device)))
+            if cfg.lora_rank > 0 and name in cfg.lora_targets:
+                r = cfg.lora_rank
+                self._lora.append(name)
+                # rounded to the dtype once, as ``jnp.asarray(scale, dtype)``
+                self._lora_scale = float(
+                    torch.tensor(cfg.lora_scale, dtype=cfg.dtype))
+                self.register_parameter(f"{name}_lora_a", nn.Parameter(
+                    torch.zeros(*ins, r, device=device)))
+                self.register_parameter(f"{name}_lora_b", nn.Parameter(
+                    torch.zeros(r, *outs, device=device)))
+
+    def init_weights(self, gen):
+        """Kernels fan-in truncated normal (zeros and unit scales when
+        int8, as the reference initialises a quantized tree)."""
+        if self.cfg.quant_weights:
+            return
+        for name, fan_in in self._fan_in.items():
+            _trunc_normal(getattr(self, name), fan_in, gen)
+
+    def init_adapters(self, gen):
+        for name in self._lora:
+            getattr(self, f"{name}_lora_a").normal_(0.0, 0.02, generator=gen)
+            getattr(self, f"{name}_lora_b").zero_()
+
+    def project(self, name: str, x):
+        """``x [..., in]`` (the in dims flattened) through projection
+        ``name``: ``[..., out]`` flat, in the activation dtype. int8:
+        ``(x @ w.to(dtype)) * scale.to(dtype)``; LoRA adds
+        ``((x @ a) @ b) * lora_scale``."""
+        cfg = self.cfg
+        dt = cfg.dtype
+        w = getattr(self, name).to(dt)
+        if w.dim() > 2:
+            w = w.reshape(self._fan_in[name], -1)
+        y = x @ w
+        if cfg.quant_weights:
+            y = y * getattr(self, f"{name}_scale").to(dt).reshape(-1)
+        if name in self._lora:
+            r = cfg.lora_rank
+            a = getattr(self, f"{name}_lora_a").to(dt).reshape(-1, r)
+            b = getattr(self, f"{name}_lora_b").to(dt).reshape(r, -1)
+            y = y + ((x @ a) @ b) * self._lora_scale
+        return y
+
+
+class Attention(_Projections):
     def __init__(self, cfg: LlamaConfig, device):
         super().__init__()
         self.cfg = cfg
         e, h, k, d = (cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads,
                       cfg.head_dim)
-        self.wq = nn.Parameter(torch.empty(e, h, d, device=device))
-        self.wk = nn.Parameter(torch.empty(e, k, d, device=device))
-        self.wv = nn.Parameter(torch.empty(e, k, d, device=device))
-        self.wo = nn.Parameter(torch.empty(h, d, e, device=device))
-
-    def init_weights(self, gen):
-        e, hd = self.cfg.hidden_size, self.cfg.num_heads * self.cfg.head_dim
-        for w, fan_in in ((self.wq, e), (self.wk, e), (self.wv, e),
-                          (self.wo, hd)):
-            _trunc_normal(w, fan_in, gen)
+        self.shapes = {"wq": ((e,), (h, d)), "wk": ((e,), (k, d)),
+                       "wv": ((e,), (k, d)), "wo": ((h, d), (e,))}
+        self._make_projections(cfg, device)
 
     def forward(self, x, positions, cache=None, layer: int = 0,
                 attend=None, prefix=None, cache_positions=None):
@@ -290,13 +426,9 @@ class Attention(nn.Module):
         (``_decode_attend``)."""
         cfg = self.cfg
         b, s, e = x.shape
-        dt = cfg.dtype
-        q = (x @ self.wq.to(dt).reshape(e, -1)).view(
-            b, s, cfg.num_heads, cfg.head_dim)
-        k = (x @ self.wk.to(dt).reshape(e, -1)).view(
-            b, s, cfg.num_kv_heads, cfg.head_dim)
-        v = (x @ self.wv.to(dt).reshape(e, -1)).view(
-            b, s, cfg.num_kv_heads, cfg.head_dim)
+        q = self.project("wq", x).view(b, s, cfg.num_heads, cfg.head_dim)
+        k = self.project("wk", x).view(b, s, cfg.num_kv_heads, cfg.head_dim)
+        v = self.project("wv", x).view(b, s, cfg.num_kv_heads, cfg.head_dim)
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
         if cache is not None:
@@ -307,7 +439,7 @@ class Attention(nn.Module):
             out = flash_attention(q, k, v, q_per_kv=cfg.q_per_kv)
         else:
             out = _causal_attention(q, k, v, cfg.q_per_kv)
-        return out.reshape(b, s, -1) @ self.wo.to(dt).reshape(-1, e)
+        return self.project("wo", out.reshape(b, s, -1))
 
 
     def _decode_attend(self, q, k, v, positions, cache, layer, attend,
@@ -386,24 +518,18 @@ class Attention(nn.Module):
         return out.reshape(b, sc, cfg.num_heads, cfg.head_dim).to(cfg.dtype)
 
 
-class Mlp(nn.Module):
+class Mlp(_Projections):
     def __init__(self, cfg: LlamaConfig, device):
         super().__init__()
         self.cfg = cfg
         e, m = cfg.hidden_size, cfg.intermediate_size
-        self.w_gate = nn.Parameter(torch.empty(e, m, device=device))
-        self.w_up = nn.Parameter(torch.empty(e, m, device=device))
-        self.w_down = nn.Parameter(torch.empty(m, e, device=device))
-
-    def init_weights(self, gen):
-        e, m = self.cfg.hidden_size, self.cfg.intermediate_size
-        for w, fan_in in ((self.w_gate, e), (self.w_up, e), (self.w_down, m)):
-            _trunc_normal(w, fan_in, gen)
+        self.shapes = {"w_gate": ((e,), (m,)), "w_up": ((e,), (m,)),
+                       "w_down": ((m,), (e,))}
+        self._make_projections(cfg, device)
 
     def forward(self, x):
-        dt = self.cfg.dtype
-        h = F.silu(x @ self.w_gate.to(dt)) * (x @ self.w_up.to(dt))
-        return h @ self.w_down.to(dt)
+        h = F.silu(self.project("w_gate", x)) * self.project("w_up", x)
+        return self.project("w_down", h)
 
 
 class Block(nn.Module):
@@ -449,7 +575,15 @@ class Head(nn.Module):
         self.cfg = cfg
         self.final_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps,
                                   cfg.dtype, device)
-        if not cfg.tie_embeddings:
+        if cfg.tie_embeddings:
+            return
+        if cfg.quant_weights:
+            self.unembedding = nn.Parameter(torch.zeros(
+                cfg.hidden_size, cfg.vocab_size, dtype=torch.int8,
+                device=device), requires_grad=False)
+            self.unembedding_scale = nn.Parameter(
+                torch.ones(cfg.vocab_size, device=device))
+        else:
             self.unembedding = nn.Parameter(
                 torch.empty(cfg.hidden_size, cfg.vocab_size, device=device))
 
@@ -458,7 +592,10 @@ class Head(nn.Module):
         dt = self.cfg.dtype
         if self.cfg.tie_embeddings:
             return x @ embed_table.to(dt).t()
-        return x @ self.unembedding.to(dt)
+        logits = x @ self.unembedding.to(dt)
+        if self.cfg.quant_weights:
+            logits = logits * self.unembedding_scale.to(dt)
+        return logits
 
 
 def _trunc_normal(w, fan_in, gen):
@@ -486,8 +623,8 @@ class Llama(nn.Module):
     def init_weights(self, seed: int = 0) -> None:
         """Random init from ``seed``: embeddings and MoE routers
         normal(0.02), projections and experts fan-in truncated normal, norm
-        scales one (the reference's initializers; its random draws
-        differ)."""
+        scales one, LoRA A normal(0.02) and B zeros (the reference's
+        initializers; its random draws differ)."""
         gen = torch.Generator(device=self.embedder.embedding.device)
         gen.manual_seed(seed)
         self.embedder.embedding.normal_(0.0, 0.02, generator=gen)
@@ -497,8 +634,13 @@ class Llama(nn.Module):
             blk.attn_norm.scale.fill_(1.0)
             blk.mlp_norm.scale.fill_(1.0)
         self.head.final_norm.scale.fill_(1.0)
-        if not self.cfg.tie_embeddings:
+        if not self.cfg.tie_embeddings and not self.cfg.quant_weights:
             self.head.unembedding.normal_(0.0, 0.02, generator=gen)
+        # adapters last: the base draws are those of the plain model
+        for blk in self.layers:
+            blk.attn.init_adapters(gen)
+            if isinstance(blk.mlp, Mlp):
+                blk.mlp.init_adapters(gen)
 
     def forward(self, tokens, positions=None, return_aux: bool = False, *,
                 cache: KvCache | None = None, attend: int | None = None,
@@ -543,3 +685,240 @@ class Llama(nn.Module):
         if not return_aux:
             return logits
         return logits, torch.stack(auxes).mean() if auxes else None
+
+
+# -- snapshots, adapters and serving quantization -----------------------------
+#
+# The reference's functions on the port's state dicts (``{key: tensor}`` as
+# ``Llama.state_dict()`` keys them; a ``Llama`` module is taken too). Files
+# are the reference's: ``config.json`` plus ``weights.msgpack`` or
+# ``adapter.msgpack`` in flax's msgpack form, the tree scan-stacked.
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+#: the reference's LlamaConfig fields the port has no counterpart for, and
+#: the values the port can honour (None: any value; the same computation)
+_REFERENCE_ONLY = {
+    "param_dtype": ("float32",),
+    "scan_layers": None,            # only the tree's layout
+    "embed_one_hot": None,          # the same lookup as a gather
+    "moe_ragged_compute": ("auto", "masked", "grouped"),
+}
+
+
+def _state_dict(params) -> dict:
+    if isinstance(params, nn.Module):
+        return params.state_dict()
+    return params
+
+
+def config_to_dict(cfg: LlamaConfig) -> dict:
+    """``config.json`` of a snapshot: the reference's ``save_pretrained``
+    dict (every key its ``LlamaConfig(**d)`` accepts, dtypes by name,
+    the scan-stacked layout the port writes)."""
+    d = dataclasses.asdict(cfg)
+    d["dtype"] = str(cfg.dtype).removeprefix("torch.")
+    d["lora_targets"] = list(cfg.lora_targets)
+    d.update(param_dtype="float32", scan_layers=True, embed_one_hot=False,
+             moe_ragged_compute="auto")
+    return d
+
+
+def config_from_dict(d: dict) -> LlamaConfig:
+    """The port's config of a snapshot's ``config.json`` dict. The
+    reference-only keys are taken where the port computes the same thing
+    and refused, by name, where it cannot."""
+    d = dict(d)
+    for key, allowed in _REFERENCE_ONLY.items():
+        if key not in d:
+            continue
+        value = d.pop(key)
+        if allowed is not None and value not in allowed:
+            raise ValueError(
+                f"snapshot config {key}={value!r} is not supported by the "
+                f"port (it takes {', '.join(map(repr, allowed))})")
+    if "dtype" in d:
+        if d["dtype"] not in _DTYPES:
+            raise ValueError(f"snapshot config dtype={d['dtype']!r} is not "
+                             "supported by the port")
+        d["dtype"] = _DTYPES[d["dtype"]]
+    if "lora_targets" in d:
+        d["lora_targets"] = tuple(d["lora_targets"])  # json round-trip
+    return LlamaConfig(**d)
+
+
+def _write_config(path: str, cfg: LlamaConfig) -> None:
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config_to_dict(cfg), f, indent=1)
+
+
+def _write_msgpack(path: str, tree: dict) -> None:
+    """Written under a staging name, then renamed: a reader never sees a
+    torn file."""
+    from . import _msgpack
+
+    tmp = f"{path}.tmp-{os.getpid()}"
+    with open(tmp, "wb") as f:
+        _msgpack.dump(tree, f)
+    os.replace(tmp, path)
+
+
+def save_pretrained(path: str, cfg: LlamaConfig, params) -> None:
+    """Write a snapshot the reference's ``load_pretrained`` reads:
+    ``config.json`` plus ``weights.msgpack``, the tree scan-stacked. Each
+    leaf streams from its per-layer tensors (on any device)."""
+    from . import convert
+
+    os.makedirs(path, exist_ok=True)
+    _write_config(path, cfg)
+    tree = convert.tree_from_state_dict(_state_dict(params), cfg, lazy=True)
+    _write_msgpack(os.path.join(path, "weights.msgpack"), tree)
+
+
+def load_pretrained_config(path: str) -> LlamaConfig:
+    """The snapshot's architecture, without touching the weights: this
+    layout's ``config.json`` or a transformers snapshot's
+    (``hf_checkpoint``, auto-detected)."""
+    from . import hf_checkpoint
+
+    if hf_checkpoint.is_hf_snapshot(path):
+        return hf_checkpoint.config_from_hf(path)
+    with open(os.path.join(path, "config.json")) as f:
+        return config_from_dict(json.load(f))
+
+
+def load_pretrained(path: str) -> tuple[LlamaConfig, dict]:
+    """(config, state dict of CPU tensors) of a snapshot written by either
+    package's ``save_pretrained`` (either layer layout), or of a
+    transformers-layout safetensors snapshot (auto-detected)."""
+    from . import _msgpack, convert, hf_checkpoint
+
+    if hf_checkpoint.is_hf_snapshot(path):
+        cfg, tree = hf_checkpoint.load_hf_llama(path)
+    else:
+        cfg = load_pretrained_config(path)
+        tree = _msgpack.load(os.path.join(path, "weights.msgpack"))
+    return cfg, convert.state_dict_from_jax(tree, cfg,
+                                            partial=cfg.lora_rank > 0)
+
+
+def is_lora_path(path) -> bool:
+    """True for adapter leaves: a state dict key (``..._lora_a``) or a
+    flattened tree path tuple (``(..., "lora_a")``)."""
+    if isinstance(path, str):
+        return path.endswith(("_lora_a", "_lora_b"))
+    return any(p in ("lora_a", "lora_b") for p in path)
+
+
+def split_lora(params) -> tuple[dict, dict]:
+    """(base, adapters) of a state dict: the partition the trainer's
+    freeze, adapter-only checkpoints and ``save_adapter`` share."""
+    sd = _state_dict(params)
+    base = {k: v for k, v in sd.items() if not is_lora_path(k)}
+    lora = {k: v for k, v in sd.items() if is_lora_path(k)}
+    return base, lora
+
+
+def save_adapter(path: str, cfg: LlamaConfig, params) -> None:
+    """Publish the adapter weights alone (plus the full config, lora
+    fields included): ``config.json`` and ``adapter.msgpack``."""
+    from . import convert
+
+    _, lora = split_lora(params)
+    if not lora:
+        raise ValueError("save_adapter: params contain no lora_a/lora_b "
+                         "leaves (model has lora_rank == 0?)")
+    os.makedirs(path, exist_ok=True)
+    _write_config(path, cfg)
+    _write_msgpack(os.path.join(path, "adapter.msgpack"),
+                   convert.tree_from_state_dict(lora, cfg, lazy=True))
+
+
+def load_adapter(path: str) -> tuple[LlamaConfig, dict]:
+    """(config with the lora fields, adapter state dict) of a
+    ``save_adapter`` snapshot of either package."""
+    from . import _msgpack, convert
+
+    cfg = load_pretrained_config(path)
+    tree = _msgpack.load(os.path.join(path, "adapter.msgpack"))
+    lora = convert.state_dict_from_jax(tree, cfg, partial=True)
+    return cfg, lora
+
+
+@torch.no_grad()
+def merge_adapter(cfg: LlamaConfig, base_params, adapters
+                  ) -> tuple[LlamaConfig, dict]:
+    """Fold adapters into the base for serving, ``kernel += reshape(A @ B)
+    * scale`` in f32 per adapted projection: the result is a plain Llama
+    (lora_rank 0) that every serving path takes unchanged. Refuses an int8
+    base: a model-space delta added to int8 codes corrupts them."""
+    if cfg.quant_weights:
+        raise ValueError(
+            "merge_adapter needs an UNQUANTIZED base: adding a "
+            "model-space delta to int8 codes corrupts them — merge "
+            "first, then quantize_for_serving")
+    scale = cfg.lora_scale
+    merged, _ = split_lora(base_params)
+    merged = dict(merged)
+    ada = _state_dict(adapters)
+    for key, a in ada.items():
+        if not key.endswith("_lora_a"):
+            continue
+        kkey = key[:-len("_lora_a")]
+        kernel = merged[kkey]
+        if kernel.dtype == torch.int8:
+            raise ValueError(
+                f"merge_adapter: base kernel {kkey} is int8 — merge "
+                "before quantizing")
+        b = ada[kkey + "_lora_b"].to(kernel.device, torch.float32)
+        a = a.to(kernel.device, torch.float32)
+        r = a.shape[-1]
+        delta = (a.reshape(-1, r) @ b.reshape(r, -1)).reshape(kernel.shape)
+        merged[kkey] = (kernel.float() + scale * delta).to(kernel.dtype)
+    return dataclasses.replace(cfg, lora_rank=0, lora_alpha=0.0), merged
+
+
+def _quantize_kernel(w: torch.Tensor, fan_in_dims: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-output-channel absmax int8 over the first
+    ``fan_in_dims`` dims: (codes, f32 scales [out...])."""
+    arr = w.float()
+    dims = tuple(range(fan_in_dims))
+    s = arr.abs().amax(dim=dims).clamp_min(1e-8) / 127.0
+    q8 = (arr / s).round().clamp(-127, 127).to(torch.int8)
+    return q8, s
+
+
+@torch.no_grad()
+def quantize_for_serving(cfg: LlamaConfig, params, *, weights: bool = True,
+                         kv: bool = True) -> tuple[LlamaConfig, dict]:
+    """f32 weights -> int8 serving weights (and the int8 KV flag): every
+    projection kernel and the unembedding (unless tied) quantized per
+    output channel, ``y = (x @ w_q) * s`` exactly as the scales vary only
+    over the non-contracted dims. The embedding and the norm scales stay
+    f32. Returns the serving config and its state dict (``params`` as
+    they are when only ``kv``)."""
+    if cfg.moe_experts > 0 and weights:
+        raise ValueError(
+            "int8 weight quantization does not cover MoE expert trees yet "
+            "(MoeMlp owns raw stacked params, not Einsum kernels); serve "
+            "MoE bf16 or pass weights=False for int8 KV only")
+    qcfg = dataclasses.replace(cfg, quant_weights=bool(weights),
+                               quant_kv=bool(kv))
+    if not weights:
+        return qcfg, params
+    sd = dict(_state_dict(params))
+    fan_in = {"wq": 1, "wk": 1, "wv": 1, "wo": 2, "w_gate": 1, "w_up": 1,
+              "w_down": 1}
+    for i in range(cfg.num_layers):
+        for mod in ("attn", "mlp"):
+            for name, n_in in fan_in.items():
+                key = f"layers.{i}.{mod}.{name}"
+                if key in sd:
+                    sd[key], sd[f"{key}_scale"] = _quantize_kernel(
+                        sd[key], n_in)
+    if not cfg.tie_embeddings:
+        sd["head.unembedding"], sd["head.unembedding_scale"] = \
+            _quantize_kernel(sd["head.unembedding"], 1)
+    return qcfg, sd

@@ -112,6 +112,7 @@ import torch
 
 from ..analysis.runtime import CaptureCounter
 from ..device import resolve_device
+from ..models import llama as llamalib
 from ..models.llama import KvCache, Llama, LlamaConfig
 from ..ops import flash_attention as _fa
 from ..ops import grouped_matmul as _gm
@@ -127,6 +128,7 @@ from .paged import (
     scatter_working_view,
     write_window_tables,
 )
+from .storage import fetch_mem
 
 log = logging.getLogger("kubeflow_tpu_torch.serving")
 
@@ -4027,7 +4029,45 @@ def engine_kwargs(config: dict, *, default_eos=None,
 
 
 #: serving-config keys of engines and options not ported yet
-_UNPORTED_CONFIG = {"aot": "A12", "quant_weights": "A11"}
+_UNPORTED_CONFIG = {"aot": "A12"}
+
+
+def resolve_model_source(config: dict, *, name: str = "model"):
+    """(cfg, params) from a serving config's model source: ``params_ref``
+    (a ``mem://`` key registered with ``(cfg, params)``) or
+    ``storage_path`` (a snapshot ``load_pretrained`` reads, this layout or
+    a transformers one). ``adapter_path``: a ``save_adapter`` snapshot
+    merged into the base at load (``merge_adapter``; the model is then a
+    plain Llama, so int8 quantization composes unchanged). ``max_seq_len``
+    overrides the snapshot's context length (the serving capacity)."""
+    ref = config.get("params_ref")
+    if ref:
+        cfg, params = fetch_mem(ref[len("mem://"):])
+    elif config.get("storage_path"):
+        cfg, params = llamalib.load_pretrained(config["storage_path"])
+    else:
+        raise RuntimeError(
+            f"model {name}: need params_ref or storage_path (set "
+            "storage_uri on the component spec — the storage initializer "
+            "resolves it to storage_path)")
+    adapter = config.get("adapter_path")
+    if adapter:
+        acfg, adapters = llamalib.load_adapter(adapter)
+        cfg, params = llamalib.merge_adapter(acfg, params, adapters)
+    if config.get("max_seq_len"):
+        cfg = dataclasses.replace(cfg, max_seq_len=int(config["max_seq_len"]))
+    return cfg, params
+
+
+def apply_serving_quant(cfg, params, config: dict):
+    """The serving config's int8 knobs: ``quant_weights`` (int8 projection
+    kernels and unembedding, ``quantize_for_serving``) and ``quant_kv``
+    (the int8 KV cache)."""
+    w = bool(config.get("quant_weights"))
+    k = bool(config.get("quant_kv"))
+    if not (w or k):
+        return cfg, params
+    return llamalib.quantize_for_serving(cfg, params, weights=w, kv=k)
 
 
 def build_engine(cfg: LlamaConfig, params, config: dict, *, default_eos=None,
@@ -4035,16 +4075,16 @@ def build_engine(cfg: LlamaConfig, params, config: dict, *, default_eos=None,
     """Engine from a serving-config dict, the reference's branches:
     ``disaggregation`` ({"prefill": n, "decode": m}, in process) builds a
     ``DisaggregatedPool``, ``tier_lens`` or ``short_pool_len`` a
-    ``TieredEngine``, else a ``ContinuousEngine``. ``quant_kv`` turns on
-    the int8 KV cache; ``"warmup_groups": []`` skips warmup."""
+    ``TieredEngine``, else a ``ContinuousEngine``. ``quant_weights`` and
+    ``quant_kv`` quantize first (``apply_serving_quant``);
+    ``"warmup_groups": []`` skips warmup."""
     for key, item in _UNPORTED_CONFIG.items():
         if config.get(key):
             raise NotImplementedError(
                 f"serving config {key!r} is not ported yet (ROADMAP {item})")
     kw = engine_kwargs(config, default_eos=default_eos,
                        default_max_new_tokens=default_max_new_tokens)
-    if config.get("quant_kv"):
-        cfg = dataclasses.replace(cfg, quant_kv=True)
+    cfg, params = apply_serving_quant(cfg, params, config)
     short_len = config.get("short_pool_len")
     tier_lens = config.get("tier_lens")
     disagg = config.get("disaggregation")

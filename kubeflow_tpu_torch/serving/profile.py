@@ -1,9 +1,12 @@
 """Where the time of the serving engine's decode goes on the card.
 
-    python -m kubeflow_tpu_torch.serving.profile [--model bench|bench_moe]
+    python -m kubeflow_tpu_torch.serving.profile
+        [--model bench|bench_moe|llama_1b] [--quant none|weights|kv|both]
         [--rounds 3]
 
-Serves ``bench.py``'s serving row through the port's ``ContinuousEngine``:
+Serves ``bench.py``'s serving row through the port's ``ContinuousEngine``
+(``llama_1b`` at ``max_seq_len`` 512; ``--quant``: ``quantize_for_serving``'s
+int8 weights, int8 KV or both):
 random weights from seed 0, 8 prompts of 128 tokens from
 ``numpy.random.default_rng(0)``, 8 slots, ``decode_chunk`` 16, pipeline depth
 3, warmup at ``[(8, 128), (1, 128)]`` and a 16-token priming round. Then it
@@ -28,16 +31,20 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from ..models.llama import Llama, bench_model, bench_moe_model
+from ..models.llama import (Llama, bench_model, bench_moe_model, llama_1b,
+                            quantize_for_serving)
 from ..train.profile import _device_us, _kind
 from .continuous import ContinuousEngine
 
-MODELS = {"bench": bench_model, "bench_moe": bench_moe_model}
+MODELS = {"bench": bench_model, "bench_moe": bench_moe_model,
+          "llama_1b": lambda: llama_1b(max_seq_len=512)}
 
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", choices=sorted(MODELS), default="bench")
+    ap.add_argument("--quant", choices=["none", "weights", "kv", "both"],
+                    default="none")
     ap.add_argument("--rounds", type=int, default=3)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -45,9 +52,14 @@ def main(argv=None) -> dict:
     cfg = MODELS[args.model]()
     model = Llama(cfg)
     model.init_weights(0)
+    params = model
+    if args.quant != "none":
+        cfg, params = quantize_for_serving(
+            cfg, model, weights=args.quant in ("weights", "both"),
+            kv=args.quant in ("kv", "both"))
     prompts = np.random.default_rng(0).integers(
         1, cfg.vocab_size, size=(8, 128)).tolist()
-    eng = ContinuousEngine(cfg, model, num_slots=8, decode_chunk=16,
+    eng = ContinuousEngine(cfg, params, num_slots=8, decode_chunk=16,
                            pipeline_depth=3)
 
     def rounds(n: int) -> tuple[float, float]:
@@ -89,7 +101,8 @@ def main(argv=None) -> dict:
          "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip()
     out = {
-        "card": card, "model": args.model, "rounds": args.rounds,
+        "card": card, "model": args.model, "quant": args.quant,
+        "rounds": args.rounds,
         "tokens_per_round": 8 * 64,
         "wall_ms_per_round": wall_ms,
         "profiled_wall_ms_per_round": profiled_ms,

@@ -1,6 +1,11 @@
-"""The storage tier of the paged-KV economy: the port's copy of the spill
-store of ``kubeflow_tpu/serving/storage.py`` (``KvSpillStore`` and the
-helpers it needs; the model-download half of that module stays there).
+"""The port's copy of ``kubeflow_tpu/serving/storage.py``: the storage
+initializer (``download(uri) -> local path`` over ``file://``, ``mem://``,
+``hf://org/name[@rev]`` resolved against a local hub layout under
+``$KFT_HF_HOME``, and ``gs://``/``s3://`` through a registered transport, with
+the manifest-verified local model cache) and the storage tier of the
+paged-KV economy (``KvSpillStore``). All of it is device-free; nothing here
+reaches the network unless a deployment registers a transport or sets
+``KFT_REMOTE_TOOLS=1``.
 
 The manifest schema is the reference's, byte for byte, so a spill either
 framework writes is readable by the other. The one change: the reference
@@ -19,10 +24,15 @@ import shutil
 import threading
 import time
 import uuid
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
 import torch
+
+
+_MEM_REGISTRY: dict[str, Any] = {}
+
+MANIFEST_NAME = "manifest.json"
 
 
 class StorageError(RuntimeError):
@@ -33,6 +43,376 @@ class SpillCorrupt(StorageError):
     """A spill entry's MANIFEST is unreadable or self-inconsistent: the
     session cannot be reconstructed from this tier (payload corruption
     is softer: the manifest's token record still re-prefills)."""
+
+
+def register_mem(key: str, value: Any) -> str:
+    """Publish an object under ``mem://<key>`` (test/bench convenience)."""
+    _MEM_REGISTRY[key] = value
+    return f"mem://{key}"
+
+
+def fetch_mem(key: str) -> Any:
+    try:
+        return _MEM_REGISTRY[key]
+    except KeyError:
+        raise StorageError(f"mem://{key} not registered") from None
+
+
+#: scheme ("gs://", "s3://", ...) -> transport(uri, dest_dir) that fetches
+#: the object(s) at uri INTO dest_dir.  Injectable for tests and for
+#: deployments with egress; download() stages the result through the
+#: manifest cache so replicas share one verified copy.
+_TRANSPORTS: dict[str, Any] = {}
+
+
+def register_transport(scheme: str, fn) -> None:
+    """Install (or override) the transport for a remote scheme.  Pass
+    ``None`` to remove."""
+    if fn is None:
+        _TRANSPORTS.pop(scheme, None)
+    else:
+        _TRANSPORTS[scheme] = fn
+
+
+def _tool_transport(tool_argv_prefix: list[str]):
+    """Transport that shells out to a cloud CLI (gsutil / aws s3) when the
+    binary exists on PATH — the reference's storage-initializer behavior
+    [upstream: kserve pkg/agent/storage].  Returns None when absent so the
+    caller falls through to the explicit zero-egress error."""
+    import shutil as _shutil
+    import subprocess
+
+    if _shutil.which(tool_argv_prefix[0]) is None:
+        return None
+
+    def fetch(uri: str, dest_dir: str) -> None:
+        proc = subprocess.run(
+            [*tool_argv_prefix, uri, dest_dir],
+            capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise StorageError(
+                f"{uri}: transfer failed: {proc.stderr.strip()[:500]}")
+
+    return fetch
+
+
+def _remote_transport_for(uri: str):
+    scheme = uri.split("://", 1)[0] + "://"
+    t = _TRANSPORTS.get(scheme)
+    if t is not None:
+        return t
+    # CLI-tool fallbacks require an EXPLICIT opt-in: a gsutil/aws binary
+    # may exist on a zero-egress host, where it retries against the
+    # blackhole for minutes instead of failing fast — the hang the
+    # scheme gating exists to prevent.  Deployments with real egress set
+    # KFT_REMOTE_TOOLS=1 (or register a transport).
+    if os.environ.get("KFT_REMOTE_TOOLS") != "1":
+        return None
+    if scheme == "gs://":
+        return _tool_transport(["gsutil", "-m", "cp", "-r"])
+    if scheme == "s3://":
+        return _s3_tool_transport()
+    return None
+
+
+def _s3_tool_transport():
+    """aws-cli transport.  `aws s3 cp --recursive` treats a single-object
+    key as an (empty) prefix, so try the plain object copy first and fall
+    back to recursive for prefix trees."""
+    import shutil as _shutil
+    import subprocess
+
+    if _shutil.which("aws") is None:
+        return None
+
+    def fetch(uri: str, dest_dir: str) -> None:
+        single = subprocess.run(
+            ["aws", "s3", "cp", uri, dest_dir + "/"],
+            capture_output=True, text=True)
+        if single.returncode == 0 and os.listdir(dest_dir):
+            return
+        tree = subprocess.run(
+            ["aws", "s3", "cp", "--recursive", uri, dest_dir],
+            capture_output=True, text=True)
+        if tree.returncode != 0:
+            raise StorageError(
+                f"{uri}: transfer failed: "
+                f"{(tree.stderr or single.stderr).strip()[:500]}")
+
+    return fetch
+
+
+def _download_remote(uri: str, cache_dir: Optional[str]) -> str:
+    """Fetch via the scheme's transport into a temp dir, then publish
+    through the manifest cache (atomic, shared across replicas)."""
+    import tempfile
+
+    transport = _remote_transport_for(uri)
+    if transport is None:
+        raise StorageError(
+            f"{uri}: remote storage requires network egress, which this "
+            "deployment does not have; stage the model locally and use "
+            "file:// (or register_transport() in an egress-enabled "
+            "deployment)")
+    cache_dir = cache_dir or os.path.join(
+        tempfile.gettempdir(), "kft-remote-cache")
+    # cache hit: a previously-staged, manifest-valid entry skips the
+    # transport entirely (the kserve local-model-cache economy)
+    key = hashlib.sha256(uri.encode()).hexdigest()[:16]
+    entry_dir = os.path.join(cache_dir, key)
+    if os.path.exists(os.path.join(entry_dir, MANIFEST_NAME)) and (
+            verify_manifest(entry_dir)):
+        _verified_entries.add(entry_dir)
+        return os.path.join(entry_dir, "model")
+    with tempfile.TemporaryDirectory(prefix="kft-fetch-") as tmp:
+        dest = os.path.join(tmp, "payload")
+        os.makedirs(dest, exist_ok=True)
+        transport(uri, dest)
+        if not os.listdir(dest):
+            raise StorageError(f"{uri}: transport produced no files")
+        # always stage the payload DIRECTORY: remote downloads resolve to
+        # a model directory (single-file objects become a one-file dir),
+        # which keeps the cache-hit path above unambiguous
+        return stage_to_cache(uri, dest, cache_dir)
+
+
+def download(
+    uri: str, cache_dir: Optional[str] = None, hf_root: Optional[str] = None
+) -> str:
+    """Resolve ``uri`` to a local filesystem path (V1 storage contract).
+
+    With ``cache_dir`` (or ``$KFT_MODEL_CACHE``), file sources are staged
+    through the manifest-verified local cache and the cached path is
+    returned instead of the source path.
+    """
+    cache_dir = cache_dir or os.environ.get("KFT_MODEL_CACHE")
+    if uri.startswith("file://"):
+        path = uri[len("file://"):]
+        if not os.path.exists(path):
+            raise StorageError(f"{uri}: no such path")
+        if cache_dir:
+            return stage_to_cache(uri, path, cache_dir)
+        return path
+    if uri.startswith("mem://"):
+        # mem objects have no path; callers use fetch_mem directly
+        key = uri[len("mem://"):]
+        if key not in _MEM_REGISTRY:
+            raise StorageError(f"{uri} not registered")
+        return uri
+    if uri.startswith("hf://"):
+        path = resolve_hf(uri, hf_root=hf_root)
+        if cache_dir:
+            return stage_to_cache(uri, path, cache_dir)
+        return path
+    if uri.startswith(("gs://", "s3://")):
+        return _download_remote(uri, cache_dir)
+    for scheme in ("http://", "https://"):
+        if uri.startswith(scheme):
+            raise StorageError(
+                f"{uri}: remote storage requires network egress, which this "
+                "deployment does not have; stage the model locally and use file://"
+            )
+    raise StorageError(f"unsupported storage uri {uri!r}")
+
+
+def resolve_hf(uri: str, hf_root: Optional[str] = None) -> str:
+    """Resolve ``hf://org/name[@revision]`` against a LOCAL HuggingFace-hub
+    layout snapshot root [upstream: kserve -> python/kserve storage hf://
+    scheme; the reference downloads from the Hub — this deployment has
+    zero egress, so the contract is covered by hub-layout directories
+    staged locally (``$KFT_HF_HOME``, e.g. an exported HF_HOME/hub)]:
+
+        <root>/models--org--name/
+            refs/<revision>            # text file naming a commit
+            snapshots/<commit>/...     # config.json + weights
+
+    ``revision`` defaults to ``main``; it may be a named ref, a full
+    commit, or a unique commit prefix — pinning a revision serves exactly
+    that snapshot forever, the property the reference gets from commit-
+    hash URLs.
+    """
+    hf_root = hf_root or os.environ.get("KFT_HF_HOME")
+    if not hf_root:
+        raise StorageError(
+            f"{uri}: hf:// resolves against a local HuggingFace-hub layout "
+            "(zero-egress deployment); set KFT_HF_HOME or pass hf_root")
+    ref = uri[len("hf://"):]
+    repo, _, revision = ref.partition("@")
+    revision = revision or "main"
+    repo = repo.strip("/")
+    if repo.count("/") != 1:
+        raise StorageError(f"{uri}: expected hf://<org>/<name>[@revision]")
+    repo_dir = os.path.join(hf_root, "models--" + repo.replace("/", "--"))
+    if not os.path.isdir(repo_dir):
+        raise StorageError(f"{uri}: {repo!r} not present under {hf_root}")
+    snapshots = os.path.join(repo_dir, "snapshots")
+    commit: Optional[str] = None
+    ref_file = os.path.join(repo_dir, "refs", revision)
+    if os.path.isfile(ref_file):
+        with open(ref_file) as f:
+            commit = f.read().strip()
+    else:
+        try:
+            known = sorted(os.listdir(snapshots))
+        except OSError:
+            known = []
+        matches = [c for c in known if c.startswith(revision)]
+        if len(matches) == 1:
+            commit = matches[0]
+        elif len(matches) > 1:
+            raise StorageError(
+                f"{uri}: revision {revision!r} is ambiguous ({matches})")
+    if not commit:
+        raise StorageError(f"{uri}: unknown revision {revision!r}")
+    snap = os.path.join(snapshots, commit)
+    if not os.path.isdir(snap):
+        raise StorageError(
+            f"{uri}: ref {revision!r} names missing snapshot {commit!r}")
+    return snap
+
+
+# ---------------------------------------------------------------------------
+# Local model cache with manifests
+# ---------------------------------------------------------------------------
+
+
+def _sha256_file(path: str) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def _walk_files(root: str) -> list[str]:
+    """Relative paths of every regular file under root (root may be a file)."""
+    if os.path.isfile(root):
+        return [""]
+    out = []
+    for dirpath, _, names in os.walk(root):
+        for n in names:
+            out.append(os.path.relpath(os.path.join(dirpath, n), root))
+    return sorted(out)
+
+
+def build_manifest(uri: str, root: str) -> dict:
+    files = []
+    for rel in _walk_files(root):
+        p = root if rel == "" else os.path.join(root, rel)
+        st = os.stat(p)
+        files.append({
+            "path": rel or os.path.basename(root),
+            "size": st.st_size,
+            "mtime_ns": st.st_mtime_ns,
+            "sha256": _sha256_file(p),
+        })
+    return {"uri": uri, "created": time.time(), "files": files}
+
+
+def verify_manifest(entry_dir: str) -> bool:
+    """True when every file named by the entry's manifest matches on size
+    and sha256 (the cache-hit validity check)."""
+    mpath = os.path.join(entry_dir, MANIFEST_NAME)
+    try:
+        with open(mpath) as f:
+            manifest = json.load(f)
+    except (OSError, json.JSONDecodeError):
+        return False
+    model_root = os.path.join(entry_dir, "model")
+    for rec in manifest.get("files", []):
+        p = os.path.join(model_root, rec["path"])
+        try:
+            if os.path.getsize(p) != rec["size"]:
+                return False
+            if _sha256_file(p) != rec["sha256"]:
+                return False
+        except OSError:
+            return False
+    return True
+
+
+#: entry dirs fully hash-verified once by this process; later hits only
+#: size-check, so warm-path cost is O(files), not O(bytes)
+_verified_entries: set[str] = set()
+
+
+def _sizes_ok(entry_dir: str) -> bool:
+    """Cheap validity check: size + mtime match the manifest (catches
+    rewrites without re-reading the bytes)."""
+    mpath = os.path.join(entry_dir, MANIFEST_NAME)
+    try:
+        with open(mpath) as f:
+            manifest = json.load(f)
+        model_root = os.path.join(entry_dir, "model")
+        for rec in manifest.get("files", []):
+            st = os.stat(os.path.join(model_root, rec["path"]))
+            if st.st_size != rec["size"]:
+                return False
+            if "mtime_ns" in rec and st.st_mtime_ns != rec["mtime_ns"]:
+                return False
+        return True
+    except (OSError, json.JSONDecodeError, KeyError):
+        return False
+
+
+def stage_to_cache(uri: str, src_path: str, cache_dir: str) -> str:
+    """Stage ``src_path`` into the cache under a URI-keyed entry; return the
+    staged model path.  A valid existing entry is reused without copying;
+    an invalid one (interrupted copy, corruption) is re-staged."""
+    key = hashlib.sha256(uri.encode()).hexdigest()[:16]
+    entry_dir = os.path.join(cache_dir, key)
+    model_root = os.path.join(entry_dir, "model")
+
+    def staged_path() -> str:
+        if os.path.isdir(src_path):
+            return model_root
+        return os.path.join(model_root, os.path.basename(src_path))
+
+    if os.path.exists(os.path.join(entry_dir, MANIFEST_NAME)):
+        if entry_dir in _verified_entries:
+            # full-hash verified once this process; cheap size check after
+            if _sizes_ok(entry_dir):
+                return staged_path()
+            _verified_entries.discard(entry_dir)
+        if verify_manifest(entry_dir):
+            _verified_entries.add(entry_dir)
+            return staged_path()
+        shutil.rmtree(entry_dir, ignore_errors=True)
+
+    # hidden staging name: list_cache skips dot-entries; unique per attempt
+    # so concurrent stagers (other processes OR other threads here) never
+    # collide.  Only *stale* leftovers (dead stagers) are garbage-collected.
+    tmp_dir = os.path.join(
+        cache_dir, f".staging-{key}-{os.getpid()}-{uuid.uuid4().hex[:8]}")
+    for leftover in _stale_staging_dirs(cache_dir, key):
+        shutil.rmtree(leftover, ignore_errors=True)
+    tmp_model = os.path.join(tmp_dir, "model")
+    if os.path.isdir(src_path):
+        shutil.copytree(src_path, tmp_model)
+    else:
+        os.makedirs(tmp_model, exist_ok=True)
+        shutil.copy2(src_path, os.path.join(tmp_model, os.path.basename(src_path)))
+    # manifest is built from the STAGED copy so manifest and bytes agree by
+    # construction even if the source mutates mid-copy
+    manifest = build_manifest(uri, tmp_model)
+    with open(os.path.join(tmp_dir, MANIFEST_NAME), "w") as f:
+        json.dump(manifest, f)
+        f.flush()
+        os.fsync(f.fileno())
+    _fsync_dir(tmp_dir)
+    # rename() publishes the entry atomically; never remove a published
+    # entry here — a concurrent replica may already be serving from it
+    try:
+        os.rename(tmp_dir, entry_dir)
+        _fsync_dir(cache_dir)
+        _verified_entries.add(entry_dir)
+    except OSError:
+        # lost the publish race to a concurrent replica; use the winner's
+        shutil.rmtree(tmp_dir, ignore_errors=True)
+        if not verify_manifest(entry_dir):
+            raise StorageError(f"cache entry for {uri} is invalid after race")
+        _verified_entries.add(entry_dir)
+    return staged_path()
 
 
 SPILL_MANIFEST = "spill.json"

@@ -1,4 +1,7 @@
-"""AdamW exactly as the reference trainer builds it with optax.
+"""The reference trainer's two optax optimizers, operation by operation:
+AdamW and Adafactor (below).
+
+AdamW exactly as the reference trainer builds it with optax.
 
 ``optax.chain(clip_by_global_norm(clip), adamw(warmup_cosine_decay_schedule(
 0, lr, warmup, max(steps, warmup + 1)), b1, b2, eps=1e-8, weight_decay,
@@ -73,7 +76,7 @@ class AdamW:
         """Apply one update from the params' ``.grad``; returns the global
         grad norm before clipping (a 0-d tensor on the params' device)."""
         grads = [p.grad for p in self.params]
-        norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+        norm = _global_norm(grads)
         lr = -warmup_cosine_decay(self.count, self.lr, self.warmup,
                                   self.decay_steps)
         t = self.count + 1
@@ -90,3 +93,173 @@ class AdamW:
             mu.copy_(m)
         self.count += 1
         return norm
+
+    def state_dict(self) -> dict:
+        return {"count": self.count, "mu": list(self.mu), "nu": list(self.nu)}
+
+    def load_state_dict(self, state: dict) -> None:
+        _load_list(self.mu, state["mu"], "mu")
+        _load_list(self.nu, state["nu"], "nu")
+        self.count = int(state["count"])
+
+
+def _load_list(dst: list, src: list, what: str) -> None:
+    if len(dst) != len(src):
+        raise ValueError(f"optimizer state {what}: {len(src)} tensors for "
+                         f"{len(dst)} parameters")
+    for d, x in zip(dst, src):
+        if d.shape != x.shape:
+            raise ValueError(f"optimizer state {what}: shape "
+                             f"{tuple(x.shape)} != {tuple(d.shape)}")
+        d.copy_(x)
+
+
+def _global_norm(grads) -> torch.Tensor:
+    return torch.sqrt(sum(g.float().square().sum() for g in grads))
+
+
+def factored_dims(shape, factored: bool = True,
+                  min_dim_size_to_factor: int = 128):
+    """optax's ``_factored_dims``: the two largest axes (second largest,
+    largest) when the second largest is at least the minimum, else None."""
+    if not factored or len(shape) < 2:
+        return None
+    sorted_dims = np.argsort(shape)
+    if shape[sorted_dims[-2]] < min_dim_size_to_factor:
+        return None
+    return int(sorted_dims[-2]), int(sorted_dims[-1])
+
+
+class Adafactor:
+    """``optax.chain(clip_by_global_norm(clip), adafactor(schedule,
+    min_dim_size_to_factor=128))`` as the reference trainer builds it, with
+    optax's defaults: factored second moments with the ``1 - t^-0.8``
+    decay, eps 1e-30, block-RMS clipping at 1.0, the learning rate at the
+    pre-increment count, ``multiply_by_parameter_scale`` (min scale 1e-3),
+    no momentum and no weight decay. Not ``torch.optim.Adafactor``, whose
+    update and defaults differ.
+
+    A "block" is one leaf of the reference's tree: with scan-stacked
+    layers the stack of one projection over every layer. So ``groups``
+    lists each leaf as ``(stacked shape, [its tensors])``; its factored
+    axes come from the stacked shape, and its block RMS and parameter
+    scale are taken over all its tensors. In order, per leaf:
+
+    1. clip: as ``AdamW`` (on the device, optax's branch on a NaN norm);
+    2. g2 = g*g + eps; factored (axes d1 < d0 by size): v_row =
+       d*v_row + (1-d)*mean(g2, d0), v_col likewise over d1, u = g *
+       (v_row / mean(v_row, d1))^-1/2 * v_col^-1/2; else v = d*v +
+       (1-d)*g2, u = g * v^-1/2; with d = 1 - (count+1)^-0.8 in f32;
+    3. u /= max(1, rms(u));
+    4. u = lr(count) * u;
+    5. u *= max(rms(p), 1e-3) (rms(p) when above 1e-3, else 1e-3);
+    6. p += -u.
+    """
+
+    def __init__(self, groups, *, learning_rate: float, warmup_steps: int,
+                 decay_steps: int, grad_clip_norm: float = 1.0,
+                 min_dim_size_to_factor: int = 128, decay_rate: float = 0.8,
+                 eps: float = 1e-30, clipping_threshold: float = 1.0,
+                 min_scale: float = 1e-3):
+        self.lr, self.warmup, self.decay_steps = (
+            learning_rate, warmup_steps, decay_steps)
+        self.clip, self.decay_rate, self.eps = grad_clip_norm, decay_rate, eps
+        self.threshold, self.min_scale = clipping_threshold, min_scale
+        self.groups = []
+        self.v_row, self.v_col, self.v = [], [], []
+        for shape, parts in groups:
+            parts = list(parts)
+            shape = tuple(shape)
+            layered = tuple(parts[0].shape) != shape
+            if layered and shape != (len(parts), *parts[0].shape):
+                raise ValueError(f"leaf of shape {shape} from {len(parts)} "
+                                 f"tensors of {tuple(parts[0].shape)}")
+            dims = factored_dims(shape, True, min_dim_size_to_factor)
+            off = 1 if layered else 0
+            if dims is not None and off and 0 in dims:
+                raise NotImplementedError(
+                    f"factoring leaf {shape} over its layer axis")
+            # the factored axes within one tensor of the leaf
+            local = None if dims is None else (dims[0] - off, dims[1] - off)
+            self.groups.append((parts, dims, local))
+            for p in parts:
+                if local is None:
+                    self.v_row.append(None)
+                    self.v_col.append(None)
+                    self.v.append(torch.zeros_like(p))
+                else:
+                    d1, d0 = local
+                    self.v_row.append(torch.zeros_like(p.sum(d0)))
+                    self.v_col.append(torch.zeros_like(p.sum(d1)))
+                    self.v.append(None)
+        self.params = [p for parts, _, _ in self.groups for p in parts]
+        self.count = 0
+
+    @staticmethod
+    def _rms(tensors) -> torch.Tensor:
+        n = sum(t.numel() for t in tensors)
+        return torch.sqrt(sum(t.square().sum() for t in tensors) / n)
+
+    @torch.no_grad()
+    def step(self) -> torch.Tensor:
+        """Apply one update from the params' ``.grad``; returns the global
+        grad norm before clipping (a 0-d tensor on the params' device)."""
+        f32 = np.float32
+        norm = _global_norm(p.grad for p in self.params)
+        lr = warmup_cosine_decay(self.count, self.lr, self.warmup,
+                                 self.decay_steps)
+        decay = f32(1.0) - f32(self.count + 1) ** f32(-self.decay_rate)
+        d, one_minus_d = float(decay), float(f32(1.0) - decay)
+        i = 0
+        for parts, dims, local in self.groups:
+            updates = []
+            for p in parts:
+                g = p.grad
+                g = torch.where(norm < self.clip, g, (g / norm) * self.clip)
+                g2 = g * g + self.eps
+                if local is None:
+                    v = self.v[i]
+                    v.copy_(d * v + one_minus_d * g2)
+                    u = g * v ** -0.5
+                else:
+                    d1, d0 = local
+                    vr, vc = self.v_row[i], self.v_col[i]
+                    vr.copy_(d * vr + one_minus_d * g2.mean(d0))
+                    vc.copy_(d * vc + one_minus_d * g2.mean(d1))
+                    reduced_d1 = d1 - 1 if d1 > d0 else d1
+                    row_col_mean = vr.mean(reduced_d1, keepdim=True)
+                    row_factor = (vr / row_col_mean) ** -0.5
+                    col_factor = vc ** -0.5
+                    u = (g * row_factor.unsqueeze(d0)
+                         * col_factor.unsqueeze(d1))
+                updates.append(u)
+                i += 1
+            denom = torch.clamp_min(self._rms(updates) / self.threshold, 1.0)
+            rms_p = self._rms(parts)
+            scale = torch.where(rms_p <= self.min_scale,
+                                torch.full_like(rms_p, self.min_scale), rms_p)
+            for p, u in zip(parts, updates):
+                u = lr * (u / denom)
+                u = u * scale
+                p.add_(u * -1)
+        self.count += 1
+        return norm
+
+    def state_dict(self) -> dict:
+        return {"count": self.count, "v_row": list(self.v_row),
+                "v_col": list(self.v_col), "v": list(self.v)}
+
+    def load_state_dict(self, state: dict) -> None:
+        for what in ("v_row", "v_col", "v"):
+            mine = getattr(self, what)
+            if len(mine) != len(state[what]):
+                raise ValueError(f"optimizer state {what}: "
+                                 f"{len(state[what])} entries for "
+                                 f"{len(mine)} parameters")
+            for dst, src in zip(mine, state[what]):
+                if (dst is None) != (src is None):
+                    raise ValueError(f"optimizer state {what}: factoring "
+                                     "differs from the saved state")
+                if dst is not None:
+                    _load_list([dst], [src], what)
+        self.count = int(state["count"])

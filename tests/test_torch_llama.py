@@ -164,20 +164,25 @@ def test_port_imports_no_jax():
         "import chip_smoke, kernel_ab\n"
         "import kubeflow_tpu_torch, kubeflow_tpu_torch.device\n"
         "import kubeflow_tpu_torch.models.llama, "
-        "kubeflow_tpu_torch.models.convert, kubeflow_tpu_torch.models.moe\n"
+        "kubeflow_tpu_torch.models.convert, kubeflow_tpu_torch.models.moe, "
+        "kubeflow_tpu_torch.models._msgpack, "
+        "kubeflow_tpu_torch.models.hf_checkpoint\n"
         "import kubeflow_tpu_torch.ops.flash_attention, "
         "kubeflow_tpu_torch.ops.grouped_matmul, "
         "kubeflow_tpu_torch.ops._build\n"
         "import kubeflow_tpu_torch.train.data, kubeflow_tpu_torch.train.optim,"
-        " kubeflow_tpu_torch.train.trainer, kubeflow_tpu_torch.train.profile\n"
+        " kubeflow_tpu_torch.train.trainer, kubeflow_tpu_torch.train.profile,"
+        " kubeflow_tpu_torch.train.checkpoint, kubeflow_tpu_torch.train.llm\n"
+        "import kubeflow_tpu_torch.runtime.bootstrap, "
+        "kubeflow_tpu_torch.serving.storage\n"
         "import kubeflow_tpu_torch.serving, "
         "kubeflow_tpu_torch.serving.continuous, "
         "kubeflow_tpu_torch.serving.paged, "
         "kubeflow_tpu_torch.serving.profile, "
         "kubeflow_tpu_torch.analysis.runtime\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax') or m.startswith('kubeflow_tpu.')"
-        " or m == 'kubeflow_tpu']\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'msgpack')"
+        " or m.startswith('kubeflow_tpu.') or m == 'kubeflow_tpu']\n"
         "assert not bad, bad\n"
         "print('clean')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -193,10 +193,10 @@ def test_paged_only_knobs_refuse_the_slot_pool(models, knobs, match):
 
 
 @pytest.mark.parametrize("config,item", [
-    ({"aot": {"root": "x"}}, "A12"), ({"quant_weights": True}, "A11"),
+    ({"aot": {"root": "x"}}, "A12"), ({"mesh_axes": {"model": 2}}, "A7"),
     ({"block_size": 8, "disaggregation": {"prefill": 1, "decode": 1,
                                           "wire": True}}, "A7")],
-    ids=["aot-A12", "quant_weights-A11", "disaggregation_wire-A7"])
+    ids=["aot-A12", "mesh_axes-A7", "disaggregation_wire-A7"])
 def test_build_engine_refuses_unported_config(models, config, item):
     _, llama, convert, continuous, _ = _port()
     cfg = llama.tiny()
