@@ -23,7 +23,11 @@ and serves the MoE bench model (``moe_serve``, on ``gmm``, which is also
 checked and timed at the serving shapes); then speculation and prefix reuse
 (``spec_serve``, ``moe_spec_serve``, ``prefix_serve``) and moving and
 storing sequences (``migrate_serve``, ``moe_migrate_serve``,
-``hibernate_serve``, ``host_tier_serve``, ``disagg_serve``). Last, the
+``hibernate_serve``, ``host_tier_serve``, ``disagg_serve``), and the
+serving plane over HTTP (``http_serve``: ``ModelServer`` and
+``TextGenerator`` over the bench model, every greedy completion held to the
+engine's own text, SSE streams timed, a QoS preemption, then the MoE bench
+model behind the same server launching ``gmm``). Last, the
 fine-tune job on llama_1b (1.19B, full width and depth): ``finetune`` writes
 a base snapshot and runs the pod entry ``train_main`` twice (a rank-8 LoRA,
 8 x 2048, checkpointed, resumed at step 4, the adapter published),
@@ -2375,6 +2379,393 @@ def phase_finetune_serve(base: str, adapter: str, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+#: the HTTP phase (``http_serve``): the port's ModelServer + TextGenerator
+#: over the bench model, paged (blocks of 16) with chunked admission (64 a
+#: dispatch), every request traced, two QoS classes. The prefix cache is
+#: off and every prompt plus its completion stays under the first attend
+#: rung (128), so a request runs the same program shapes whatever shares
+#: the pool with it: the server's greedy text must equal the engine's own
+HTTP_ENGINE = {"block_size": 16, "prefill_budget": 64, "num_slots": 8,
+               "decode_chunk": 4, "prefix_cache": False,
+               "max_new_tokens": 32, "tracing": {"sample": 1.0},
+               "qos": {"bulk": {"priority": "low"},
+                       "gold": {"priority": "high"}}}
+#: request mix: 16 blocking completions and 8 streams of 48-character
+#: prompts, 32 new tokens each; the preemption scenario's 8 low-class
+#: requests (16-character prompts, 96 new) fill every slot before one
+#: high-class stream of 16 tokens arrives; 4 completions on the MoE model
+HTTP = dict(completions=16, streams=8, prompt_chars=48, new=32,
+            lows=8, low_chars=16, low_new=96, high_new=16, moe=4)
+STREAM_PHASES = ["replica.door", "engine.queue", "engine.prefill",
+                 "engine.decode"]
+
+
+def _http_prompts(n: int, chars: int, seed: int) -> list[str]:
+    import numpy as np
+
+    letters = list("abcdefghijklmnopqrstuvwxyz ,.")
+    rng = np.random.default_rng(seed)
+    return ["".join(rng.choice(letters, size=chars)) for _ in range(n)]
+
+
+def _http_post(url: str, payload: dict, headers=None) -> dict:
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json",
+                                          **(headers or {})})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        require(r.status == 200, f"{url}: HTTP {r.status}")
+        return json.loads(r.read())
+
+
+def _http_stream(url: str, payload: dict) -> dict:
+    """One SSE completion: the joined text of choice 0 and the host-clock
+    times of the send and of every data event."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        url, data=json.dumps({**payload, "stream": True}).encode(),
+        headers={"Content-Type": "application/json"})
+    sent = time.perf_counter()
+    text, times, done = "", [], False
+    with urllib.request.urlopen(req, timeout=600) as r:
+        for raw in r:
+            line = raw.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            if line == "data: [DONE]":
+                done = True
+                break
+            event = json.loads(line[len("data: "):])
+            require("error" not in event, f"stream failed: {event}")
+            times.append(time.perf_counter())
+            text += "".join(c["text"] for c in event["choices"])
+    require(done and times, "a stream ended without data or [DONE]")
+    return {"text": text, "sent": sent, "times": times}
+
+
+def _pct(values, q: float) -> float:
+    """The ``q`` quantile (nearest rank) of ``values``."""
+    v = sorted(values)
+    return v[min(len(v) - 1, max(0, math.ceil(q * len(v)) - 1))]
+
+
+def _in_threads(fn, items) -> list:
+    """``fn`` over ``items`` from one client thread each, in order."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=len(items)) as pool:
+        return list(pool.map(fn, items))
+
+
+def http_serve(cfg, model, moe_cfg, moe_model, device=None,
+               sizes=HTTP, kernels: bool = True) -> dict:
+    """The port's serving plane end to end over HTTP (``phase_http_serve``
+    on the card; ``device="cpu"`` with tiny models rehearses it,
+    ``tests/test_torch_text_server.py``). Every
+    greedy completion is held to ``tokenizer.decode`` of the engine's own
+    ``generate`` of the same ids; returns the readings. ``kernels``: the
+    MoE requests must launch ``gmm`` (only a card launches kernels)."""
+    from kubeflow_tpu_torch.analysis.runtime import BlockLedger
+    from kubeflow_tpu_torch.serving import storage
+    from kubeflow_tpu_torch.serving.server import ModelServer
+    from kubeflow_tpu_torch.serving.text import TextGenerator
+
+    extra = {} if device is None else {"device": device}
+    storage.register_mem("chip-smoke-http", (cfg, model))
+    storage.register_mem("chip-smoke-http-moe", (moe_cfg, moe_model))
+    srv = ModelServer()
+    t0 = time.perf_counter()
+    srv.register(TextGenerator("bench", {
+        **HTTP_ENGINE, **extra, "params_ref": "mem://chip-smoke-http"}))
+    load_s = time.perf_counter() - t0
+    tg = srv.models()["bench"]
+    eng, tok = tg.engine, tg.tokenizer
+    ledger = BlockLedger()
+    eng.attach_block_ledger(ledger)
+    srv.start()
+    base = srv.url + "/openai/v1/completions"
+    out: dict = {"load_s": load_s}
+    try:
+        alone: dict = {}
+
+        def direct(prompt: str, new: int) -> str:
+            """The engine's own greedy text for ``prompt``, run alone."""
+            if (prompt, new) not in alone:
+                alone[prompt, new] = tok.decode(
+                    eng.generate(tok.encode(prompt), new, timeout=600))
+            return alone[prompt, new]
+
+        new = sizes["new"]
+        prompts = _http_prompts(sizes["completions"], sizes["prompt_chars"],
+                                SEED)
+        ids = [tok.encode(p) for p in prompts]
+
+        clocks: dict = {}  # trace id -> (client send, client receive)
+
+        def traced_post(item):
+            # the client names each request's trace (X-KFT-Trace), so its
+            # row in /traces can be set beside the client's clock
+            tid, p = item
+            sent = time.perf_counter()
+            body = _http_post(base, {"model": "bench", "prompt": p,
+                                     "max_tokens": new},
+                              headers={"X-KFT-Trace": f"{tid}:1:1"})
+            clocks[tid] = (sent, time.perf_counter())
+            return body
+
+        def http_round():
+            k = len(clocks)
+            t = time.perf_counter()
+            bodies = _in_threads(traced_post, [
+                (f"c{k + i:05d}", p) for i, p in enumerate(prompts)])
+            s = time.perf_counter() - t
+            toks = sum(b["usage"]["completion_tokens"] for b in bodies)
+            return [b["choices"][0]["text"] for b in bodies], toks / s
+
+        def direct_round():
+            t = time.perf_counter()
+            reqs = [eng.submit(i, new) for i in ids]
+            streams = [r.wait(600) for r in reqs]
+            s = time.perf_counter() - t
+            return ([tok.decode(x) for x in streams],
+                    sum(map(len, streams)) / s)
+
+        rounds = {"direct": [], "http": []}
+        texts = {}
+        for name in ("direct", "http", "http", "direct"):
+            got, tps = (http_round if name == "http" else direct_round)()
+            rounds[name].append(tps)
+            texts.setdefault(name, got)
+        want = [direct(p, new) for p in prompts]
+        for name, got in texts.items():
+            require(got == want, f"http_serve: {name} completions differ "
+                    "from the engine's own greedy text")
+        out["tokens_per_sec"] = rounds
+        out["http_breakdown_ms"] = _http_breakdown(
+            _http_get(srv.url + "/traces"), clocks)
+
+        # 8 streams at once: TTFT, the gaps between events, and each
+        # stream's time per output token after its first event
+        streams = _in_threads(lambda p: _http_stream(base, {
+            "model": "bench", "prompt": p, "max_tokens": new}),
+            prompts[:sizes["streams"]])
+        for p, s in zip(prompts, streams):
+            require(s["text"] == direct(p, new),
+                    "http_serve: a stream differs from the engine's text")
+        ttft = [(s["times"][0] - s["sent"]) * 1e3 for s in streams]
+        gaps = [(b - a) * 1e3 for s in streams
+                for a, b in zip(s["times"], s["times"][1:])]
+        tpot = [(s["times"][-1] - s["times"][0]) * 1e3 / (new - 1)
+                for s in streams]
+        out["stream"] = {
+            "ttft_ms_p50": _pct(ttft, 0.5), "ttft_ms_p99": _pct(ttft, 0.99),
+            "event_gap_ms_p50": _pct(gaps, 0.5),
+            "event_gap_ms_p99": _pct(gaps, 0.99),
+            "tpot_ms_p50": _pct(tpot, 0.5), "tpot_ms_p99": _pct(tpot, 0.99),
+            "events_per_stream": [len(s["times"]) for s in streams]}
+
+        # the other routes, each held to the engine's own text
+        p0 = prompts[0]
+        chat = [{"role": "user", "content": p0[:24]}]
+        body = _http_post(srv.url + "/openai/v1/chat/completions", {
+            "model": "bench", "messages": chat, "max_tokens": new})
+        require(body["choices"][0]["message"]["content"]
+                == direct(tg._chat_prompt(chat), new), "chat differs")
+        body = _http_post(base, {"model": "bench", "prompt": p0,
+                                 "max_tokens": new, "n": 2})
+        require([c["text"] for c in body["choices"]] == [want[0]] * 2,
+                "n: 2 differs")
+        stop = want[1][2]
+        body = _http_post(base, {"model": "bench", "prompt": prompts[1],
+                                 "max_tokens": new, "stop": stop})
+        require(body["choices"][0]["text"] == want[1].split(stop)[0]
+                and body["choices"][0]["finish_reason"] == "stop",
+                "stop differs")
+        body = _http_post(srv.url + "/v1/models/bench:predict",
+                          {"instances": [p0]})
+        require(body["predictions"] == [want[0]], "V1 predict differs")
+        body = _http_post(srv.url + "/v2/models/bench/infer", {
+            "inputs": [{"name": "text", "shape": [1], "datatype": "BYTES",
+                        "data": [prompts[2]]}]})
+        require(body["outputs"][0]["data"] == [want[2]], "V2 infer differs")
+
+        # preemption: the low class fills every slot, a high stream comes
+        lows = _http_prompts(sizes["lows"], sizes["low_chars"], SEED + 1)
+        high = _http_prompts(1, sizes["low_chars"], SEED + 2)[0]
+        pre = tg.traffic.preemptors[0]
+        preempted_at: list = []
+
+        def watch():
+            deadline = time.perf_counter() + 600
+            while not preempted_at and time.perf_counter() < deadline:
+                if pre.preemptions_total:
+                    preempted_at.append(time.perf_counter())
+                time.sleep(0.0002)
+
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(max_workers=sizes["lows"] + 2) as pool:
+            low_futs = [pool.submit(_http_post, base, {
+                "model": "bench", "prompt": p, "user": "bulk",
+                "max_tokens": sizes["low_new"]}) for p in lows]
+            deadline = time.perf_counter() + 600
+            while eng.stats()["slots_live"] < eng.num_slots:
+                require(time.perf_counter() < deadline,
+                        "the low class never filled the pool")
+                require(not any(f.done() for f in low_futs),
+                        "a low request ended before the pool was full")
+                time.sleep(0.0005)
+            watcher = pool.submit(watch)
+            high_s = _http_stream(base, {"model": "bench", "prompt": high,
+                                         "user": "gold",
+                                         "max_tokens": sizes["high_new"]})
+            low_texts = [f.result()["choices"][0]["text"] for f in low_futs]
+            watcher.result()
+        require(bool(preempted_at), "no preemption happened")
+        require(high_s["text"] == direct(high, sizes["high_new"]),
+                "the high request's text differs")
+        require(low_texts == [direct(p, sizes["low_new"]) for p in lows],
+                "a preempted request's text differs from its uninterrupted "
+                "text")
+        metrics = _http_get(srv.url + "/metrics")
+
+        def gauge(name):
+            m = re.search(rf'^{name}\{{model="bench"\}} (\S+)$', metrics,
+                          re.M)
+            require(m is not None, f"/metrics lacks {name}")
+            return float(m.group(1))
+
+        out["preempt"] = {
+            "preemptions": gauge("kft_traffic_qos_preemptions_total"),
+            "resumes": gauge("kft_traffic_qos_preempt_resumes_total"),
+            "preempt_to_high_first_token_ms":
+                (high_s["times"][0] - preempted_at[0]) * 1e3,
+            "high_ttft_ms": (high_s["times"][0] - high_s["sent"]) * 1e3}
+        require(out["preempt"]["preemptions"] >= 1
+                and out["preempt"]["resumes"] >= 1,
+                f"preemption counters {out['preempt']}")
+        for prefix in ("kft_engine_", "kft_traffic_", "kft_trace_"):
+            require(re.search(rf"^# TYPE {prefix}", metrics, re.M)
+                    is not None, f"/metrics has no {prefix}* family")
+
+        # /traces: a streamed request's phases, and the preempted victims
+        rows = [json.loads(ln) for ln in
+                _http_get(srv.url + "/traces").splitlines()]
+        rows = [r for r in rows if r["root"]["name"] == "request"]
+        streamed = [[p["name"] for p in r["phases"]] for r in rows
+                    if r["phases"]
+                    and (r["phases"][0].get("attrs") or {}).get("stream")]
+        require(bool(streamed) and all(
+            names[:4] == STREAM_PHASES for names in streamed),
+            f"streamed phases {streamed[:2]}")
+        out["preempt"]["victims_traced"] = sum(
+            1 for r in rows if "engine.preempted"
+            in [p["name"] for p in r["phases"]])
+        require(out["preempt"]["victims_traced"] >= 1,
+                "no trace shows engine.preempted")
+        deadline = time.perf_counter() + 60
+        while eng.stats()["kv_blocks_free"] != eng.stats()["kv_blocks_total"]:
+            require(time.perf_counter() < deadline, "blocks never came back")
+            time.sleep(0.01)
+        out["clean"] = _require_clean("http_serve", ledger, eng)
+
+        # the MoE bench model behind the same server: gmm must launch
+        # under the HTTP requests
+        srv.register(TextGenerator("moe", {
+            **HTTP_ENGINE, **extra, "params_ref": "mem://chip-smoke-http-moe"}))
+        moe_eng = srv.models()["moe"].engine
+        moe_prompts = _http_prompts(sizes["moe"], sizes["prompt_chars"],
+                                    SEED + 3)
+        for c in _counters():
+            for key in c:
+                c[key] = 0
+        moe_bodies = _in_threads(lambda p: _http_post(base, {
+            "model": "moe", "prompt": p, "max_tokens": 16}), moe_prompts)
+        launches = {k: v for c in _counters() for k, v in c.items()}
+        require(all(b["usage"]["completion_tokens"] == 16
+                    for b in moe_bodies), "short MoE completions")
+        require(not kernels or launches["gmm"] > 0,
+                "the MoE requests launched no gmm")
+        require(moe_eng.stats()["graph_captures_total"] == 0,
+                "MoE captures after warmup")
+        out["moe"] = {"launches": launches,
+                      "gmm_under_http": _gmm_under_http(base, moe_prompts)
+                      if kernels else None}
+    finally:
+        srv.stop()
+    return out
+
+
+def _http_breakdown(traces: str, clocks: dict) -> dict:
+    """Where an HTTP completion's time goes, median and max over the
+    requests in ``clocks`` (trace id -> client send and receive times on
+    this process's clock): ``accept`` from the client's send to the door
+    (connection, request parse), each phase of its trace, and ``respond``
+    from the last token's delivery to the client's receipt of the body."""
+    parts: dict = {}
+    for row in map(json.loads, traces.splitlines()):
+        if row["trace_id"] not in clocks:
+            continue
+        sent, got = clocks[row["trace_id"]]
+        start = row["root"]["start_s"]
+        phases = {}
+        for p in row["phases"]:
+            phases[p["name"]] = phases.get(p["name"], 0.0) + p["duration_s"]
+        ended = start + sum(phases.values())
+        for name, sec in [("accept", start - sent), *phases.items(),
+                          ("respond", got - ended), ("total", got - sent)]:
+            parts.setdefault(name, []).append(sec * 1e3)
+    require(len(parts.get("total", ())) == len(clocks),
+            "an HTTP completion left no trace")
+    return {k: {"p50": _pct(v, 0.5), "max": max(v)} for k, v in parts.items()}
+
+
+def _http_get(url: str) -> str:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=60) as r:
+        return r.read().decode()
+
+
+def _gmm_under_http(base: str, prompts) -> dict:
+    """gmm's device time a launch under the MoE HTTP requests, from the
+    profiler's CUDA activity (the launches are CUDA-graph replays, out of
+    reach of events); "not measured" when it reports no device time."""
+    import torch
+
+    from kubeflow_tpu_torch.train.profile import _device_us
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        _in_threads(lambda p: _http_post(base, {
+            "model": "moe", "prompt": p, "max_tokens": 16}), prompts)
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "gmm_kernel" in e.key]
+    calls = sum(e.count for e in rows)
+    dev_us = sum(_device_us(e) for e in rows)
+    if not calls or not dev_us:
+        return {"ms": "not measured", "calls": calls}
+    return {"ms": dev_us / calls / 1e3, "calls": calls}
+
+
+def phase_http_serve(line: str) -> dict:
+    """The serving plane over HTTP (``http_serve``) on the 271M bench model
+    at full width and depth, then the MoE bench model behind the same
+    server; every number printed beside the card's name and power
+    limit."""
+    cfg, model = _serve_model("bench_model")
+    moe_cfg, moe_model = _serve_model("bench_moe_model")
+    r = http_serve(cfg, model, moe_cfg, moe_model)
+    emit("http_serve", card=line, model="bench_model",
+         moe_model="bench_moe_model", engine=HTTP_ENGINE, requests=HTTP,
+         **r)
+    return r
+
+
 def run() -> int:
     import torch
 
@@ -2413,6 +2804,8 @@ def run() -> int:
     phase_host_tier_serve()
     phase_disagg_serve()
     t2 = time.perf_counter()
+    phase_http_serve(line)
+    t_http = time.perf_counter()
     work = tempfile.mkdtemp(prefix="kft-finetune-")
     try:
         ft = phase_finetune(work, line)
@@ -2425,7 +2818,7 @@ def run() -> int:
     now = time.perf_counter()
     emit("phase_seconds", total=now - started,
          speculation_and_prefix=t1 - t0, migration_and_tiers=t2 - t1,
-         finetune=t3 - t2, adafactor_step=t4 - t3, finetune_serve=now - t4)
+         http_serve=t_http - t2, finetune=t3 - t_http, adafactor_step=t4 - t3, finetune_serve=now - t4)
     # each kernel's launches from the run of the path that carries it
     launches.update(gmm=moe_launches["gmm"], tgmm=moe_launches["tgmm"])
     kernels = []

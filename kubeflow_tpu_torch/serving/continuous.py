@@ -82,10 +82,23 @@ nothing aliases a graph's static output. ``TieredEngine`` (the tier ladder
 as an admission policy) and ``DisaggregatedPool`` (prefill engines handing
 each sequence to a decode engine, in process) sit on top.
 
+Request tracing (``trace.py``) has the reference's seams and names: a
+sampled request carries a ``Trace`` whose phase track runs
+``engine.queue`` -> ``engine.prefill`` -> ``engine.decode`` (with
+``engine.handoff``, ``kv.hibernate``/``kv.thaw`` and the preemptor's
+``engine.preempted`` where they happen), with detail spans under it
+(``prefill.chunk``, ``dispatch`` carrying the program family and attend
+rung, ``kv.cow``, ``kv.export``/``kv.import``/``kv.transfer``,
+``kv.spill_write``). An unsampled request has ``trace=None`` and every
+site checks that first. The scheduler only stamps times; the trace is
+finished on the thread that delivered the response. ``warmup`` records an
+``engine.warmup`` trace with one ``warmup.compile`` span per program shape:
+on the card each times the shape's eager run and CUDA-graph capture (the
+counterpart of the reference's compile), on the CPU its first eager run.
+
 Knobs not ported yet raise ``NotImplementedError`` naming their ROADMAP
 item: serving meshes and the program-artifact cache, and the
-disaggregated pool's wire transport. Tracing is not ported:
-``Request.trace`` is always None.
+disaggregated pool's wire transport.
 
 Thread contract, as in the reference: scheduler state (the slot table,
 ``_waiting``, the allocator, the pool) is owned by the scheduler thread,
@@ -129,6 +142,7 @@ from .paged import (
     write_window_tables,
 )
 from .storage import fetch_mem
+from .trace import Trace
 
 log = logging.getLogger("kubeflow_tpu_torch.serving")
 
@@ -155,7 +169,8 @@ class Request:
     done: threading.Event = field(default_factory=threading.Event)
     error: Optional[Exception] = None
     cancelled: threading.Event = field(default_factory=threading.Event)
-    #: request-lifecycle trace; always None here (tracing is not ported)
+    #: request-lifecycle trace (``trace.py``), None = unsampled: every
+    #: instrumentation site checks for None first
     trace: Optional[Any] = None
     #: durable-session binding: an idle sequence with a session id may be
     #: hibernated under it (``idle_sessions``)
@@ -755,10 +770,13 @@ class _Dispatch:
     and replay on the card, eager runs on the CPU, token fetches."""
 
     def __init__(self, device: torch.device, counter: CaptureCounter,
-                 ring: int):
+                 ring: int, observer: Callable):
         self.device = device
         self.cuda = device.type == "cuda"
         self.counter = counter
+        #: callable(family, "compile", t0, t1) for each program shape first
+        #: run before the counter is armed (the warmup trace's spans)
+        self.observer = observer
         self.programs: dict[tuple, _Program] = {}
         self.ring = ring
         self._n = 0
@@ -835,20 +853,28 @@ class _Dispatch:
         prog = self.programs.get(key)
         fresh = prog is None
         if fresh:
+            t0 = time.perf_counter()
             fn, spec = build()
             prog = _Program(fn, spec, self.device)
             self.programs[key] = prog
             self.counter.note()
         self._upload(prog, host)
         if not self.cuda:
-            return prog.run()
-        if fresh:
-            self._capture(prog)
-        prog.graph.replay()
-        for c, delta in zip(_launch_counters(), prog.launches):
-            for k, n in delta.items():
-                c[k] += n
-        return prog.out
+            out = prog.run()
+        else:
+            if fresh:
+                self._capture(prog)
+            prog.graph.replay()
+            out = prog.out
+            for c, delta in zip(_launch_counters(), prog.launches):
+                for k, n in delta.items():
+                    c[k] += n
+        if fresh and not self.counter.armed:
+            # on the card: the eager run and the capture; the replay is
+            # only enqueued
+            self.observer(":".join(str(k) for k in key), "compile", t0,
+                          time.perf_counter())
+        return out
 
     def fetch_start(self, toks, host_out):
         """Start copying a dispatch's tokens to the host; returns the handle
@@ -1128,6 +1154,16 @@ class ContinuousEngine:
         self.kv_thaws_degraded_total = 0
         #: optional ``analysis.runtime.BlockLedger`` (attach_block_ledger)
         self.block_ledger = None
+        #: optional ``trace.Tracer`` shared with the runtime in front
+        #: (``text.py`` sets it): engine-level phases with no request
+        #: trace (a host-tier spill) observe into its sink, and an import
+        #: of a snapshot with a ``"trace"`` context continues that trace
+        self.tracer = None
+        #: warmup trace material: (family, outcome, t0, t1) per program
+        #: shape, and the ``engine.warmup`` trace stashed until a tracer
+        #: is attached (``flush_warmup_trace``)
+        self._warm_events: list = []
+        self._warmup_trace = None
         self._slot_blocks: list[list[int]] = [[] for _ in range(num_slots)]
         self.admission_policy = admission_policy
         self.role = role
@@ -1185,7 +1221,8 @@ class ContinuousEngine:
             for shape, dt in cache_shapes(cfg, num_slots).values())
         self._captures = CaptureCounter()
         self._dispatch = _Dispatch(self.device, self._captures,
-                                   ring=pipeline_depth + 1)
+                                   ring=pipeline_depth + 1,
+                                   observer=self._note_warm)
         self._init_pool()
 
         self._queue: "queue.Queue[Request]" = queue.Queue()
@@ -1588,11 +1625,44 @@ class ContinuousEngine:
                 raise RuntimeError(
                     "warmup() must run before the first submit(): the "
                     "scheduler thread owns the pool once traffic starts")
-            with self._dispatch.stream_ctx():
-                self._warmup_locked(groups)
-            if self._dispatch.cuda:
-                torch.cuda.synchronize(self.device)
+            self._warm_events = []
+            tr = Trace(name="warmup", kind="engine")
+            tr.phase("engine.warmup")
+            try:
+                with self._dispatch.stream_ctx():
+                    self._warmup_locked(groups)
+                if self._dispatch.cuda:
+                    torch.cuda.synchronize(self.device)
+            finally:
+                # one span per program shape, so the capture wall shows in
+                # /traces and kft_phase_seconds like every other phase
+                for family, outcome, t0, t1 in self._warm_events:
+                    sp = tr.begin(f"warmup.{outcome}", family=family)
+                    sp.start = t0
+                    sp.done(at=t1)
+                self._warm_events = []
+                tr.finish()
+                self._warmup_trace = tr
+                self.flush_warmup_trace()
             self._captures.armed = True
+
+    def _note_warm(self, family: str, outcome: str, t0: float,
+                   t1: float) -> None:
+        """The dispatcher's observer: one event per program shape first
+        run in warmup (capped below the trace's span limit)."""
+        if len(self._warm_events) < 500:
+            self._warm_events.append((family, outcome, t0, t1))
+
+    def flush_warmup_trace(self) -> None:
+        """Hand the stashed warmup trace to the tracer's sink. The runtime
+        attaches ``self.tracer`` after the engine is built and warmed, so
+        warmup stashes its trace and whoever attaches a tracer flushes it.
+        Idempotent; a no-op with no tracer or no stash."""
+        tr, tracer = self._warmup_trace, self.tracer
+        if tr is None or tracer is None:
+            return
+        self._warmup_trace = None
+        tracer.sink.finish(tr)
 
     def _warmup_locked(self, groups) -> None:
         if groups is None:
@@ -1740,7 +1810,7 @@ class ContinuousEngine:
     def submit(self, prompt: list[int], max_new_tokens: Optional[int] = None,
                temperature: Optional[float] = None,
                top_p: Optional[float] = None, top_k: Optional[int] = None,
-               priority: Optional[int] = None,
+               priority: Optional[int] = None, trace=None,
                session_id: Optional[str] = None) -> Request:
         req = Request(
             prompt=list(map(int, prompt)),
@@ -1751,8 +1821,13 @@ class ContinuousEngine:
             top_p=(None if top_p is None else float(top_p)),
             top_k=(None if top_k is None else int(top_k)),
             priority=(1 if priority is None else int(priority)),
+            trace=trace,
             session_id=(None if session_id is None else str(session_id)),
         )
+        if trace is not None:
+            # the queue wait opens here and closes when the scheduler
+            # reserves a slot (_admit)
+            trace.phase("engine.queue", prompt_tokens=len(req.prompt))
         req.submitted_step = self.step_counter
         with self._gate:
             if self._error is not None:
@@ -2067,6 +2142,7 @@ class ContinuousEngine:
             except queue.Empty:
                 continue
             try:
+                t0 = time.perf_counter()
                 if ev is not None:
                     ev.synchronize()
                 nbytes = sum(int(x.nbytes) for x in host)
@@ -2074,6 +2150,11 @@ class ContinuousEngine:
                                        nbytes) >= 0:
                     with self._tier_mu:
                         self.kv_spills_total += 1
+                    if self.tracer is not None:
+                        # an engine-level phase with no request trace,
+                        # observed on this worker, never the scheduler
+                        self.tracer.sink.observe_phase(
+                            "kv.host_spill", time.perf_counter() - t0)
             except Exception as e:  # noqa: BLE001 — a failed spill costs
                 # only the cache entry; the tier never takes the engine down
                 log.debug("host-tier spill failed: %s", e)
@@ -2119,23 +2200,36 @@ class ContinuousEngine:
         if store is None:
             raise RuntimeError("no spill store attached "
                                "(attach_spill_store)")
+        t0 = time.perf_counter()
+        if req.trace is not None:
+            req.trace.phase("kv.hibernate", session=session_id)
         snap = self.export_sequence(req, timeout)
         if snap is None:
             return False
         toks = [int(t) for t in snap["prompt"]] + \
             [int(t) for t in snap.get("generated", ())]
+        wsp = (req.trace.begin("kv.spill_write")
+               if req.trace is not None else None)
         try:
             store.write(session_id, snap,
                         block_keys=block_keys(toks, self.block_size))
         except Exception:
+            if wsp is not None:
+                wsp.set(error=True).done()
             try:
                 self.resume_sequence(req, timeout)
             except (RuntimeError, TimeoutError):
                 pass
             raise
+        if wsp is not None:
+            wsp.done()
         self.release_sequence(req, timeout)
         with self._tier_mu:
             self.kv_spills_total += 1
+        if self.tracer is not None:
+            self.tracer.sink.observe_phase(
+                "kv.hibernate", time.perf_counter() - t0,
+                req.trace.trace_id if req.trace is not None else "")
         return True
 
     def thaw_sequence(self, session_id: str, store=None,
@@ -2169,6 +2263,9 @@ class ContinuousEngine:
         if store is None:
             raise RuntimeError("no spill store attached "
                                "(attach_spill_store)")
+        t0 = time.perf_counter()
+        if req is not None and req.trace is not None:
+            req.trace.phase("kv.thaw", session=session_id)
         snap, ok = store.read(session_id)
         prior = [int(t) for t in snap.get("generated", ())]
         if ok:
@@ -2210,6 +2307,10 @@ class ContinuousEngine:
         store.delete(session_id)
         with self._tier_mu:
             self.kv_thaws_total += 1
+        if self.tracer is not None:
+            self.tracer.sink.observe_phase(
+                "kv.thaw", time.perf_counter() - t0,
+                new_req.trace.trace_id if new_req.trace is not None else "")
         return new_req, {"degraded": not ok, "tokens": prior,
                          "session": session_id}
 
@@ -2322,9 +2423,13 @@ class ContinuousEngine:
         if not self.paged:
             raise RuntimeError(
                 "KV migration requires the paged pool (block_size > 0)")
+        xsp = (req.trace.begin("kv.export")
+               if req.trace is not None else None)
         out = self._post_migration_op("export", req, None, timeout)
         snap = out.get("snap")
         if snap is None:
+            if xsp is not None:
+                xsp.set(empty=True).done()
             return None
         host, n, row, ev = snap.pop("fetch")
         if ev is not None:
@@ -2336,6 +2441,12 @@ class ContinuousEngine:
             nbytes += int(row.nbytes)
         with self._tier_mu:
             self.kv_migrate_bytes_total += nbytes
+        if xsp is not None:
+            xsp.done(blocks=len(snap["blocks"]), bytes=nbytes)
+            # the context rides the snapshot, so an import on a fresh
+            # handle (another process) continues the same trace; an
+            # in-process import shares the handle and needs nothing
+            snap["trace"] = req.trace.wire_context()
         return snap
 
     def import_sequence(self, snapshot: dict, req: Optional[Request] = None,
@@ -2367,8 +2478,17 @@ class ContinuousEngine:
             leaves = [x if x.is_pinned() else x.pin_memory() for x in leaves]
             if row is not None and not row.is_pinned():
                 row = row.pin_memory()
-        out = self._post_migration_op(
-            "import", snapshot, (req, hold, leaves, row), timeout)
+        isp = (req.trace.begin("kv.import", blocks=len(blocks), hold=hold)
+               if req is not None and req.trace is not None else None)
+        try:
+            out = self._post_migration_op(
+                "import", snapshot, (req, hold, leaves, row), timeout)
+        except Exception as e:
+            if isp is not None:
+                isp.set(error=str(e)).done()
+            raise
+        if isp is not None:
+            isp.done()
         return out["req"]
 
     def take_waiting(self, timeout: float = 60.0) -> list:
@@ -2385,6 +2505,8 @@ class ContinuousEngine:
 
     def adopt_request(self, req: Request) -> None:
         """Queue an existing Request handle (its streamed tokens kept)."""
+        if req.trace is not None:
+            req.trace.phase("engine.queue", adopted=True)
         with self._gate:
             if self._error is not None:
                 raise RuntimeError(
@@ -2649,6 +2771,12 @@ class ContinuousEngine:
                     top_p=snap.get("top_p"), top_k=snap.get("top_k"),
                     priority=int(snap.get("priority", 1)))
                 req.tokens = list(generated)
+                if self.tracer is not None and snap.get("trace"):
+                    # an import on a fresh handle continues the exporter's
+                    # trace; no door finishes it, so the tracer's reap
+                    # does once the request is done
+                    req.trace = self.tracer.adopt(snap["trace"])
+                    self.tracer.watch(req.done, req.trace)
             self._slots[slot] = req
             self._slot_blocks[slot] = [int(b) for b in table]
             if self.block_ledger is not None:
@@ -2668,6 +2796,9 @@ class ContinuousEngine:
                 else:
                     self._prefilling.append(entry)
                     self._prefill_tokens_inflight += len(prompt) - position
+                    if req.trace is not None:
+                        req.trace.phase("engine.prefill", slot=slot,
+                                        imported=True)
             else:
                 nbytes += int(row.nbytes)
                 logits_set(self._pool_logits,
@@ -2691,6 +2822,9 @@ class ContinuousEngine:
                         "logits": logits_take(self._pool_logits, slot)}
                 else:
                     self._active[slot] = not req.done.is_set()
+                    if req.trace is not None:
+                        req.trace.phase("engine.decode", slot=slot,
+                                        imported=True)
             self.kv_migrations_total += 1
             with self._tier_mu:
                 self.kv_migrate_bytes_total += nbytes
@@ -2720,11 +2854,15 @@ class ContinuousEngine:
             # mid-admission: resume at the head of the queue
             self._prefilling.appendleft(e)
             self._prefill_tokens_inflight += len(e[2]) - e[3]
+            if req.trace is not None:
+                req.trace.phase("engine.prefill", resumed=True)
         else:
             if rec.get("logits") is not None:
                 # reinstall the row as it was at the freeze
                 logits_set(self._pool_logits, rec["logits"], slot)
             self._active[slot] = True
+            if req.trace is not None:
+                req.trace.phase("engine.decode", resumed=True)
         # a freeze is not idleness: restart the idle clock
         req.last_token_at = time.perf_counter()
 
@@ -2777,6 +2915,10 @@ class ContinuousEngine:
                 plans.append(plan)
             slot = free.pop(0)
             self._slots[slot] = req
+            if req.trace is not None:
+                # the queue wait ends at the slot's reservation
+                req.trace.phase("engine.prefill", slot=slot,
+                                queue_depth=len(self._waiting))
             taken.append((req, slot))
         if deferred:
             self._waiting = deferred + self._waiting
@@ -2943,6 +3085,9 @@ class ContinuousEngine:
         > 0) holds its suffix at slot-local positions [0, local_len)."""
         self._slots[slot] = req
         self._active[slot] = True
+        if req.trace is not None:
+            # prefill (or an import) ends at activation; decode begins
+            req.trace.phase("engine.decode", slot=slot)
         self._positions[slot] = len(prompt) if local_len is None else local_len
         self._remaining[slot] = req.max_new_tokens
         self._temps[slot] = (self.temperature if req.temperature is None
@@ -3153,6 +3298,10 @@ class ContinuousEngine:
                     self._alloc.release(table)
                     continue
                 self._alloc.cow_copies_total += 1
+                if req.trace is not None:
+                    # the COW fork is a named cost on the trace
+                    req.trace.begin("kv.cow", src=int(cow_src),
+                                    dst=int(table[shared])).done()
                 dispatched = True
             self._slot_blocks[slot] = table
             if self.block_ledger is not None:
@@ -3292,6 +3441,11 @@ class ContinuousEngine:
                 self._migrating[slot] = {
                     "req": req, "entry": None,
                     "logits": logits_take(self._pool_logits, slot)}
+                if req.trace is not None:
+                    # prefill ends frozen at the chunk boundary; the
+                    # handoff runs until the decode engine's import
+                    # activates the sequence
+                    req.trace.phase("engine.handoff", slot=slot)
                 try:
                     self.on_prefilled(req)
                 except Exception as e:  # noqa: BLE001 — degrade to mixed
@@ -3301,8 +3455,8 @@ class ContinuousEngine:
 
     def _loop_inner(self) -> None:
         # dispatches in flight: (fetch handle, [(slot, req, take)], the
-        # verify's drafts or None)
-        pending: list[tuple[Any, list, Any]] = []
+        # verify's drafts or None, the traced requests' dispatch spans)
+        pending: list[tuple[Any, list, Any, Any]] = []
         while not self._stop.is_set():
             self._service_migrations(pending)
             self._admit()
@@ -3337,6 +3491,10 @@ class ContinuousEngine:
                 for slot in range(self.num_slots)
                 if self._active[slot] and self._slots[slot] is not None
             ]
+            # any sampled request in this dispatch? Stays False, and
+            # nothing below allocates, when no request is traced
+            traced = any(r.trace is not None for _, r, _ in snapshot)
+            family, rung = "decode", 0  # the dispatch spans' attrs
             live_seg = (live and self.prefix_segments > 0
                         and bool((self._slot_plen[self._active] > 0).any()))
             use_spec, drafts, proposed = (
@@ -3360,8 +3518,8 @@ class ContinuousEngine:
                 host = {**self._host_decode(),
                         "plens": np.where(self._active, self._slot_plen, 0),
                         "seg_ids": self._slot_seg.copy()}
-                toks = self._run_prefix_decode(self._rung(needed), seg_att,
-                                               filtered, host)
+                family, rung = "seg_decode", self._rung(needed)
+                toks = self._run_prefix_decode(rung, seg_att, filtered, host)
             elif live and can_fuse:
                 entry, chunk, take, final, p_needed = (
                     self._prefill_chunk_args())
@@ -3370,11 +3528,22 @@ class ContinuousEngine:
                 if self.paged:
                     host["bt"] = self._block_tables(a)
                 run = self._run_fused_verify if use_spec else self._run_fused
+                family = (("paged_" if self.paged else "")
+                          + ("fused_verify" if use_spec else "fused"))
+                rung = a
+                psp = (entry[0].trace.begin(
+                    "prefill.chunk", take=take, offset=int(entry[3]),
+                    final=final, fused=True)
+                    if entry[0].trace is not None else None)
                 try:
                     toks = run(a, filtered, host)
                 except Exception as e:  # noqa: BLE001 — fail THIS request
+                    if psp is not None:
+                        psp.set(error=str(e)).done()
                     self._fail_prefill_head(entry, e)
                     continue
+                if psp is not None:
+                    psp.done()
                 self._advance_prefill(entry, take, final)
             elif live:
                 a = self._rung(needed)
@@ -3382,6 +3551,9 @@ class ContinuousEngine:
                 if self.paged:
                     host["bt"] = self._block_tables(a)
                 run = self._run_verify if use_spec else self._run_decode
+                family = (("paged_" if self.paged else "")
+                          + ("verify" if use_spec else "decode"))
+                rung = a
                 toks = run(a, filtered, host)
             if has_prefill and (not live or live_seg or not can_fuse):
                 # no decode dispatch to ride (or the pool decodes through
@@ -3398,11 +3570,19 @@ class ContinuousEngine:
                         blocks = self._slot_blocks[entry[1]][:nblk]
                         row[0, :len(blocks)] = blocks
                         chunk["bt"] = row
+                    psp = (entry[0].trace.begin(
+                        "prefill.chunk", take=take, offset=int(entry[3]),
+                        final=final, fused=False)
+                        if entry[0].trace is not None else None)
                     try:
                         self._run_chunk(a, len(chunk["toks"]), chunk)
                     except Exception as e:  # noqa: BLE001 — fail THIS
+                        if psp is not None:
+                            psp.set(error=str(e)).done()
                         self._fail_prefill_head(entry, e)
                         break
+                    if psp is not None:
+                        psp.done()
                     self._advance_prefill(entry, take, final)
                     if not (self.paged and self.prefill_budget == 0):
                         break  # budgeted chunks: one a dispatch cycle
@@ -3410,6 +3590,13 @@ class ContinuousEngine:
                 while pending:
                     self._process(*pending.pop(0))
                 continue
+            # per-request dispatch spans: enqueue to tokens on the host,
+            # with the program family and attend rung dispatched (closed
+            # by _process)
+            dspans = ([r.trace.begin("dispatch", family=family,
+                                     rung=int(rung), step=self.step_counter)
+                       for _, r, _ in snapshot if r.trace is not None]
+                      if traced else None)
             if use_spec:
                 # counted here, not when planned: a failed fused verify
                 # verified nothing
@@ -3417,7 +3604,8 @@ class ContinuousEngine:
                 self.spec_tokens_proposed_total += proposed
                 # the advance depends on the accept lengths: _process
                 # applies it once the tokens are on the host
-                pending.append((self._fetch_start(toks), snapshot, drafts))
+                pending.append((self._fetch_start(toks), snapshot, drafts,
+                                dspans))
             else:
                 # advance the value-independent schedule now, so the next
                 # dispatch can go before this one's tokens are fetched
@@ -3426,7 +3614,8 @@ class ContinuousEngine:
                     self._remaining[slot] -= take
                     if self._remaining[slot] <= 0:
                         self._retire_slot(slot)
-                pending.append((self._fetch_start(toks), snapshot, None))
+                pending.append((self._fetch_start(toks), snapshot, None,
+                                dspans))
             if self.spec_k > 0:
                 # the next dispatch's positions, drafts and bans need this
                 # one's accept lengths: a speculating pool runs at depth 1
@@ -3469,11 +3658,16 @@ class ContinuousEngine:
         use = proposed > 0 or bool((self._spec_ban[self._active] >= 0).any())
         return use, drafts, proposed
 
-    def _process(self, handle, snapshot, drafts=None) -> None:
+    def _process(self, handle, snapshot, drafts=None, spans=None) -> None:
         """Wait for one dispatch's tokens and deliver them (a verify's
         through ``_deliver_verify``)."""
         toks = self._dispatch.fetch(handle)  # [slots, chunk]
         now = time.perf_counter()
+        if spans:
+            # the dispatch spans close when the tokens land (a timestamp,
+            # never finalization)
+            for sp in spans:
+                sp.done(now)
         if drafts is not None:
             self._deliver_verify(toks, snapshot, drafts, now)
             return
@@ -3498,6 +3692,10 @@ class ContinuousEngine:
                 req.last_token_at = now
             self.tokens_emitted += len(emitted)
             if done or len(req.tokens) >= req.max_new_tokens:
+                if req.trace is not None:
+                    # decode ends at the last token's delivery; the root
+                    # stays open until the server finishes the trace
+                    req.trace.end_phase(tokens=len(req.tokens))
                 req.done.set()
 
     def _deliver_verify(self, out, snapshot, drafts, now) -> None:
@@ -3546,6 +3744,8 @@ class ContinuousEngine:
             self.tokens_emitted += len(emitted)
             if (done or len(req.tokens) >= req.max_new_tokens
                     or self._remaining[slot] <= 0):
+                if req.trace is not None:
+                    req.trace.end_phase(tokens=len(req.tokens))
                 req.done.set()
                 done = True
             if done and self._slots[slot] is req:
@@ -3633,11 +3833,11 @@ class TieredEngine:
         return live < self.quotas[cls]
 
     def submit(self, prompt, max_new_tokens=None, temperature=None,
-               top_p=None, top_k=None, priority=None,
+               top_p=None, top_k=None, priority=None, trace=None,
                session_id=None) -> Request:
         return self.engine.submit(
             prompt, max_new_tokens, temperature, top_p=top_p, top_k=top_k,
-            priority=priority, session_id=session_id)
+            priority=priority, trace=trace, session_id=session_id)
 
     def generate(self, prompt, max_new_tokens=None, timeout: float = 120.0,
                  temperature=None, top_p=None, top_k=None) -> list[int]:
@@ -3646,6 +3846,9 @@ class TieredEngine:
 
     def warmup(self, groups=None) -> None:
         self.engine.warmup(groups)
+
+    def flush_warmup_trace(self) -> None:
+        self.engine.flush_warmup_trace()
 
     def stop(self) -> None:
         self.engine.stop()
@@ -3737,6 +3940,10 @@ def _migrate_one(src: ContinuousEngine, req: Request, transfer,
     failure), then release on success or resume on failure. Returns True
     (moved), False (failed) or None (the request finished first)."""
     t0 = time.perf_counter()
+    if req.trace is not None:
+        # a no-op when the prefill-role freeze opened it already: the
+        # phase runs from the freeze to the destination's activation
+        req.trace.phase("engine.handoff")
     try:
         snap = src.export_sequence(req)
     except (RuntimeError, TimeoutError) as e:
@@ -3751,12 +3958,16 @@ def _migrate_one(src: ContinuousEngine, req: Request, transfer,
         return False
     if snap is None:
         return None
+    tsp = (req.trace.begin("kv.transfer")
+           if req.trace is not None else None)
     try:
         ok = transfer(snap)
     except Exception as e:  # noqa: BLE001 — a rejection is a per-sequence
         # failure, not a drain abort: resume in place
         log.debug("migration transfer failed: %s", e)
         ok = False
+    if tsp is not None:
+        tsp.done(ok=bool(ok))
     if ok is None:
         log.warning(
             "kv_migrate transfer returned indeterminate without resolving "
@@ -3849,7 +4060,7 @@ class DisaggregatedPool:
                          self.migration_latencies_ms.append)
 
     def submit(self, prompt, max_new_tokens=None, temperature=None,
-               top_p=None, top_k=None, priority=None,
+               top_p=None, top_k=None, priority=None, trace=None,
                session_id=None) -> Request:
         # only prefill engines take traffic, the least loaded first
         with self._tier_lock:
@@ -3857,7 +4068,7 @@ class DisaggregatedPool:
                       key=lambda e: e._queue.qsize() + len(e._prefilling)
                       + int(e._active.sum()))
         return eng.submit(prompt, max_new_tokens, temperature, top_p=top_p,
-                          top_k=top_k, priority=priority,
+                          top_k=top_k, priority=priority, trace=trace,
                           session_id=session_id)
 
     def generate(self, prompt, max_new_tokens=None, timeout: float = 120.0,
@@ -3868,6 +4079,10 @@ class DisaggregatedPool:
     def warmup(self, groups=None) -> None:
         for eng in self.pools:
             eng.warmup(groups)
+
+    def flush_warmup_trace(self) -> None:
+        for eng in self.pools:
+            eng.flush_warmup_trace()
 
     def stop(self) -> None:
         self._stopping.set()

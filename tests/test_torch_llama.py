@@ -180,6 +180,16 @@ def test_port_imports_no_jax():
         "kubeflow_tpu_torch.serving.paged, "
         "kubeflow_tpu_torch.serving.profile, "
         "kubeflow_tpu_torch.analysis.runtime\n"
+        "import kubeflow_tpu_torch.utils.net, "
+        "kubeflow_tpu_torch.utils.grpcjson, "
+        "kubeflow_tpu_torch.serving.model, "
+        "kubeflow_tpu_torch.serving.trace, "
+        "kubeflow_tpu_torch.serving.traffic, "
+        "kubeflow_tpu_torch.serving.autoscale, "
+        "kubeflow_tpu_torch.serving.text, "
+        "kubeflow_tpu_torch.serving.server, "
+        "kubeflow_tpu_torch.serving.grpc_server\n"
+        "from kubeflow_tpu_torch.serving import ModelServer, TextGenerator\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'msgpack')"
         " or m.startswith('kubeflow_tpu.') or m == 'kubeflow_tpu']\n"
