@@ -2705,15 +2705,20 @@ def _http_breakdown(traces: str, clocks: dict) -> dict:
     (connection, request parse), each phase of its trace, and ``respond``
     from the last token's delivery to the client's receipt of the body."""
     parts: dict = {}
-    for row in map(json.loads, traces.splitlines()):
+    for row in map(json.loads, filter(None, traces.splitlines())):
         if row["trace_id"] not in clocks:
             continue
         sent, got = clocks[row["trace_id"]]
         start = row["root"]["start_s"]
         phases = {}
+        ended = start
         for p in row["phases"]:
-            phases[p["name"]] = phases.get(p["name"], 0.0) + p["duration_s"]
-        ended = start + sum(phases.values())
+            # the decode phase stays open until the response is written;
+            # its last_token_s marks the last token's delivery
+            end = (p.get("attrs") or {}).get(
+                "last_token_s", p["start_s"] + p["duration_s"])
+            phases[p["name"]] = phases.get(p["name"], 0.0) + end - p["start_s"]
+            ended = max(ended, end)
         for name, sec in [("accept", start - sent), *phases.items(),
                           ("respond", got - ended), ("total", got - sent)]:
             parts.setdefault(name, []).append(sec * 1e3)
@@ -2762,6 +2767,470 @@ def phase_http_serve(line: str) -> dict:
     r = http_serve(cfg, model, moe_cfg, moe_model)
     emit("http_serve", card=line, model="bench_model",
          moe_model="bench_moe_model", engine=HTTP_ENGINE, requests=HTTP,
+         accept_ms={k: r["http_breakdown_ms"]["accept"][k]
+                    for k in ("p50", "max")},
+         accept_ms_pr10=ACCEPT_MS_PR10, **r)
+    return r
+
+
+#: the InferenceService phase (``isvc_serve``): HTTP_ENGINE's knobs without
+#: the QoS classes (no preemption here), with prefix-affinity routing at the
+#: Router (blocks of 16 tokens)
+ISVC_ENGINE = {**{k: v for k, v in HTTP_ENGINE.items() if k != "qos"},
+               "affinity_block": 16}
+#: request mix: 16 completions (48 characters, 32 new) through the Router,
+#: 4 prompts sharing a 64-character prefix, 32 requests across a 50% canary
+#: (a revision of one replica and min_replicas 0), 4 after its promote, one
+#: request from zero replicas, 8 token prompts of mixed length through
+#: ``LlamaGenerator`` (16 new), 4 through the MoE ``llama-continuous``
+ISVC = dict(completions=16, prompt_chars=48, new=32, affinity=4,
+            prefix_chars=64, canary=32, canary_pct=50, zero_new=16,
+            llm_lengths=(5, 17, 33, 64, 100, 128, 200, 300), llm_new=16,
+            moe=4, moe_len=40, moe_new=16)
+#: PR 10's accept readings (client send to the replica's door), ms, p50 and
+#: max, NVIDIA H100 80GB HBM3 at 700 W: the listen backlog of 5 (ROADMAP C5)
+ACCEPT_MS_PR10 = {"p50": "368.2-409.0", "max": "1373.7-1431.4"}
+
+
+def _isvc_wait(cluster, name: str, cond, what: str, timeout: float = 600):
+    """The InferenceService ``name`` once ``cond(isvc)`` holds."""
+    deadline = time.perf_counter() + timeout
+    while True:
+        isvc = cluster.store.try_get("InferenceService", name)
+        if isvc is not None and cond(isvc):
+            return isvc
+        require(isvc is None or str(isvc.status.phase.value) != "Failed",
+                f"isvc_serve: {name} failed: {isvc and isvc.status.message}")
+        require(time.perf_counter() < deadline,
+                f"isvc_serve: {name} never {what}: "
+                f"{isvc and isvc.status}")
+        time.sleep(0.1)  # a store read copies the object: poll gently
+
+
+def _post_through_activation(url: str, payload: dict) -> tuple[dict, int]:
+    """(body, 503s seen): a client of a scaled-to-zero service. The Router's
+    activator answers 503 with Retry-After when no replica is ready within
+    its wait; the client sleeps as told and sends again."""
+    import urllib.error
+
+    sheds = 0
+    while True:
+        try:
+            return _http_post(url, payload), sheds
+        except urllib.error.HTTPError as e:
+            require(e.code == 503 and sheds < 20,
+                    f"isvc_serve: {url}: HTTP {e.code}")
+            sheds += 1
+            time.sleep(float(e.headers.get("Retry-After") or 1))
+
+
+def _router_requests(url: str) -> dict:
+    """Requests per backend from the Router's /metrics."""
+    return {m.group(1): int(m.group(2)) for m in re.finditer(
+        r'^kft_router_backend_requests\{backend="([^"]+)"\} (\d+)$',
+        _http_get(url + "/metrics"), re.M)}
+
+
+def isvc_serve(cfg, model, moe_cfg, moe_model, device=None, sizes=ISVC,
+               kernels: bool = True) -> dict:
+    """InferenceServices applied to the port's own control plane
+    (``phase_isvc_serve`` on the card; ``device="cpu"`` with tiny models
+    rehearses it). Every greedy text through a Router is held to the
+    serving engine's own ``generate`` of the same ids; returns the
+    readings. ``kernels``: the MoE service must launch ``gmm``."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from kubeflow_tpu_torch.analysis.runtime import BlockLedger
+    from kubeflow_tpu_torch.api import from_dict
+    from kubeflow_tpu_torch.controlplane import Cluster
+    from kubeflow_tpu_torch.serving import storage
+    from kubeflow_tpu_torch.serving.controller import (
+        InferenceServiceController,
+    )
+
+    extra = {} if device is None else {"device": device}
+    cuda = device is None
+    if cuda:
+        # cuBLAS keeps a workspace for every (handle, stream) pair it saw,
+        # allocated through the caching allocator and never freed with the
+        # stream (each engine's stream and request thread leaves one):
+        # device memory is read with them cleared, here and at the end
+        torch._C._cuda_clearCublasWorkspaces()
+        gc.collect()
+    mem0 = torch.cuda.memory_allocated() if cuda else 0
+    started = time.perf_counter()
+    steps: dict = {}
+
+    def step(name):
+        steps[name] = time.perf_counter() - started - sum(steps.values())
+    keys = {"bench": "chip-smoke-isvc", "moe": "chip-smoke-isvc-moe"}
+    storage.register_mem(keys["bench"], (cfg, model))
+    storage.register_mem(keys["moe"], (moe_cfg, moe_model))
+    cluster = Cluster()
+    cluster.enable_serving()
+    cluster.start()
+    ctl = next(x for x in cluster.controllers
+               if isinstance(x, InferenceServiceController))
+    out: dict = {}
+    #: every replica engine seen, by service, and one ledger a service
+    engines: dict = {}
+    ledgers: dict = {}
+    routers: dict = {}
+
+    def apply(name, fmt, config, spec=None, **pred):
+        obj = from_dict({"kind": "InferenceService",
+                         "metadata": {"name": name},
+                         "spec": {"predictor": {
+                             "model_format": {"name": fmt},
+                             "config": {**config, **extra}, **pred},
+                             **(spec or {})}})
+        cluster.store.create(obj)
+
+    def replicas(name, revision="stable"):
+        dep = ctl._deployments[f"default/{name}"]
+        return list(getattr(dep, revision).predictors)
+
+    def adopt(name, revision="stable"):
+        """Audit every new replica engine of ``name`` (before traffic)."""
+        ledger = ledgers.setdefault(name, BlockLedger())
+        for srv in replicas(name, revision):
+            eng = srv.models()[name].engine
+            if all(eng is not e for e in engines.setdefault(name, [])):
+                eng.attach_block_ledger(ledger)
+                engines[name].append(eng)
+        routers[name] = ctl._deployments[f"default/{name}"].router
+
+    def teardown(name):
+        out.setdefault("clean", {})[name] = _require_clean(
+            f"isvc_serve {name}", ledgers[name], *engines[name])
+        url = cluster.store.get("InferenceService", name).status.url
+        cluster.store.delete("InferenceService", name)
+        router = routers.pop(name)
+        deadline = time.perf_counter() + 120
+        while f"default/{name}" in ctl._deployments or router.backends():
+            require(time.perf_counter() < deadline,
+                    f"isvc_serve: {name} never torn down (Router backends "
+                    f"{router.backends()})")
+            time.sleep(0.02)
+        try:
+            _http_get(url + "/metrics")
+            require(False, f"isvc_serve: {name}'s Router still answers")
+        except OSError:
+            pass
+        engines.pop(name)
+        ledgers.pop(name)
+
+    try:
+        # 1. text-llm, 2 replicas behind the Router
+        t0 = time.perf_counter()
+        apply("text-llm", "text-llm", {**ISVC_ENGINE,
+                                       "params_ref": f"mem://{keys['bench']}"},
+              min_replicas=2, max_replicas=2)
+        isvc = _isvc_wait(cluster, "text-llm", lambda o: str(
+            o.status.phase.value) == "Ready" and o.status.active_replicas == 2,
+            "Ready with 2 replicas")
+        out["text_llm_ready_s"] = time.perf_counter() - t0
+        step("text_llm_ready")
+        adopt("text-llm")
+        router_url = isvc.status.url
+        reps = replicas("text-llm")
+        tg = reps[0].models()["text-llm"]
+        eng, tok = tg.engine, tg.tokenizer
+        warm = [json.loads(ln) for ln in _http_get(
+            reps[0].url + "/traces").splitlines()]
+        warm = [r for r in warm if r["root"]["name"] == "warmup"]
+        require(len(warm) == 1, "no warmup trace on a replica")
+        out["warmup_s"] = warm[0]["duration_s"]
+        by_family: dict = {}
+        for sp in warm[0]["spans"]:  # one span a program shape captured
+            fam = (sp.get("attrs") or {}).get("family", sp["name"])
+            n, sec = by_family.get(fam, (0, 0.0))
+            by_family[fam] = (n + 1, sec + sp["duration_s"])
+        out["warmup_captures"] = {f: {"programs": n, "s": sec}
+                                  for f, (n, sec) in by_family.items()}
+        alone: dict = {}
+
+        def direct(prompt: str, new: int) -> str:
+            if (prompt, new) not in alone:
+                alone[prompt, new] = tok.decode(
+                    eng.generate(tok.encode(prompt), new, timeout=600))
+            return alone[prompt, new]
+
+        def directs(qs, new: int) -> list[str]:
+            """``direct`` of each prompt, submitted together: under the
+            first attend rung with the prefix cache off, a request runs the
+            same programs whatever shares the pool."""
+            reqs = {q: eng.submit(tok.encode(q), new) for q in qs
+                    if (q, new) not in alone}
+            for q, r in reqs.items():
+                alone[q, new] = tok.decode(r.wait(600))
+            return [alone[q, new] for q in qs]
+
+        new = sizes["new"]
+        prompts = _http_prompts(sizes["completions"], sizes["prompt_chars"],
+                                SEED + 10)
+        ids = [tok.encode(q) for q in prompts]
+        clocks: dict = {}
+
+        def completion(url, q, tid=None):
+            sent = time.perf_counter()
+            body = _http_post(url + "/openai/v1/completions", {
+                "model": "text-llm", "prompt": q, "max_tokens": new},
+                headers={"X-KFT-Trace": f"{tid}:1:1"} if tid else None)
+            if tid:
+                clocks[tid] = (sent, time.perf_counter())
+            return body
+
+        def http_round(url, traced):
+            k = len(clocks)
+            t = time.perf_counter()
+            bodies = _in_threads(lambda item: completion(url, *item), [
+                (q, f"i{k + i:05d}" if traced else None)
+                for i, q in enumerate(prompts)])
+            sec = time.perf_counter() - t
+            toks = sum(b["usage"]["completion_tokens"] for b in bodies)
+            return [b["choices"][0]["text"] for b in bodies], toks / sec
+
+        def direct_round():
+            t = time.perf_counter()
+            streams = [r.wait(600) for r in [eng.submit(i, new)
+                                              for i in ids]]
+            sec = time.perf_counter() - t
+            return ([tok.decode(x) for x in streams],
+                    sum(map(len, streams)) / sec)
+
+        rounds: dict = {"direct": [], "replica": [], "router": []}
+        for name in ("direct", "replica", "router", "router", "replica",
+                     "direct"):
+            got, tps = (direct_round() if name == "direct" else http_round(
+                router_url if name == "router" else reps[0].url,
+                traced=name == "router"))
+            rounds[name].append(tps)
+            require(got == directs(prompts, new),
+                    f"isvc_serve: {name} completions differ from the "
+                    "engine's own greedy text")
+        out["tokens_per_sec"] = rounds
+        rows = "\n".join(_http_get(r.url + "/traces") for r in reps)
+        out["replica_breakdown_ms"] = _http_breakdown(rows, clocks)
+        out["router_breakdown_ms"] = _http_breakdown(
+            _http_get(router_url + "/traces"), clocks)
+        out["accept_ms_pr10"] = ACCEPT_MS_PR10
+        out["requests_per_backend"] = _router_requests(router_url)
+        require(len(out["requests_per_backend"]) == 2 and all(
+            out["requests_per_backend"].values()),
+            f"isvc_serve: both replicas must serve: "
+            f"{out['requests_per_backend']}")
+
+        # affinity: prompts sharing a prefix land on one replica
+        prefix = _http_prompts(1, sizes["prefix_chars"], SEED + 11)[0]
+        tails = _http_prompts(sizes["affinity"], 8, SEED + 12)
+        before = _router_requests(router_url)
+        for tail in tails:
+            body = completion(router_url, prefix + tail)
+            require(body["choices"][0]["text"] == direct(prefix + tail, new),
+                    "isvc_serve: an affinity request's text differs")
+        delta = {b: n - before.get(b, 0)
+                 for b, n in _router_requests(router_url).items()}
+        out["affinity_per_backend"] = delta
+        require(sorted(delta.values()) == [0, sizes["affinity"]],
+                f"isvc_serve: shared-prefix requests split {delta}")
+        step("completions_and_affinity")
+
+        # 2. canary: a second revision (decode_chunk 2: the same tokens),
+        # one replica that may scale to zero once it is promoted
+        t0 = time.perf_counter()
+
+        def rollout(o):
+            merged = o.spec.model_dump(mode="json")
+            merged["predictor"]["config"]["decode_chunk"] = 2
+            merged["predictor"]["min_replicas"] = 0
+            merged["predictor"]["max_replicas"] = 1
+            merged["canary_traffic_percent"] = sizes["canary_pct"]
+            o.spec = type(o.spec).model_validate(merged)
+        cluster.store.update_with_retry("InferenceService", "text-llm",
+                                        "default", rollout)
+        isvc = _isvc_wait(cluster, "text-llm", lambda o: (
+            o.status.canary_revision is not None
+            and str(o.status.phase.value) == "Ready"
+            and o.status.active_replicas == 3), "canary Ready")
+        out["canary_ready_s"] = time.perf_counter() - t0
+        adopt("text-llm", "canary")
+        canary_urls = {r.url for r in replicas("text-llm", "canary")}
+        before = _router_requests(router_url)
+        cq = _http_prompts(sizes["canary"], sizes["prompt_chars"], SEED + 13)
+        bodies = _in_threads(lambda q: completion(router_url, q), cq)
+        require([b["choices"][0]["text"] for b in bodies]
+                == directs(cq, new),
+                "isvc_serve: a text differs across the canary split")
+        delta = {b: n - before.get(b, 0)
+                 for b, n in _router_requests(router_url).items()}
+        share = sum(n for b, n in delta.items()
+                    if b in canary_urls) / sizes["canary"]
+        out["canary"] = {"share": share, "per_backend": delta}
+        require(0.3 <= share <= 0.7, f"isvc_serve: canary share {share}")
+
+        # promote: the canary becomes the stable revision
+        def promote(o):
+            o.spec.canary_traffic_percent = None
+        cluster.store.update_with_retry("InferenceService", "text-llm",
+                                        "default", promote)
+        isvc = _isvc_wait(cluster, "text-llm", lambda o: (
+            o.status.canary_revision is None
+            and o.status.stable_revision == 2
+            and o.status.active_replicas <= 1), "promoted")
+        texts = [_post_through_activation(
+            router_url + "/openai/v1/completions",
+            {"model": "text-llm", "prompt": q, "max_tokens": new})[0][
+                "choices"][0]["text"] for q in prompts[:4]]
+        require(texts == directs(prompts[:4], new),
+                "isvc_serve: a text differs after the promote")
+        step("canary_and_promote")
+
+        # 3. scale from zero: the promoted revision idles to no replica;
+        # one request then waits for a load, a warmup and its tokens
+        _isvc_wait(cluster, "text-llm",
+                   lambda o: o.status.active_replicas == 0,
+                   "scaled to zero", timeout=120)
+        zq = _http_prompts(1, sizes["prompt_chars"], SEED + 14)[0]
+        t0 = time.perf_counter()
+        body, sheds = _post_through_activation(
+            router_url + "/openai/v1/completions",
+            {"model": "text-llm", "prompt": zq,
+             "max_tokens": sizes["zero_new"]})
+        out["scale_from_zero_s"] = time.perf_counter() - t0
+        out["scale_from_zero_503s"] = sheds
+        out["requests_per_backend_end"] = _router_requests(router_url)
+        adopt("text-llm")
+        ztg = replicas("text-llm")[0].models()["text-llm"]
+        require(body["choices"][0]["text"] == ztg.tokenizer.decode(
+            ztg.engine.generate(ztg.tokenizer.encode(zq),
+                                sizes["zero_new"], timeout=600)),
+                "isvc_serve: the text from zero differs")
+        del ztg, tg, eng, reps, isvc
+        teardown("text-llm")
+        step("scale_from_zero_and_teardown")
+
+        # 4. llm: LlamaGenerator, one padded prefill and a decode loop
+        rng = np.random.default_rng(SEED + 15)
+        tprompts = [rng.integers(1, cfg.vocab_size, size=n).tolist()
+                    for n in sizes["llm_lengths"]]
+        t0 = time.perf_counter()
+        apply("llm", "llm", {"params_ref": f"mem://{keys['bench']}",
+                             "max_new_tokens": sizes["llm_new"]})
+        lurl = _isvc_wait(cluster, "llm", lambda o: str(
+            o.status.phase.value) == "Ready", "Ready").status.url
+        out["llm_ready_s"] = time.perf_counter() - t0
+        lpath = lurl + "/v1/models/llm:predict"
+        _http_post(lpath, {"instances": tprompts})  # the first pays set-up
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            got = _http_post(lpath, {"instances": tprompts})["predictions"]
+            times.append(time.perf_counter() - t0)
+        want = []
+        with torch.no_grad():
+            for q in tprompts:  # the plain forward's greedy decode
+                seq = list(q)
+                for _ in range(sizes["llm_new"]):
+                    logits = model(torch.tensor([seq], device=model.embedder
+                                                .embedding.device))
+                    seq.append(int(logits[0, -1].argmax()))
+                want.append(seq[len(q):])
+        diffs = _first_difference(cfg, model, tprompts, got, want) \
+            if cuda else [d for d in ({"prompt": i} for i, (a, b) in
+                                      enumerate(zip(got, want)) if a != b)]
+        if cuda:
+            _require_streams("isvc_serve llm", diffs)
+        else:
+            require(not diffs, f"isvc_serve llm: tokens differ {diffs}")
+        ms = min(times) * 1e3
+        out["llm"] = {"ms_per_request": ms,
+                      "ms_per_token": ms / sizes["llm_new"],
+                      "request_s": times, "instances": len(tprompts),
+                      "prompt_lengths": list(sizes["llm_lengths"]),
+                      "differences": diffs}
+        cluster.store.delete("InferenceService", "llm")
+        step("llm")
+
+        # 5. llama-continuous on the MoE bench model: gmm on this path
+        apply("moe", "llama-continuous", {
+            **{k: v for k, v in ISVC_ENGINE.items()
+               if k not in ("tracing", "affinity_block")},
+            "params_ref": f"mem://{keys['moe']}",
+            "max_new_tokens": sizes["moe_new"]})
+        murl = _isvc_wait(cluster, "moe", lambda o: str(
+            o.status.phase.value) == "Ready", "Ready").status.url
+        adopt("moe")
+        meng = engines["moe"][0]
+        mq = [rng.integers(1, moe_cfg.vocab_size,
+                           size=sizes["moe_len"]).tolist()
+              for _ in range(sizes["moe"])]
+        for c in _counters():
+            for key in c:
+                c[key] = 0
+        mgot = _in_threads(lambda q: _http_post(
+            murl + "/v1/models/moe:predict", {"instances": [q]})[
+                "predictions"][0], mq)
+        launches = {k: v for c in _counters() for k, v in c.items()}
+        require(not kernels or launches["gmm"] > 0,
+                "isvc_serve: the MoE service launched no gmm")
+        require(mgot == [meng.generate(q, sizes["moe_new"], timeout=600)
+                         for q in mq],
+                "isvc_serve: an MoE text differs from the engine's own")
+        out["moe"] = {"launches": launches}
+        del meng
+        teardown("moe")
+        step("moe")
+        out["step_s"] = steps
+    except BaseException:
+        emit("isvc_serve_partial", **out)  # what was read before the miss
+        raise
+    finally:
+        for name in list(engines):
+            try:
+                cluster.store.delete("InferenceService", name)
+            except Exception:  # noqa: BLE001 — already gone
+                pass
+        engines.clear()
+        ledgers.clear()
+        routers.clear()
+        cluster.stop()
+        for key in keys.values():
+            storage._MEM_REGISTRY.pop(key, None)
+    if cuda:
+        gc.collect()
+        out["memory_after_delete_mib"] = (
+            torch.cuda.memory_allocated() - mem0) / 2**20
+        deadline = time.perf_counter() + 60
+        while True:  # a drained replica stops on its own thread
+            torch._C._cuda_clearCublasWorkspaces()
+            gc.collect()
+            grown = torch.cuda.memory_allocated() - mem0
+            if grown < 64 << 20 or time.perf_counter() > deadline:
+                break
+            time.sleep(0.2)
+        out["memory_after_delete_cublas_cleared_mib"] = grown / 2**20
+        if grown >= 64 << 20:
+            emit("isvc_serve_partial", **out)
+        require(grown < 64 << 20,
+                f"isvc_serve: {grown / 2**20:.1f} MiB still allocated")
+    return out
+
+
+def phase_isvc_serve(line: str) -> dict:
+    """InferenceServices on the port's control plane (``isvc_serve``): the
+    271M bench model at full width and depth (text-llm behind a Router,
+    a canary, scale from zero, ``LlamaGenerator``) and the MoE bench model
+    (``llama-continuous``); every number beside the card's name and power
+    limit."""
+    cfg, model = _serve_model("bench_model")
+    moe_cfg, moe_model = _serve_model("bench_moe_model")
+    r = isvc_serve(cfg, model, moe_cfg, moe_model)
+    emit("isvc_serve", card=line, model="bench_model",
+         moe_model="bench_moe_model", engine=ISVC_ENGINE, requests=ISVC,
          **r)
     return r
 
@@ -2805,6 +3274,8 @@ def run() -> int:
     phase_disagg_serve()
     t2 = time.perf_counter()
     phase_http_serve(line)
+    t_isvc = time.perf_counter()
+    phase_isvc_serve(line)
     t_http = time.perf_counter()
     work = tempfile.mkdtemp(prefix="kft-finetune-")
     try:
@@ -2818,7 +3289,8 @@ def run() -> int:
     now = time.perf_counter()
     emit("phase_seconds", total=now - started,
          speculation_and_prefix=t1 - t0, migration_and_tiers=t2 - t1,
-         http_serve=t_http - t2, finetune=t3 - t_http, adafactor_step=t4 - t3, finetune_serve=now - t4)
+         http_serve=t_isvc - t2, isvc_serve=t_http - t_isvc,
+         finetune=t3 - t_http, adafactor_step=t4 - t3, finetune_serve=now - t4)
     # each kernel's launches from the run of the path that carries it
     launches.update(gmm=moe_launches["gmm"], tgmm=moe_launches["tgmm"])
     kernels = []

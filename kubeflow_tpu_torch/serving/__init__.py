@@ -2,8 +2,12 @@
 paged KV block economy (``paged.py``), and the serving plane in front of
 it: ``ModelServer`` (``server.py``: V1/V2/OpenAI HTTP, ``/metrics``,
 ``/traces``), ``TextGenerator`` (``text.py``), request tracing
-(``trace.py``), the QoS door and preemptor (``traffic.py``) and the
-session reaper (``autoscale.py``); the port of ``kubeflow_tpu/serving``.
+(``trace.py``), the QoS door and preemptor (``traffic.py``), the
+session reaper (``autoscale.py``), the serving runtimes (``runtimes.py``,
+``ContinuousLlamaGenerator``), and the control-plane side: the
+InferenceService controller and its ``Router`` (``controller.py``), the
+InferenceGraph (``graph.py``), transformer and explainer components; the
+port of ``kubeflow_tpu/serving``.
 
 The serving plane's names below are imported on first use, so importing
 this package (or ``serving.server``) loads no model and touches no card.
@@ -12,6 +16,17 @@ this package (or ``serving.server``) loads no model and touches no card.
 import importlib
 
 _EXPORTS = {
+    "InferenceServiceController": "controller",
+    "Router": "controller",
+    "ContinuousLlamaGenerator": "continuous",
+    "Explainer": "explainer",
+    "OcclusionExplainer": "explainer",
+    "GraphExecutor": "graph",
+    "InferenceGraphController": "graph",
+    "EchoModel": "runtimes",
+    "LlamaGenerator": "runtimes",
+    "TorchFunctionModel": "runtimes",
+    "Transformer": "transformer",
     "Model": "model",
     "MicroBatcher": "server",
     "ModelServer": "server",

@@ -141,6 +141,7 @@ from .paged import (
     scatter_working_view,
     write_window_tables,
 )
+from .model import Model
 from .storage import fetch_mem
 from .trace import Trace
 
@@ -827,8 +828,10 @@ class _Dispatch:
         # a graph destroyed on this thread during a capture (a dead
         # engine's, freed by the cyclic collector) invalidates the capture:
         # collect now, and hold the collector off until the capture ends
-        gc.collect()
+        # (warmup holds it off across all its captures and collects once)
         collecting = gc.isenabled()
+        if collecting:
+            gc.collect()
         gc.disable()
         try:
             with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
@@ -1614,10 +1617,11 @@ class ContinuousEngine:
     def warmup(self, groups: Optional[list[tuple[int, int]]] = None) -> None:
         """Capture the programs the given (admission group, prompt bucket)
         shapes need: the whole-prompt prefill and merge of each, and the
-        decode (and with chunked admission the chunk and fused) programs of
-        every attend rung they reach, both sampling variants. Every warmup
-        dispatch targets the scratch row or inactive slots, so pool state is
-        untouched. Default groups: sizes 1 and ``num_slots`` at the smallest
+        decode (and with chunked admission the chunk and fused; with
+        speculation the verify) programs of every attend rung up to
+        ``max_seq_len``, which a request reaches as it decodes, both sampling
+        variants. Every warmup dispatch targets the scratch row or inactive
+        slots, so pool state is untouched. Default groups: sizes 1 and ``num_slots`` at the smallest
         bucket. Arms the capture counter. Must run before the first
         ``submit``."""
         with self._gate:
@@ -1628,12 +1632,19 @@ class ContinuousEngine:
             self._warm_events = []
             tr = Trace(name="warmup", kind="engine")
             tr.phase("engine.warmup")
+            # on the card, one collection for every capture below (_capture)
+            collecting = self._dispatch.cuda and gc.isenabled()
+            if collecting:
+                gc.collect()
+                gc.disable()
             try:
                 with self._dispatch.stream_ctx():
                     self._warmup_locked(groups)
                 if self._dispatch.cuda:
                     torch.cuda.synchronize(self.device)
             finally:
+                if collecting:
+                    gc.enable()
                 # one span per program shape, so the capture wall shows in
                 # /traces and kft_phase_seconds like every other phase
                 for family, outcome, t0, t1 in self._warm_events:
@@ -1682,25 +1693,25 @@ class ContinuousEngine:
                 self._warm_plain.add((g, bucket))
             warm_attends.add(bucket + self.decode_chunk)
         idle = self._idle_decode(self.cfg.max_seq_len)
-        for needed in sorted(warm_attends):
+        # a request climbs the attend rungs as it decodes: the decode, chunk
+        # and fused programs of EVERY rung up to max_seq_len are captured
+        # here, so no rung's first use is a capture while serving
+        rungs = self.attend_buckets if warm_attends else ()
+        for attend in rungs:
             for filtered in (False, True):
-                self._run_decode(self._rung(needed), filtered, idle)
+                self._run_decode(attend, filtered, idle)
         chunk = {"toks": np.zeros(self.prefill_budget), "start": [0],
                  "length": [1], "write_slot": [sentinel], "slot": [sentinel]}
-        if self.prefill_budget > 0 and warm_attends:
-            cover = self._rung(max(warm_attends))
-            for attend in [a for a in self.attend_buckets if a <= cover]:
+        if self.prefill_budget > 0:
+            for attend in rungs:
                 self._run_chunk(attend, self.prefill_budget, chunk)
                 for filtered in (False, True):
                     self._run_fused(attend, filtered, {**chunk, **idle})
-        if self.spec_k > 0 and warm_attends:
-            # a verify reads front + spec_k + 1, so it climbs the attend
-            # ladder ahead of the decode: every rung up to what the warmed
-            # buckets imply, both sampling variants
-            cover = self._rung(max(warm_attends) - self.decode_chunk
-                               + self.spec_k + 1)
+        if self.spec_k > 0:
+            # a verify reads front + spec_k + 1 and climbs the ladder as the
+            # decode does: every rung, both sampling variants
             spec = {**idle, **self._idle_verify()}
-            for attend in [a for a in self.attend_buckets if a <= cover]:
+            for attend in rungs:
                 for filtered in (False, True):
                     self._run_verify(attend, filtered, spec)
                     if self.prefill_budget > 0:
@@ -1752,6 +1763,9 @@ class ContinuousEngine:
         top = max(buckets) + self.decode_chunk
         if self.spec_k > 0:
             top = max(top, max(buckets) + self.spec_k + 1)
+        # admission programs cover the warmed buckets; the decode, chunk,
+        # fused and verify programs cover every rung up to max_seq_len, which
+        # a request reaches as it decodes (no capture while serving)
         cover = self._rung(top)
         pad, sent = self._alloc.pad_block, self.num_slots
         # the migration gather and scatter and the logits take and set run
@@ -1764,7 +1778,7 @@ class ContinuousEngine:
                   [torch.zeros_like(x) for x in kv_export(self._pool, ids)])
         logits_set(self._pool_logits, logits_take(self._pool_logits, sent),
                    sent)
-        for a in [x for x in self.attend_buckets if x <= cover]:
+        for a in self.attend_buckets:
             nblk = -(-a // self.block_size)
             bt = np.full((self.num_slots, nblk), pad)
             idle = {"bt": bt, **self._idle_decode(0)}
@@ -3692,10 +3706,7 @@ class ContinuousEngine:
                 req.last_token_at = now
             self.tokens_emitted += len(emitted)
             if done or len(req.tokens) >= req.max_new_tokens:
-                if req.trace is not None:
-                    # decode ends at the last token's delivery; the root
-                    # stays open until the server finishes the trace
-                    req.trace.end_phase(tokens=len(req.tokens))
+                _mark_last_token(req)
                 req.done.set()
 
     def _deliver_verify(self, out, snapshot, drafts, now) -> None:
@@ -3744,14 +3755,29 @@ class ContinuousEngine:
             self.tokens_emitted += len(emitted)
             if (done or len(req.tokens) >= req.max_new_tokens
                     or self._remaining[slot] <= 0):
-                if req.trace is not None:
-                    req.trace.end_phase(tokens=len(req.tokens))
+                _mark_last_token(req)
                 req.done.set()
                 done = True
             if done and self._slots[slot] is req:
                 self._retire_slot(slot)
                 ban = -1
             self._spec_ban[slot] = ban
+
+
+def _mark_last_token(req: Request) -> None:
+    """Stamp the last token's delivery on a traced request's decode phase.
+
+    The phase stays open: the serving surface's ``finish`` closes it once
+    the response is written, so the phases tile the request whatever delays
+    the handler thread between the last token and the response (a garbage
+    collection, a busy interpreter). ``last_token_s`` (``perf_counter``,
+    the clock of every span) marks where decoding ended."""
+    if req.trace is None:
+        return
+    cur = req.trace.current_phase
+    if cur is not None:
+        cur.set(tokens=len(req.tokens),
+                last_token_s=round(time.perf_counter(), 6))
 
 
 def _shared_model(cfg: LlamaConfig, params: Any, device) -> Llama:
@@ -4331,3 +4357,49 @@ def build_engine(cfg: LlamaConfig, params, config: dict, *, default_eos=None,
     if groups != []:
         engine.warmup([tuple(g) for g in groups] if groups else None)
     return engine
+
+
+class ContinuousLlamaGenerator(Model):
+    """Serving runtime over :class:`ContinuousEngine` (the reference's
+    class of the same name).
+
+    Unlike ``LlamaGenerator`` this model is **self-batching**: the server
+    bypasses the micro-batcher and calls it from each request thread
+    directly; concurrent requests coalesce inside the engine's slot pool
+    at token boundaries instead of at HTTP arrival time.
+
+    config:
+      params_ref:       "mem://key" holding (LlamaConfig, state dict), or
+      storage_path:     a snapshot (``resolve_model_source``)
+      num_slots, decode_chunk, temperature, eos_id, max_new_tokens,
+      seq_buckets, ...: engine knobs (``build_engine``)
+      device:           "cpu" to serve on the CPU (default: the CUDA card)
+    """
+
+    self_batching = True
+
+    def __init__(self, name: str, config: Optional[dict[str, Any]] = None,
+                 engine: Optional[ContinuousEngine] = None):
+        super().__init__(name, config)
+        #: a prebuilt engine: load() then skips construction
+        self.engine: Optional[ContinuousEngine] = engine
+
+    def load(self) -> None:
+        if self.engine is not None:
+            self.ready = True
+            return
+        cfg, params = resolve_model_source(self.config, name=self.name)
+        self.engine = build_engine(cfg, params, self.config,
+                                   device=self.config.get("device"))
+        self.ready = True
+
+    def stop(self) -> None:
+        if self.engine is not None:
+            self.engine.stop()
+            self.engine = None
+        super().stop()
+
+    def predict_batch(self, instances):
+        assert self.engine is not None, "model not loaded"
+        reqs = [self.engine.submit(inst) for inst in instances]
+        return [r.wait(timeout=300.0) for r in reqs]

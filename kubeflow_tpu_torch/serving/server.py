@@ -18,6 +18,8 @@ GPU; here it is native.
 
 The port's copy of ``kubeflow_tpu/serving/server.py``, device-free like
 it, with the same names; it imports nothing of the reference package.
+Its HTTP server listens with ``BurstHTTPServer``'s backlog
+(``utils/net.py``).
 """
 
 from __future__ import annotations
@@ -28,10 +30,10 @@ import queue
 import threading
 import time
 from dataclasses import dataclass, field
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from http.server import BaseHTTPRequestHandler
 from typing import Any, Optional
 
-from ..utils.net import allocate_port
+from ..utils.net import BurstHTTPServer, allocate_port
 from .model import Model
 
 log = logging.getLogger("kubeflow_tpu_torch.serving")
@@ -288,7 +290,7 @@ class ModelServer:
         self.metrics = ServerMetrics()
         #: optional request/response payload logger (set_logger)
         self.logger: Optional[InferenceLogger] = None
-        self._httpd: Optional[ThreadingHTTPServer] = None
+        self._httpd: Optional[BurstHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
         self._grpc = None
 
@@ -419,8 +421,7 @@ class ModelServer:
             def do_POST(self) -> None:
                 server._handle_post(self)
 
-        self._httpd = ThreadingHTTPServer(("127.0.0.1", self.port), Handler)
-        self._httpd.daemon_threads = True
+        self._httpd = BurstHTTPServer(("127.0.0.1", self.port), Handler)
         self._thread = threading.Thread(
             target=self._httpd.serve_forever, name=f"model-server-{self.port}",
             daemon=True)

@@ -1,7 +1,8 @@
 """Small networking helpers for the local runtime.
 
 The port's copy of ``kubeflow_tpu/utils/net.py``, device-free like it,
-with the same names; it imports nothing of the reference package.
+with the same names; it imports nothing of the reference package. It adds
+``BurstHTTPServer``, the port's HTTP server class.
 """
 
 from __future__ import annotations
@@ -9,6 +10,7 @@ from __future__ import annotations
 import collections
 import socket
 import threading
+from http.server import ThreadingHTTPServer
 
 _issued_lock = threading.Lock()
 #: recently-issued ports, bounded: old entries age out so long-lived control
@@ -40,3 +42,18 @@ def allocate_port() -> int:
                 _issued.append(p)
                 return p
         raise OSError("could not allocate an unissued port after 128 attempts")
+
+
+class BurstHTTPServer(ThreadingHTTPServer):
+    """``ThreadingHTTPServer`` with a listen backlog that takes a burst.
+
+    The standard library listens with a backlog of 5: a burst of clients
+    connecting at once (a Router fanning out, sixteen completions sent
+    together) overflows it, and each dropped SYN is retried by the client's
+    kernel a second later. Every HTTP server of the port (model server,
+    Router, inference graph, API server, metrics endpoint) uses this class.
+    Handler threads are daemons, as each server set before.
+    """
+
+    request_queue_size = 1024
+    daemon_threads = True

@@ -190,6 +190,35 @@ def test_port_imports_no_jax():
         "kubeflow_tpu_torch.serving.server, "
         "kubeflow_tpu_torch.serving.grpc_server\n"
         "from kubeflow_tpu_torch.serving import ModelServer, TextGenerator\n"
+        "import kubeflow_tpu_torch.api, kubeflow_tpu_torch.api.yaml_io, "
+        "kubeflow_tpu_torch.controlplane, "
+        "kubeflow_tpu_torch.controlplane.apiserver, "
+        "kubeflow_tpu_torch.controlplane.fake_kubelet, "
+        "kubeflow_tpu_torch.utils.stats\n"
+        "import kubeflow_tpu_torch.serving.runtimes, "
+        "kubeflow_tpu_torch.serving.controller, "
+        "kubeflow_tpu_torch.serving.graph, "
+        "kubeflow_tpu_torch.serving.explainer, "
+        "kubeflow_tpu_torch.serving.transformer\n"
+        "import kubeflow_tpu_torch.sim, kubeflow_tpu_torch.sim.scenarios, "
+        "kubeflow_tpu_torch.chaos, kubeflow_tpu_torch.chaos.plan\n"
+        "from kubeflow_tpu_torch.serving import (ContinuousLlamaGenerator, "
+        "InferenceServiceController, Router)\n"
+        "from kubeflow_tpu_torch.controlplane import Cluster\n"
+        "c = Cluster(); c.enable_serving()\n"
+        "from kubeflow_tpu_torch.api.inference import KIND_SERVING_RUNTIME\n"
+        "paths = [r.spec.server_class for r in "
+        "c.store.list(KIND_SERVING_RUNTIME)]\n"
+        "assert paths and all(p.startswith('kubeflow_tpu_torch.') "
+        "for p in paths), paths\n"
+        "from kubeflow_tpu_torch.serving.controller import resolve_class\n"
+        "for p in paths:\n"
+        "    resolve_class(p)\n"
+        "try:\n"
+        "    resolve_class('kubeflow_tpu.serving.runtimes:EchoModel')\n"
+        "    raise SystemExit('a JAX-package class path resolved')\n"
+        "except ValueError as e:\n"
+        "    assert 'kubeflow_tpu_torch.serving.runtimes' in str(e), e\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'msgpack')"
         " or m.startswith('kubeflow_tpu.') or m == 'kubeflow_tpu']\n"

@@ -243,3 +243,35 @@ def test_default_device_is_the_card(models, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         continuous.ContinuousEngine(
             cfg, convert.state_dict_from_jax(models[False][1], cfg))
+
+
+CLIMB = {
+    "slot_pool": {},
+    "chunked": {"prefill_budget": 16},
+    "paged": {"block_size": 16, "prefill_budget": 16},
+    "spec": {"block_size": 16, "spec_k": 2},
+}
+
+
+@pytest.mark.parametrize("variant", list(CLIMB))
+def test_request_climbing_the_rungs_captures_nothing(models, variant):
+    """Warmup captures the decode (chunk, fused, verify) programs of every
+    attend rung up to ``max_seq_len``: a request whose prompt sits in the
+    first rung and whose completion climbs past rung 128 runs with 0
+    captures after warmup."""
+    _, llama, convert, continuous, _ = _port()
+    _, params = models[False]
+    cfg = llama.tiny(max_seq_len=512)
+    eng = continuous.ContinuousEngine(
+        cfg, convert.state_dict_from_jax(params, cfg), num_slots=2,
+        decode_chunk=4, device="cpu", prefix_cache=False, **CLIMB[variant])
+    try:
+        eng.warmup()
+        assert eng.attend_buckets == (128, 256, 512)
+        req = eng.submit(list(range(1, 21)), max_new_tokens=130)
+        assert len(req.wait(WAIT_S)) == 130
+        stats = eng.stats()
+    finally:
+        eng.stop()
+    assert stats["graph_captures_total"] == 0
+    assert stats["graph_captures_warmup"] > 0

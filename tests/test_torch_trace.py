@@ -204,3 +204,41 @@ def test_migration_carries_the_trace():
     assert "kv.export" in got["exporter_spans"]
     assert got["importer_phases"] == ["engine.decode"]
     assert len(got["tokens"]) == 6
+
+
+def test_phases_tile_when_the_handler_is_late():
+    """The decode phase stays open past the last token until the serving
+    surface finishes the trace: a handler thread that runs late after the
+    last token (a garbage collection, a busy interpreter) leaves no time
+    unattributed, and ``last_token_s`` still marks the delivery."""
+    import torch
+
+    from kubeflow_tpu_torch.models import convert, llama
+    from kubeflow_tpu_torch.serving.continuous import ContinuousEngine
+    from kubeflow_tpu_torch.serving.trace import Tracer
+
+    torch.set_num_threads(1)
+    cfg = llama.tiny()
+    eng = ContinuousEngine(
+        cfg, convert.state_dict_from_jax(tiny_weights()[1], cfg),
+        num_slots=2, decode_chunk=2, block_size=16, prefill_budget=16,
+        prefix_cache=False, device="cpu")
+    tracer = Tracer(sample=1.0, ring=8)
+    try:
+        tr = tracer.start(name="request")
+        tr.phase("replica.door")
+        req = eng.submit(list(range(1, 37)), max_new_tokens=4, trace=tr)
+        assert len(req.wait(WAIT_S)) == 4
+        time.sleep(0.2)  # the handler thread, late
+        tracer.finish(tr)
+    finally:
+        eng.stop()
+    row = tr.to_dict()
+    total = sum(p["duration_s"] for p in row["phases"])
+    assert abs(total - row["duration_s"]) <= 0.05 * row["duration_s"]
+    decode = row["phases"][-1]
+    assert decode["name"] == "engine.decode"
+    assert decode["attrs"]["tokens"] == 4
+    last = decode["attrs"]["last_token_s"]
+    assert decode["start_s"] <= last <= decode["start_s"] + \
+        decode["duration_s"] - 0.2
