@@ -157,9 +157,10 @@ class Cluster:
         log_path_for=None,
         db_path: Optional[str] = None,
     ) -> None:
-        """The Katib-tier reconcilers: ``hpo/`` is not copied into the port
-        yet."""
-        _not_copied("enable_hpo", "hpo/")
+        """The Katib-tier reconcilers: the hpo controllers, service, db and
+        algorithms are not copied into the port yet (its ``hpo/`` holds
+        ``nas.py`` alone)."""
+        _not_copied("enable_hpo", "hpo/{controllers,service,db,algorithms}.py")
 
     def add_node(
         self,

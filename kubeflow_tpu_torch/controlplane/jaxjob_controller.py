@@ -18,7 +18,8 @@ ReconcileJobs, pkg/controller.v1/jax/ JAXJobReconciler]:
 
 The port's copy of ``kubeflow_tpu/controlplane/jaxjob_controller.py``,
 device-free like it, with the same names; it imports nothing of the
-reference package.
+reference package. One change: a job that fails for a pod's exit carries
+the pod's termination message in its Failed condition.
 """
 
 from __future__ import annotations
@@ -492,11 +493,15 @@ class JaxJobController(Controller):
             elif policy == RestartPolicy.EXIT_CODE and is_retryable_exit(code):
                 retryable.append(p)
             else:
+                # the port's one change here: the pod's termination message
+                # (the kubelet reads it from the status dir) rides along
+                why = f": {p.status.message}" if p.status.message else ""
                 self._fail(
                     job,
                     pods,
                     "PodFailed",
-                    f"pod {p.metadata.name} exit={code} policy={policy.value}",
+                    f"pod {p.metadata.name} exit={code} "
+                    f"policy={policy.value}{why}",
                 )
                 return None
 

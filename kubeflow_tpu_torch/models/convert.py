@@ -149,3 +149,159 @@ def _put(tree: dict, path: tuple, value) -> None:
     for k in path[:-1]:
         tree = tree.setdefault(k, {})
     tree[path[-1]] = value
+
+
+# -- the other model families ---------------------------------------------------
+#
+# Reference param trees (numpy leaves; a top ``{"params": ...}`` wrapper, as
+# ``model.init`` returns, is taken too) in, the port's state dicts (CPU f32
+# tensors) out. Each checks that the result covers the port module's keys
+# and shapes.
+
+
+def _unwrap(params):
+    return params["params"] if set(params) == {"params"} else params
+
+
+def _flatten(tree, prefix: tuple = ()):
+    """(path, leaf) of every leaf of a nested dict, in key order."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, (*prefix, k))
+        else:
+            yield (*prefix, k), v
+
+
+def _checked(out: dict, module: torch.nn.Module, what: str) -> dict:
+    """``out`` when its keys and shapes are ``module.state_dict()``'s."""
+    want = {k: v.shape for k, v in module.state_dict().items()}
+    got = {k: v.shape for k, v in out.items()}
+    if got != want:
+        missing = sorted(set(want) - set(got))
+        extra = sorted(set(got) - set(want))
+        bad = sorted(k for k in set(got) & set(want) if got[k] != want[k])
+        raise ValueError(f"{what}: the tree does not match the port's "
+                         f"module (missing {missing}, extra {extra}, "
+                         f"shapes differ {bad})")
+    return out
+
+
+def _einsum_key(path: tuple) -> str:
+    """A state dict key of a tree path: ``layer_{i}`` -> ``layers.{i}``,
+    Einsum ``kernel`` leaves dropped (the port's param is the kernel)."""
+    parts = []
+    for p in path:
+        if p.startswith("layer_") and p[6:].isdigit():
+            parts += ["layers", p[6:]]
+        elif p != "kernel":
+            parts.append(p)
+    return ".".join(parts)
+
+
+def _unstack(tree: dict, n: int) -> list[dict]:
+    """A scan-stacked subtree (leading axis ``n``) as ``n`` per-layer
+    subtrees."""
+    flat = dict(_flatten(tree))
+    layers = []
+    for i in range(n):
+        layer: dict = {}
+        for path, leaf in flat.items():
+            arr = np.asarray(leaf) if not isinstance(leaf, torch.Tensor) \
+                else leaf
+            if arr.shape[0] != n:
+                raise ValueError(f"{'/'.join(path)}: {arr.shape[0]} stacked "
+                                 f"layers, config has {n}")
+            _put(layer, path, arr[i])
+        layers.append(layer)
+    return layers
+
+
+def bert_from_reference(params, cfg) -> dict[str, torch.Tensor]:
+    """The port's ``BertClassifier`` state dict of a reference BERT tree,
+    in either layer layout (``encoder/layers`` scan-stacked with a leading
+    axis, or ``encoder/layer_{i}``)."""
+    from .bert import BertClassifier
+
+    params = dict(_unwrap(params))
+    enc = dict(params["encoder"])
+    if "layers" in enc:
+        for i, layer in enumerate(_unstack(enc.pop("layers"),
+                                           cfg.num_layers)):
+            enc[f"layer_{i}"] = layer
+    params["encoder"] = enc
+    out = {_einsum_key(path): _host(leaf).contiguous()
+           for path, leaf in _flatten(params)}
+    return _checked(out, BertClassifier(cfg, device="meta"), "BERT")
+
+
+def bert_to_reference(sd: dict, cfg) -> dict:
+    """The reference's ``{"params": tree}`` of a port BERT state dict, in
+    ``cfg.scan_layers``'s layout (numpy f32 leaves)."""
+    from .bert import EINSUMS
+
+    tree: dict = {}
+    layered: dict[tuple, dict[int, np.ndarray]] = {}
+    for key, value in sd.items():
+        parts = key.split(".")
+        leaf = _numpy(value.float())
+        if parts[-1] in EINSUMS:
+            parts.append("kernel")
+        if parts[:2] == ["encoder", "layers"]:
+            i, rest = int(parts[2]), tuple(parts[3:])
+            if cfg.scan_layers:
+                layered.setdefault(rest, {})[i] = leaf
+            else:
+                _put(tree, ("encoder", f"layer_{i}", *rest), leaf)
+        else:
+            _put(tree, tuple(parts), leaf)
+    for rest, by_layer in layered.items():
+        _put(tree, ("encoder", "layers", *rest),
+             np.stack([by_layer[i] for i in range(cfg.num_layers)]))
+    return {"params": tree}
+
+
+def linen_from_reference(params, module: torch.nn.Module, what: str
+                         ) -> dict[str, torch.Tensor]:
+    """The state dict of a torch module whose submodules carry flax's
+    names, from the flax tree: ``Conv`` kernels HWIO -> ``weight`` OIHW,
+    ``Dense`` kernels ``(in, out)`` -> ``weight`` ``(out, in)``, GroupNorm
+    ``scale`` -> ``weight``, biases as they are."""
+    out = {}
+    for path, leaf in _flatten(_unwrap(params)):
+        t = _host(leaf)
+        name = path[-1]
+        if name == "kernel":
+            t = t.permute(3, 2, 0, 1) if t.dim() == 4 else t.t()
+            name = "weight"
+        elif name == "scale":
+            name = "weight"
+        out[".".join((*path[:-1], name))] = t.contiguous()
+    return _checked(out, module, what)
+
+
+def resnet_from_reference(params, cfg) -> dict[str, torch.Tensor]:
+    """The port's ``ResNet`` state dict of a reference ResNet tree."""
+    from .resnet import ResNet
+
+    return linen_from_reference(params, ResNet(cfg, device="meta"),
+                                "ResNet")
+
+
+def mnist_from_reference(params, hidden: int = 128
+                         ) -> dict[str, torch.Tensor]:
+    """The port's MNIST ``MLP`` state dict of a reference MLP tree."""
+    from .mnist import MLP
+
+    return linen_from_reference(params, MLP(hidden, device="meta"), "MLP")
+
+
+def supernet_from_reference(params, cfg, space) -> dict[str, torch.Tensor]:
+    """The port's ``SupernetLM`` state dict of the reference supernet's
+    tree (``alpha_depth``, ``alpha_ffn``, ``embedder``, ``layer_{i}``,
+    ``head``). ``cfg`` is the supernet's config (``darts_search``'s, at
+    max shape)."""
+    from ..hpo.nas import SupernetLM
+
+    out = {_einsum_key(path): _host(leaf).contiguous()
+           for path, leaf in _flatten(_unwrap(params))}
+    return _checked(out, SupernetLM(cfg, space, device="meta"), "supernet")

@@ -2,11 +2,13 @@
 
 The port's copy of ``kubeflow_tpu/runtime/bootstrap.py`` for a one-process
 job: ``PodContext`` parsed from the same environment variables the JaxJob
-controller injects, the coordinator test, the metric stream (stdout
-``name=value`` and the status dir's ``metrics.jsonl``) and the coordinator
-address mapping. ``initialize`` returns the context of a one-process job;
-a job of several processes needs ``torch.distributed``'s rendezvous and the
-gang barrier, which are ROADMAP A5.
+controller injects (plus ``KFT_POD_DEVICE``, the device the pod computes
+on: the CUDA card when unset), the coordinator test, the gang-startup probe
+``barrier`` (it synchronizes the pod's device and stamps ``BARRIER_FILE``),
+the metric stream (stdout ``name=value`` and the status dir's
+``metrics.jsonl``) and the coordinator address mapping. A job of several
+processes needs ``torch.distributed``'s rendezvous and a collective
+barrier, which are ROADMAP A5: ``initialize`` and ``barrier`` raise for it.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ ENV_REPLICA_INDEX = "KFT_REPLICA_INDEX"
 ENV_MESH = "KFT_MESH"
 ENV_STATUS_DIR = "KFT_STATUS_DIR"
 ENV_ENTRYPOINT = "KFT_ENTRYPOINT"
+#: the device a pod computes on ("cpu", "cuda", "cuda:1"); unset = the card
+ENV_POD_DEVICE = "KFT_POD_DEVICE"
 
 BARRIER_FILE = "barrier"
 METRICS_FILE = "metrics.jsonl"
@@ -46,6 +50,8 @@ class PodContext:
     coordinator_address: Optional[str] = None
     mesh_axes: dict[str, int] = field(default_factory=dict)
     status_dir: Optional[str] = None
+    #: ``KFT_POD_DEVICE``; None means the CUDA card (``resolve_device``)
+    device: Optional[str] = None
 
     @classmethod
     def from_env(cls, env: Optional[dict[str, str]] = None) -> "PodContext":
@@ -63,6 +69,7 @@ class PodContext:
             coordinator_address=e.get(ENV_COORDINATOR_ADDRESS),
             mesh_axes=mesh,
             status_dir=e.get(ENV_STATUS_DIR),
+            device=e.get(ENV_POD_DEVICE) or None,
         )
 
     @property
@@ -85,12 +92,43 @@ def initialize(ctx: Optional[PodContext] = None) -> PodContext:
     rendezvous; several processes raise until ROADMAP A5 brings
     ``torch.distributed.init_process_group`` and the gang barrier."""
     ctx = ctx or PodContext.from_env()
+    _one_process(ctx)
+    return ctx
+
+
+def _one_process(ctx: PodContext) -> None:
     if ctx.num_processes > 1:
         raise NotImplementedError(
             f"a job of {ctx.num_processes} processes needs the "
             "torch.distributed rendezvous and barrier, which are not "
             "ported yet (ROADMAP A5)")
-    return ctx
+
+
+def pod_device(ctx: PodContext, device=None):
+    """The ``torch.device`` a pod's work runs on: ``device`` when given,
+    else the context's ``KFT_POD_DEVICE``, else the CUDA card (no card
+    raises: there is no silent CPU path)."""
+    from ..device import resolve_device
+
+    return resolve_device(device if device is not None else ctx.device)
+
+
+def barrier(ctx: PodContext) -> float:
+    """The gang-startup probe of a one-process job: the pod's device is
+    reached and synchronized (a pod that cannot reach its card fails here,
+    before the user function), then the probe file is stamped."""
+    import torch
+
+    _one_process(ctx)
+    dev = pod_device(ctx)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t = time.time()
+    if ctx.status_dir:
+        os.makedirs(ctx.status_dir, exist_ok=True)
+        with open(os.path.join(ctx.status_dir, BARRIER_FILE), "w") as f:
+            f.write(repr(t))
+    return t
 
 
 def emit_metric(ctx: PodContext, name: str, value: float, **extra) -> None:

@@ -12,8 +12,9 @@ where the framework allows:
   micro-batch, then ``max_new_tokens`` single-token decode steps, the
   tokens kept on the device until one host fetch at the end.
 - ``EchoModel``: trivial runtime for smoke tests and protocol conformance.
-- ``BertClassifierModel``: refused at load until ``models/bert.py`` is
-  ported (ROADMAP A11).
+- ``BertClassifierModel``: BERT sequence classification (baseline config
+  3, the ``kft-bert`` runtime) at fixed batch and sequence buckets, run
+  eagerly under ``torch.inference_mode()``.
 
 Every runtime's ``load`` puts its tensors on the CUDA card unless the config
 says ``"device": "cpu"`` (``device.resolve_device``: no card raises).
@@ -259,11 +260,75 @@ class LlamaGenerator(Model):
 
 
 class BertClassifierModel(Model):
-    """BERT sequence classification (the reference's baseline config 3):
-    ``models/bert.py`` is not ported yet, so ``load`` raises (ROADMAP
-    A11)."""
+    """BERT sequence classification — baseline config 3's predictor
+    ("KServe BERT-base InferenceService" -> the ``kft-bert`` runtime).
+
+    config:
+      params_ref:   "mem://key" holding (BertConfig, state dict or a
+                    ``BertClassifier``)
+      storage_path: a snapshot directory (``bert.load_pretrained``; either
+                    package's ``save_pretrained`` layout) instead
+      buckets:      batch buckets (default 1/2/4/8)
+      seq_buckets:  sequence-length buckets (pad-up), default (32, 64, 128,
+                    512) capped at ``max_position``
+      device:       "cpu" to serve on the CPU (default: the CUDA card)
+
+    Instances are token-id lists (ragged); predictions are per-class f32
+    softmax probability lists. Padding tokens are masked out of attention,
+    so a padded batch scores as each instance does alone; padding rows (a
+    batch short of its bucket) attend nothing and stay finite.
+    """
+
+    def __init__(self, name: str, config: Optional[dict[str, Any]] = None):
+        super().__init__(name, config)
+        self.batch_buckets = tuple(self.config.get("buckets", DEFAULT_BUCKETS))
+        self.model = None
 
     def load(self) -> None:
-        raise NotImplementedError(
-            f"model {self.name}: BertClassifierModel needs models/bert.py, "
-            "which is not ported yet (ROADMAP A11)")
+        from ..models import bert as bertlib
+
+        ref = self.config.get("params_ref")
+        if ref:
+            self.cfg, params = fetch_mem(ref[len("mem://"):])
+        elif self.config.get("storage_path"):
+            self.cfg, params = bertlib.load_pretrained(
+                self.config["storage_path"])
+        else:
+            raise RuntimeError(
+                f"model {self.name}: need params_ref or storage_uri")
+        if isinstance(params, torch.nn.Module):
+            params = params.state_dict()  # a registered model: its own copy
+        self.device = resolve_device(self.config.get("device"))
+        model = bertlib.BertClassifier(self.cfg, device=self.device)
+        model.load_state_dict(params, strict=True)
+        self.model = model.eval()
+        default_buckets = [b for b in (32, 64, 128, 512)
+                           if b <= self.cfg.max_position] or [
+                               self.cfg.max_position]
+        self.seq_buckets = tuple(
+            self.config.get("seq_buckets", default_buckets))
+        self.ready = True
+
+    def stop(self) -> None:
+        self.model = None
+        super().stop()
+
+    def predict_batch(self, instances):
+        out: list = []
+        cap = self.batch_buckets[-1]
+        for i in range(0, len(instances), cap):
+            chunk = instances[i : i + cap]
+            b = pad_to_bucket(len(chunk), self.batch_buckets)
+            s = pad_to_bucket(max(len(x) for x in chunk), self.seq_buckets)
+            ids = np.zeros((b, s), np.int64)
+            mask = np.zeros((b, s), np.bool_)
+            for j, toks in enumerate(chunk):
+                toks = toks[:s]
+                ids[j, : len(toks)] = toks
+                mask[j, : len(toks)] = True
+            with torch.inference_mode():
+                logits = self.model(torch.from_numpy(ids).to(self.device),
+                                    torch.from_numpy(mask).to(self.device))
+                probs = logits.float().softmax(dim=-1).cpu().numpy()
+            out.extend(probs[: len(chunk)].tolist())
+        return out

@@ -21,8 +21,10 @@ Env knobs (all optional):
                     KFT_RESUME_FROM names a sibling trial, its checkpoint
                     is forked before training (the exploit step)
   KFT_RESUME_FROM   parent trial name to fork from ("" = fresh)
-  KFT_CORPUS_DIR    a tokenized corpus: raises until the native packing
-                    loader is ported (ROADMAP A11, train/native_data.py)
+  KFT_CORPUS_DIR    a tokenized corpus (``native_data.TokenCorpus``):
+                    shuffled, EOS-packed rows of seq_len + 1 through the
+                    native loader instead of the synthetic stream
+  KFT_EOS_ID        the separator the packing puts between documents (0)
 
 Run a job's process as ``python -m kubeflow_tpu_torch.train.llm``.
 """
@@ -125,22 +127,36 @@ def config_from_env(ctx: bootstrap.PodContext) -> trainlib.TrainConfig:
 
 
 def source_from_env(cfg: trainlib.TrainConfig):
-    """None (the trainer's hermetic synthetic stream); a corpus raises."""
+    """KFT_CORPUS_DIR -> PackedLmCorpus over the native loader; else None
+    (the trainer defaults to the hermetic synthetic stream)."""
     corpus_dir = os.environ.get("KFT_CORPUS_DIR")
-    if corpus_dir:
-        raise NotImplementedError(
-            f"KFT_CORPUS_DIR={corpus_dir}: the native corpus packing "
-            "loader is not ported yet (ROADMAP A11, train/native_data.py "
-            "with its C loader)")
-    return None
+    if not corpus_dir:
+        return None
+    from .native_data import PackedLmCorpus, TokenCorpus
+
+    corpus = TokenCorpus.open(corpus_dir)
+    if corpus.n_tokens and int(corpus.tokens.max()) >= cfg.model.vocab_size:
+        # fail fast: out-of-range ids would be silently clamped by the
+        # embedding gather and the job would "succeed" on garbage
+        raise ValueError(
+            f"corpus {corpus_dir} has token id {int(corpus.tokens.max())} "
+            f">= model vocab_size {cfg.model.vocab_size}; pick a larger "
+            "KFT_MODEL_PRESET or retokenize")
+    return PackedLmCorpus(
+        corpus,
+        cfg.global_batch,
+        cfg.seq_len,
+        eos=int(os.environ.get("KFT_EOS_ID", "0")),
+    )
 
 
 def train_main(ctx: bootstrap.PodContext, *, device=None) -> trainlib.Trainer:
     """The job's process: train, emit the metrics from the coordinator,
-    publish. ``device``: the card by default. Returns the trainer."""
+    publish. ``device``: the pod's (``KFT_POD_DEVICE``, else the card) by
+    default. Returns the trainer."""
     cfg = config_from_env(ctx)
     source = source_from_env(cfg)
-    t = trainlib.Trainer(cfg, device=device)
+    t = trainlib.Trainer(cfg, device=bootstrap.pod_device(ctx, device))
     if ctx.is_coordinator and t.ckpt is not None:
         # observable resume marker: > 0 when a restart picked up a
         # checkpoint

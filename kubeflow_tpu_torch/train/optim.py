@@ -1,5 +1,6 @@
-"""The reference trainer's two optax optimizers, operation by operation:
-AdamW and Adafactor (below).
+"""The reference's optax optimizers, operation by operation: the trainer's
+AdamW and Adafactor (below), and the plain ``Adam`` (``optax.adam`` /
+``optax.adamw`` at a constant rate: the DARTS supernet's two).
 
 AdamW exactly as the reference trainer builds it with optax.
 
@@ -263,3 +264,42 @@ class Adafactor:
                 if dst is not None:
                     _load_list([dst], [src], what)
         self.count = int(state["count"])
+
+
+class Adam:
+    """``optax.adam(lr, b1, b2, eps)``, or ``optax.adamw(lr, b1, b2, eps,
+    weight_decay)`` with ``weight_decay`` > 0 (optax's adamw default is
+    1e-4, torch's 1e-2), at a constant learning rate, no clipping. Per
+    parameter: mu = (1 - b1) g + b1 mu; nu = (1 - b2) g g + b2 nu;
+    u = (mu / (1 - b1**t)) / (sqrt(nu / (1 - b2**t)) + eps), t = count + 1;
+    u += weight_decay * p; p += -lr * u. Parameters are updated in place."""
+
+    def __init__(self, params, *, learning_rate: float, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = EPS,
+                 weight_decay: float = 0.0):
+        self.params = list(params)
+        self.lr, self.b1, self.b2, self.eps = learning_rate, b1, b2, eps
+        self.weight_decay = weight_decay
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.count = 0
+
+    @torch.no_grad()
+    def step(self) -> None:
+        t = self.count + 1
+        bc1 = float(np.float32(1) - np.float32(self.b1) ** np.float32(t))
+        bc2 = float(np.float32(1) - np.float32(self.b2) ** np.float32(t))
+        for p, mu, nu in zip(self.params, self.mu, self.nu):
+            g = p.grad
+            mu.copy_((1 - self.b1) * g + self.b1 * mu)
+            nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)
+            u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+            if self.weight_decay:
+                u = u + self.weight_decay * p
+            p.add_(u * -self.lr)
+        self.count += 1
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+

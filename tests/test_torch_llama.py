@@ -205,6 +205,11 @@ def test_port_imports_no_jax():
         "from kubeflow_tpu_torch.serving import (ContinuousLlamaGenerator, "
         "InferenceServiceController, Router)\n"
         "from kubeflow_tpu_torch.controlplane import Cluster\n"
+        "import kubeflow_tpu_torch.models.bert, "
+        "kubeflow_tpu_torch.models.resnet, kubeflow_tpu_torch.models.mnist, "
+        "kubeflow_tpu_torch.hpo.nas, kubeflow_tpu_torch.train.native_data, "
+        "kubeflow_tpu_torch.native, kubeflow_tpu_torch.runtime.pod_main, "
+        "kubeflow_tpu_torch.runtime.launcher\n"
         "c = Cluster(); c.enable_serving()\n"
         "from kubeflow_tpu_torch.api.inference import KIND_SERVING_RUNTIME\n"
         "paths = [r.spec.server_class for r in "

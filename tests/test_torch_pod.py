@@ -184,7 +184,12 @@ def test_pod_context_from_env_equals_the_reference():
            "KFT_MESH": json.dumps({"data": 4}), "KFT_STATUS_DIR": "/s"}
     got = pt.bootstrap.PodContext.from_env(env)
     want = ref_boot.PodContext.from_env(env)
-    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    # the port's one field more: the pod's device (unset = the card)
+    assert got.device is None
+    assert dataclasses.asdict(got) == {**dataclasses.asdict(want),
+                                       "device": None}
+    assert pt.bootstrap.PodContext.from_env(
+        {**env, "KFT_POD_DEVICE": "cpu"}).device == "cpu"
     assert got.is_coordinator == want.is_coordinator is False
     for addr in ("job-0.ns.svc:1234", "10.0.0.3:80",
                  "a.b.svc.cluster.local:9"):
@@ -196,9 +201,11 @@ def test_unported_pod_paths_name_their_roadmap_items(tmp_path, monkeypatch):
     pt = _port()
     with pytest.raises(NotImplementedError, match="A5"):
         pt.bootstrap.initialize(pt.bootstrap.PodContext(num_processes=2))
-    _env(monkeypatch, KFT_CORPUS_DIR=tmp_path)
-    with pytest.raises(NotImplementedError, match="A11"):
-        pt.llm.train_main(pt.bootstrap.PodContext(), device="cpu")
+    with pytest.raises(NotImplementedError, match="A5"):
+        pt.bootstrap.barrier(pt.bootstrap.PodContext(num_processes=2))
+    with pytest.raises(NotImplementedError, match="A5"):
+        pt.llm.train_main(pt.bootstrap.PodContext(mesh_axes={"data": 2}),
+                          device="cpu")
 
 
 def test_emit_metric_writes_both_channels(tmp_path, capsys):

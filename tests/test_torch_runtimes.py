@@ -9,8 +9,9 @@ against the reference's, on the same ``tiny()`` weights (f32, the port's with
   temperature draws differ across requests.
 - ``TorchFunctionModel`` pads a batch to the buckets exactly as
   ``JaxFunctionModel`` does, with outputs within 1e-6.
-- ``BertClassifierModel`` and ``mesh_axes`` are refused naming their ROADMAP
-  items.
+- ``mesh_axes`` is refused naming its ROADMAP item; a
+  ``BertClassifierModel`` with no weights is refused as the reference's is
+  (its parity is ``tests/test_torch_bert.py``).
 
 torch and both packages are imported inside the tests.
 """
@@ -116,8 +117,8 @@ def test_llama_generator_refusals(refs):
     with pytest.raises(NotImplementedError, match="A7"):
         LlamaGenerator("gen", {"params_ref": refs[1], "device": "cpu",
                                "mesh_axes": {"model": 2}}).start()
-    with pytest.raises(NotImplementedError, match="A11"):
-        BertClassifierModel("bert", {"params_ref": refs[1]}).start()
+    with pytest.raises(RuntimeError, match="need params_ref or storage_uri"):
+        BertClassifierModel("bert", {"device": "cpu"}).start()
 
 
 def test_function_model_pads_to_buckets_as_reference():
