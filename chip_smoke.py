@@ -44,7 +44,16 @@ cut held against the CPU), ``resnet_train`` (ResNet-50 at 224 x 224, batch
 ``jaxjob_pods`` (MNIST and ResNet-50 JaxJobs as real pod processes on the
 card through the port's ``LocalKubelet``) and ``darts_search`` (the DARTS
 supernet at the bench model's width on K1-K3; one small step pair held
-against the CPU). Each phase
+against the CPU). Then the distributed runtime and the parallel layouts:
+``mesh_train`` (the bench model on ``{"fsdp": 2}`` and ``{"model": 2}``, two
+ranks sharing the card over gloo, 3 steps each against the same steps
+unsharded; K1-K3 counted on every rank, 4 query heads under ``model: 2``),
+``moe_mesh_train`` (the MoE bench model on ``{"expert": 2}``, routing
+pinned to the unsharded run's, K4a/K4b and the count matrix's host copies
+counted), ``nccl_one_rank`` (a one-rank NCCL group through ``bootstrap``,
+then FSDP2 over it on a one-rank ``fsdp`` mesh) and ``dist_pods``
+(``examples/02`` and a two-worker ``examples/01`` as pod processes on the
+card, every rank's ``loss=`` lines equal). Each phase
 prints one JSON
 line; the line before the last is the card's name and power limit from
 nvidia-smi, the last line is ``{"ok": true, "device": {...}}``. Any failure
@@ -3538,39 +3547,25 @@ def phase_resnet_train(line: str) -> dict:
     return r
 
 
-def jaxjob_pods(device=None, sizes=PODS) -> dict:
-    """JaxJobs on the port's ``Cluster`` with the port's ``LocalKubelet``:
-    ``examples/01``'s MNIST job and a one-worker ResNet job, run as real
-    pod processes (``python -m kubeflow_tpu_torch.runtime.pod_main``) on
-    the card (``device=None``: no ``KFT_POD_DEVICE``; ``"cpu"`` rehearses
-    it). Both must succeed with finite metrics, their logs naming the
-    device."""
+def run_jaxjobs(jobs: dict, replicas: int, overrides: dict,
+                timeout: float) -> dict:
+    """JaxJobs on the port's ``Cluster`` with the port's ``LocalKubelet``,
+    run as real pod processes (``python -m kubeflow_tpu_torch.runtime.
+    pod_main``): ``jobs`` maps a name to (manifest, entry module, env);
+    each runs ``replicas`` workers, the kubelet's env ``overrides`` on top.
+    Every job must succeed within ``timeout`` seconds. Returns, per job:
+    (the job, seconds to succeed, per pod (pod, log, metric rows))."""
     import os
 
     from kubeflow_tpu_torch.api.common import (
         JobConditionType, get_condition, has_condition)
-    from kubeflow_tpu_torch.api.yaml_io import load_yaml_file
     from kubeflow_tpu_torch.controlplane import Cluster
     from kubeflow_tpu_torch.runtime.launcher import LocalKubelet
 
     root = tempfile.mkdtemp(prefix="kft-pods-")
-    examples = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                            "examples")
-    (mnist,) = load_yaml_file(os.path.join(examples,
-                                           "01-jaxjob-mnist.yaml"))
-    (resnet,) = load_yaml_file(os.path.join(examples,
-                                            "02-jaxjob-resnet-ddp.yaml"))
-    jobs = {"mnist-smoke": (mnist, "kubeflow_tpu_torch.models.mnist", {
-        "KFT_STEPS": str(sizes["mnist_steps"]),
-        "KFT_BATCH": str(sizes["mnist_batch"])}),
-        "resnet": (resnet, "kubeflow_tpu_torch.models.resnet", {
-            "KFT_RESNET": sizes["resnet"],
-            "KFT_STEPS": str(sizes["resnet_steps"]),
-            "KFT_BATCH": str(sizes["resnet_batch"])})}
     cluster = Cluster()
     cluster.add_tpu_slice("s0", 2, 4)
-    kubelet = LocalKubelet(cluster.store, root, env_overrides=(
-        {} if device is None else {"KFT_POD_DEVICE": device}))
+    kubelet = LocalKubelet(cluster.store, root, env_overrides=overrides)
     saved = os.environ.pop("KFT_POD_DEVICE", None)
     out: dict = {}
     try:
@@ -3580,7 +3575,7 @@ def jaxjob_pods(device=None, sizes=PODS) -> dict:
             for name, (job, module, env) in jobs.items():
                 job.metadata.name = name
                 worker = job.spec.replica_specs["worker"]
-                worker.replicas = 1
+                worker.replicas = replicas
                 worker.template.entrypoint = f"{module}:train_main"
                 worker.template.env = {**worker.template.env, **env}
                 cluster.store.create(job)
@@ -3591,46 +3586,90 @@ def jaxjob_pods(device=None, sizes=PODS) -> dict:
                     failed = get_condition(job.status.conditions,
                                            JobConditionType.FAILED)
                     require(failed is None or not failed.status,
-                            f"jaxjob_pods: {name} failed: "
-                            f"{failed and failed.message}")
+                            f"{name} failed: {failed and failed.message}")
                     if name not in done and has_condition(
                             job.status.conditions,
                             JobConditionType.SUCCEEDED):
                         done[name] = (job, time.perf_counter() - t0)
-                require(time.perf_counter() - t0 < sizes["timeout"],
-                        f"jaxjob_pods: not done: {set(jobs) - set(done)}")
+                require(time.perf_counter() - t0 < timeout,
+                        f"jobs not done: {set(jobs) - set(done)}")
                 time.sleep(0.2)
             for name, (job, seconds) in done.items():
-                pod = f"{name}-worker-0"
-                p = cluster.store.get("Pod", pod)
-                with open(kubelet.pod_log_path("default", pod)) as f:
-                    log = f.read()
-                with open(os.path.join(root, "status", "default", pod,
-                                       "metrics.jsonl")) as f:
-                    rows = [json.loads(x) for x in f]
-                metrics = {}
-                for r in rows:
-                    metrics.setdefault(r["name"], []).append(r["value"])
-                where = f"on {device or 'cuda'}"
-                out[name] = {
-                    "succeeded_s": seconds,
-                    "gang_startup_s": job.status.gang_startup_seconds,
-                    "pod_wall_s": p.status.finish_time - p.status.start_time,
-                    "metrics": metrics,
-                    "log_names_device": where in log}
-                require(where in log, f"jaxjob_pods: {pod} log: {log}")
-                require(metrics.get("loss") and all(
-                    math.isfinite(v) for vs in metrics.values()
-                    for v in vs), f"jaxjob_pods: {name} metrics {metrics}")
-                require(job.status.gang_startup_seconds is not None,
-                        f"jaxjob_pods: {name} passed no barrier")
-            require("accuracy" in out["mnist-smoke"]["metrics"],
-                    "jaxjob_pods: mnist emitted no accuracy")
+                pods = []
+                for r in range(replicas):
+                    pod = f"{name}-worker-{r}"
+                    with open(kubelet.pod_log_path("default", pod)) as f:
+                        log = f.read()
+                    with open(os.path.join(root, "status", "default", pod,
+                                           "metrics.jsonl")) as f:
+                        rows = [json.loads(x) for x in f]
+                    pods.append((cluster.store.get("Pod", pod), log, rows))
+                out[name] = (job, seconds, pods)
     finally:
         kubelet.stop()
         if saved is not None:
             os.environ["KFT_POD_DEVICE"] = saved
         shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def _metric_lists(rows: list) -> dict:
+    metrics: dict = {}
+    for r in rows:
+        metrics.setdefault(r["name"], []).append(r["value"])
+    return metrics
+
+
+def _example_jobs(sizes: dict, resnet_env: dict) -> dict:
+    """``examples/01``'s MNIST job and ``examples/02``'s ResNet job, with
+    the port's entry modules."""
+    import os
+
+    from kubeflow_tpu_torch.api.yaml_io import load_yaml_file
+
+    examples = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "examples")
+    (mnist,) = load_yaml_file(os.path.join(examples,
+                                           "01-jaxjob-mnist.yaml"))
+    (resnet,) = load_yaml_file(os.path.join(examples,
+                                            "02-jaxjob-resnet-ddp.yaml"))
+    return {"mnist-smoke": (mnist, "kubeflow_tpu_torch.models.mnist", {
+        "KFT_STEPS": str(sizes["mnist_steps"]),
+        "KFT_BATCH": str(sizes["mnist_batch"])}),
+        "resnet": (resnet, "kubeflow_tpu_torch.models.resnet", resnet_env)}
+
+
+def jaxjob_pods(device=None, sizes=PODS) -> dict:
+    """JaxJobs on the port's ``Cluster`` with the port's ``LocalKubelet``:
+    ``examples/01``'s MNIST job and a one-worker ResNet job, run as real
+    pod processes (``python -m kubeflow_tpu_torch.runtime.pod_main``) on
+    the card (``device=None``: no ``KFT_POD_DEVICE``; ``"cpu"`` rehearses
+    it). Both must succeed with finite metrics, their logs naming the
+    device."""
+    jobs = _example_jobs(sizes, {
+        "KFT_RESNET": sizes["resnet"],
+        "KFT_STEPS": str(sizes["resnet_steps"]),
+        "KFT_BATCH": str(sizes["resnet_batch"])})
+    ran = run_jaxjobs(jobs, 1, {} if device is None else {
+        "KFT_POD_DEVICE": device}, sizes["timeout"])
+    out: dict = {}
+    for name, (job, seconds, [(p, log, rows)]) in ran.items():
+        metrics = _metric_lists(rows)
+        where = f"on {device or 'cuda'}"
+        out[name] = {
+            "succeeded_s": seconds,
+            "gang_startup_s": job.status.gang_startup_seconds,
+            "pod_wall_s": p.status.finish_time - p.status.start_time,
+            "metrics": metrics,
+            "log_names_device": where in log}
+        require(where in log, f"jaxjob_pods: {name} log: {log}")
+        require(metrics.get("loss") and all(
+            math.isfinite(v) for vs in metrics.values()
+            for v in vs), f"jaxjob_pods: {name} metrics {metrics}")
+        require(job.status.gang_startup_seconds is not None,
+                f"jaxjob_pods: {name} passed no barrier")
+    require("accuracy" in out["mnist-smoke"]["metrics"],
+            "jaxjob_pods: mnist emitted no accuracy")
     return out
 
 
@@ -3887,6 +3926,403 @@ def phase_corpus_train(base: str, work: str, line: str) -> dict:
     return r
 
 
+# -- the distributed runtime and the parallel layouts --------------------------
+
+#: mesh_train / moe_mesh_train: the bench models at full width and depth,
+#: the slices' batch; two ranks share the card over gloo
+MESH_TRAIN = dict(batch=14, seq=1024, steps=3, ranks=2, timeout=900,
+                  dense_layouts=({"fsdp": 2}, {"model": 2}),
+                  moe_layout={"expert": 2})
+#: a sharded run vs the same steps unsharded on the card: every step's loss
+#: and step 1's global grad norm, relative. At init every loss sits near
+#: ln(vocab), so only a tight loss limit and the norm, which a dropped
+#: all-reduce or a mis-routed expert moves by O(1), catch a wrong layout
+MESH_LOSS_TOL = 1e-4
+MESH_NORM_TOL = 1e-3
+#: dist_pods: examples/02 as written (2 workers) and examples/01 at 2
+DIST_PODS = dict(mnist_steps=4, mnist_batch=16, replicas=2, timeout=300)
+
+
+class _CollectiveBytes:
+    """Counts the bytes each rank hands to collectives (an all-reduce's or
+    an all-gather's input, a reduce-scatter's or an all-to-all's input):
+    the payload this rank moves to the others. Nested calls (one
+    collective implemented by another) count once."""
+
+    def __init__(self):
+        import torch.distributed as dist
+
+        from kubeflow_tpu_torch.models import moe
+        from kubeflow_tpu_torch.parallel import collectives
+
+        self.moved: dict[str, int] = {}
+        self._depth = 0
+        for mod, name, key, arg, kwarg in (
+                (dist, "all_gather_into_tensor", "all_gather", 1,
+                 "input_tensor"),
+                (dist, "all_gather_single", "all_gather", 1, "input_tensor"),
+                (dist, "reduce_scatter_tensor", "reduce_scatter", 1, "input"),
+                (dist, "reduce_scatter_single", "reduce_scatter", 1, "input"),
+                (dist, "all_reduce", "all_reduce", 0, "tensor"),
+                (dist, "all_to_all_single", "all_to_all", 1, "input"),
+                (collectives, "_all_reduce", "all_reduce", 0, "x"),
+                (moe, "_all_reduce", "all_reduce", 0, "x")):
+            if hasattr(mod, name):
+                setattr(mod, name, self._wrap(getattr(mod, name), key, arg,
+                                              kwarg))
+
+    def _wrap(self, fn, key, arg, kwarg):
+        def counted(*a, **kw):
+            if self._depth == 0:
+                t = a[arg] if len(a) > arg else kw[kwarg]
+                self.moved[key] = (self.moved.get(key, 0)
+                                   + t.numel() * t.element_size())
+            self._depth += 1
+            try:
+                return fn(*a, **kw)
+            finally:
+                self._depth -= 1
+        return counted
+
+
+def _heads_seen() -> set:
+    """Patch the model's flash-attention entry to record the query heads
+    each call gets; returns the set it fills."""
+    from kubeflow_tpu_torch.models import llama
+
+    seen: set = set()
+    flash = llama.flash_attention
+
+    def recording(q, *a, **kw):
+        seen.add(int(q.shape[2]))
+        return flash(q, *a, **kw)
+
+    llama.flash_attention = recording
+    return seen
+
+
+def _mesh_config(model, axes: dict, sizes: dict):
+    """The trainer config of ``model`` (a ``llama`` preset function's name,
+    or a config) on ``axes``."""
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.train.trainer import TrainConfig
+
+    if isinstance(model, str):
+        model = getattr(llama, model)()
+    return TrainConfig(model=model, mesh_axes=axes,
+                       global_batch=sizes["batch"], seq_len=sizes["seq"],
+                       steps=sizes["steps"], warmup_steps=2,
+                       aux_loss_coef=0.01)
+
+
+def _pin_step(model, routes: list, rows: slice) -> None:
+    """Pin every MoE layer of ``model`` to this step's recorded expert ids
+    (``routes[layer]``, global rows) for the rows this rank holds."""
+    import torch
+
+    from kubeflow_tpu_torch.models.moe import MoeMlp
+
+    layers = [m for m in model.modules() if isinstance(m, MoeMlp)]
+    for layer, ids in zip(layers, routes):
+        _pin_routing(layer, torch.as_tensor(ids[rows]).long().to(
+            layer.router.device))
+
+
+def _mesh_rank(rank: int, model_name: str, axes: dict, sizes: dict,
+               routes, device=None) -> dict:
+    """One rank of a sharded run on the card (``device=None``; ``"cpu"``
+    rehearses it): ``sizes["steps"]`` steps of ``model_name`` on ``axes``
+    through the ``Trainer`` (MoE layers pinned to ``routes[step]`` when
+    given). Returns its losses, step times, peak memory, kernel launches,
+    host copies, the query heads flash attention saw and the bytes it
+    handed to collectives per step."""
+    import torch
+
+    from kubeflow_tpu_torch.models import moe as moelib
+    from kubeflow_tpu_torch.train.trainer import Trainer
+
+    cuda = device is None
+    if cuda:
+        torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    heads = _heads_seen()
+    t = Trainer(_mesh_config(model_name, axes, sizes), device=device)
+    # the peak of the model's layout and init, read before the optimizer's
+    # state is allocated: the rank's shards plus one module's full draws,
+    # never the unsharded model
+    init_peak = []
+    fresh = t._fresh_optimizer
+
+    def read_peak():
+        init_peak.append(torch.cuda.max_memory_allocated() if cuda else 0)
+        fresh()
+
+    t._fresh_optimizer = read_peak
+    t.init_state(SEED)
+    src = t.data_source()
+    local = sizes["batch"] // t.batch_count
+    rows = slice(t.batch_index * local, (t.batch_index + 1) * local)
+    counted = _CollectiveBytes()
+    for counts in (*_counters(), moelib.HOST_COPIES):
+        for key in counts:
+            counts[key] = 0
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    losses, norms, step_ms = [], [], []
+    for step in range(sizes["steps"]):
+        if routes is not None:
+            _pin_step(t.model, routes[step], rows)
+        t0 = time.perf_counter()
+        loss, norm = t.step(src.local_batch(step)["tokens"])
+        losses.append(float(loss))  # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        norms.append(float(norm))
+    steps = sizes["steps"]
+    return {
+        "rank": rank, "batch_shard": [t.batch_index, t.batch_count],
+        "losses": losses, "grad_norms": norms, "step_ms": step_ms,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated() if cuda else 0,
+        "init_peak_mem_bytes": init_peak[0],
+        "full_param_bytes": sum(4 * math.prod(s)
+                                for s in t.layout.full_shapes.values()),
+        "launches": {k: v for counts in _counters()
+                     for k, v in counts.items()},
+        "host_copies_per_step": moelib.HOST_COPIES["moe_ep_counts"] / steps,
+        "query_heads_seen": sorted(heads),
+        "collective_bytes_per_step": {
+            k: v / steps for k, v in counted.moved.items()}}
+
+
+def _unsharded_losses(model_name: str, sizes: dict, record_routes: bool,
+                      device=None) -> tuple[list, list, list]:
+    """The same steps in this process, unsharded on the card: the losses,
+    the global grad norms, and per step each MoE layer's expert ids (when
+    ``record_routes``)."""
+    import torch
+
+    from kubeflow_tpu_torch.models.moe import MoeMlp
+    from kubeflow_tpu_torch.train.trainer import Trainer
+
+    t = Trainer(_mesh_config(model_name, {}, sizes), device=device)
+    t.init_state(SEED)
+    routes: list = []
+    if record_routes:
+        layers = [m for m in t.model.modules() if isinstance(m, MoeMlp)]
+
+        def record(i):
+            def hook(m, inp, out):
+                # the first forward of a step; remat's recompute repeats it
+                # (no_grad: the recompute must save what the forward did)
+                if routes[-1][i] is None:
+                    with torch.no_grad():
+                        ids = type(m).route(m, inp[0].detach())[2]
+                    routes[-1][i] = ids.to(torch.uint8).cpu().numpy()
+            return hook
+
+        for i, layer in enumerate(layers):
+            layer.register_forward_hook(record(i))
+    src = t.data_source()
+    losses, norms = [], []
+    for step in range(sizes["steps"]):
+        if record_routes:
+            routes.append([None] * len(layers))
+        loss, norm = t.step(src.local_batch(step)["tokens"])
+        losses.append(float(loss))
+        norms.append(float(norm))
+    del t
+    _free_card(device is None)
+    return losses, norms, routes
+
+
+def _mesh_errors(losses: list, norms: list, want: list,
+                 want_norms: list) -> tuple[float, float]:
+    """A sharded run's largest relative loss error over its steps, and its
+    step-1 grad norm's relative error, against the unsharded run."""
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+    return loss_rel, abs(norms[0] - want_norms[0]) / abs(want_norms[0])
+
+
+def mesh_runs(model_name: str, layouts, sizes: dict, per_layer: dict,
+              pin: bool, device=None) -> dict:
+    """Each layout's ranks against the unsharded run on the card
+    (``device=None``; ``"cpu"`` with a tiny model rehearses it): every
+    rank's losses within ``MESH_LOSS_TOL`` of it and its step-1 grad norm
+    within ``MESH_NORM_TOL``, and each kernel's launches per rank
+    ``per_layer`` x layers x steps."""
+    from kubeflow_tpu_torch.parallel import dryrun
+
+    want, want_norms, routes = _unsharded_losses(model_name, sizes, pin,
+                                                 device)
+    layers = _mesh_config(model_name, {}, sizes).model.num_layers
+    expect = {k: per_layer.get(k, 0) * layers * sizes["steps"]
+              for counts in _counters() for k in counts}
+    out = {"unsharded_losses": want, "unsharded_grad_norms": want_norms,
+           "layouts": []}
+    for axes in layouts:
+        t0 = time.perf_counter()
+        ranks = dryrun.spawn(sizes["ranks"], _mesh_rank, model_name, axes,
+                             sizes, routes or None, device, backend="gloo",
+                             timeout=sizes["timeout"])
+        errs = [_mesh_errors(r["losses"], r["grad_norms"], want, want_norms)
+                for r in ranks]
+        loss_rel = max(e[0] for e in errs)
+        norm_rel = max(e[1] for e in errs)
+        out["layouts"].append({"mesh": axes, "backend": "gloo",
+                               "seconds": time.perf_counter() - t0,
+                               "max_loss_rel": loss_rel,
+                               "step1_norm_rel": norm_rel, "ranks": ranks})
+        require(loss_rel <= MESH_LOSS_TOL,
+                f"{axes}: losses {[r['losses'] for r in ranks]} "
+                f"vs unsharded {want}")
+        require(norm_rel <= MESH_NORM_TOL,
+                f"{axes}: step-1 grad norms "
+                f"{[r['grad_norms'][0] for r in ranks]} vs unsharded "
+                f"{want_norms[0]}")
+        for r in ranks:
+            require(r["init_peak_mem_bytes"] < r["full_param_bytes"],
+                    f"{axes} rank {r['rank']}: the init's peak "
+                    f"{r['init_peak_mem_bytes']} B is not below the "
+                    f"unsharded parameters' {r['full_param_bytes']} B")
+            require(r["launches"] == expect,
+                    f"{axes} rank {r['rank']}: launches "
+                    f"{r['launches']} != {expect}")
+    return out
+
+
+def phase_mesh_train(line: str) -> dict:
+    """The 271M bench model on ``{"fsdp": 2}`` and ``{"model": 2}``, two
+    ranks sharing the card over gloo; under ``model: 2`` flash attention
+    must see 4 of the 8 query heads."""
+    out = mesh_runs("bench_model", MESH_TRAIN["dense_layouts"], MESH_TRAIN,
+                    FLASH_PER_LAYER, pin=False)
+    emit("mesh_train", card=line, model="bench_model", sizes=MESH_TRAIN,
+         loss_tol=MESH_LOSS_TOL, norm_tol=MESH_NORM_TOL, **out)
+    for layout in out["layouts"]:
+        want = [8 // layout["mesh"].get("model", 1)]
+        for r in layout["ranks"]:
+            require(r["query_heads_seen"] == want,
+                    f"mesh_train {layout['mesh']}: flash attention saw "
+                    f"{r['query_heads_seen']} query heads, not {want}")
+    return out
+
+
+def phase_moe_mesh_train(line: str) -> dict:
+    """The 1.24B MoE bench model on ``{"expert": 2}``, two ranks sharing
+    the card over gloo, routing pinned to the unsharded run's; one host
+    copy of the count matrix per MoE layer and step."""
+    out = mesh_runs("bench_moe_model", (MESH_TRAIN["moe_layout"],),
+                    MESH_TRAIN, MOE_PER_LAYER, pin=True)
+    emit("moe_mesh_train", card=line, model="bench_moe_model",
+         sizes=MESH_TRAIN, loss_tol=MESH_LOSS_TOL, norm_tol=MESH_NORM_TOL,
+         **out)
+    layers = bench_moe_layers()
+    for r in out["layouts"][0]["ranks"]:
+        require(r["host_copies_per_step"] == layers,
+                f"moe_mesh_train: {r['host_copies_per_step']} host copies "
+                f"a step, not {layers}")
+    return out
+
+
+def phase_nccl_one_rank(line: str) -> dict:
+    """A one-rank NCCL group through ``bootstrap`` (an all-reduce and the
+    barrier on the card), then 3 bench-model steps laid out by
+    ``shard_model`` on a one-rank ``fsdp`` mesh (``mesh_axes={"fsdp": 1}``
+    in a group of one: FSDP2 over one rank, K1-K3 under it) against the
+    unwrapped model's."""
+    import torch
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.runtime import bootstrap
+    from kubeflow_tpu_torch.train.trainer import Trainer
+    from kubeflow_tpu_torch.utils.net import free_port
+
+    sizes = MESH_TRAIN
+    ctx = bootstrap.PodContext(
+        num_processes=1, coordinator_address=f"127.0.0.1:{free_port()}",
+        dist_backend="nccl")
+    bootstrap.initialize(ctx)
+    try:
+        require(dist.get_backend() == "nccl", "not an NCCL group")
+        x = torch.full((1 << 20,), 3.0, device="cuda")
+        dist.all_reduce(x)
+        require(bool((x == 3.0).all()), "one-rank all_reduce changed x")
+        barrier_t = bootstrap.barrier(ctx)
+        want, want_norms, _ = _unsharded_losses("bench_model", sizes, False)
+        t = Trainer(_mesh_config("bench_model", {"fsdp": 1}, sizes))
+        require(t.mesh.mesh_dim_names == ("fsdp",), f"mesh {t.mesh}")
+        t.init_state(SEED)
+        for counts in _counters():
+            for key in counts:
+                counts[key] = 0
+        src = t.data_source()
+        losses, norms, step_ms = [], [], []
+        for step in range(sizes["steps"]):
+            t0 = time.perf_counter()
+            loss, norm = t.step(src.local_batch(step)["tokens"])
+            losses.append(float(loss))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            norms.append(float(norm))
+        launches = {k: v for c in _counters() for k, v in c.items()}
+        layers = llama.bench_model().num_layers
+        expect = {k: FLASH_PER_LAYER.get(k, 0) * layers * sizes["steps"]
+                  for k in launches}
+        rel, norm_rel = _mesh_errors(losses, norms, want, want_norms)
+        fsdp = type(t.model.layers[0]).__name__
+        emit("nccl_one_rank", card=line, backend=dist.get_backend(),
+             barrier_time=barrier_t, mesh={"fsdp": 1}, fsdp_module=fsdp,
+             losses=losses, unsharded_losses=want, max_loss_rel=rel,
+             grad_norms=norms, unsharded_grad_norms=want_norms,
+             step1_norm_rel=norm_rel, step_ms=step_ms, launches=launches,
+             loss_tol=MESH_LOSS_TOL, norm_tol=MESH_NORM_TOL)
+        require(launches == expect, f"nccl_one_rank: launches {launches}")
+        require(rel <= MESH_LOSS_TOL, f"nccl_one_rank: {losses} vs {want}")
+        require(norm_rel <= MESH_NORM_TOL,
+                f"nccl_one_rank: step-1 grad norm {norms[0]} vs "
+                f"{want_norms[0]}")
+        require(fsdp.startswith("FSDP"), f"blocks not FSDP2-wrapped: {fsdp}")
+        del t
+    finally:
+        bootstrap.shutdown()
+        _free_card(True)
+    return {"losses": losses}
+
+
+def dist_pods(device=None, sizes=DIST_PODS) -> dict:
+    """``examples/02`` as written (two workers) and ``examples/01`` with two
+    workers as JaxJobs of real pod processes on the card (``device=None``;
+    ``"cpu"`` rehearses it), the process groups on gloo
+    (``KFT_DIST_BACKEND``: the two ranks share one card). Both must
+    succeed, every rank printing the same ``loss=`` lines."""
+    jobs = _example_jobs(sizes, {})
+    overrides = {"KFT_DIST_BACKEND": "gloo"}
+    if device is not None:
+        overrides["KFT_POD_DEVICE"] = device
+    ran = run_jaxjobs(jobs, sizes["replicas"], overrides, sizes["timeout"])
+    out: dict = {}
+    for name, (job, seconds, pods) in ran.items():
+        lines = [[x for x in log.splitlines() if x.startswith("loss=")]
+                 for _, log, _ in pods]
+        out[name] = {
+            "succeeded_s": seconds,
+            "gang_startup_s": job.status.gang_startup_seconds,
+            "loss_lines": lines[0],
+            "metrics": [_metric_lists(rows) for _, _, rows in pods]}
+        require(lines[0] and all(x == lines[0] for x in lines),
+                f"dist_pods: {name} ranks printed {lines}")
+        require(job.status.gang_startup_seconds is not None,
+                f"dist_pods: {name} passed no barrier")
+    return out
+
+
+def phase_dist_pods(line: str) -> dict:
+    r = dist_pods()
+    emit("dist_pods", card=line, sizes=DIST_PODS, **r)
+    return r
+
+
 def run() -> int:
     import torch
 
@@ -3948,13 +4384,23 @@ def run() -> int:
     phase_jaxjob_pods(line)
     t9 = time.perf_counter()
     phase_darts_search(line)
+    t10 = time.perf_counter()
+    phase_mesh_train(line)
+    t11 = time.perf_counter()
+    phase_moe_mesh_train(line)
+    t12 = time.perf_counter()
+    phase_nccl_one_rank(line)
+    t13 = time.perf_counter()
+    phase_dist_pods(line)
     now = time.perf_counter()
     emit("phase_seconds", total=now - started,
          speculation_and_prefix=t1 - t0, migration_and_tiers=t2 - t1,
          http_serve=t_isvc - t2, isvc_serve=t_http - t_isvc,
          finetune=t3 - t_http, adafactor_step=t4 - t3,
          finetune_serve=t5 - t4, corpus_train=t6 - t5, bert_serve=t7 - t6,
-         resnet_train=t8 - t7, jaxjob_pods=t9 - t8, darts_search=now - t9)
+         resnet_train=t8 - t7, jaxjob_pods=t9 - t8, darts_search=t10 - t9,
+         mesh_train=t11 - t10, moe_mesh_train=t12 - t11,
+         nccl_one_rank=t13 - t12, dist_pods=now - t13)
     # each kernel's launches from the run of the path that carries it
     launches.update(gmm=moe_launches["gmm"], tgmm=moe_launches["tgmm"])
     kernels = []

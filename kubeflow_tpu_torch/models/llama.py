@@ -16,6 +16,12 @@ A projection ``w`` may carry LoRA adapters ``w_lora_a`` ``[in..., r]`` and
 per-output-channel f32 ``w_scale`` (``quant_weights``; the reference's
 ``kernel``/``scale``). The snapshot I/O, the adapter functions and
 ``quantize_for_serving`` are the reference's, on the port's state dicts.
+
+Laid out on a mesh (``parallel.sharding.shard_model``), the model runs
+tensor parallel over a ``model`` axis (Megatron-LM's layout: column- and
+row-parallel projections, h/tp query and kv/tp KV heads per rank, the
+vocabulary split over the embedding and the head) and its MoE layers
+expert parallel (``moe.py``); FSDP2 shards what each rank holds.
 """
 
 from __future__ import annotations
@@ -36,6 +42,11 @@ from torch.utils.checkpoint import (
 
 from ..device import resolve_device
 from ..ops.flash_attention import flash_attention
+from ..parallel.collectives import (
+    copy_to_group,
+    gather_last_dim,
+    reduce_from_group,
+)
 from .moe import MoeMlp
 
 
@@ -336,15 +347,27 @@ def _quantize(x):
     return q8, s
 
 
+#: the projections that contract a dim the ``model`` axis shards: their
+#: products are partial sums over the tensor-parallel group
+ROW_PARALLEL = ("wo", "w_down")
+
+
 class _Projections(nn.Module):
     """A module of Einsum projections: each kernel ``[in..., out...]`` in
     f32 (int8 plus ``{name}_scale`` ``[out...]`` with ``quant_weights``),
     and with ``lora_rank`` > 0 the adapters ``{name}_lora_a`` ``[in...,
     r]`` (normal 0.02) and ``{name}_lora_b`` ``[r, out...]`` (zeros) of
-    every name in ``lora_targets``."""
+    every name in ``lora_targets``.
+
+    Under tensor parallelism (``tp``, set by ``parallel.sharding.
+    shard_model``) each kernel is this rank's shard: column-parallel
+    kernels hold a slice of their out dims, the ``ROW_PARALLEL`` ones a
+    slice of their in dims, whose products are summed over the group."""
 
     #: name -> (in dims, out dims), set by each subclass's __init__
     shapes: dict[str, tuple[tuple[int, ...], tuple[int, ...]]]
+    #: the ``model`` axis group (``parallel.sharding.AxisGroup``), if any
+    tp = None
 
     def _make_projections(self, cfg: LlamaConfig, device) -> None:
         #: fan-in of each kernel, and the names that carry adapters
@@ -389,12 +412,15 @@ class _Projections(nn.Module):
         """``x [..., in]`` (the in dims flattened) through projection
         ``name``: ``[..., out]`` flat, in the activation dtype. int8:
         ``(x @ w.to(dtype)) * scale.to(dtype)``; LoRA adds
-        ``((x @ a) @ b) * lora_scale``."""
+        ``((x @ a) @ b) * lora_scale``. Under tensor parallelism ``x`` and
+        the result are this rank's shards, and a row-parallel product is
+        all-reduced over the group."""
         cfg = self.cfg
         dt = cfg.dtype
         w = getattr(self, name).to(dt)
         if w.dim() > 2:
-            w = w.reshape(self._fan_in[name], -1)
+            n_in = len(self.shapes[name][0])
+            w = w.reshape(math.prod(w.shape[:n_in]), -1)
         y = x @ w
         if cfg.quant_weights:
             y = y * getattr(self, f"{name}_scale").to(dt).reshape(-1)
@@ -403,7 +429,14 @@ class _Projections(nn.Module):
             a = getattr(self, f"{name}_lora_a").to(dt).reshape(-1, r)
             b = getattr(self, f"{name}_lora_b").to(dt).reshape(r, -1)
             y = y + ((x @ a) @ b) * self._lora_scale
+        if self.tp is not None and name in ROW_PARALLEL:
+            y = reduce_from_group(y, self.tp.group)
         return y
+
+    def _tp_input(self, x):
+        """The input of this module's column-parallel products: its
+        gradient is all-reduced over the tensor-parallel group."""
+        return x if self.tp is None else copy_to_group(x, self.tp.group)
 
 
 class Attention(_Projections):
@@ -426,9 +459,12 @@ class Attention(_Projections):
         (``_decode_attend``)."""
         cfg = self.cfg
         b, s, e = x.shape
-        q = self.project("wq", x).view(b, s, cfg.num_heads, cfg.head_dim)
-        k = self.project("wk", x).view(b, s, cfg.num_kv_heads, cfg.head_dim)
-        v = self.project("wv", x).view(b, s, cfg.num_kv_heads, cfg.head_dim)
+        x = self._tp_input(x)
+        # this rank's heads: all of them, or h/tp and kv/tp under TP
+        heads, kv_heads = self.wq.shape[1], self.wk.shape[1]
+        q = self.project("wq", x).view(b, s, heads, cfg.head_dim)
+        k = self.project("wk", x).view(b, s, kv_heads, cfg.head_dim)
+        v = self.project("wv", x).view(b, s, kv_heads, cfg.head_dim)
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
         if cache is not None:
@@ -528,6 +564,7 @@ class Mlp(_Projections):
         self._make_projections(cfg, device)
 
     def forward(self, x):
+        x = self._tp_input(x)
         h = F.silu(self.project("w_gate", x)) * self.project("w_up", x)
         return self.project("w_down", h)
 
@@ -555,6 +592,14 @@ class Block(nn.Module):
 
 
 class Embedder(nn.Module):
+    """The token embedding; under tensor parallelism each rank holds a
+    contiguous slice of the vocabulary, looks up the tokens it holds, and
+    the rows are summed over the group (Megatron's vocab-parallel
+    embedding)."""
+
+    #: the ``model`` axis group, if any (``parallel.sharding``)
+    tp = None
+
     def __init__(self, cfg: LlamaConfig, device):
         super().__init__()
         self.cfg = cfg
@@ -564,11 +609,25 @@ class Embedder(nn.Module):
     def forward(self, tokens):
         # out-of-range ids clamp, like the reference's gather
         tokens = tokens.clamp(0, self.cfg.vocab_size - 1)
-        return F.embedding(tokens, self.embedding.to(self.cfg.dtype))
+        table = self.embedding.to(self.cfg.dtype)
+        if self.tp is None:
+            return F.embedding(tokens, table)
+        rows = table.shape[0]
+        local = tokens - self.tp.rank * rows
+        mine = (local >= 0) & (local < rows)
+        x = F.embedding(local.clamp(0, rows - 1), table)
+        return reduce_from_group(x * mine[..., None].to(x.dtype),
+                                 self.tp.group)
 
 
 class Head(nn.Module):
-    """Final norm + unembedding; logits in the activation dtype."""
+    """Final norm + unembedding; logits in the activation dtype. Under
+    tensor parallelism each rank computes the logits of its vocabulary
+    slice and they are all-gathered (a vocab-parallel loss that never
+    gathers them is ROADMAP A5b)."""
+
+    #: the ``model`` axis group, if any (``parallel.sharding``)
+    tp = None
 
     def __init__(self, cfg: LlamaConfig, device):
         super().__init__()
@@ -590,11 +649,16 @@ class Head(nn.Module):
     def forward(self, x, embed_table=None):
         x = self.final_norm(x)
         dt = self.cfg.dtype
+        if self.tp is not None:
+            x = copy_to_group(x, self.tp.group)
         if self.cfg.tie_embeddings:
-            return x @ embed_table.to(dt).t()
-        logits = x @ self.unembedding.to(dt)
-        if self.cfg.quant_weights:
-            logits = logits * self.unembedding_scale.to(dt)
+            logits = x @ embed_table.to(dt).t()
+        else:
+            logits = x @ self.unembedding.to(dt)
+            if self.cfg.quant_weights:
+                logits = logits * self.unembedding_scale.to(dt)
+        if self.tp is not None:
+            logits = gather_last_dim(logits, self.tp.group)
         return logits
 
 
@@ -619,6 +683,39 @@ class Llama(nn.Module):
             Block(cfg, device) for _ in range(cfg.num_layers))
         self.head = Head(cfg, device)
 
+    def _init_plan(self) -> list:
+        """``init_weights``' draws in order: (submodule name, fill,
+        adapters only) triples, each ``fill(module, gen)`` one Embedder,
+        Block or Head."""
+        cfg = self.cfg
+
+        def embed(m, gen):
+            m.embedding.normal_(0.0, 0.02, generator=gen)
+
+        def block(m, gen):
+            m.attn.init_weights(gen)
+            m.mlp.init_weights(gen)
+            m.attn_norm.scale.fill_(1.0)
+            m.mlp_norm.scale.fill_(1.0)
+
+        def head(m, gen):
+            m.final_norm.scale.fill_(1.0)
+            if not cfg.tie_embeddings and not cfg.quant_weights:
+                m.unembedding.normal_(0.0, 0.02, generator=gen)
+
+        def adapters(m, gen):
+            m.attn.init_adapters(gen)
+            if isinstance(m.mlp, Mlp):
+                m.mlp.init_adapters(gen)
+
+        layers = [f"layers.{i}" for i in range(cfg.num_layers)]
+        # adapters last: the base draws are those of the plain model
+        return ([("embedder", embed, False)]
+                + [(n, block, False) for n in layers]
+                + [("head", head, False)]
+                + [(n, adapters, True) for n in layers
+                   if cfg.lora_rank > 0])
+
     @torch.no_grad()
     def init_weights(self, seed: int = 0) -> None:
         """Random init from ``seed``: embeddings and MoE routers
@@ -627,20 +724,27 @@ class Llama(nn.Module):
         initializers; its random draws differ)."""
         gen = torch.Generator(device=self.embedder.embedding.device)
         gen.manual_seed(seed)
-        self.embedder.embedding.normal_(0.0, 0.02, generator=gen)
-        for blk in self.layers:
-            blk.attn.init_weights(gen)
-            blk.mlp.init_weights(gen)
-            blk.attn_norm.scale.fill_(1.0)
-            blk.mlp_norm.scale.fill_(1.0)
-        self.head.final_norm.scale.fill_(1.0)
-        if not self.cfg.tie_embeddings and not self.cfg.quant_weights:
-            self.head.unembedding.normal_(0.0, 0.02, generator=gen)
-        # adapters last: the base draws are those of the plain model
-        for blk in self.layers:
-            blk.attn.init_adapters(gen)
-            if isinstance(blk.mlp, Mlp):
-                blk.mlp.init_adapters(gen)
+        for name, fill, _ in self._init_plan():
+            fill(self.get_submodule(name), gen)
+
+    @torch.no_grad()
+    def init_streamed(self, seed: int, device, sink) -> None:
+        """``init_weights(seed)``'s values on ``device``, drawn one module
+        at a time into a fresh Embedder, Block or Head and handed to
+        ``sink({full parameter name: tensor})``; this model (on the meta
+        device, say) holds none of them. The peak is one module, not the
+        model: a sharded trainer keeps only its shards of each."""
+        cfg = self.cfg
+        device = torch.device(device)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        make = {"embedder": Embedder, "head": Head}
+        for name, fill, adapters_only in self._init_plan():
+            module = make.get(name, Block)(cfg, device)
+            fill(module, gen)
+            sink({f"{name}.{k}": p for k, p in module.named_parameters()
+                  if not adapters_only or is_lora_path(k)})
+            del module
 
     def forward(self, tokens, positions=None, return_aux: bool = False, *,
                 cache: KvCache | None = None, attend: int | None = None,

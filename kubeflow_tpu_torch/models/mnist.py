@@ -8,8 +8,8 @@ The ``train_main`` entrypoint is what JaxJob manifests name as
 ``Dense_0``/``Dense_1`` as ``nn.Linear`` modules (``convert.
 mnist_from_reference`` carries the reference's across); the batches come
 from numpy generators, so their values differ from the reference's jax
-draws. One process on the pod's device (``KFT_POD_DEVICE``, default the
-card); several processes are ROADMAP A5.
+draws. Runs on the pod's device (``KFT_POD_DEVICE``, default the card);
+several processes train data parallel (``resnet.data_parallel``).
 """
 
 from __future__ import annotations
@@ -72,18 +72,21 @@ def synthetic_batch(key: int, batch: int) -> tuple[np.ndarray, np.ndarray]:
 
 def train_main(ctx, *, device=None) -> MLP:
     """Entrypoint for JaxJob pods: SGD with momentum 0.9 on the pod's
-    device; emits ``loss`` and ``accuracy`` of the last step. Returns the
-    model."""
+    device; emits ``loss`` and ``accuracy`` of the last step. With several
+    processes, data parallel over the job's group as ``resnet.train_main``
+    is, both metrics the global batch's means. Returns the model."""
     from ..runtime import bootstrap
+    from .resnet import data_parallel, global_mean
 
     steps = int(os.environ.get("KFT_STEPS", "30"))
     global_batch = int(os.environ.get("KFT_BATCH", "64"))
     lr = float(os.environ.get("KFT_LR", "0.05"))
-    bootstrap.initialize(ctx)  # one process: several raise (ROADMAP A5)
+    bootstrap.initialize(ctx)
     dev = bootstrap.pod_device(ctx, device)
     print(f"mnist: training on {dev}", flush=True)
     model = MLP(device=dev)
     model.init_weights(0)
+    net = data_parallel(model, ctx, dev)
     # optax.sgd(lr, momentum=0.9): trace = g + 0.9 trace; p -= lr trace
     opt = torch.optim.SGD(model.parameters(), lr=lr, momentum=0.9)
     local_bs = global_batch // ctx.num_processes
@@ -93,12 +96,12 @@ def train_main(ctx, *, device=None) -> MLP:
                                local_bs)
         x = torch.from_numpy(x).to(dev)
         y = torch.from_numpy(y).to(dev)
-        logits = model(x)
+        logits = net(x)
         loss = F.cross_entropy(logits, y)
         acc = (logits.argmax(-1) == y).float().mean()
         loss.backward()
         opt.step()
         opt.zero_grad(set_to_none=True)
-    bootstrap.emit_metric(ctx, "loss", float(loss.detach()))
-    bootstrap.emit_metric(ctx, "accuracy", float(acc))
+    bootstrap.emit_metric(ctx, "loss", global_mean(loss, ctx))
+    bootstrap.emit_metric(ctx, "accuracy", global_mean(acc, ctx))
     return model

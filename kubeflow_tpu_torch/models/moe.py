@@ -14,22 +14,56 @@ Two dispatches:
   (``ops/grouped_matmul.py``: the Hopper kernels on the card, their plain
   versions on the CPU).
 
-The ragged path is the reference's single-device branch (expert axis of 1)
-with its grouped compute. Its offsets are computed on the device
+The ragged path with an expert axis of 1 is the reference's single-device
+branch with its grouped compute. Its offsets are computed on the device
 (``searchsorted`` over the sorted expert ids), so the layer makes no host
 sync, and no rows are padded: the kernels mask the ragged row tile. The
 reference's other expert compute, masked per-expert matmuls over every row
 (its ``moe_ragged_compute="masked"``, chosen off a TPU), is not ported: the
 grouped GEMM gives the same result on every device.
+
+Laid out on a mesh (``parallel.sharding.shard_model``):
+
+- ``expert`` axis of ``d > 1`` (``ep``): the reference's ``shard_body``
+  branch. Each rank holds ``e / d`` experts and its own rows of the batch.
+  The ``[d, d]`` matrix of token counts (source rank x destination rank)
+  is all-gathered and copied to the host once per layer in the forward
+  pass (``dist.all_to_all_single`` takes its split sizes on the host; the
+  recomputed forward of the backward pass reuses the copy, and
+  ``HOST_COPIES`` counts them). Tokens go to their experts' ranks by
+  ``parallel.collectives.ragged_all_to_all``, run through the local
+  experts on ``grouped_matmul`` with local offsets, and come back by the
+  reverse exchange. The reference's ``b % d`` fallback to the one-device
+  branch never fires here: each rank holds its own rows, and the trainer
+  refuses a global batch that its batch shards do not divide;
+- ``model`` axis (``tp``): every expert's ``mlp`` dim is split, the gate
+  and up products column-parallel and the down product row-parallel, the
+  layer's output summed over the group (the gradients of the experts'
+  input and of the gates sum over it too);
+- the batch axes (``batch``): the load-balancing loss is taken over the
+  global batch, its two means all-reduced over them.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.grouped_matmul import grouped_matmul
+from ..parallel.collectives import (
+    _all_reduce,
+    all_gather_rows,
+    all_reduce_sum,
+    copy_to_group,
+    ragged_all_to_all,
+    reduce_from_group,
+)
+
+#: host copies of the expert-parallel count matrix, one per MoE layer's
+#: forward pass (reset by setting the entry to 0)
+HOST_COPIES = {"moe_ep_counts": 0}
 
 
 class _Permute(torch.autograd.Function):
@@ -74,9 +108,15 @@ class MoeMlp(nn.Module):
     """Drop-in MoE replacement for the gated MLP; ``forward`` returns
     ``(y, aux)`` with aux the layer's Switch load-balancing loss (f32)."""
 
+    #: the mesh's ``model``, ``expert`` and batch axis groups
+    #: (``parallel.sharding.AxisGroup``), set by ``shard_model``
+    tp = ep = batch = None
+
     def __init__(self, cfg, device):
         super().__init__()
         self.cfg = cfg
+        #: the host count matrix of the last forward pass (expert axis)
+        self._counts = None
         e, h, m = cfg.moe_experts, cfg.hidden_size, cfg.intermediate_size
         self.router = nn.Parameter(torch.empty(h, e, device=device))
         self.w_gate = nn.Parameter(torch.empty(e, h, m, device=device))
@@ -110,10 +150,28 @@ class MoeMlp(nn.Module):
         # gives 1, collapse onto one expert ~e
         expert_mask = _one_hot(idx, e)                       # [b, s, k, e]
         frac_tokens = expert_mask.sum(dim=(1, 2)).mean(0) / (s * k)
-        aux = e * (frac_tokens * probs.mean(dim=(0, 1))).sum()
+        mean_prob = probs.mean(dim=(0, 1))
+        if self.batch is not None:
+            # the global batch's means: every batch shard has as many rows
+            n = self.batch.size
+            frac_tokens = _all_reduce(frac_tokens, self.batch.group) / n
+            mean_prob = all_reduce_sum(mean_prob, self.batch.group) / n
+        aux = e * (frac_tokens * mean_prob).sum()
+        # under TP each rank's expert outputs are partial sums over its mlp
+        # shard: the gradients of their inputs and of the gates that weigh
+        # them sum over the group
+        xe, ge = x, gates
+        if self.tp is not None:
+            xe = copy_to_group(x, self.tp.group)
+            ge = copy_to_group(gates, self.tp.group)
         if cfg.moe_dispatch == "ragged":
-            return self._ragged(x, idx, gates), aux
-        return self._dense(x, gates, expert_mask), aux
+            y = (self._ragged(xe, idx, ge) if self.ep is None
+                 else self._ragged_ep(xe, idx, ge))
+        else:
+            y = self._dense(xe, ge, expert_mask)
+        if self.tp is not None:
+            y = reduce_from_group(y, self.tp.group)
+        return y, aux
 
     def _dense(self, x, gates, expert_mask):
         """GShard capacity dispatch (sequence-major priority)."""
@@ -161,3 +219,73 @@ class MoeMlp(nn.Module):
         y = (y * gates.reshape(n, k, 1).to(dt)).sum(1)
         return y.reshape(b, s, h)
 
+
+    def _host_counts(self, send):
+        """The [d, d] matrix of every rank's ``send`` counts (row = source
+        rank), on the host: all-gathered and copied once in the forward
+        pass; the forward that remat recomputes inside the backward pass
+        reuses it (the same routing gives the same counts)."""
+        if torch._C._current_graph_task_id() != -1 and self._counts is not None:
+            return self._counts
+        d = self.ep.size
+        m = all_gather_rows(send, self.ep.group)
+        HOST_COPIES["moe_ep_counts"] += 1
+        self._counts = m.cpu().numpy().reshape(d, d)
+        return self._counts
+
+    def _ragged_ep(self, x, idx, gates):
+        """The reference's ``shard_body`` for an expert axis of ``d > 1``:
+        this rank's rows out to the ranks of their experts and back."""
+        cfg = self.cfg
+        dt = cfg.dtype
+        b, s, h = x.shape
+        k = cfg.moe_top_k
+        d, me = self.ep.size, self.ep.rank
+        el = self.w_gate.shape[0]                    # experts on this rank
+        n = b * s
+        flat_expert = idx.reshape(n * k)
+        order = torch.argsort(flat_expert, stable=True)
+        inv = torch.argsort(order)
+        sorted_expert = flat_expert.index_select(0, order)
+        xs = _GatherTokens.apply(x.reshape(n, h), order, inv, k).to(dt)
+        dest = sorted_expert // el
+        send = torch.zeros(d, dtype=torch.int64, device=x.device)
+        send.scatter_add_(0, dest, torch.ones_like(dest))
+        m = self._host_counts(send)
+        # exclusive cumsums: mc over sources (receiver-side layout), mr over
+        # destinations (sender-side layout)
+        mc = np.cumsum(m, axis=0) - m
+        mr = np.cumsum(m, axis=1) - m
+        sizes, recv = m[me], m[:, me]
+        starts = mc[:, me]
+        rows = int(recv.sum())
+        recv_x = ragged_all_to_all(
+            xs, xs.new_zeros((rows, h)), mr[me], sizes, mc[me], recv,
+            group=self.ep.group, recv_offsets=starts)
+        ids = ragged_all_to_all(
+            sorted_expert.to(torch.int32),
+            torch.full((rows,), -1, dtype=torch.int32, device=x.device),
+            mr[me], sizes, mc[me], recv, group=self.ep.group,
+            recv_offsets=starts)
+        # regroup the received rows by local expert for the grouped GEMM
+        lid = ids - me * el
+        order2 = torch.argsort(lid, stable=True)
+        inv2 = torch.argsort(order2)
+        xs2 = _Permute.apply(recv_x, order2, inv2)
+        offsets = torch.searchsorted(
+            lid.index_select(0, order2),
+            torch.arange(el + 1, device=x.device, dtype=torch.int32),
+            out_int32=True)
+        wg, wu, wd = (w.to(dt) for w in (self.w_gate, self.w_up, self.w_down))
+        hidden = (F.silu(grouped_matmul(xs2, wg, offsets))
+                  * grouped_matmul(xs2, wu, offsets))
+        y_buf = _Permute.apply(grouped_matmul(hidden, wd, offsets), inv2,
+                               order2)
+        # reverse transport: each received chunk back to its source, at the
+        # source's sorted position
+        y_sorted = ragged_all_to_all(
+            y_buf, y_buf.new_zeros((n * k, h)), starts, recv, mr[:, me],
+            sizes, group=self.ep.group, recv_offsets=mr[me])
+        y = _Permute.apply(y_sorted, inv, order).reshape(n, k, h)
+        y = (y * gates.reshape(n, k, 1).to(dt)).sum(1)
+        return y.reshape(b, s, h)

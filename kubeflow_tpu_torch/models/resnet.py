@@ -268,33 +268,61 @@ def synthetic_batch(key: int, batch: int, num_classes: int,
 
 
 def train_main(ctx, *, device=None) -> ResNet:
-    """ResNet entrypoint for JaxJob pods (BASELINE config 2 analog): one
-    process on the pod's device (``KFT_POD_DEVICE``, default the card),
-    SGD with momentum 0.9, per-step ``loss`` on stdout. Several processes
-    (the reference's data-parallel job) need ``torch.distributed``: ROADMAP
-    A5. Returns the model."""
+    """ResNet entrypoint for JaxJob pods (BASELINE config 2 analog): on the
+    pod's device (``KFT_POD_DEVICE``, default the card), SGD with momentum
+    0.9, per-step ``loss`` on stdout. With several processes, data parallel
+    (``DistributedDataParallel`` over the job's group): each rank's batch
+    is keyed by ``i * num_processes + process_id``, as in the reference,
+    and ``loss`` is the global batch's mean, the same line on every rank.
+    Returns the model."""
     from ..runtime import bootstrap
 
     steps = int(os.environ.get("KFT_STEPS", "10"))
     global_batch = int(os.environ.get("KFT_BATCH", "32"))
     lr = float(os.environ.get("KFT_LR", "0.1"))
     preset = os.environ.get("KFT_RESNET", "tiny")
-    bootstrap.initialize(ctx)  # one process: several raise (ROADMAP A5)
+    bootstrap.initialize(ctx)
     dev = bootstrap.pod_device(ctx, device)
     print(f"resnet: training {preset} on {dev}", flush=True)
     cfg = PRESETS[preset](num_classes=10)
     model = ResNet(cfg, device=dev)
     model.init_weights(0)
+    net = data_parallel(model, ctx, dev)
     # optax.sgd(lr, momentum=0.9): trace = g + 0.9 trace; p -= lr trace
     opt = torch.optim.SGD(model.parameters(), lr=lr, momentum=0.9)
     local_bs = global_batch // ctx.num_processes
     for i in range(steps):
         x, y = synthetic_batch(i * ctx.num_processes + ctx.process_id,
                                local_bs, cfg.num_classes)
-        loss = F.cross_entropy(model(torch.from_numpy(x).to(dev)),
+        loss = F.cross_entropy(net(torch.from_numpy(x).to(dev)),
                                torch.from_numpy(y).to(dev))
         loss.backward()
         opt.step()
         opt.zero_grad(set_to_none=True)
-        bootstrap.emit_metric(ctx, "loss", float(loss.detach()), step=i)
+        bootstrap.emit_metric(ctx, "loss", global_mean(loss, ctx), step=i)
     return model
+
+
+def data_parallel(model, ctx, dev):
+    """``model`` under ``DistributedDataParallel`` over the job's group
+    when the job has several processes (gradients averaged over the ranks,
+    the parameters broadcast from rank 0 first), else ``model``."""
+    if ctx.num_processes == 1:
+        return model
+    from torch.nn.parallel import DistributedDataParallel
+
+    return DistributedDataParallel(
+        model, device_ids=[dev] if dev.type == "cuda" else None)
+
+
+def global_mean(value, ctx) -> float:
+    """A per-rank scalar's mean over the job's processes (each holds as
+    many rows)."""
+    value = value.detach().float().reshape(())
+    if ctx.num_processes > 1:
+        import torch.distributed as dist
+
+        value = value.clone()
+        dist.all_reduce(value)
+        value = value / ctx.num_processes
+    return float(value)

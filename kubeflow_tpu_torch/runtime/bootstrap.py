@@ -1,14 +1,24 @@
-"""In-pod runtime bootstrap: the env contract of a job's process.
+"""In-pod runtime bootstrap: env contract -> torch.distributed -> barrier.
 
-The port's copy of ``kubeflow_tpu/runtime/bootstrap.py`` for a one-process
-job: ``PodContext`` parsed from the same environment variables the JaxJob
-controller injects (plus ``KFT_POD_DEVICE``, the device the pod computes
-on: the CUDA card when unset), the coordinator test, the gang-startup probe
-``barrier`` (it synchronizes the pod's device and stamps ``BARRIER_FILE``),
-the metric stream (stdout ``name=value`` and the status dir's
-``metrics.jsonl``) and the coordinator address mapping. A job of several
-processes needs ``torch.distributed``'s rendezvous and a collective
-barrier, which are ROADMAP A5: ``initialize`` and ``barrier`` raise for it.
+The port of ``kubeflow_tpu/runtime/bootstrap.py``: ``PodContext`` parsed
+from the environment variables the JaxJob controller injects (plus
+``KFT_POD_DEVICE``, the device the pod computes on: the CUDA card when
+unset, and ``KFT_DIST_BACKEND``), the coordinator address mapping, the
+metric stream (stdout ``name=value`` and the status dir's
+``metrics.jsonl``) and:
+
+- ``initialize``: a job of several processes joins
+  ``torch.distributed.init_process_group`` at the coordinator address (the
+  ``JAX_COORDINATOR_ADDRESS``/``JAX_NUM_PROCESSES``/``JAX_PROCESS_ID``
+  triple is PyTorchJob's ``MASTER_ADDR:MASTER_PORT``/``WORLD_SIZE``/
+  ``RANK``; process 0 hosts the store). The backend is ``nccl`` when the
+  pod computes on a CUDA card and ``gloo`` on the CPU; ``KFT_DIST_BACKEND``
+  overrides it (two processes sharing one card need ``gloo``: NCCL refuses
+  two ranks of one communicator on one device). A backend that fails to
+  start raises: nothing switches to another by itself.
+- ``barrier``: the gang-startup probe. A process in a group runs one
+  collective over every process on the pod's device; a process alone
+  synchronizes its device. Then ``BARRIER_FILE`` is stamped.
 """
 
 from __future__ import annotations
@@ -32,6 +42,10 @@ ENV_STATUS_DIR = "KFT_STATUS_DIR"
 ENV_ENTRYPOINT = "KFT_ENTRYPOINT"
 #: the device a pod computes on ("cpu", "cuda", "cuda:1"); unset = the card
 ENV_POD_DEVICE = "KFT_POD_DEVICE"
+#: the torch.distributed backend ("nccl", "gloo"); unset = by the device
+ENV_DIST_BACKEND = "KFT_DIST_BACKEND"
+#: seconds a rendezvous or collective may wait for the other processes
+DIST_TIMEOUT_S = 300
 
 BARRIER_FILE = "barrier"
 METRICS_FILE = "metrics.jsonl"
@@ -52,6 +66,8 @@ class PodContext:
     status_dir: Optional[str] = None
     #: ``KFT_POD_DEVICE``; None means the CUDA card (``resolve_device``)
     device: Optional[str] = None
+    #: ``KFT_DIST_BACKEND``; None means nccl on a card, gloo on the CPU
+    dist_backend: Optional[str] = None
 
     @classmethod
     def from_env(cls, env: Optional[dict[str, str]] = None) -> "PodContext":
@@ -70,6 +86,7 @@ class PodContext:
             mesh_axes=mesh,
             status_dir=e.get(ENV_STATUS_DIR),
             device=e.get(ENV_POD_DEVICE) or None,
+            dist_backend=e.get(ENV_DIST_BACKEND) or None,
         )
 
     @property
@@ -87,21 +104,41 @@ def resolve_coordinator(address: str) -> str:
     return f"{host}:{port}"
 
 
+def dist_backend(ctx: PodContext) -> str:
+    """The process group's backend: ``KFT_DIST_BACKEND``, else ``nccl``
+    for a pod on a CUDA card and ``gloo`` for one on the CPU."""
+    if ctx.dist_backend:
+        return ctx.dist_backend
+    return "nccl" if pod_device(ctx).type == "cuda" else "gloo"
+
+
 def initialize(ctx: Optional[PodContext] = None) -> PodContext:
-    """The context of this process's job. A one-process job needs no
-    rendezvous; several processes raise until ROADMAP A5 brings
-    ``torch.distributed.init_process_group`` and the gang barrier."""
+    """Join the job's process group: ``torch.distributed.
+    init_process_group`` over TCP at the coordinator, rank = process id.
+    A one-process job needs no rendezvous, unless its pod names a backend
+    (``KFT_DIST_BACKEND``): then it forms a group of one, as a job with one
+    card per process does. A CUDA pod binds its device first, so NCCL's
+    communicator lands on it."""
     ctx = ctx or PodContext.from_env()
-    _one_process(ctx)
+    if ctx.num_processes > 1 or ctx.dist_backend:
+        import datetime
+
+        import torch
+        import torch.distributed as dist
+
+        if not ctx.coordinator_address:
+            raise RuntimeError("multi-process job missing coordinator address")
+        if not dist.is_initialized():
+            dev = pod_device(ctx)
+            if dev.type == "cuda" and dev.index is not None:
+                torch.cuda.set_device(dev.index)
+            dist.init_process_group(
+                backend=dist_backend(ctx),
+                init_method=f"tcp://{resolve_coordinator(ctx.coordinator_address)}",
+                world_size=ctx.num_processes,
+                rank=ctx.process_id,
+                timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
     return ctx
-
-
-def _one_process(ctx: PodContext) -> None:
-    if ctx.num_processes > 1:
-        raise NotImplementedError(
-            f"a job of {ctx.num_processes} processes needs the "
-            "torch.distributed rendezvous and barrier, which are not "
-            "ported yet (ROADMAP A5)")
 
 
 def pod_device(ctx: PodContext, device=None):
@@ -114,14 +151,24 @@ def pod_device(ctx: PodContext, device=None):
 
 
 def barrier(ctx: PodContext) -> float:
-    """The gang-startup probe of a one-process job: the pod's device is
-    reached and synchronized (a pod that cannot reach its card fails here,
-    before the user function), then the probe file is stamped."""
+    """The gang-startup probe: in a process group, one all-reduce over
+    every process on the pod's device (the gang's collectives work, not
+    just its store); alone, the pod's device is reached and
+    synchronized. A pod that cannot reach its card fails here, before the
+    user function. Then the probe file is stamped."""
     import torch
 
-    _one_process(ctx)
+    import torch.distributed as dist
+
     dev = pod_device(ctx)
-    if dev.type == "cuda":
+    if dist.is_initialized():
+        one = torch.ones((), device=dev)
+        dist.all_reduce(one)
+        if int(one.item()) != ctx.num_processes:
+            raise RuntimeError(
+                f"gang barrier: {int(one.item())} of {ctx.num_processes} "
+                "processes answered")
+    elif dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t = time.time()
     if ctx.status_dir:
@@ -129,6 +176,14 @@ def barrier(ctx: PodContext) -> float:
         with open(os.path.join(ctx.status_dir, BARRIER_FILE), "w") as f:
             f.write(repr(t))
     return t
+
+
+def shutdown() -> None:
+    """Leave the process group, if this process joined one."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def emit_metric(ctx: PodContext, name: str, value: float, **extra) -> None:

@@ -18,9 +18,9 @@ mirroring a real kubelet + the operator's pod watching:
 Differences from the reference: pods run ``kubeflow_tpu_torch.runtime.
 pod_main``, and there is no CPU default: a pod computes on the CUDA card
 unless ``KFT_POD_DEVICE`` (the pod template's env, ``env_overrides``, or
-this process's env) says otherwise. ``CUDA_VISIBLE_DEVICES`` and
-``KFT_POD_DEVICE`` pass through from this process; several pods may share
-one card.
+this process's env) says otherwise. ``CUDA_VISIBLE_DEVICES``,
+``KFT_POD_DEVICE`` and ``KFT_DIST_BACKEND`` pass through from this process;
+several pods may share one card.
 """
 
 from __future__ import annotations
@@ -148,7 +148,8 @@ class LocalKubelet:
 
     def _build_env(self, pod: Pod, status_dir: str) -> dict[str, str]:
         base_keys = ("PATH", "HOME", "PYTHONPATH", "TMPDIR", "LD_LIBRARY_PATH",
-                     "CUDA_VISIBLE_DEVICES", bootstrap.ENV_POD_DEVICE)
+                     "CUDA_VISIBLE_DEVICES", bootstrap.ENV_POD_DEVICE,
+                     bootstrap.ENV_DIST_BACKEND)
         env = {k: os.environ[k] for k in base_keys if k in os.environ}
         env["PYTHONPATH"] = os.pathsep.join(
             p for p in (os.getcwd(), env.get("PYTHONPATH")) if p

@@ -1,8 +1,10 @@
 """The LLM training pod entry: the packaged fine-tune/pretrain main.
 
-The port's copy of ``kubeflow_tpu/train/llm.py``: the ``Trainer`` on one
-card behind a job, configured by the same env knobs (the CRD-env contract
-the controller injects), emitting the same metrics.
+The port's copy of ``kubeflow_tpu/train/llm.py``: the ``Trainer`` behind a
+job, configured by the same env knobs (the CRD-env contract the controller
+injects), emitting the same metrics. A job of several processes trains on
+the mesh of ``KFT_MESH`` (``PodContext.mesh_axes``; pure data parallelism
+over every process when unset) over the job's process group.
 
 Env knobs (all optional):
   KFT_MODEL_PRESET  llama preset name (default "tiny")
@@ -90,10 +92,6 @@ def _pbt_base_step(ckpt_dir: str) -> int:
 
 def config_from_env(ctx: bootstrap.PodContext) -> trainlib.TrainConfig:
     e = os.environ
-    if any(n > 1 for n in ctx.mesh_axes.values()):
-        raise NotImplementedError(
-            f"mesh {ctx.mesh_axes}: a sharded job is not ported yet "
-            "(ROADMAP A5)")
     init_from = e.get("KFT_INIT_FROM") or None
     if init_from:
         # the snapshot defines the architecture: KFT_MODEL_PRESET is
@@ -114,6 +112,7 @@ def config_from_env(ctx: bootstrap.PodContext) -> trainlib.TrainConfig:
         steps += _pbt_base_step(ckpt_dir)
     return trainlib.TrainConfig(
         model=model,
+        mesh_axes=dict(ctx.mesh_axes),
         init_from=init_from,
         global_batch=int(e.get("KFT_BATCH", "8")),
         seq_len=int(e.get("KFT_SEQ_LEN", "64")),
@@ -126,9 +125,11 @@ def config_from_env(ctx: bootstrap.PodContext) -> trainlib.TrainConfig:
     )
 
 
-def source_from_env(cfg: trainlib.TrainConfig):
-    """KFT_CORPUS_DIR -> PackedLmCorpus over the native loader; else None
-    (the trainer defaults to the hermetic synthetic stream)."""
+def source_from_env(cfg: trainlib.TrainConfig, process_index: int = 0,
+                    process_count: int = 1):
+    """KFT_CORPUS_DIR -> PackedLmCorpus over the native loader, this
+    process's rows of it (its batch shard); else None (the trainer defaults
+    to the hermetic synthetic stream)."""
     corpus_dir = os.environ.get("KFT_CORPUS_DIR")
     if not corpus_dir:
         return None
@@ -147,6 +148,8 @@ def source_from_env(cfg: trainlib.TrainConfig):
         cfg.global_batch,
         cfg.seq_len,
         eos=int(os.environ.get("KFT_EOS_ID", "0")),
+        process_index=process_index,
+        process_count=process_count,
     )
 
 
@@ -155,8 +158,9 @@ def train_main(ctx: bootstrap.PodContext, *, device=None) -> trainlib.Trainer:
     publish. ``device``: the pod's (``KFT_POD_DEVICE``, else the card) by
     default. Returns the trainer."""
     cfg = config_from_env(ctx)
-    source = source_from_env(cfg)
+    bootstrap.initialize(ctx)
     t = trainlib.Trainer(cfg, device=bootstrap.pod_device(ctx, device))
+    source = source_from_env(cfg, t.batch_index, t.batch_count)
     if ctx.is_coordinator and t.ckpt is not None:
         # observable resume marker: > 0 when a restart picked up a
         # checkpoint

@@ -179,8 +179,8 @@ class TokenCorpus:
 
 def _process_grid() -> tuple[int, int]:
     """(rank, world size) of this process: ``torch.distributed``'s when a
-    process group is up, else (0, 1) — the port's jobs are one process
-    until ROADMAP A5."""
+    process group is up, else (0, 1). A sharded trainer passes its batch
+    shard instead (the ranks of a ``model`` group share their rows)."""
     import torch.distributed as dist
 
     if dist.is_available() and dist.is_initialized():

@@ -24,7 +24,12 @@ for every parameter:
    so the first step's learning rate is the warmup's initial value, 0;
 7. mu is stored back in its dtype, count += 1.
 
-Parameters are updated in place.
+Parameters are updated in place. On a mesh (``parallel.sharding``) each
+rank updates the shards it holds: the moments are local tensors shaped like
+them, and the global norm sums every rank's local squares, each parameter
+weighted by 1 / the number of ranks holding each of its elements
+(``norm_weights``), so a parameter replicated over ``model`` counts once and
+the norm equals the unsharded one.
 """
 
 from __future__ import annotations
@@ -57,34 +62,37 @@ class AdamW:
                  decay_steps: int, b1: float = 0.9, b2: float = 0.95,
                  weight_decay: float = 0.1,
                  grad_clip_norm: float = 1.0,
-                 mu_dtype: torch.dtype | None = torch.bfloat16):
+                 mu_dtype: torch.dtype | None = torch.bfloat16,
+                 norm_weights: list[float] | None = None):
         self.params = list(params)
+        #: the sharded global norm's weights (None: one process, unsharded)
+        self.norm_weights = norm_weights
         self.lr, self.warmup, self.decay_steps = (
             learning_rate, warmup_steps, decay_steps)
         self.b1, self.b2 = b1, b2
         self.weight_decay, self.clip = weight_decay, grad_clip_norm
-        self.mu = [torch.zeros_like(p, dtype=mu_dtype or p.dtype)
+        self.mu = [torch.zeros_like(_local(p), dtype=mu_dtype or p.dtype)
                    for p in self.params]
         # b1 rounded to mu's dtype: the product then rounds like jax's
         # weak-typed python scalar
         self._b1_mu = [float(torch.tensor(b1, dtype=mu.dtype))
                        for mu in self.mu]
-        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(_local(p)) for p in self.params]
         self.count = 0
 
     @torch.no_grad()
     def step(self) -> torch.Tensor:
         """Apply one update from the params' ``.grad``; returns the global
         grad norm before clipping (a 0-d tensor on the params' device)."""
-        grads = [p.grad for p in self.params]
-        norm = _global_norm(grads)
+        grads = [_local(p.grad) for p in self.params]
+        norm = _global_norm(grads, self.norm_weights)
         lr = -warmup_cosine_decay(self.count, self.lr, self.warmup,
                                   self.decay_steps)
         t = self.count + 1
         bc1 = float(np.float32(1) - np.float32(self.b1) ** np.float32(t))
         bc2 = float(np.float32(1) - np.float32(self.b2) ** np.float32(t))
-        for p, g, mu, nu, b1_mu in zip(self.params, grads, self.mu, self.nu,
-                                       self._b1_mu):
+        for p, g, mu, nu, b1_mu in zip(map(_local, self.params), grads,
+                                       self.mu, self.nu, self._b1_mu):
             g = torch.where(norm < self.clip, g, (g / norm) * self.clip)
             m = (1 - self.b1) * g + (mu * b1_mu).float()
             nu.mul_(self.b2).add_((1 - self.b2) * (g * g))
@@ -115,8 +123,25 @@ def _load_list(dst: list, src: list, what: str) -> None:
         d.copy_(x)
 
 
-def _global_norm(grads) -> torch.Tensor:
-    return torch.sqrt(sum(g.float().square().sum() for g in grads))
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of a DTensor (FSDP2's parameters and gradients);
+    any other tensor as it is."""
+    from torch.distributed.tensor import DTensor
+
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _global_norm(grads, weights=None) -> torch.Tensor:
+    """The L2 norm of every gradient. With ``weights`` the gradients are
+    this rank's shards: each local square sum is weighted and the sum is
+    all-reduced over the world."""
+    if weights is None:
+        return torch.sqrt(sum(g.float().square().sum() for g in grads))
+    import torch.distributed as dist
+
+    sq = sum(w * g.float().square().sum() for g, w in zip(grads, weights))
+    dist.all_reduce(sq)
+    return torch.sqrt(sq)
 
 
 def factored_dims(shape, factored: bool = True,

@@ -1,5 +1,5 @@
 """The training loop of the port: the counterpart of
-``kubeflow_tpu/train/trainer.py::Trainer`` for one device.
+``kubeflow_tpu/train/trainer.py::Trainer``.
 
 One step: next-token cross-entropy (f32, mean) of the model's logits on
 ``tokens[:, 1:]`` given ``tokens[:, :-1]`` (plus ``aux_loss_coef`` times the
@@ -23,6 +23,23 @@ Metering (tokens/s, MFU of the active FLOPs against the card's bf16 peak)
 follows the reference: the host blocks on the device only at log
 boundaries. SIGTERM saves a checkpoint and exits 143; the final step is
 always saved; ``final_state`` holds the last state for the publish hook.
+
+Sharded (``mesh_axes``, on an initialised process group, one device per
+process; the reference's ``TrainConfig.mesh_axes`` and ``num_slices``): the
+model is built on the meta device and laid out by ``parallel.sharding.
+shard_model`` (tensor parallel over ``model``, expert parallel over
+``expert``, FSDP2 over ``fsdp``, HSDP with ``data``), so each rank allocates
+its shards only and the init draws one module at a time
+(``Llama.init_streamed``); each rank steps on its rows of the global batch
+(``batch_index``/``batch_count``, the mesh's batch axes), its gradients are
+synced to the global batch's mean and AdamW updates the shards it holds
+under the global norm. The loss and the metrics are global means, MFU
+counts every rank's device, and checkpoints hold the full state, written
+once by rank 0 and restored onto any mesh; a SIGTERM is read at the next
+log or checkpoint step, where every rank stops. Every rank calls every public
+method (SPMD), as in the reference. ``seq`` and ``pipeline`` axes raise
+(ROADMAP A9, A10), as does Adafactor on a mesh that shards parameters
+(A5e).
 """
 
 from __future__ import annotations
@@ -41,6 +58,8 @@ import torch.nn.functional as F
 from ..device import resolve_device
 from ..models import convert
 from ..models import llama as llamalib
+from ..parallel import mesh as meshlib
+from ..parallel import sharding as shardlib
 from . import checkpoint as ckptlib
 from . import data as datalib
 from .optim import Adafactor, AdamW
@@ -58,6 +77,10 @@ _ARCH_FIELDS = ("vocab_size", "hidden_size", "intermediate_size",
 class TrainConfig:
     model: llamalib.LlamaConfig = dataclasses.field(
         default_factory=llamalib.tiny)
+    #: mesh axis -> size; {} = one process unsharded, or pure data
+    #: parallelism over every process of an initialised group
+    mesh_axes: dict[str, int] = dataclasses.field(default_factory=dict)
+    num_slices: int = 1
     global_batch: int = 8
     seq_len: int = 128
     steps: int = 20
@@ -98,6 +121,29 @@ class StepMetrics:
     mfu: float
 
 
+def _world() -> int:
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _from_rank0(value):
+    """``value`` as rank 0 has it, on every rank (one process: itself)."""
+    if _world() == 1:
+        return value
+    import torch.distributed as dist
+
+    box = [value]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
 class Trainer:
     def __init__(self, cfg: TrainConfig, device=None):
         self.cfg = cfg
@@ -112,10 +158,29 @@ class Trainer:
                 "against a frozen base snapshot "
                 "(TrainingClient.train(model=..., lora_rank=...))")
         self.device = resolve_device(device)
-        self.model = llamalib.Llama(cfg.model, device=self.device)
+        self.mesh = self._plan_mesh()
+        # on a mesh the full model is never held: it is laid out on the
+        # meta device and each rank allocates its shards only
+        self.model = llamalib.Llama(
+            cfg.model, device=self.device if self.mesh is None else "meta")
         if cfg.model.lora_rank > 0:
             for name, p in self.model.named_parameters():
                 p.requires_grad_(llamalib.is_lora_path(name))
+        #: the model's layout on the mesh (None: one process, unsharded)
+        self.layout = None
+        if self.mesh is not None:
+            self.layout = shardlib.shard_model(self.model, self.mesh)
+            self.model.to_empty(device=self.device)
+        #: this rank's shard of the global batch, and the shard count
+        self.batch_index, self.batch_count = meshlib.batch_sharding(
+            self.mesh)
+        meshlib.local_batch_size(self.mesh, cfg.global_batch)  # divides
+        if (cfg.optimizer == "adafactor" and self.layout is not None
+                and any(self.layout.sharded_over(k)
+                        for k in self.layout.shardings)):
+            raise NotImplementedError(
+                "Adafactor's factored moments over sharded parameters are "
+                "not ported yet (ROADMAP A5e); use optimizer='adamw'")
         self.opt: Optional[AdamW | Adafactor] = None
         self.ckpt = (ckptlib.CheckpointManager(
             cfg.checkpoint_dir, save_interval_steps=cfg.save_interval_steps)
@@ -126,6 +191,37 @@ class Trainer:
         #: the state after ``train()``: the publish hook's source
         self.final_state: Optional[dict] = None
         self._preempted = False
+        #: on a mesh: the newest checkpointed step (rank 0's manager's)
+        self._last_saved: Optional[int] = None
+
+    def _plan_mesh(self):
+        """The ``DeviceMesh`` of ``cfg.mesh_axes`` over the process group;
+        None for one process with no axis of size > 1. In a group of one
+        the axes named are kept at size 1 (FSDP2 over ``{"fsdp": 1}``, the
+        layout each rank of a job with one card per process runs);
+        ``plan_mesh`` drops such axes, so the mesh is built here."""
+        axes = {a: s for a, s in self.cfg.mesh_axes.items() if s != 1}
+        shardlib.refuse_unported_axes(axes)
+        import torch.distributed as dist
+
+        if _world() == 1 and not axes and self.cfg.num_slices == 1:
+            if not (dist.is_initialized() and self.cfg.mesh_axes):
+                return None
+            from torch.distributed.device_mesh import DeviceMesh
+
+            meshlib.plan_mesh(self.cfg.mesh_axes, num_devices=1)  # names
+            names = tuple(a for a in meshlib.AXIS_ORDER
+                          if a in self.cfg.mesh_axes)
+            return DeviceMesh(self.device.type,
+                              torch.zeros((1,) * len(names), dtype=torch.int),
+                              mesh_dim_names=names)
+        if not dist.is_initialized():
+            raise RuntimeError(
+                f"mesh {self.cfg.mesh_axes} needs an initialised process "
+                "group (runtime.bootstrap.initialize)")
+        return meshlib.build_mesh(axes or {"data": _world()},
+                                  num_slices=self.cfg.num_slices,
+                                  device_type=self.device.type)
 
     # -- state ------------------------------------------------------------
 
@@ -156,9 +252,12 @@ class Trainer:
         if cfg.optimizer == "adafactor":
             self.opt = Adafactor(self._leaf_groups(), **sched)
         else:
+            params = [p for _, p in self._trainable()]
             self.opt = AdamW(
-                [p for _, p in self._trainable()], b1=cfg.b1, b2=cfg.b2,
+                params, b1=cfg.b1, b2=cfg.b2,
                 weight_decay=cfg.weight_decay, mu_dtype=cfg.mu_dtype,
+                norm_weights=(self.layout.norm_weights(params)
+                              if self.layout else None),
                 **sched)
 
     def init_state(self, seed: int = 0) -> None:
@@ -167,15 +266,34 @@ class Trainer:
         at step 0."""
         if self.cfg.init_from:
             self._pretrained_params()
-        else:
+        elif self.layout is None:
             self.model.init_weights(seed)
+        else:
+            # the unsharded model's draws, one module at a time, each
+            # rank keeping its shards of them
+            self.model.init_streamed(seed, self.device,
+                                     self.layout.load_full_params)
         self._fresh_optimizer()
+
+    def _load_full(self, sd: dict) -> None:
+        """A full (unsharded) state dict into the model, sharded when it
+        is laid out on a mesh."""
+        if self.layout is None:
+            self.model.load_state_dict(sd, strict=True)
+        else:
+            self.layout.load_full_state_dict(sd)
+
+    def full_state_dict(self) -> dict:
+        """The model's state dict, unsharded (every rank joins)."""
+        if self.layout is None:
+            return self.model.state_dict()
+        return self.layout.full_state_dict()
 
     def load_params(self, jax_params) -> None:
         """Params from the reference's param tree (numpy leaves, either
         layer layout) and a fresh optimizer at step 0."""
         sd = convert.state_dict_from_jax(jax_params, self.cfg.model)
-        self.model.load_state_dict(sd, strict=True)
+        self._load_full(sd)
         self._fresh_optimizer()
 
     @torch.no_grad()
@@ -221,34 +339,90 @@ class Trainer:
             sd = {**sd, **(adapters if adapters is not None
                            else self._fresh_adapters())}
         try:
-            self.model.load_state_dict(sd, strict=True)
-        except RuntimeError as e:
+            self._load_full(sd)
+        except (RuntimeError, ValueError) as e:
             raise ValueError(
                 f"init_from snapshot {self.cfg.init_from} does not match "
                 f"the model's parameter tree: {e}") from None
 
-    def _to_ckpt(self) -> dict:
-        """The state as persisted: adapter-only under LoRA fine-tunes."""
-        state = {"step": self.opt.count, "opt_state": self.opt.state_dict()}
-        if self._adapter_ckpt:
-            _, state["adapters"] = llamalib.split_lora(self.model)
-        else:
-            state["params"] = self.model.state_dict()
+    def _opt_state_full(self) -> dict:
+        """The optimizer's state with every moment unsharded."""
+        state = self.opt.state_dict()
+        if self.layout is None:
+            return state
+        names = {id(p): k for k, p in self.model.named_parameters()}
+        keys = [names[id(p)] for p in self.opt.params]
+        for what in ("mu", "nu"):
+            state[what] = [
+                self.layout.gather_full(k, t, like=p).cpu()
+                for k, t, p in zip(keys, state[what], self.opt.params)]
         return state
+
+    def _load_opt_state(self, state: dict) -> None:
+        if self.layout is not None:
+            names = {id(p): k for k, p in self.model.named_parameters()}
+            state = dict(state)
+            for what in ("mu", "nu"):
+                state[what] = [
+                    self.layout.to_param_layout(names[id(p)], full, p)
+                    for full, p in zip(state[what], self.opt.params)]
+        self.opt.load_state_dict(state)
+
+    def _to_ckpt(self) -> dict:
+        """The state as persisted, unsharded: adapter-only under LoRA
+        fine-tunes (every rank joins)."""
+        state = {"step": self.opt.count, "opt_state": self._opt_state_full()}
+        if self._adapter_ckpt:
+            _, state["adapters"] = llamalib.split_lora(self.full_state_dict())
+        else:
+            state["params"] = self.full_state_dict()
+        return state
+
+    def _save(self, step: int, force: bool = False) -> None:
+        """Checkpoint ``step`` when the manager says so. On a mesh every
+        rank takes rank 0's manager's decision from the newest step it
+        saved (``_last_saved``) with no collective; every rank gathers the
+        state and rank 0 writes it."""
+        if _world() == 1:
+            self.ckpt.save(step, self._to_ckpt(), force=force)
+            return
+        last = self._last_saved
+        if last is not None and step <= last:
+            return
+        if not (force or last is None
+                or step % self.ckpt.save_interval_steps == 0):
+            return
+        state = self._to_ckpt()
+        if _rank() == 0:
+            self.ckpt.save(step, state, force=True)
+        self._last_saved = step
+
+    def _any_preempted(self) -> bool:
+        """Whether a rank has had SIGTERM: on a mesh one all-reduce of a
+        flag, so that every rank stops (and saves) together."""
+        if _world() == 1:
+            return self._preempted
+        import torch.distributed as dist
+
+        flag = torch.tensor(float(self._preempted), device=self.device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        return bool(flag)
 
     def restore_or_init(self, seed: int = 0) -> None:
         """Resume from the newest checkpoint if one exists, else
         ``init_state``."""
-        if not (self.ckpt and self.ckpt.latest_step() is not None):
+        latest = _from_rank0(self.ckpt.latest_step() if self.ckpt else None)
+        if latest is None:
             self.init_state(seed)
             return
-        state = self.ckpt.restore(map_location=self.device)
+        state = self.ckpt.restore(
+            latest, map_location="cpu" if self.layout else self.device)
         if self._adapter_ckpt:
             self._pretrained_params(adapters=state["adapters"])
         else:
-            self.model.load_state_dict(state["params"], strict=True)
+            self._load_full(state["params"])
         self._fresh_optimizer()
-        self.opt.load_state_dict(state["opt_state"])
+        self._load_opt_state(state["opt_state"])
 
     # -- step -------------------------------------------------------------
 
@@ -296,15 +470,40 @@ class Trainer:
         return loss_sum / accum
 
     def step(self, tokens) -> tuple[torch.Tensor, torch.Tensor]:
-        """One optimizer step; returns (loss, grad_norm) as device scalars
-        (the norm over the trainable params: the adapters under LoRA)."""
+        """One optimizer step on this rank's rows of the global batch;
+        returns (loss, grad_norm) as device scalars, the loss the global
+        batch's mean (the norm over the trainable params: the adapters
+        under LoRA)."""
         if self.opt is None:
             raise RuntimeError(
                 "call init_state(), restore_or_init() or load_params() first")
         loss = self.loss_and_grads(tokens)
+        if self.layout is not None:
+            self.layout.sync_grads(self.opt.params)
+            loss = self.global_mean(loss)
         grad_norm = self.opt.step()
         self.model.zero_grad(set_to_none=True)
         return loss, grad_norm
+
+    def global_mean(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean of a per-rank scalar over every rank (the ranks of a
+        ``model`` group hold the same value, so this is the mean over the
+        batch shards)."""
+        if _world() == 1:
+            return x
+        import torch.distributed as dist
+
+        x = x.detach().clone()
+        dist.all_reduce(x)
+        return x / _world()
+
+    def data_source(self):
+        """The default batch source: this rank's rows of the
+        ``SyntheticLm`` stream."""
+        cfg = self.cfg
+        return datalib.SyntheticLm(
+            cfg.global_batch, cfg.seq_len, cfg.model.vocab_size,
+            process_index=self.batch_index, process_count=self.batch_count)
 
     # -- loop -------------------------------------------------------------
 
@@ -318,9 +517,10 @@ class Trainer:
         cfg = self.cfg
         if self.opt is None:
             self.restore_or_init(0)
-        source = source or datalib.SyntheticLm(
-            cfg.global_batch, cfg.seq_len, cfg.model.vocab_size)
+        source = source or self.data_source()
         self._preempted = False
+        if self.ckpt and _world() > 1:
+            self._last_saved = _from_rank0(self.ckpt.latest_step())
         prev, installed = None, False
         if self.ckpt and threading.current_thread() is threading.main_thread():
             def _on_sigterm(signum, frame):
@@ -343,6 +543,7 @@ class Trainer:
         peak = (PEAK_TFLOPS.get(torch.cuda.get_device_name(self.device), 0.0)
                 if self.device.type == "cuda" else 0.0)
         tokens_per_step = cfg.global_batch * cfg.seq_len
+        chips = _world()
         metrics, prof = None, None
         self._sync()
         window_t0, window_steps = time.perf_counter(), 0
@@ -353,7 +554,8 @@ class Trainer:
             window_steps += 1
             if prof is not None and step + 1 >= cfg.profile_stop:
                 prof = self._stop_profile(prof)
-            if (step + 1) % cfg.log_every == 0 or step == cfg.steps - 1:
+            logged = (step + 1) % cfg.log_every == 0 or step == cfg.steps - 1
+            if logged:
                 loss_f = float(loss)  # blocks on the device
                 now = time.perf_counter()
                 dt = (now - window_t0) / window_steps
@@ -361,26 +563,32 @@ class Trainer:
                 metrics = StepMetrics(
                     step=step + 1, loss=loss_f, grad_norm=float(grad_norm),
                     step_time_s=dt, tokens_per_sec=tps,
-                    tokens_per_sec_per_chip=tps,
-                    mfu=tps * flops_tok / (peak * 1e12) if peak else 0.0)
+                    tokens_per_sec_per_chip=tps / chips,
+                    mfu=(tps / chips * flops_tok / (peak * 1e12)
+                         if peak else 0.0))
                 window_t0, window_steps = now, 0
                 if on_metrics:
                     on_metrics(metrics)
-            if self.ckpt:
-                self.ckpt.save(step + 1, self._to_ckpt())
-            if self._preempted and self.ckpt:
-                self.ckpt.save(step + 1, self._to_ckpt(), force=True)
+            if not self.ckpt:
+                continue
+            self._save(step + 1)
+            # on a mesh SIGTERM is read where the host waits anyway (a log
+            # or a checkpoint step): the flag's all-reduce blocks on it
+            if ((_world() == 1 or logged
+                 or (step + 1) % cfg.save_interval_steps == 0)
+                    and self._any_preempted()):
+                self._save(step + 1, force=True)
                 self.ckpt.wait_until_finished()
                 raise SystemExit(143)
         if prof is not None:
             # the loop ended inside the window: write what was traced
             self._stop_profile(prof)
         if self.ckpt:
-            self.ckpt.save(cfg.steps, self._to_ckpt(), force=True)
+            self._save(cfg.steps, force=True)
             self.ckpt.wait_until_finished()
         self.final_state = {"step": self.opt.count,
-                            "params": self.model.state_dict(),
-                            "opt_state": self.opt.state_dict()}
+                            "params": self.full_state_dict(),
+                            "opt_state": self._opt_state_full()}
         return metrics
 
     def _start_profile(self):

@@ -7,8 +7,9 @@ processes running ``python -m kubeflow_tpu_torch.runtime.pod_main``.
   ``KFT_POD_DEVICE=cpu`` reaches ``Succeeded``, its pod passed the gang
   barrier (``gang_startup_seconds``), and its log holds ``loss=`` and the
   device it trained on;
-- a two-worker ResNet job (``examples/02``'s shape) ends ``Failed``, not
-  hung, with a message naming ROADMAP A5 (the pods' termination message);
+- the two-worker ResNet DDP job of ``examples/02`` (gloo on CPU pods)
+  reaches ``Succeeded``; both ranks print the same ``loss=`` lines, within
+  1e-5 of one process trained on the two ranks' batches joined together;
 - a pod with no ``KFT_POD_DEVICE`` on a machine with no card fails in its
   barrier instead of running on the CPU.
 
@@ -84,16 +85,60 @@ def test_mnist_jaxjob_succeeds_on_cpu(tmp_path, monkeypatch):
     assert "mnist: training on cpu" in log
 
 
+def _losses(log_path, ns, pod) -> list[float]:
+    with open(log_path(ns, pod)) as f:
+        return [float(line.split("=", 1)[1]) for line in f
+                if line.startswith("loss=")]
+
+
+def _joined_resnet_losses(steps: int, batch: int) -> list[float]:
+    """One process trained on both ranks' batches of each step (keys
+    2i and 2i + 1), joined: the losses two DDP ranks must print."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from kubeflow_tpu_torch.models import resnet
+
+    torch.set_num_threads(1)
+    cfg = resnet.tiny(num_classes=10)
+    model = resnet.ResNet(cfg, device="cpu")
+    model.init_weights(0)
+    opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+    out = []
+    for i in range(steps):
+        parts = [resnet.synthetic_batch(2 * i + r, batch // 2, 10)
+                 for r in range(2)]
+        x = torch.from_numpy(np.concatenate([p[0] for p in parts]))
+        y = torch.from_numpy(np.concatenate([p[1] for p in parts]))
+        loss = F.cross_entropy(model(x), y)
+        loss.backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        out.append(float(loss.detach()))
+    return out
+
+
 def test_two_worker_resnet_job_fails_naming_a5(tmp_path, monkeypatch):
+    """(Named when such a job was refused.) The two-worker DDP job of
+    ``examples/02`` now trains: both ranks print one global loss per step,
+    the joined single-process run's."""
     from kubeflow_tpu_torch.api.common import JobConditionType
 
-    job, _ = _run_job(
+    job, log_path = _run_job(
         tmp_path, monkeypatch, "02-jaxjob-resnet-ddp.yaml", "resnet-ddp",
         "kubeflow_tpu_torch.models.resnet:train_main", 2,
         {"KFT_POD_DEVICE": "cpu", "KFT_RESNET": "tiny"})
-    cond = _condition(job, JobConditionType.FAILED)
+    cond = _condition(job, JobConditionType.SUCCEEDED)
     assert cond is not None and cond.status, job.status
-    assert "A5" in cond.message and "NotImplementedError" in cond.message
+    assert job.status.gang_startup_seconds is not None
+    ranks = [_losses(log_path, "default", f"resnet-ddp-worker-{r}")
+             for r in range(2)]
+    assert len(ranks[0]) == 2 and ranks[0] == ranks[1]
+    import numpy as np
+
+    np.testing.assert_allclose(ranks[0], _joined_resnet_losses(2, 16),
+                               atol=1e-5)
 
 
 def test_pod_without_a_device_fails_without_a_card(tmp_path, monkeypatch):

@@ -210,6 +210,10 @@ def test_port_imports_no_jax():
         "kubeflow_tpu_torch.hpo.nas, kubeflow_tpu_torch.train.native_data, "
         "kubeflow_tpu_torch.native, kubeflow_tpu_torch.runtime.pod_main, "
         "kubeflow_tpu_torch.runtime.launcher\n"
+        "import kubeflow_tpu_torch.parallel, "
+        "kubeflow_tpu_torch.parallel.sharding, "
+        "kubeflow_tpu_torch.parallel.collectives, "
+        "kubeflow_tpu_torch.parallel.dryrun\n"
         "c = Cluster(); c.enable_serving()\n"
         "from kubeflow_tpu_torch.api.inference import KIND_SERVING_RUNTIME\n"
         "paths = [r.spec.server_class for r in "

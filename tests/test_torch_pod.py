@@ -184,12 +184,17 @@ def test_pod_context_from_env_equals_the_reference():
            "KFT_MESH": json.dumps({"data": 4}), "KFT_STATUS_DIR": "/s"}
     got = pt.bootstrap.PodContext.from_env(env)
     want = ref_boot.PodContext.from_env(env)
-    # the port's one field more: the pod's device (unset = the card)
-    assert got.device is None
+    # the port's fields more: the pod's device (unset = the card) and the
+    # process group's backend (unset = by the device)
+    assert got.device is None and got.dist_backend is None
     assert dataclasses.asdict(got) == {**dataclasses.asdict(want),
-                                       "device": None}
+                                       "device": None, "dist_backend": None}
     assert pt.bootstrap.PodContext.from_env(
         {**env, "KFT_POD_DEVICE": "cpu"}).device == "cpu"
+    cpu = pt.bootstrap.PodContext.from_env({**env, "KFT_POD_DEVICE": "cpu"})
+    assert pt.bootstrap.dist_backend(cpu) == "gloo"
+    assert pt.bootstrap.dist_backend(pt.bootstrap.PodContext.from_env(
+        {**env, "KFT_DIST_BACKEND": "nccl"})) == "nccl"
     assert got.is_coordinator == want.is_coordinator is False
     for addr in ("job-0.ns.svc:1234", "10.0.0.3:80",
                  "a.b.svc.cluster.local:9"):
@@ -199,13 +204,14 @@ def test_pod_context_from_env_equals_the_reference():
 
 def test_unported_pod_paths_name_their_roadmap_items(tmp_path, monkeypatch):
     pt = _port()
-    with pytest.raises(NotImplementedError, match="A5"):
+    # a job of several processes joins a process group: it needs its
+    # coordinator (ROADMAP A5 is ported)
+    with pytest.raises(RuntimeError, match="coordinator address"):
         pt.bootstrap.initialize(pt.bootstrap.PodContext(num_processes=2))
-    with pytest.raises(NotImplementedError, match="A5"):
-        pt.bootstrap.barrier(pt.bootstrap.PodContext(num_processes=2))
-    with pytest.raises(NotImplementedError, match="A5"):
-        pt.llm.train_main(pt.bootstrap.PodContext(mesh_axes={"data": 2}),
-                          device="cpu")
+    for axes, item in (({"seq": 2}, "A9"), ({"pipeline": 2}, "A10")):
+        with pytest.raises(NotImplementedError, match=item):
+            pt.llm.train_main(pt.bootstrap.PodContext(mesh_axes=axes),
+                              device="cpu")
 
 
 def test_emit_metric_writes_both_channels(tmp_path, capsys):

@@ -10,8 +10,8 @@ and numpy inputs (CPU, f32).
   and params against optax's within 1e-5 relative; the same for the MNIST
   ``MLP``.
 - Each ``train_main`` runs in-process on the CPU (``KFT_POD_DEVICE=cpu``)
-  and emits finite metrics; a context of two processes is refused naming
-  ROADMAP A5.
+  and emits finite metrics; a context of two processes with no coordinator
+  is refused (``tests/test_torch_launcher.py`` runs two).
 
 torch and the port are imported inside the tests.
 """
@@ -169,5 +169,5 @@ def test_train_main_in_process_on_cpu(model, tmp_path, monkeypatch,
     assert names == want
     assert all(np.isfinite(r["value"]) for r in rows)
     assert "on cpu" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(RuntimeError, match="coordinator address"):
         mod.train_main(bootstrap.PodContext(num_processes=2), device="cpu")
