@@ -7,7 +7,8 @@ Builds the hand-written Hopper kernels (flash attention K1-K3, grouped GEMM
 K4a/K4b) from ``kubeflow_tpu_torch/ops/csrc`` into ``build/kernels/``,
 checks in their SASS that every kernel runs on wgmma and TMA and that no
 kernel spills, holds each kernel against its plain f32 version (outputs in
-NaN-poisoned memory, each kernel launched twice for bitwise equality),
+NaN-poisoned memory, each kernel launched twice for bitwise equality; the
+ring's block shape with the lse cotangent folded into delta among them),
 times them, runs one MoE
 layer's forward and backward with host syncs forbidden and holds it against
 the same layer on the CPU, trains the 271M bench Llama and the 1.24B MoE
@@ -51,7 +52,15 @@ unsharded; K1-K3 counted on every rank, 4 query heads under ``model: 2``),
 ``moe_mesh_train`` (the MoE bench model on ``{"expert": 2}``, routing
 pinned to the unsharded run's, K4a/K4b and the count matrix's host copies
 counted), ``nccl_one_rank`` (a one-rank NCCL group through ``bootstrap``,
-then FSDP2 over it on a one-rank ``fsdp`` mesh) and ``dist_pods``
+then FSDP2 over it on a one-rank ``fsdp`` mesh), then sequence and pipeline
+parallelism: ``seq_train`` (the bench model on ``{"seq": 2}`` with ring
+attention on K1-K3, the non-causal K1 counted), ``ring_attention_check``
+(ring and Ulysses attention over a two-rank ring at the bench attention
+shape against ``flash_attention`` and the plain attention on the whole
+sequence) and
+``pipeline_train`` (the bench model on ``{"pipeline": 2}`` under GPipe,
+1F1B and interleaved 1F1B), each two ranks sharing the card over gloo
+against the same steps unsharded, and ``dist_pods``
 (``examples/02`` and a two-worker ``examples/01`` as pod processes on the
 card, every rank's ``loss=`` lines equal). Each phase
 prints one JSON
@@ -85,6 +94,9 @@ LSE_ATOL = 1e-3
 BENCH = dict(b=14, s=1024, h=8, kv=8, d=128)
 #: the fine-tune path's attention: llama_1b at 8 x 2048, h = kv = 16
 LLAMA_1B_ATTN = dict(b=8, s=2048, h=16, kv=16, d=128)
+#: a ring block of the bench shape on a two-rank ``seq`` axis: 512 queries
+#: against 512 keys, causal on the diagonal, non-causal for an earlier block
+RING_BLOCK = dict(BENCH, s=BENCH["s"] // 2)
 #: the MoE bench's expert products: 14 x 1023 tokens x top-2 rows, hidden
 #: 1024, intermediate 2816, 8 experts
 GMM_BENCH = dict(b=14 * 1023 * 2, k=1024, n=2816, e=8)
@@ -295,11 +307,13 @@ def _poison(*shapes) -> None:
     del blocks
 
 
-def check_kernels_case(b, s, h, kv, d, causal, gen) -> dict[str, float]:
+def check_kernels_case(b, s, h, kv, d, causal, gen, fold_lse: bool = False
+                       ) -> dict[str, float]:
     """Each kernel against its plain version on the same bf16 inputs, its
     outputs written into NaN-poisoned memory; then each kernel again on the
     same inputs, which must give the same bits (one owner per output
-    element, no atomics)."""
+    element, no atomics). ``fold_lse``: K2's and K3's delta less a random
+    lse cotangent, as ring attention's lse merge hands them."""
     import torch
 
     from kubeflow_tpu_torch.ops import flash_attention as fa
@@ -308,6 +322,9 @@ def check_kernels_case(b, s, h, kv, d, causal, gen) -> dict[str, float]:
     q, k, v, do = _inputs(b, s, h, kv, d, gen)
     o_p, lse_p = fa.flash_fwd_plain(q, k, v, causal=causal)
     delta = (do.float() * o_p).sum(-1).transpose(1, 2).contiguous()
+    if fold_lse:
+        delta = delta - torch.randn(delta.shape, generator=gen,
+                                    device="cuda")
 
     def launch_all():
         _poison((q.shape, bf16), ((b, h, s), f32))
@@ -493,10 +510,15 @@ def phase_kernels_check() -> dict[str, float]:
         ("ragged_333_noncausal", dict(b=2, s=333, h=8, kv=2, d=64), False),
         # the fine-tune path's shape (llama_1b: s 2048, 16 heads, d 128)
         ("llama_1b_causal", dict(LLAMA_1B_ATTN, b=2), True),
+        # seq_train's ring blocks: the diagonal (causal) and an earlier
+        # block (non-causal), the lse cotangent folded into delta
+        ("ring_block_causal", dict(RING_BLOCK), True, True),
+        ("ring_block_noncausal", dict(RING_BLOCK), False, True),
     ]
     results, bench_abs = {}, {}
-    for name, shape, causal in cases:
-        r = check_kernels_case(**shape, causal=causal, gen=gen)
+    for name, shape, causal, *fold in cases:
+        r = check_kernels_case(**shape, causal=causal, gen=gen,
+                               fold_lse=bool(fold))
         results[name] = r
         require(max(r["o_rel"], r["dq_rel"], r["dk_rel"], r["dv_rel"])
                 <= REL_TOL and r["lse_abs"] <= LSE_ATOL and r["finite"]
@@ -530,10 +552,38 @@ def phase_kernels_check() -> dict[str, float]:
 
 def phase_kernels_time() -> dict[str, dict]:
     """K1-K3 at the bench shape (the returned readings, the ``kernels``
-    line's) and at the fine-tune path's llama_1b shape."""
+    line's), at the fine-tune path's llama_1b shape, and K1 at the ring's
+    block shape."""
     out = _kernels_time("kernels_time", BENCH, plain_reps=5)
     _kernels_time("kernels_time_llama_1b", LLAMA_1B_ATTN, plain_reps=2)
+    _ring_block_time()
     return out
+
+
+def _ring_block_time() -> None:
+    """K1 at the ring's block shape, causal and non-causal, each beside its
+    bound, its plain version and SDPA on the same inputs (not on the main
+    path: ``seq_train`` launches these)."""
+    import torch
+    import torch.nn.functional as F
+
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    q, k, v, _ = _inputs(**RING_BLOCK, gen=gen)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    out = {}
+    for causal in (True, False):
+        bnd = bounds(**RING_BLOCK, causal=causal)["flash_fwd"]
+        ms = time_ms(lambda: fa.flash_fwd(q, k, v, causal=causal), 30)
+        out["causal" if causal else "noncausal"] = {
+            "ms": ms, "bound_ms": bnd["bound_ms"],
+            "bound_by": bnd["bound_by"], "bound_share": bnd["bound_ms"] / ms,
+            "plain_ms": time_ms(
+                lambda: fa.flash_fwd_plain(q, k, v, causal=causal), 5),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal), 30)}
+    emit("kernels_time_ring_block", shape=RING_BLOCK, flash_fwd=out)
 
 
 def _kernels_time(phase: str, shape: dict, plain_reps: int
@@ -582,12 +632,19 @@ def _kernels_time(phase: str, shape: dict, plain_reps: int
         torch.autograd.grad(y, (qg, kg, vg), dot)
 
     fwd_bwd_ms = time_ms(sdpa_fwd_bwd, 30)
+    # one backward call of SDPA (dQ, dK and dV at once) on a kept graph:
+    # the library's counterpart of K2 + K3 together
+    y = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    bwd_call_ms = time_ms(lambda: torch.autograd.grad(
+        y, (qg, kg, vg), dot, retain_graph=True), 30)
+    del y
     # no single call computes dK/dV (K2) or dQ (K3) alone: SDPA's backward,
     # its forward and backward less its forward, is the yardstick of the two
     emit(phase, shape=shape, kernels=out, work=detail,
          sdpa_fwd_bwd_ms=fwd_bwd_ms,
          kernels_fwd_bwd_ms=sum(r["ms"] for r in out.values()),
          sdpa_bwd_ms=fwd_bwd_ms - out["flash_fwd"]["library_ms"],
+         sdpa_bwd_call_ms=bwd_call_ms,
          kernels_bwd_ms=out["flash_bwd_dkv"]["ms"] + out["flash_bwd_dq"]["ms"])
     return out
 
@@ -3931,8 +3988,8 @@ def phase_corpus_train(base: str, work: str, line: str) -> dict:
 #: mesh_train / moe_mesh_train: the bench models at full width and depth,
 #: the slices' batch; two ranks share the card over gloo
 MESH_TRAIN = dict(batch=14, seq=1024, steps=3, ranks=2, timeout=900,
-                  dense_layouts=({"fsdp": 2}, {"model": 2}),
-                  moe_layout={"expert": 2})
+                  dense_layouts=(({"fsdp": 2}, {}), ({"model": 2}, {})),
+                  moe_layout=({"expert": 2}, {}))
 #: a sharded run vs the same steps unsharded on the card: every step's loss
 #: and step 1's global grad norm, relative. At init every loss sits near
 #: ln(vocab), so only a tight loss limit and the norm, which a dropped
@@ -4001,9 +4058,9 @@ def _heads_seen() -> set:
     return seen
 
 
-def _mesh_config(model, axes: dict, sizes: dict):
+def _mesh_config(model, axes: dict, sizes: dict, **train_kw):
     """The trainer config of ``model`` (a ``llama`` preset function's name,
-    or a config) on ``axes``."""
+    or a config) on ``axes``; ``train_kw``: more ``TrainConfig`` fields."""
     from kubeflow_tpu_torch.models import llama
     from kubeflow_tpu_torch.train.trainer import TrainConfig
 
@@ -4012,7 +4069,7 @@ def _mesh_config(model, axes: dict, sizes: dict):
     return TrainConfig(model=model, mesh_axes=axes,
                        global_batch=sizes["batch"], seq_len=sizes["seq"],
                        steps=sizes["steps"], warmup_steps=2,
-                       aux_loss_coef=0.01)
+                       aux_loss_coef=0.01, **train_kw)
 
 
 def _pin_step(model, routes: list, rows: slice) -> None:
@@ -4028,17 +4085,19 @@ def _pin_step(model, routes: list, rows: slice) -> None:
             layer.router.device))
 
 
-def _mesh_rank(rank: int, model_name: str, axes: dict, sizes: dict,
-               routes, device=None) -> dict:
+def _mesh_rank(rank: int, model_name, axes: dict, sizes: dict,
+               routes, device=None, train_kw=None) -> dict:
     """One rank of a sharded run on the card (``device=None``; ``"cpu"``
-    rehearses it): ``sizes["steps"]`` steps of ``model_name`` on ``axes``
-    through the ``Trainer`` (MoE layers pinned to ``routes[step]`` when
+    rehearses it): ``sizes["steps"]`` steps of ``model_name`` (a preset's
+    name or a config) on ``axes`` through the ``Trainer`` (``train_kw``:
+    more ``TrainConfig`` fields; MoE layers pinned to ``routes[step]`` when
     given). Returns its losses, step times, peak memory, kernel launches,
     host copies, the query heads flash attention saw and the bytes it
     handed to collectives per step."""
     import torch
 
     from kubeflow_tpu_torch.models import moe as moelib
+    from kubeflow_tpu_torch.parallel import mesh as meshlib
     from kubeflow_tpu_torch.train.trainer import Trainer
 
     cuda = device is None
@@ -4047,7 +4106,8 @@ def _mesh_rank(rank: int, model_name: str, axes: dict, sizes: dict,
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     heads = _heads_seen()
-    t = Trainer(_mesh_config(model_name, axes, sizes), device=device)
+    t = Trainer(_mesh_config(model_name, axes, sizes, **(train_kw or {})),
+                device=device)
     # the peak of the model's layout and init, read before the optimizer's
     # state is allocated: the rank's shards plus one module's full draws,
     # never the unsharded model
@@ -4091,6 +4151,8 @@ def _mesh_rank(rank: int, model_name: str, axes: dict, sizes: dict,
                      for k, v in counts.items()},
         "host_copies_per_step": moelib.HOST_COPIES["moe_ep_counts"] / steps,
         "query_heads_seen": sorted(heads),
+        "seq_rank": meshlib.axis_index(t.mesh, "seq"), "steps": steps,
+        "stage_layers": t.layout.stage,
         "collective_bytes_per_step": {
             k: v / steps for k, v in counted.moved.items()}}
 
@@ -4144,32 +4206,34 @@ def _mesh_errors(losses: list, norms: list, want: list,
     return loss_rel, abs(norms[0] - want_norms[0]) / abs(want_norms[0])
 
 
-def mesh_runs(model_name: str, layouts, sizes: dict, per_layer: dict,
-              pin: bool, device=None) -> dict:
+def mesh_runs(model_name, layouts, sizes: dict, launches_of, baseline,
+              device=None) -> dict:
     """Each layout's ranks against the unsharded run on the card
     (``device=None``; ``"cpu"`` with a tiny model rehearses it): every
     rank's losses within ``MESH_LOSS_TOL`` of it and its step-1 grad norm
-    within ``MESH_NORM_TOL``, and each kernel's launches per rank
-    ``per_layer`` x layers x steps."""
+    within ``MESH_NORM_TOL``, and its kernel launches equal to
+    ``launches_of(layout, rank result)``. A layout is (axes, more
+    ``TrainConfig`` fields); ``baseline`` is ``_unsharded_losses``' result
+    for the same model and sizes. Under a layout that shards the
+    parameters each rank's init peak must stay below the unsharded
+    parameters' bytes."""
     from kubeflow_tpu_torch.parallel import dryrun
 
-    want, want_norms, routes = _unsharded_losses(model_name, sizes, pin,
-                                                 device)
-    layers = _mesh_config(model_name, {}, sizes).model.num_layers
-    expect = {k: per_layer.get(k, 0) * layers * sizes["steps"]
-              for counts in _counters() for k in counts}
+    want, want_norms, routes = baseline
     out = {"unsharded_losses": want, "unsharded_grad_norms": want_norms,
            "layouts": []}
-    for axes in layouts:
+    for layout in layouts:
+        axes, train_kw = layout
         t0 = time.perf_counter()
         ranks = dryrun.spawn(sizes["ranks"], _mesh_rank, model_name, axes,
-                             sizes, routes or None, device, backend="gloo",
-                             timeout=sizes["timeout"])
+                             sizes, routes or None, device, train_kw,
+                             backend="gloo", timeout=sizes["timeout"])
         errs = [_mesh_errors(r["losses"], r["grad_norms"], want, want_norms)
                 for r in ranks]
         loss_rel = max(e[0] for e in errs)
         norm_rel = max(e[1] for e in errs)
-        out["layouts"].append({"mesh": axes, "backend": "gloo",
+        out["layouts"].append({"mesh": axes, "train": train_kw,
+                               "backend": "gloo",
                                "seconds": time.perf_counter() - t0,
                                "max_loss_rel": loss_rel,
                                "step1_norm_rel": norm_rel, "ranks": ranks})
@@ -4180,23 +4244,39 @@ def mesh_runs(model_name: str, layouts, sizes: dict, per_layer: dict,
                 f"{axes}: step-1 grad norms "
                 f"{[r['grad_norms'][0] for r in ranks]} vs unsharded "
                 f"{want_norms[0]}")
+        shards = any(a in axes for a in ("fsdp", "model", "expert",
+                                         "pipeline"))
         for r in ranks:
-            require(r["init_peak_mem_bytes"] < r["full_param_bytes"],
+            require(not shards
+                    or r["init_peak_mem_bytes"] < r["full_param_bytes"],
                     f"{axes} rank {r['rank']}: the init's peak "
                     f"{r['init_peak_mem_bytes']} B is not below the "
                     f"unsharded parameters' {r['full_param_bytes']} B")
-            require(r["launches"] == expect,
+            want_launches = launches_of(layout, r)
+            require(r["launches"] == want_launches,
                     f"{axes} rank {r['rank']}: launches "
-                    f"{r['launches']} != {expect}")
+                    f"{r['launches']} != {want_launches}")
     return out
+
+
+def per_layer_launches(per_layer: dict):
+    """``mesh_runs``' ``launches_of`` for a path that launches each kernel
+    ``per_layer`` times a block a step (every counter's key; 0 where it
+    names none)."""
+    def launches_of(layout, r: dict) -> dict:
+        per = len(r["stage_layers"]) * r["steps"]
+        return {k: per_layer.get(k, 0) * per
+                for counts in _counters() for k in counts}
+    return launches_of
 
 
 def phase_mesh_train(line: str) -> dict:
     """The 271M bench model on ``{"fsdp": 2}`` and ``{"model": 2}``, two
     ranks sharing the card over gloo; under ``model: 2`` flash attention
     must see 4 of the 8 query heads."""
+    baseline = _unsharded_losses("bench_model", MESH_TRAIN, False)
     out = mesh_runs("bench_model", MESH_TRAIN["dense_layouts"], MESH_TRAIN,
-                    FLASH_PER_LAYER, pin=False)
+                    per_layer_launches(FLASH_PER_LAYER), baseline)
     emit("mesh_train", card=line, model="bench_model", sizes=MESH_TRAIN,
          loss_tol=MESH_LOSS_TOL, norm_tol=MESH_NORM_TOL, **out)
     for layout in out["layouts"]:
@@ -4212,8 +4292,9 @@ def phase_moe_mesh_train(line: str) -> dict:
     """The 1.24B MoE bench model on ``{"expert": 2}``, two ranks sharing
     the card over gloo, routing pinned to the unsharded run's; one host
     copy of the count matrix per MoE layer and step."""
+    baseline = _unsharded_losses("bench_moe_model", MESH_TRAIN, True)
     out = mesh_runs("bench_moe_model", (MESH_TRAIN["moe_layout"],),
-                    MESH_TRAIN, MOE_PER_LAYER, pin=True)
+                    MESH_TRAIN, per_layer_launches(MOE_PER_LAYER), baseline)
     emit("moe_mesh_train", card=line, model="bench_moe_model",
          sizes=MESH_TRAIN, loss_tol=MESH_LOSS_TOL, norm_tol=MESH_NORM_TOL,
          **out)
@@ -4288,6 +4369,217 @@ def phase_nccl_one_rank(line: str) -> dict:
         bootstrap.shutdown()
         _free_card(True)
     return {"losses": losses}
+
+
+#: seq_train / pipeline_train: the bench model at full width and depth on
+#: two ranks sharing the card over gloo, the mesh phases' sizes; the 1F1B
+#: cases run 7 microbatches of 2 rows, GPipe the default (the degree, 2)
+SEQ_LAYOUT = ({"seq": 2}, {})
+PIPELINE_LAYOUTS = (
+    ({"pipeline": 2}, {"pipeline_schedule": "gpipe"}),
+    ({"pipeline": 2}, {"pipeline_schedule": "1f1b", "num_microbatches": 7}),
+    ({"pipeline": 2}, {"pipeline_schedule": "1f1b", "num_microbatches": 7,
+                       "pipeline_interleave": 2}),
+)
+#: ring_attention_check: the bench attention shape over a two-rank ring
+RING = dict(BENCH, ranks=2, reps=5, timeout=600)
+
+
+def seq_launches(layout, r: dict) -> dict:
+    """A ``seq`` rank's K1-K3 launches: rank i of the ring sees i + 1 of
+    the K/V blocks (the diagonal, causal, and i earlier ones, non-causal),
+    each K1 twice a step under remat, K2 and K3 once."""
+    per = len(r["stage_layers"]) * r["steps"]
+    blocks = r["seq_rank"] + 1
+    return {"flash_fwd": 2 * blocks * per,
+            "flash_fwd_noncausal": 2 * r["seq_rank"] * per,
+            "flash_bwd_dkv": blocks * per, "flash_bwd_dq": blocks * per,
+            "gmm": 0, "tgmm": 0}
+
+
+def pipeline_schedule_of(axes: dict, train_kw: dict) -> dict:
+    """The schedule's ticks, microbatches and useful fraction (filled
+    slots over all slots) of a ``pipeline`` layout, from the host's
+    tables."""
+    from kubeflow_tpu_torch.parallel import pipeline as pipelib
+
+    p = axes["pipeline"]
+    m = train_kw.get("num_microbatches") or p
+    if train_kw["pipeline_schedule"] == "gpipe":
+        ticks = m + p - 1
+        return {"ticks": ticks, "microbatches": m, "chunks": 1,
+                "useful_fraction": m / ticks}
+    v = train_kw.get("pipeline_interleave", 1)
+    sched = pipelib.schedule_1f1b(p, m, v)
+    return {"ticks": sched.ticks, "microbatches": m, "chunks": v,
+            "useful_fraction": sched.useful_fraction,
+            "act_slots": sched.act_slots, "grad_slots": sched.grad_slots}
+
+
+def pipeline_launches(layout, r: dict) -> dict:
+    """A stage's K1-K3 launches: its blocks once a microbatch forward, and
+    once more in the microbatch's backward (GPipe's reverse tick or a 1F1B
+    backward slot, each from the stashed input, no checkpoint) with K2 and
+    K3."""
+    axes, train_kw = layout
+    sched = pipeline_schedule_of(axes, train_kw)
+    per = len(r["stage_layers"]) * sched["microbatches"] * r["steps"]
+    return per_layer_launches(FLASH_PER_LAYER)(
+        layout, {**r, "steps": sched["microbatches"] * r["steps"]})
+
+
+def phase_seq_train(line: str, baseline) -> dict:
+    """The bench model on ``{"seq": 2}`` with ``attention_impl="ring"``
+    (flash blocks), two ranks sharing the card over gloo, against the
+    unsharded steps; rank 1 must launch the non-causal K1 (its earlier
+    block), rank 0 none (its later block is skipped): ``seq_launches``."""
+    import dataclasses
+
+    from kubeflow_tpu_torch.models import llama
+
+    model = dataclasses.replace(llama.bench_model(), attention_impl="ring")
+    out = mesh_runs(model, (SEQ_LAYOUT,), MESH_TRAIN, seq_launches,
+                    baseline)
+    emit("seq_train", card=line, model="bench_model", attention="ring",
+         sizes=MESH_TRAIN, loss_tol=MESH_LOSS_TOL, norm_tol=MESH_NORM_TOL,
+         **out)
+    return out
+
+
+def phase_pipeline_train(line: str, baseline) -> dict:
+    """The bench model on ``{"pipeline": 2}``: GPipe (2 microbatches),
+    1F1B (7 of 2 rows) and interleaved 1F1B (2 chunks of 4 layers a rank),
+    two ranks sharing the card over gloo, against the unsharded steps."""
+    out = mesh_runs("bench_model", PIPELINE_LAYOUTS, MESH_TRAIN,
+                    pipeline_launches, baseline)
+    for layout in out["layouts"]:
+        layout["schedule"] = pipeline_schedule_of(layout["mesh"],
+                                                  layout["train"])
+    emit("pipeline_train", card=line, model="bench_model",
+         sizes=MESH_TRAIN, loss_tol=MESH_LOSS_TOL, norm_tol=MESH_NORM_TOL,
+         **out)
+    return out
+
+
+def _ring_check_rank(rank: int, sizes: dict, device=None) -> dict:
+    """One rank of ``ring_attention_check``: ring attention (flash blocks)
+    and Ulysses on this rank's half of the same full-sequence inputs, each
+    forward and backward timed, their outputs and q/k/v gradients gathered
+    to every rank; rank 0 holds them against ``flash_attention`` and
+    against the plain attention (K1's and K2/K3's plain versions) on the
+    whole sequence (``device="cpu"`` rehearses it)."""
+    import torch
+
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.parallel import mesh as meshlib
+    from kubeflow_tpu_torch.parallel.collectives import all_gather_rows
+    from kubeflow_tpu_torch.parallel.ring_attention import (
+        ring_attention,
+        ulysses_attention,
+    )
+
+    cuda = device is None
+    dev = "cuda" if cuda else "cpu"
+    if cuda:
+        torch.cuda.set_device(0)
+    mesh = meshlib.build_mesh({"seq": sizes["ranks"]}, device_type=dev)
+    group = mesh.get_group("seq")
+    b, s, h, kv, d = (sizes[k] for k in ("b", "s", "h", "kv", "d"))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    dt = torch.bfloat16 if cuda else torch.float32
+    q, k, v, do = (torch.randn(*shape, generator=gen, device=dev).to(dt)
+                   for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d),
+                                 (b, s, h, d)))
+    cut = meshlib.seq_slice(mesh, s)
+    refs = {}
+    if rank == 0:
+        qf, kf, vf = (t.detach().requires_grad_() for t in (q, k, v))
+        o = fa.flash_attention(qf, kf, vf, q_per_kv=h // kv)
+        refs["flash_attention"] = [
+            t.detach().float()
+            for t in (o, *torch.autograd.grad(o, (qf, kf, vf), do))]
+        o_p, lse_p = fa.flash_fwd_plain(q, k, v)
+        delta = (do.float() * o_p).sum(-1).transpose(1, 2)
+        refs["plain"] = [o_p, fa.flash_bwd_dq_plain(q, k, v, do, lse_p, delta),
+                         *fa.flash_bwd_dkv_plain(q, k, v, do, lse_p, delta)]
+        del o, qf, kf, vf, delta
+
+    def gather(t):  # [b, s/r, ...] -> [b, s, ...]
+        return all_gather_rows(t.transpose(0, 1).contiguous(),
+                               group).transpose(0, 1)
+
+    out = {"rank": rank, "shape": [b, s // sizes["ranks"], h, d]}
+    for name, fn in (("ring", ring_attention), ("ulysses", ulysses_attention)):
+        ql, kl, vl = (t[:, cut].detach().requires_grad_() for t in (q, k, v))
+
+        def call():
+            o = fn(ql, kl, vl, q_per_kv=h // kv, mesh=mesh, block_impl="flash")
+            return (o, *torch.autograd.grad(o, (ql, kl, vl), do[:, cut]))
+
+        for key in fa.LAUNCHES:
+            fa.LAUNCHES[key] = 0
+        results = call()
+        launches = dict(fa.LAUNCHES)
+        gathered = [gather(t.detach()) for t in results]
+        times = []
+        for _ in range(sizes["reps"]):
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            if cuda:
+                torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = {"launches": launches, "fwd_bwd_ms": times}
+        if rank == 0:
+            out[name]["rel_err"] = {
+                against: {what: rel_err(got, want) for what, got, want in
+                          zip(("o", "dq", "dk", "dv"), gathered, ref)}
+                for against, ref in refs.items()}
+            out[name]["finite"] = all(bool(t.isfinite().all())
+                                      for t in gathered)
+    return out
+
+
+def ring_check_launches(name: str, rank: int) -> dict:
+    """K1-K3 launches of one forward and backward on ring rank ``rank``:
+    the ring's rank i runs its diagonal block (causal) and i earlier ones
+    (non-causal), each K1 once, K2 and K3 once; Ulysses one causal
+    attention over the gathered heads."""
+    blocks = rank + 1 if name == "ring" else 1
+    return {"flash_fwd": blocks, "flash_bwd_dkv": blocks,
+            "flash_bwd_dq": blocks, "flash_fwd_noncausal": blocks - 1}
+
+
+def ring_attention_check(device=None, sizes=RING) -> dict:
+    """``ring_attention`` and ``ulysses_attention`` over a two-rank ``seq``
+    ring sharing the card over gloo at the bench attention shape, against
+    ``flash_attention`` and the plain attention on the whole sequence
+    (``REL_TOL``): output and the gradients of q, k and v."""
+    from kubeflow_tpu_torch.parallel import dryrun
+
+    ranks = dryrun.spawn(sizes["ranks"], _ring_check_rank, sizes, device,
+                         backend="gloo", timeout=sizes["timeout"])
+    for name in ("ring", "ulysses"):
+        errs = ranks[0][name]["rel_err"]
+        worst = max(e for by in errs.values() for e in by.values())
+        require(worst <= REL_TOL and ranks[0][name]["finite"],
+                f"ring_attention_check: {name} vs the whole sequence: {errs}")
+        for r in ranks:
+            # the CPU rehearsal runs the plain versions: nothing launches
+            want = (ring_check_launches(name, r["rank"]) if device is None
+                    else dict.fromkeys(r[name]["launches"], 0))
+            require(r[name]["launches"] == want,
+                    f"ring_attention_check {name} rank {r['rank']}: "
+                    f"launches {r[name]['launches']} != {want}")
+    return {"ranks": ranks}
+
+
+def phase_ring_attention_check(line: str) -> dict:
+    r = ring_attention_check()
+    emit("ring_attention_check", card=line, sizes=RING, rel_tol=REL_TOL,
+         **r)
+    return r
 
 
 def dist_pods(device=None, sizes=DIST_PODS) -> dict:
@@ -4385,12 +4677,19 @@ def run() -> int:
     t9 = time.perf_counter()
     phase_darts_search(line)
     t10 = time.perf_counter()
-    phase_mesh_train(line)
+    mesh = phase_mesh_train(line)
     t11 = time.perf_counter()
     phase_moe_mesh_train(line)
     t12 = time.perf_counter()
     phase_nccl_one_rank(line)
     t13 = time.perf_counter()
+    baseline = (mesh["unsharded_losses"], mesh["unsharded_grad_norms"], [])
+    phase_seq_train(line, baseline)
+    t14 = time.perf_counter()
+    phase_ring_attention_check(line)
+    t15 = time.perf_counter()
+    phase_pipeline_train(line, baseline)
+    t16 = time.perf_counter()
     phase_dist_pods(line)
     now = time.perf_counter()
     emit("phase_seconds", total=now - started,
@@ -4400,7 +4699,9 @@ def run() -> int:
          finetune_serve=t5 - t4, corpus_train=t6 - t5, bert_serve=t7 - t6,
          resnet_train=t8 - t7, jaxjob_pods=t9 - t8, darts_search=t10 - t9,
          mesh_train=t11 - t10, moe_mesh_train=t12 - t11,
-         nccl_one_rank=t13 - t12, dist_pods=now - t13)
+         nccl_one_rank=t13 - t12, seq_train=t14 - t13,
+         ring_attention_check=t15 - t14, pipeline_train=t16 - t15,
+         dist_pods=now - t16)
     # each kernel's launches from the run of the path that carries it
     launches.update(gmm=moe_launches["gmm"], tgmm=moe_launches["tgmm"])
     kernels = []

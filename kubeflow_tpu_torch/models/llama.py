@@ -47,6 +47,7 @@ from ..parallel.collectives import (
     gather_last_dim,
     reduce_from_group,
 )
+from ..parallel.ring_attention import ring_attention
 from .moe import MoeMlp
 
 
@@ -71,7 +72,11 @@ class LlamaConfig:
     #: in the backward pass (flash attention's forward runs again); "nothing"
     #: recomputes the whole block
     remat_policy: str = "dots"
-    #: "dense" = plain causal attention; "flash" = the Hopper kernels
+    #: "dense" = plain causal attention; "flash" = the Hopper kernels;
+    #: "ring" = ring attention over the layout's ``seq`` axis
+    #: (``parallel/ring_attention.py``: K1-K3 blocks on the card, the plain
+    #: fold on the CPU); where there is none, flash attention on the card
+    #: and dense attention on the CPU
     attention_impl: str = "dense"
     tie_embeddings: bool = False
     #: Mixture-of-Experts MLP (``moe.py``): 0 = the dense MLP; > 0 = number
@@ -108,7 +113,7 @@ class LlamaConfig:
     def __post_init__(self):
         if self.num_heads % self.num_kv_heads:
             raise ValueError("num_heads must be a multiple of num_kv_heads")
-        if self.attention_impl not in ("dense", "flash"):
+        if self.attention_impl not in ("dense", "flash", "ring"):
             raise ValueError(f"unknown attention_impl {self.attention_impl!r}")
         if self.remat_policy not in ("dots", "nothing"):
             raise ValueError(f"unknown remat_policy {self.remat_policy!r}")
@@ -440,6 +445,10 @@ class _Projections(nn.Module):
 
 
 class Attention(_Projections):
+    #: the ``seq`` axis group ring attention runs over (``parallel.
+    #: sharding.shard_model``), if any
+    seq = None
+
     def __init__(self, cfg: LlamaConfig, device):
         super().__init__()
         self.cfg = cfg
@@ -471,6 +480,9 @@ class Attention(_Projections):
             out = self._decode_attend(q, k, v, positions, cache, layer,
                                       attend or cache.seq_len, prefix,
                                       cache_positions)
+        elif cfg.attention_impl == "ring":
+            out = ring_attention(q, k, v, q_per_kv=cfg.q_per_kv,
+                                 mesh=self.seq)
         elif cfg.attention_impl == "flash":
             out = flash_attention(q, k, v, q_per_kv=cfg.q_per_kv)
         else:
@@ -662,6 +674,21 @@ class Head(nn.Module):
         return logits
 
 
+class StageLayers(nn.Module):
+    """The blocks a pipeline stage holds (``parallel.sharding.
+    shard_model``), in its local order, each registered under its index in
+    the whole stack so that parameter names stay ``layers.{i}....``;
+    iterates like a ``ModuleList``."""
+
+    def __init__(self, blocks: dict):
+        super().__init__()
+        for i, blk in blocks.items():
+            self.add_module(str(i), blk)
+
+    def __iter__(self):
+        return iter(self._modules.values())
+
+
 def _trunc_normal(w, fan_in, gen):
     """flax variance_scaling(1.0, "fan_in", "truncated_normal")."""
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
@@ -674,6 +701,14 @@ _DOTS = [torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
 
 
 class Llama(nn.Module):
+    #: the ``seq`` axis group (``parallel.sharding.shard_model``), if any:
+    #: this rank holds sequence block ``seq.rank`` of every row
+    seq = None
+    #: the ``pipeline`` axis group, if any: ``layers`` is then this rank's
+    #: stage (``StageLayers``), run by ``pipelined_apply``
+    #: or the trainer's 1F1B step
+    pipe = None
+
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
         device = resolve_device(device)
@@ -733,13 +768,21 @@ class Llama(nn.Module):
         at a time into a fresh Embedder, Block or Head and handed to
         ``sink({full parameter name: tensor})``; this model (on the meta
         device, say) holds none of them. The peak is one module, not the
-        model: a sharded trainer keeps only its shards of each."""
+        model: a sharded trainer keeps only its shards of each. A pipeline
+        stage builds its own blocks only; the other stages' draws still
+        advance the one random stream, into a single scratch block."""
         cfg = self.cfg
         device = torch.device(device)
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
         make = {"embedder": Embedder, "head": Head}
+        held = {name for name, _ in self.named_modules()}
+        scratch = None
         for name, fill, adapters_only in self._init_plan():
+            if name not in held:
+                scratch = scratch or Block(cfg, device)
+                fill(scratch, gen)
+                continue
             module = make.get(name, Block)(cfg, device)
             fill(module, gen)
             sink({f"{name}.{k}": p for k, p in module.named_parameters()
@@ -760,8 +803,11 @@ class Llama(nn.Module):
         adds a shared-prefix segment per row: pk/pv [layers, b, sp, kv, d],
         plen [b] (``Attention._decode_attend``)."""
         cfg = self.cfg
+        if self.pipe is not None:
+            raise ValueError("a pipeline stage holds some of the blocks: "
+                             "run it through pipelined_apply")
         if positions is None:
-            positions = torch.arange(tokens.shape[-1], device=tokens.device)
+            positions = seq_positions(self, tokens.shape[-1], tokens.device)
         if cache is not None:
             positions = positions.expand(tokens.shape)
         x = self.embedder(tokens)
@@ -789,6 +835,75 @@ class Llama(nn.Module):
         if not return_aux:
             return logits
         return logits, torch.stack(auxes).mean() if auxes else None
+
+
+def seq_positions(model: Llama, s: int, device):
+    """Global positions of a rank's ``s`` tokens: its sequence block's
+    offset on the ``seq`` axis (0 with none) plus the local index."""
+    offset = model.seq.rank * s if model.seq is not None else 0
+    return torch.arange(offset, offset + s, device=device)
+
+
+def block_apply_with_aux(cfg: LlamaConfig, positions):
+    """``block_apply(block, h) -> (h, aux)`` for the pipeline executors:
+    one Block forward that also gives the layer's MoE load-balancing loss
+    (0 for a dense layer) in f32, how the balancing loss flows through
+    GPipe and 1F1B."""
+
+    def apply(block, h):
+        y, aux = block(h, positions)
+        if aux is None:
+            return y, h.new_zeros((), dtype=torch.float32)
+        return y, aux.float()
+
+    return apply
+
+
+class _HeadGradOnLastStage(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, last):
+        ctx.last = last
+        return logits.view_as(logits)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.last else torch.zeros_like(g)), None
+
+
+def pipelined_apply(cfg: LlamaConfig, model: Llama, tokens, *, mesh=None,
+                    num_microbatches: int | None = None,
+                    with_aux: bool = False):
+    """The forward with the block stack run as a GPipe microbatch pipeline
+    (``parallel.pipeline.gpipe``) over this rank's stage of ``model``.
+
+    The embedding and the head run on every rank (they are replicated over
+    the ``pipeline`` axis), so every rank gets the logits; their gradient
+    flows on the last stage only, so that the head's and the embedding's
+    gradients, summed over the axis (``Layout.sync_grads``), are the whole
+    model's. The same blocks in the same order as ``Llama.forward``.
+
+    ``with_aux=True`` returns ``(logits, aux_mean)``: the MoE balancing loss
+    summed over layers and microbatches / (num_layers x microbatches), one
+    microbatch at degree 1, as the reference normalises it."""
+    from ..parallel import pipeline as pipelib
+
+    mesh = mesh if mesh is not None else model.pipe
+    positions = seq_positions(model, tokens.shape[-1], tokens.device)
+    x = model.embedder(tokens)
+    x, aux_sum = pipelib.gpipe(
+        block_apply_with_aux(cfg, positions), model.layers, x, mesh=mesh,
+        num_microbatches=num_microbatches, remat=cfg.remat, with_aux=True)
+    table = model.embedder.embedding if cfg.tie_embeddings else None
+    logits = model.head(x, table)
+    axis = pipelib.pipeline_axis(mesh)
+    if axis is not None:
+        logits = _HeadGradOnLastStage.apply(logits,
+                                            axis.rank == axis.size - 1)
+    if not with_aux:
+        return logits
+    deg = pipelib.pipeline_degree(mesh)
+    m = (num_microbatches or deg) if deg > 1 else 1
+    return logits, aux_sum / (cfg.num_layers * m)
 
 
 # -- snapshots, adapters and serving quantization -----------------------------

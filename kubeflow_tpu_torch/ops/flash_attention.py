@@ -30,8 +30,11 @@ from . import _build
 
 NEG_INF = -1e30
 
-#: kernel launches per wrapper; reset by setting entries to 0
-LAUNCHES = {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+#: kernel launches per wrapper; reset by setting entries to 0.
+#: ``flash_fwd_noncausal`` counts those of K1's launches that ran without
+#: the causal mask (a part of ``flash_fwd``'s, not a kernel of its own)
+LAUNCHES = {"flash_fwd": 0, "flash_fwd_noncausal": 0, "flash_bwd_dkv": 0,
+            "flash_bwd_dq": 0}
 
 _HEAD_DIMS = (64, 128)
 
@@ -193,6 +196,8 @@ def flash_fwd(q, k, v, *, causal: bool = True):
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
     _launch("flash_fwd", q, k, v, causal, o=o, lse=lse)
+    if not causal:
+        LAUNCHES["flash_fwd_noncausal"] += 1
     return o, lse
 
 

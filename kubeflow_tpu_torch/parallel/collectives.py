@@ -19,6 +19,15 @@
 - ``all_reduce_sum``: the all-reduce whose backward is the all-reduce of the
   gradients, for a global statistic that enters a loss every rank of the
   group computes.
+- ``ring_permute``: ``lax.ppermute`` over a ring (``wrap=True``) or an open
+  chain (``wrap=False``, the last rank sends nothing and the first receives
+  zeros): every rank hands its whole buffer to the rank ``shift`` places on
+  and takes the one from ``shift`` places back. Its backward is the reverse
+  shift. ``ring_pass`` is the n - 1 shifts of ring attention as one
+  autograd node. ``all_to_all`` is ``lax.all_to_all`` over equal chunks of
+  dim 0,
+  its own transpose. Both are ``dist.all_to_all_single`` with split sizes,
+  on every backend alike (NCCL, and gloo, which takes CUDA tensors there).
 
 The all-reduces are ``torch.distributed._functional_collectives`` ops.
 ``subgroup`` gives the process group of several mesh dimensions together.
@@ -125,6 +134,94 @@ def all_reduce_sum(x, group):
 def gather_last_dim(x, group):
     """The group's shards of the last dim, concatenated in rank order."""
     return _GatherLastDim.apply(x, group)
+
+
+def _shift(x: torch.Tensor, group, shift: int, wrap: bool) -> torch.Tensor:
+    """``x`` from the rank ``shift`` places back (zeros where an open chain
+    has none); ``x`` itself goes ``shift`` places on."""
+    n, me = dist.get_world_size(group), dist.get_rank(group)
+    flat = x.contiguous().reshape(-1)
+    dst, src = me + shift, me - shift
+    if wrap:
+        dst, src = dst % n, src % n
+    send = [flat.numel() if j == dst else 0 for j in range(n)]
+    recv = [flat.numel() if j == src else 0 for j in range(n)]
+    out = torch.zeros_like(flat)
+    # the buffers hold exactly their split sizes' sum: an end of an open
+    # chain sends or takes nothing
+    dist.all_to_all_single(out.narrow(0, 0, sum(recv)),
+                           flat.narrow(0, 0, sum(send)), recv, send,
+                           group=group)
+    return out.view_as(x)
+
+
+class _RingPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, shift, wrap):
+        ctx.args = (group, shift, wrap)
+        return _shift(x, group, shift, wrap)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, shift, wrap = ctx.args
+        return _shift(g, group, -shift, wrap), None, None, None
+
+
+def ring_permute(x, group, shift: int = 1, wrap: bool = True):
+    """``lax.ppermute`` with ``perm = [(i, i + shift)]`` over ``group``,
+    modulo its size when ``wrap`` (a ring), else an open chain: the rank
+    ``shift`` places back's ``x``, zeros where there is none. Every rank of
+    the group calls it; its backward is the reverse shift."""
+    return _RingPermute.apply(x, group, shift, wrap)
+
+
+class _RingPass(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        blocks = [x.view_as(x)]
+        for _ in range(dist.get_world_size(group) - 1):
+            blocks.append(_shift(blocks[-1], group, 1, True))
+        return tuple(blocks)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        acc = grads[-1]
+        for g in reversed(grads[:-1]):
+            acc = _shift(acc, ctx.group, -1, True) + g
+        return acc, None
+
+
+def ring_pass(x, group) -> tuple:
+    """Every rank's ``x`` around the ring of ``group`` (n ranks): entry
+    ``t`` is rank ``(me - t) % n``'s, after ``t`` shifts, n - 1 in all. One
+    autograd node holds every shift, so its backward (n - 1 reverse shifts,
+    each block's gradient riding home) runs on every rank whichever blocks
+    the rank used, and the ranks' collectives stay in step."""
+    return _RingPass.apply(x, group)
+
+
+def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    dist.all_to_all_single(out, x.contiguous(), group=group)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.group), None
+
+
+def all_to_all(x, group):
+    """``x`` [n, ...] over a group of n ranks: chunk ``j`` goes to rank
+    ``j``, and chunk ``i`` of the result came from rank ``i``."""
+    return _AllToAll.apply(x, group)
 
 
 def _host_ints(v) -> list[int]:

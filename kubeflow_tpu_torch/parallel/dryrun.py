@@ -4,13 +4,16 @@ counterpart of ``__graft_entry__.dryrun_multichip``.
     python -m kubeflow_tpu_torch.parallel.dryrun 2 --backend gloo
     python -m kubeflow_tpu_torch.parallel.dryrun 4 --device cpu
 
-``n`` ranks are factored into ``model``, ``fsdp`` and ``data`` axes
-(``axes_for``; no ``seq`` or ``pipeline`` axis, ROADMAP A9 and A10), ``n``
-processes are spawned into one process group, and each runs one step of
-the tiny Llama through the ``Trainer`` on that mesh. The ranks run on the
-card (nccl, one card per rank; ``--backend gloo`` lets ranks share one)
-unless ``--device cpu`` asks for the CPU (gloo); with no card and no
-``--device cpu`` this raises. Every rank must report the same finite loss.
+``n`` ranks are factored into ``model``, ``seq`` (from four ranks on),
+``fsdp`` and ``data`` axes (``axes_for``), ``n`` processes are spawned into
+one process group, and each runs one step of the tiny Llama with ring
+attention through the ``Trainer`` on that mesh; with an even ``n`` of four
+or more, a second step runs the 4-layer tiny through GPipe on
+``{"pipeline": 2, "data": n / 2}``, as the reference's dry run does. The
+ranks run on the card (nccl, one card per rank; ``--backend gloo`` lets
+ranks share one) unless ``--device cpu`` asks for the CPU (gloo); with no
+card and no ``--device cpu`` this raises. Every rank must report the same
+finite loss on each mesh.
 
 ``spawn`` is the harness: each process joins a fresh rendezvous
 (``utils.net.free_port``, the ``spawn`` start method) and returns a
@@ -33,12 +36,16 @@ from typing import Callable, Optional
 
 
 def axes_for(n: int) -> dict[str, int]:
-    """Factor n devices into model/fsdp/data axes (the reference's
-    ``_axes_for`` for the tiny model, without its ``seq`` axis)."""
+    """Factor n devices into model/seq/fsdp/data axes: the reference's
+    ``_axes_for`` for the tiny model (``model`` up to its 2 KV heads, a
+    ``seq`` axis from 4 devices on)."""
     axes: dict[str, int] = {}
     remaining = n
     if remaining % 2 == 0:
         axes["model"] = 2
+        remaining //= 2
+    if n >= 4 and remaining % 2 == 0:
+        axes["seq"] = 2
         remaining //= 2
     if remaining % 2 == 0:
         axes["fsdp"] = 2
@@ -118,7 +125,15 @@ def spawn(n: int, fn: Callable, *args, backend: str = "gloo",
     return results
 
 
-def _one_step(rank: int, axes: dict, device: str) -> dict:
+def _layouts(n: int) -> list[tuple[dict, dict]]:
+    """(mesh, model fields) of each step the dry run takes on n ranks."""
+    out = [(axes_for(n), {"attention_impl": "ring"})]
+    if n >= 4 and n % 2 == 0:
+        out.append(({"pipeline": 2, "data": n // 2}, {"num_layers": 4}))
+    return out
+
+
+def _one_step(rank: int, layouts: list, device: str) -> list[dict]:
     from ..models import llama
     from ..train.trainer import TrainConfig, Trainer
 
@@ -127,34 +142,45 @@ def _one_step(rank: int, axes: dict, device: str) -> dict:
 
         # one card per rank, or ranks sharing the cards there are
         torch.cuda.set_device(rank % torch.cuda.device_count())
-    cfg = TrainConfig(model=llama.tiny(), mesh_axes=axes, global_batch=8,
-                      seq_len=32, steps=1, warmup_steps=1)
-    t = Trainer(cfg, device=device)
-    t.init_state(0)
-    loss, norm = t.step(t.data_source().local_batch(0)["tokens"])
-    return {"rank": rank, "loss": float(loss), "grad_norm": float(norm),
-            "batch_shard": [t.batch_index, t.batch_count]}
+    out = []
+    for axes, model_kw in layouts:
+        cfg = TrainConfig(model=llama.tiny(**model_kw), mesh_axes=axes,
+                          global_batch=8, seq_len=32, steps=1,
+                          warmup_steps=1)
+        t = Trainer(cfg, device=device)
+        t.init_state(0)
+        loss, norm = t.step(t.data_source().local_batch(0)["tokens"])
+        out.append({"rank": rank, "loss": float(loss),
+                    "grad_norm": float(norm),
+                    "batch_shard": [t.batch_index, t.batch_count]})
+    return out
 
 
 def dryrun_multichip(n: int, device: Optional[str] = None,
                      backend: Optional[str] = None,
                      timeout: float = 300.0) -> dict:
-    """One tiny sharded step on ``n`` ranks; returns the mesh and the
-    ranks' losses (all equal and finite, or this raises). ``device=None``
-    means the card (``device.resolve_device``)."""
+    """One tiny sharded step on ``n`` ranks (and one through the pipeline,
+    ``_layouts``); returns each mesh and its ranks' losses (all equal and
+    finite, or this raises). ``device=None`` means the card
+    (``device.resolve_device``)."""
     from ..device import resolve_device
 
     device = resolve_device(device).type
-    axes = axes_for(n)
+    layouts = _layouts(n)
     backend = backend or ("nccl" if device == "cuda" else "gloo")
-    ranks = spawn(n, _one_step, axes, device, backend=backend,
+    ranks = spawn(n, _one_step, layouts, device, backend=backend,
                   timeout=timeout)
-    losses = [r["loss"] for r in ranks]
-    if not all(math.isfinite(x) for x in losses) or len(set(losses)) != 1:
-        raise RuntimeError(f"ranks disagree or diverged: {losses}")
-    return {"mesh": axes, "backend": backend, "device": device,
-            "loss": losses[0], "grad_norm": ranks[0]["grad_norm"],
-            "ranks": ranks}
+    steps = []
+    for i, (axes, _) in enumerate(layouts):
+        mine = [r[i] for r in ranks]
+        losses = [r["loss"] for r in mine]
+        if not all(map(math.isfinite, losses)) or len(set(losses)) != 1:
+            raise RuntimeError(f"{axes}: ranks disagree or diverged: "
+                               f"{losses}")
+        steps.append({"mesh": axes, "loss": losses[0],
+                      "grad_norm": mine[0]["grad_norm"], "ranks": mine})
+    return {**steps[0], "backend": backend, "device": device,
+            "pipeline": steps[1] if len(steps) > 1 else None}
 
 
 def main(argv=None) -> int:

@@ -16,7 +16,8 @@ process, which the port does not run (ROADMAP A13).
 
 The batch of a step is split over the ``BATCH_AXES`` present: each rank
 holds the rows of its coordinate on those axes (``batch_sharding``), so the
-ranks of one ``model`` group share their rows.
+ranks of one ``model``, ``seq`` or ``pipeline`` group share their rows; a
+``seq`` axis splits each row's sequence into blocks (``seq_slice``).
 """
 
 from __future__ import annotations
@@ -168,12 +169,11 @@ _ACTIVE_MESH: list = []
 
 
 class active_mesh:
-    """Context manager making ``mesh`` discoverable by model internals that
-    their call signatures do not carry it to. Nothing in the port reads it
-    yet: the layouts carry their groups on the modules (``shard_model``).
-    It is kept for the queued ring attention (ROADMAP A9) and pipeline
-    schedules (A10), which find their mesh by ``current_mesh`` as the
-    reference's do."""
+    """Context manager making ``mesh`` discoverable by the functions that
+    take no mesh: ``ring_attention``, ``ulysses_attention``, ``gpipe`` and
+    ``one_f_one_b`` find it by ``current_mesh`` when none is passed, as the
+    reference's do (a laid-out model passes the groups ``shard_model`` put
+    on its modules instead)."""
 
     def __init__(self, mesh):
         self.mesh = mesh
@@ -187,7 +187,7 @@ class active_mesh:
 
 
 def current_mesh():
-    """The innermost ``active_mesh``'s mesh, or None (for A9 and A10)."""
+    """The innermost ``active_mesh``'s mesh, or None."""
     return _ACTIVE_MESH[-1] if _ACTIVE_MESH else None
 
 
@@ -220,6 +220,19 @@ def batch_sharding(mesh) -> tuple[int, int]:
         index = index * axis_size(mesh, a) + axis_index(mesh, a)
         count *= axis_size(mesh, a)
     return index, count
+
+
+def seq_slice(mesh, seq_len: int) -> slice:
+    """This rank's block of a ``seq_len`` sequence (the ``act_seq`` rule):
+    block ``i`` of the ``seq`` axis's ``n`` equal blocks; the whole of it
+    with no ``seq`` axis. Raises when the blocks do not divide it."""
+    n = axis_size(mesh, "seq")
+    if seq_len % n:
+        raise MeshPlanError(
+            f"sequence length {seq_len} not divisible by the mesh's {n} "
+            "sequence blocks")
+    i, step = axis_index(mesh, "seq"), seq_len // n
+    return slice(i * step, (i + 1) * step)
 
 
 def local_batch_size(mesh, global_batch: int) -> int:

@@ -19,13 +19,23 @@ per mesh dimension (``Shard(dim)`` or ``Replicate()``).
 - ``fsdp``: FSDP2 ``fully_shard`` on every ``Block`` and at the root, each
   parameter sharded on the dim its ``fsdp`` rule names; with a ``data``
   axis too, HSDP on the 2-D (data, fsdp) mesh;
+- ``seq`` (sequence parallelism): parameters are replicated; each rank
+  holds one block of every row's sequence (``mesh.seq_slice``) and the
+  model's attention runs ``parallel/ring_attention.py`` over the axis;
+- ``pipeline``: the ``("layers", "pipeline")`` rule: each rank holds its
+  stage of the block stack (``llama.StageLayers``), contiguous, or under
+  interleaving its model chunks ``{d, P+d, ...}``
+  (``pipeline.interleave_permutation``); the embedding and the head are
+  replicated and ``parallel/pipeline.py`` runs the schedules;
 - the batch axes FSDP2 does not cover (``data`` without ``fsdp``,
-  ``expert``, ``replica``) sum each gradient over the ranks that hold the
-  parameter whole (``Layout.sync_grads``).
+  ``expert``, ``replica``) and ``seq`` sum each gradient over the ranks
+  that hold the parameter whole (``Layout.sync_grads``), and ``pipeline``
+  sums the gradients of what it replicates (each is nonzero on one stage).
 
-Every rank's loss is the mean over its own rows, so the synced gradient is
-the mean over the batch shards: the gradient of the global batch's loss.
-``reshard_plan`` keeps the reference's JSON entries.
+Every rank's loss is the mean over its own rows (and sequence block), so
+the synced gradient is the mean over the batch shards and sequence blocks:
+the gradient of the global batch's loss. ``reshard_plan`` keeps the
+reference's JSON entries.
 """
 
 from __future__ import annotations
@@ -220,10 +230,10 @@ def param_shardings(params, mesh, moe: bool = False,
 
 
 class shard_context:
-    """Makes ``mesh`` the active mesh (``mesh.current_mesh``) for the model
-    internals that look it up, as the reference's context does. No port
-    module enters it yet; its consumers are queued: ring attention
-    (ROADMAP A9) and the sharded serving predictor (A7)."""
+    """Makes ``mesh`` the active mesh (``mesh.current_mesh``) for the
+    functions that look it up when no mesh is passed, as the reference's
+    context does: ``ring_attention``, ``ulysses_attention`` and the
+    pipeline schedules (a laid-out model passes its axis groups itself)."""
 
     def __init__(self, mesh):
         self.mesh = mesh
@@ -284,6 +294,21 @@ class AxisGroup:
     rank: int
 
 
+def axis_group(mesh, name: str) -> Optional[AxisGroup]:
+    """Mesh axis ``name`` of ``mesh`` (a ``DeviceMesh``; by default
+    ``mesh.current_mesh()``) as an ``AxisGroup``, or None when it has one
+    rank; an ``AxisGroup`` passed as ``mesh`` is that axis already."""
+    from .mesh import axis_index, axis_size, current_mesh
+
+    mesh = mesh if mesh is not None else current_mesh()
+    if mesh is None or isinstance(mesh, AxisGroup):
+        return mesh
+    if axis_size(mesh, name) == 1:
+        return None
+    return AxisGroup(mesh.get_group(name), axis_size(mesh, name),
+                     axis_index(mesh, name))
+
+
 def _axis_group(mesh, dims: Sequence[str]) -> Optional[AxisGroup]:
     """The group of ``dims`` together, or None when it has one rank."""
     import torch.distributed as dist
@@ -318,8 +343,11 @@ class Layout:
         self.cfg = model.cfg
         self.axes = mesh_axes(mesh)
         full = dict(model.named_parameters())
-        #: the unsharded shape of every parameter
+        #: the unsharded shape of every parameter, in the whole model's order
         self.full_shapes = {k: tuple(p.shape) for k, p in full.items()}
+        #: the global indices of the blocks this rank holds (all of them
+        #: without a ``pipeline`` axis)
+        self.stage = list(range(self.cfg.num_layers))
         self.shardings = param_shardings(full, self.axes,
                                          moe=self.cfg.moe_experts > 0)
         present = [a for a in self.axes if a in BATCH_AXES]
@@ -329,21 +357,28 @@ class Layout:
         if fsdp:
             self.fsdp_dims = (("data", "fsdp") if "data" in self.axes
                               and "replica" not in self.axes else ("fsdp",))
-        #: batch dims whose gradient sum ``sync_grads`` makes
-        self.sync_dims = tuple(a for a in present if a not in self.fsdp_dims)
+        #: the dims whose gradient sum ``sync_grads`` makes: the batch dims
+        #: FSDP2 does not cover, ``seq``, and ``pipeline`` (a sum, not a
+        #: mean: a replicated parameter's gradient is one stage's)
+        self.sync_dims = tuple(
+            a for a in self.axes if a in ("seq", "pipeline")
+            or (a in present and a not in self.fsdp_dims))
         self.sync_divisor = math.prod(axis_size(mesh, a)
-                                      for a in self.sync_dims)
+                                      for a in self.sync_dims
+                                      if a != "pipeline")
         self._groups: dict = {}
 
     # -- placements ------------------------------------------------------
 
     def sharded_over(self, key: str) -> set[str]:
         """The mesh dims parameter ``key``'s shards differ over: its
-        manual ones and, under FSDP2, ``fsdp``."""
+        manual ones, under FSDP2 ``fsdp``, and ``pipeline`` for a block's."""
         s = self.shardings[key]
         dims = {a for a in MANUAL_AXES if s.dim_of(a) is not None}
         if self.fsdp_dims:
             dims.add("fsdp")
+        if "pipeline" in self.axes and key.startswith("layers."):
+            dims.add("pipeline")
         return dims
 
     def replication(self, key: str) -> int:
@@ -421,11 +456,12 @@ class Layout:
 
     def load_full_params(self, sd: dict) -> None:
         """Copy full (unsharded) parameters, some or all of the model's,
-        into their shards."""
+        into their shards (those of the blocks another pipeline stage
+        holds are passed over)."""
         import torch
 
         params = dict(self.model.named_parameters())
-        extra = set(sd) - set(params)
+        extra = set(sd) - set(self.full_shapes)
         if extra:
             raise ValueError(f"state dict does not match the model: "
                              f"unexpected {sorted(extra)}")
@@ -435,21 +471,38 @@ class Layout:
                     raise ValueError(
                         f"{key}: shape {tuple(full.shape)} != "
                         f"{self.full_shapes[key]}")
-                p = params[key]
-                _local(p).copy_(self.to_param_layout(key, full, p))
+                if key in params:
+                    p = params[key]
+                    _local(p).copy_(self.to_param_layout(key, full, p))
 
     def full_state_dict(self) -> dict:
-        """Every parameter unsharded, on the CPU (every rank joins)."""
-        return {k: self.gather_full(k, p.detach()).cpu()
-                for k, p in self.model.named_parameters()}
+        """Every parameter unsharded, on the CPU, in the whole model's
+        order (every rank joins)."""
+        return self.all_stages({k: self.gather_full(k, p.detach()).cpu()
+                                for k, p in self.model.named_parameters()})
+
+    def all_stages(self, part: dict) -> dict:
+        """``part`` ({key: CPU tensor} of this rank's parameters) joined
+        with every other pipeline stage's, in the whole model's key order
+        (every rank joins; ``part`` itself without a ``pipeline`` axis)."""
+        import torch.distributed as dist
+
+        g = self.group(("pipeline",)) if "pipeline" in self.axes else None
+        if g is None:
+            return part
+        parts: list = [None] * g.size
+        dist.all_gather_object(parts, part, group=g.group)
+        merged = {k: v for p in parts for k, v in p.items()}
+        return {k: merged[k] for k in self.full_shapes if k in merged}
 
     # -- gradients -------------------------------------------------------
 
     def sync_grads(self, params) -> None:
-        """Sum each gradient over the batch dims FSDP2 does not cover,
-        across the ranks that hold its parameter whole, and divide by those
-        dims' size: with FSDP2's mean over its own dims, the mean over every
-        batch shard."""
+        """Sum each gradient over the ``sync_dims`` across the ranks that
+        hold its parameter whole, and divide by their size but
+        ``pipeline``'s: with FSDP2's mean over its own dims, the mean over
+        every batch shard and sequence block. A parameter with no gradient
+        (the head on a stage that ran no loss) takes zeros first."""
         import torch
         import torch.distributed as dist
 
@@ -459,7 +512,7 @@ class Layout:
         buckets: dict[tuple, list] = {}
         for p in params:
             if p.grad is None:
-                continue
+                p.grad = torch.zeros_like(p)
             over = self.sharded_over(names[id(p)])
             dims = tuple(a for a in self.sync_dims if a not in over)
             buckets.setdefault(dims, []).append(_local(p.grad))
@@ -489,32 +542,35 @@ def _local(t):
     return t.to_local() if isinstance(t, DTensor) else t
 
 
-def refuse_unported_axes(axes: dict) -> None:
-    """Raise for a mesh axis > 1 the port does not lay out: ``seq``
-    (ROADMAP A9) and ``pipeline`` (A10)."""
-    for axis, item in (("seq", "A9"), ("pipeline", "A10")):
-        if axes.get(axis, 1) > 1:
-            raise NotImplementedError(
-                f"a {axis!r} mesh axis is not ported yet (ROADMAP {item})")
+def shard_model(model, mesh, interleave: int = 1) -> Layout:
+    """Lay ``model`` (a ``Llama`` holding full parameters, or on the meta
+    device) out on ``mesh`` in place: this rank's pipeline stage (its model
+    chunks under ``interleave`` > 1), manual ``model``/``expert`` shards,
+    the ``seq`` axis on the attention, then FSDP2 over ``fsdp`` (HSDP with
+    ``data``). Returns its ``Layout``.
 
-
-def shard_model(model, mesh) -> Layout:
-    """Lay ``model`` (a ``Llama`` holding full parameters) out on ``mesh``
-    in place: manual ``model``/``expert`` shards, then FSDP2 over
-    ``fsdp`` (HSDP with ``data``). Returns its ``Layout``.
-
-    Raises for what the port does not lay out: ``seq`` (ROADMAP A9) and
-    ``pipeline`` (A10) axes, LoRA or int8 weights under a ``model`` axis
-    (A5c), and the capacity MoE dispatch under an ``expert`` axis (A5d)."""
+    A ``seq`` axis needs ``attention_impl="ring"``. Raises for what the
+    port does not lay out: LoRA or int8 weights under a ``model`` axis
+    (ROADMAP A5c), the capacity MoE dispatch under an ``expert`` axis
+    (A5d), and FSDP2 beside a ``pipeline`` axis (A5g)."""
     import torch
     from torch import nn
 
-    from ..models.llama import Attention, Embedder, Head, Mlp
+    from ..models.llama import Attention, Embedder, Head, Mlp, StageLayers
     from ..models.moe import MoeMlp
-    from .mesh import axis_size
+    from .mesh import axis_index, axis_size
 
     cfg = model.cfg
-    refuse_unported_axes(mesh_axes(mesh))
+    if axis_size(mesh, "seq") > 1 and cfg.attention_impl != "ring":
+        raise ValueError(
+            f"a 'seq' mesh axis needs attention_impl='ring', not "
+            f"{cfg.attention_impl!r}: each rank holds one block of the "
+            "sequence")
+    if axis_size(mesh, "pipeline") > 1 and axis_size(mesh, "fsdp") > 1:
+        raise NotImplementedError(
+            "FSDP2 under a 'pipeline' axis is not ported yet (ROADMAP "
+            "A5g): the schedules run the embedding, the stages and the head "
+            "outside the root module's forward, where FSDP2 gathers them")
     tp = axis_size(mesh, "model")
     if tp > 1 and (cfg.lora_rank > 0 or cfg.quant_weights):
         raise NotImplementedError(
@@ -526,6 +582,17 @@ def shard_model(model, mesh) -> Layout:
             "the capacity MoE dispatch under an 'expert' axis is not "
             "ported yet (ROADMAP A5d); use moe_dispatch='ragged'")
     layout = Layout(model, mesh)
+    stages = axis_size(mesh, "pipeline")
+    if stages > 1:
+        from .pipeline import interleave_permutation
+
+        order = interleave_permutation(cfg.num_layers, stages, interleave)
+        per = cfg.num_layers // stages
+        d = axis_index(mesh, "pipeline")
+        layout.stage = [int(i) for i in order[d * per:(d + 1) * per]]
+        model.layers = StageLayers(
+            {i: model.layers[i] for i in layout.stage})
+        model.pipe = layout.group(("pipeline",))
     if axis_size(mesh, "expert") > 1 and cfg.moe_experts % axis_size(
             mesh, "expert"):
         raise MeshPlanError(
@@ -541,10 +608,17 @@ def shard_model(model, mesh) -> Layout:
                     local.clone(), requires_grad=p.requires_grad))
     tp_group = layout.group(("model",))
     ep_group = layout.group(("expert",))
-    batch_group = layout.group([a for a in layout.axes if a in BATCH_AXES])
+    seq_group = layout.group(("seq",))
+    # the tokens a balancing loss is taken over: every batch shard's and
+    # sequence block's
+    batch_group = layout.group([a for a in layout.axes
+                                if a in BATCH_AXES or a == "seq"])
+    model.seq = seq_group
     for mod in model.modules():
         if isinstance(mod, (Attention, Mlp, Embedder, Head)):
             mod.tp = tp_group
+        if isinstance(mod, Attention):
+            mod.seq = seq_group
         if isinstance(mod, MoeMlp):
             mod.tp, mod.ep, mod.batch = tp_group, ep_group, batch_group
     if layout.fsdp_dims:

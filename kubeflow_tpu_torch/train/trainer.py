@@ -34,12 +34,25 @@ its shards only and the init draws one module at a time
 (``batch_index``/``batch_count``, the mesh's batch axes), its gradients are
 synced to the global batch's mean and AdamW updates the shards it holds
 under the global norm. The loss and the metrics are global means, MFU
-counts every rank's device, and checkpoints hold the full state, written
-once by rank 0 and restored onto any mesh; a SIGTERM is read at the next
-log or checkpoint step, where every rank stops. Every rank calls every public
-method (SPMD), as in the reference. ``seq`` and ``pipeline`` axes raise
-(ROADMAP A9, A10), as does Adafactor on a mesh that shards parameters
-(A5e).
+counts every rank's device, and checkpoints hold the full state in the
+whole model's layer order, written once by rank 0 and restored onto any
+mesh; a SIGTERM is read at the next log or checkpoint step, where every
+rank stops. Every rank calls every public method (SPMD), as in the
+reference.
+
+A ``seq`` axis (sequence parallelism, ``attention_impl="ring"``): the
+inputs and targets are shifted first, then each rank takes its sequence
+block (``mesh.seq_slice``) and its rope positions from the block's offset;
+the loss is the global token mean. A ``pipeline`` axis: each rank builds
+and draws its stage only; ``pipeline_schedule="gpipe"`` runs the loss
+through ``llama.pipelined_apply`` (``num_microbatches``, default the
+degree) and ``"1f1b"`` through ``parallel.pipeline.one_f_one_b`` (the
+embedding's backward after it, the head and the loss in its last stage;
+``pipeline_interleave`` model chunks a rank), both composing with
+``accum_steps``, tied embeddings and the MoE balancing loss
+(``aux_loss_coef`` / (layers x microbatches) on each microbatch's sum).
+Adafactor on a mesh that shards parameters raises (ROADMAP A5e), a
+pipeline stage's included.
 """
 
 from __future__ import annotations
@@ -98,6 +111,16 @@ class TrainConfig:
     aux_loss_coef: float = 0.01
     #: gradient accumulation: microbatches per global batch
     accum_steps: int = 1
+    #: microbatches of the pipeline schedules on a ``pipeline`` axis
+    #: (default: its degree); no effect without one
+    num_microbatches: Optional[int] = None
+    #: "gpipe" (a differentiable forward: every microbatch's stage input
+    #: lives through the step) or "1f1b" (value and gradient in one pass,
+    #: about P microbatches in flight)
+    pipeline_schedule: str = "gpipe"
+    #: model chunks a rank under "1f1b" (Megatron interleaving): chunk c on
+    #: rank c % P, a shorter fill and drain
+    pipeline_interleave: int = 1
     checkpoint_dir: Optional[str] = None
     save_interval_steps: int = 100
     #: snapshot directory to fine-tune from (``load_pretrained``)
@@ -144,6 +167,12 @@ def _from_rank0(value):
     return box[0]
 
 
+def _cross_entropy(logits, targets) -> torch.Tensor:
+    """Mean next-token cross-entropy in f32."""
+    return F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
+                           targets.reshape(-1).long())
+
+
 class Trainer:
     def __init__(self, cfg: TrainConfig, device=None):
         self.cfg = cfg
@@ -151,6 +180,12 @@ class Trainer:
             raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
         if cfg.accum_steps < 1:
             raise ValueError("accum_steps must be >= 1")
+        if cfg.pipeline_schedule not in ("gpipe", "1f1b"):
+            raise ValueError(
+                f"unknown pipeline_schedule {cfg.pipeline_schedule!r}")
+        if cfg.pipeline_interleave < 1 or (cfg.num_microbatches or 1) < 1:
+            raise ValueError(
+                "pipeline_interleave and num_microbatches must be >= 1")
         if cfg.model.lora_rank > 0 and not cfg.init_from:
             # without a base snapshot the frozen base stays at random init
             raise ValueError(
@@ -169,7 +204,10 @@ class Trainer:
         #: the model's layout on the mesh (None: one process, unsharded)
         self.layout = None
         if self.mesh is not None:
-            self.layout = shardlib.shard_model(self.model, self.mesh)
+            self.layout = shardlib.shard_model(
+                self.model, self.mesh,
+                interleave=(cfg.pipeline_interleave
+                            if cfg.pipeline_schedule == "1f1b" else 1))
             self.model.to_empty(device=self.device)
         #: this rank's shard of the global batch, and the shard count
         self.batch_index, self.batch_count = meshlib.batch_sharding(
@@ -201,7 +239,6 @@ class Trainer:
         layout each rank of a job with one card per process runs);
         ``plan_mesh`` drops such axes, so the mesh is built here."""
         axes = {a: s for a, s in self.cfg.mesh_axes.items() if s != 1}
-        shardlib.refuse_unported_axes(axes)
         import torch.distributed as dist
 
         if _world() == 1 and not axes and self.cfg.num_slices == 1:
@@ -345,27 +382,37 @@ class Trainer:
                 f"init_from snapshot {self.cfg.init_from} does not match "
                 f"the model's parameter tree: {e}") from None
 
+    def _opt_keys(self) -> list[str]:
+        """The names of the optimizer's parameters."""
+        names = {id(p): k for k, p in self.model.named_parameters()}
+        return [names[id(p)] for p in self.opt.params]
+
     def _opt_state_full(self) -> dict:
-        """The optimizer's state with every moment unsharded."""
+        """The optimizer's state with every moment unsharded, in the whole
+        model's parameter order (every rank joins)."""
         state = self.opt.state_dict()
         if self.layout is None:
             return state
-        names = {id(p): k for k, p in self.model.named_parameters()}
-        keys = [names[id(p)] for p in self.opt.params]
+        keys = self._opt_keys()
         for what in ("mu", "nu"):
-            state[what] = [
-                self.layout.gather_full(k, t, like=p).cpu()
-                for k, t, p in zip(keys, state[what], self.opt.params)]
+            state[what] = list(self.layout.all_stages({
+                k: self.layout.gather_full(k, t, like=p).cpu()
+                for k, t, p in zip(keys, state[what], self.opt.params)
+            }).values())
         return state
 
     def _load_opt_state(self, state: dict) -> None:
+        """A full optimizer state (``_opt_state_full``'s) into the
+        optimizer, each moment this rank's shard (every rank joins)."""
         if self.layout is not None:
-            names = {id(p): k for k, p in self.model.named_parameters()}
+            keys = self._opt_keys()
+            order = self.layout.all_stages(dict.fromkeys(keys))
             state = dict(state)
             for what in ("mu", "nu"):
+                full = dict(zip(order, state[what]))
                 state[what] = [
-                    self.layout.to_param_layout(names[id(p)], full, p)
-                    for full, p in zip(state[what], self.opt.params)]
+                    self.layout.to_param_layout(k, full[k], p)
+                    for k, p in zip(keys, self.opt.params)]
         self.opt.load_state_dict(state)
 
     def _to_ckpt(self) -> dict:
@@ -426,19 +473,98 @@ class Trainer:
 
     # -- step -------------------------------------------------------------
 
+    def _microbatch_rows(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Under a ``pipeline`` axis beside batch shards: this rank's slice
+        of each of the ``m`` microbatches of the whole batch, in microbatch
+        order, for its contiguous rows ``tokens``. The reference splits the
+        global batch into microbatches (rows ``[i b/m, (i+1) b/m)``); the
+        MoE balancing loss is not linear in the rows, so each microbatch
+        must hold those rows whatever shard a rank was fed. The batch
+        shards' rows are gathered (token ids, a few KB) and each rank keeps
+        its part of every microbatch."""
+        group = self.layout.group(meshlib.batch_axes(self.mesh))
+        m = self.cfg.num_microbatches or self.model.pipe.size
+        if group is None or m == 1:
+            return tokens
+        from ..parallel.collectives import all_gather_rows
+
+        whole = all_gather_rows(tokens, group.group)  # rank order = shards
+        if whole.shape[0] % (m * group.size):
+            raise ValueError(
+                f"batch {whole.shape[0]} not divisible by {m} microbatches "
+                f"x {group.size} batch shards")
+        part = whole.shape[0] // (m * group.size)
+        return whole.reshape(m, group.size, part, -1)[:, group.rank].reshape(
+            m * part, -1)
+
+    def _inputs_targets(self, tokens: torch.Tensor):
+        """(inputs, targets) of this rank: its microbatch rows under a
+        ``pipeline`` axis, shifted, then its sequence block on a ``seq``
+        axis."""
+        if self.model.pipe is not None:
+            tokens = self._microbatch_rows(tokens)
+        inputs, targets = tokens[:, :-1], tokens[:, 1:]
+        if self.mesh is not None:
+            cut = meshlib.seq_slice(self.mesh, inputs.shape[1])
+            inputs, targets = inputs[:, cut], targets[:, cut]
+        return inputs, targets
+
+    def _with_aux(self) -> bool:
+        return self.cfg.model.moe_experts > 0 and self.cfg.aux_loss_coef > 0
+
     def _loss(self, tokens: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        inputs, targets = tokens[:, :-1], tokens[:, 1:]
-        with_aux = cfg.model.moe_experts > 0 and cfg.aux_loss_coef > 0
-        if with_aux:
+        inputs, targets = self._inputs_targets(tokens)
+        with_aux = self._with_aux()
+        if self.model.pipe is not None:
+            out = llamalib.pipelined_apply(
+                cfg.model, self.model, inputs,
+                num_microbatches=cfg.num_microbatches, with_aux=with_aux)
+            logits, aux = out if with_aux else (out, None)
+        elif with_aux:
             logits, aux = self.model(inputs, return_aux=True)
         else:
             logits = self.model(inputs)
-        loss = F.cross_entropy(
-            logits.float().reshape(-1, logits.shape[-1]),
-            targets.reshape(-1).long())
+        loss = _cross_entropy(logits, targets)
         if with_aux:
             loss = loss + cfg.aux_loss_coef * aux
+        return loss
+
+    def _loss_backward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The loss of ``tokens``, its gradients added to ``.grad``."""
+        loss = self._loss(tokens)
+        loss.backward()
+        return loss.detach()
+
+    def _loss_1f1b(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The loss of ``tokens`` through the 1F1B executor, its gradients
+        added to ``.grad``: the embedding runs on every rank and takes its
+        backward from the executor's input gradient (the first stage's);
+        the head and the loss run in the last stage, the tied table's
+        gradient there too. The same blocks and microbatch mean as
+        ``pipelined_apply``."""
+        from ..parallel import pipeline as pipelib
+
+        cfg, mcfg, model = self.cfg, self.cfg.model, self.model
+        inputs, targets = self._inputs_targets(tokens)
+        positions = llamalib.seq_positions(model, inputs.shape[1],
+                                           inputs.device)
+        x = model.embedder(inputs)
+        m = cfg.num_microbatches or model.pipe.size
+        aux_weight = (cfg.aux_loss_coef / (mcfg.num_layers * m)
+                      if self._with_aux() else 0.0)
+        table = model.embedder.embedding if mcfg.tie_embeddings else None
+
+        def loss_fn(y, tgt):
+            return _cross_entropy(model.head(y, table), tgt)
+
+        loss, dx = pipelib.one_f_one_b(
+            llamalib.block_apply_with_aux(mcfg, positions), loss_fn,
+            model.layers, x, targets, mesh=model.pipe,
+            num_microbatches=cfg.num_microbatches, remat=mcfg.remat,
+            with_aux=True, aux_weight=aux_weight,
+            interleave=cfg.pipeline_interleave)
+        x.backward(dx)
         return loss
 
     def loss_and_grads(self, tokens) -> torch.Tensor:
@@ -449,10 +575,11 @@ class Trainer:
             tokens = np.asarray(tokens)
         tokens = torch.as_tensor(tokens, device=self.device)
         accum = self.cfg.accum_steps
+        grads = (self._loss_1f1b if self.model.pipe is not None
+                 and self.cfg.pipeline_schedule == "1f1b"
+                 else self._loss_backward)
         if accum <= 1:
-            loss = self._loss(tokens)
-            loss.backward()
-            return loss.detach()
+            return grads(tokens)
         b = tokens.shape[0]
         if b % accum:
             raise ValueError(
@@ -461,9 +588,7 @@ class Trainer:
         micro = tokens.reshape(b // accum, accum, -1).transpose(0, 1)
         loss_sum = torch.zeros((), device=self.device)
         for i in range(accum):
-            loss = self._loss(micro[i])
-            loss.backward()  # sums into .grad, f32
-            loss_sum = loss_sum + loss.detach()
+            loss_sum = loss_sum + grads(micro[i])  # sums into .grad, f32
         for _, p in self._trainable():
             if p.grad is not None:
                 p.grad.div_(accum)

@@ -150,8 +150,10 @@ def test_config_validation():
     _, port, _ = _port()
     with pytest.raises(ValueError):
         port.tiny(num_kv_heads=3)
+    # ring attention is the reference's third choice, accepted as there
+    assert port.tiny(attention_impl="ring").attention_impl == "ring"
     with pytest.raises(ValueError):
-        port.tiny(attention_impl="ring")
+        port.tiny(attention_impl="paged")
     with pytest.raises(ValueError):
         port.tiny(remat_policy="everything")
     with pytest.raises(ValueError):
@@ -173,6 +175,9 @@ def test_port_imports_no_jax():
         "import kubeflow_tpu_torch.train.data, kubeflow_tpu_torch.train.optim,"
         " kubeflow_tpu_torch.train.trainer, kubeflow_tpu_torch.train.profile,"
         " kubeflow_tpu_torch.train.checkpoint, kubeflow_tpu_torch.train.llm\n"
+        "import kubeflow_tpu_torch.parallel.ring_attention, "
+        "kubeflow_tpu_torch.parallel.pipeline, "
+        "kubeflow_tpu_torch.parallel.dryrun\n"
         "import kubeflow_tpu_torch.runtime.bootstrap, "
         "kubeflow_tpu_torch.serving.storage\n"
         "import kubeflow_tpu_torch.serving, "

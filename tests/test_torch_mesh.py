@@ -12,8 +12,10 @@ parallel/{mesh,sharding}.py``) against the reference's, in one process.
 - ``reshard_plan`` for ``tiny()`` from ``{"fsdp": 2}`` to ``{"model": 2}``:
   the reference's entries, and its error for an illegal degree;
 - on a one-rank gloo group: ``build_mesh`` refuses a mesh larger than the
-  world naming ROADMAP A13, the unported axes and features raise naming
-  their items, and the ``Trainer`` on a one-rank ``fsdp`` mesh (FSDP2 over
+  world naming ROADMAP A13 (a ``seq`` mesh of two on one rank too), the
+  unported features raise naming their items (and a ``seq`` axis without
+  ring attention, or a stack the pipeline stages do not divide, raise),
+  and the ``Trainer`` on a one-rank ``fsdp`` mesh (FSDP2 over
   one rank, as a job with one card per process runs it) takes the unwrapped
   model's steps;
 - ``Llama.init_streamed``, the module-at-a-time init a sharded trainer
@@ -249,10 +251,16 @@ def _fake_mesh(axes):
 
 def test_unported_axes_and_features_raise_naming_items():
     pt = _port()
+    # the seq and pipeline axes are laid out; what they cannot take raises
     dense = pt.llama.Llama(pt.llama.tiny(), device="cpu")
-    for axes, item in (({"seq": 2}, "A9"), ({"pipeline": 2}, "A10")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            pt.sharding.shard_model(dense, _fake_mesh(axes))
+    with pytest.raises(ValueError, match="attention_impl='ring'"):
+        pt.sharding.shard_model(dense, _fake_mesh({"seq": 2}))
+    three = pt.llama.Llama(pt.llama.tiny(num_layers=3), device="cpu")
+    with pytest.raises(ValueError, match="3 layers not divisible by 2"):
+        pt.sharding.shard_model(three, _fake_mesh({"pipeline": 2}))
+    with pytest.raises(NotImplementedError, match="ROADMAP A5g"):
+        pt.sharding.shard_model(dense, _fake_mesh({"pipeline": 2,
+                                                   "fsdp": 2}))
     lora = pt.llama.Llama(pt.llama.tiny(lora_rank=2), device="cpu")
     int8 = pt.llama.Llama(pt.llama.tiny(quant_weights=True), device="cpu")
     for model in (lora, int8):
@@ -278,7 +286,7 @@ def test_one_rank_meshes(one_rank_group):
 
     cfg = TrainConfig(model=pt.llama.tiny(), global_batch=4, seq_len=16,
                       steps=3, warmup_steps=1, mu_dtype=None)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(pt.mesh.MeshPlanError, match="ROADMAP A13"):
         Trainer(TrainConfig(mesh_axes={"seq": 2}), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A5e"):
         Trainer(TrainConfig(model=pt.llama.tiny(), optimizer="adafactor",
