@@ -62,7 +62,19 @@ sequence) and
 1F1B and interleaved 1F1B), each two ranks sharing the card over gloo
 against the same steps unsharded, and ``dist_pods``
 (``examples/02`` and a two-worker ``examples/01`` as pod processes on the
-card, every rank's ``loss=`` lines equal). Each phase
+card, every rank's ``loss=`` lines equal). Last, multi-GPU serving:
+``tp_gmm_time`` (K4a at the experts' shapes under ``{"model": 2}``, K
+1024 -> N 1408 and K 1408 -> N 1024, checked and timed), ``nccl_graph_capture``
+(a one-rank NCCL group: a CUDA graph holding the tensor-parallel
+all-reduce and all-gather, and the serving engine with its collectives
+forced on, every program captured), ``tp_serve`` and ``moe_tp_serve`` (the
+bench models behind a two-rank serving gang at ``{"model": 2}`` through
+``serve_main`` and ``ModelServer``, ranks sharing the card over gloo, every
+program output of rank 1 held bitwise against rank 0's, greedy streams
+against the unsharded engine's), ``wire_migrate`` (``DisaggregatedPool(
+wire=True)``, ``migrate_sequence`` between two engines, and a TP=2 gang's
+export imported by an unsharded engine) and ``tp_resize`` (a live TP=2 gang
+shrunk to 1 and grown back to 2 with a stream open). Each phase
 prints one JSON
 line; the line before the last is the card's name and power limit from
 nvidia-smi, the last line is ``{"ok": true, "device": {...}}``. Any failure
@@ -83,6 +95,7 @@ import sys
 import tempfile
 import time
 import types
+from typing import Optional
 
 #: H100 SXM published peaks (NVIDIA data sheet): dense bf16 and HBM rate
 PEAK_FLOPS = 989e12
@@ -743,9 +756,10 @@ def phase_grouped_time() -> dict[str, dict]:
 SERVE_VERIFY_SIZES = _split(8 * 5 * 2, 8)
 
 
-def _serve_gmm_reading(sizes, gen) -> dict:
-    """gmm at a serving shape (``sizes`` rows over 8 experts; the gate/up
-    product, K 1024 -> N 2816): against its plain version and
+def _serve_gmm_reading(sizes, gen, k: int = GMM_BENCH["k"],
+                       n: int = GMM_BENCH["n"]) -> dict:
+    """gmm at a serving shape (``sizes`` rows over 8 experts; by default
+    the gate/up product, K 1024 -> N 2816): against its plain version and
     ``torch._grouped_mm`` on the same inputs. The kernel is shorter than
     its host launch, so ``ms`` and ``library_ms`` come from launches
     captured in a CUDA graph, as the serving engine runs them
@@ -756,7 +770,7 @@ def _serve_gmm_reading(sizes, gen) -> dict:
 
     from kubeflow_tpu_torch.ops import grouped_matmul as gm
 
-    b, k, n, e = sum(sizes), GMM_BENCH["k"], GMM_BENCH["n"], len(sizes)
+    b, e = sum(sizes), len(sizes)
     x = torch.randn(b, k, generator=gen, device="cuda").to(torch.bfloat16)
     w = torch.randn(e, k, n, generator=gen, device="cuda").to(torch.bfloat16)
     offs = _offsets(sizes)
@@ -1245,7 +1259,8 @@ def _first_difference(cfg, model, prompts, a, b) -> list[dict]:
                   None)
         if at is None:
             continue
-        seq = torch.tensor([p + ta[:at]], device="cuda")
+        seq = torch.tensor([p + ta[:at]],
+                           device=model.embedder.embedding.device)
         with torch.no_grad():
             logits = model(seq)[0, -1].float()
         top = logits.topk(2).values
@@ -4615,6 +4630,904 @@ def phase_dist_pods(line: str) -> dict:
     return r
 
 
+# -- multi-GPU serving: the tensor-parallel engine and the serving gang -------
+
+#: the expert products of the MoE bench model under ``{"model": 2}``: each
+#: rank holds intermediate 2816 / 2 of every expert
+TP_GMM = ((1024, 1408), (1408, 1024))
+#: a TP prefill's expert rows: 4 prompts x 128 tokens x top-2
+TP_PREFILL_SIZES = _split(4 * 128 * 2, 8)
+#: the gang phases: two ranks share the card over gloo at {"model": 2}
+GANG_ENGINE = dict(SERVE_ENGINE, block_size=16)
+GANG = dict(
+    timeout=900,
+    tp_serve=dict(prompts=8, prompt_len=128, new=64, rounds=1),
+    moe_tp_serve=dict(prompts=4, prompt_len=128, new=32, rounds=1),
+    wire=dict(prompts=2, prompt_len=128, new=64, at=8),
+    resize=dict(prompt_len=128, new=96, shrink_at=16, grow_at=40),
+)
+WIRE_ENGINE = dict(num_slots=4, decode_chunk=4, block_size=16,
+                   prefix_cache=False)
+RESIZE_ENGINE = WIRE_ENGINE
+NCCL_CAPTURE = dict(prompts=4, prompt_len=128, new=32)
+#: the teacher-forced check of a TP gang's decode path: at every position
+#: of the unsharded stream, the relative L2 distance of the TP logits from
+#: the unsharded model's. Both run in bf16, whose rounding moves the
+#: logits by well under 1e-2 of their norm; a dropped all-reduce or a
+#: wrong head slice moves them by tens of percent
+TEACHER_TOL = 5e-2
+
+
+def _resize_model(model):
+    """``tp_resize``'s model: ``model`` (a preset's name or a config) at
+    its width and depth in f32, with dense attention (the flash kernels
+    take bf16). A bit-identical stream across degrees is a claim about
+    f32 arithmetic: in bf16 a degree's other summation order flips
+    near-tie argmaxes."""
+    import dataclasses
+
+    import torch
+
+    return dataclasses.replace(_config(model), dtype=torch.float32,
+                               attention_impl="dense")
+
+
+def phase_tp_gmm_time() -> dict:
+    """K4a at the shapes the MoE bench model's experts take under
+    ``{"model": 2}``: the gate/up product K 1024 -> N 1408 and the down
+    product K 1408 -> N 1024, at a decode step's 16 rows and a prefill's
+    1024, each checked as ``check_grouped_case`` checks the kernels (from
+    NaN-poisoned memory, against the plain version under REL_TOL, a repeat
+    bitwise equal) and read by ``_serve_gmm_reading`` (graph-replayed
+    time, plain, ``torch._grouped_mm``, bound)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    rows = {}
+    for k, n in TP_GMM:
+        for name, sizes in (("decode", SERVE_DECODE_SIZES),
+                            ("prefill", TP_PREFILL_SIZES)):
+            check = check_grouped_case(sum(sizes), k, n, sizes, False, gen)
+            rows[f"k{k}_n{n}_{name}"] = {
+                **_serve_gmm_reading(sizes, gen, k, n), "check": check}
+            require(check["gmm_rel"] <= REL_TOL
+                    and check["tgmm_rel"] <= REL_TOL
+                    and check["repeat_bitwise_equal"]
+                    and check["tail_rows_zero"]
+                    and check["empty_blocks_zero"],
+                    f"gmm at K {k} N {n} {name}: {check}")
+    emit("tp_gmm_time", rows=rows)
+    return rows
+
+
+def _config(model):
+    """The config of ``model``, a preset's name or a config."""
+    from kubeflow_tpu_torch.models import llama
+
+    return getattr(llama, model)() if isinstance(model, str) else model
+
+
+def _gang_model(model, device=None):
+    """(cfg, the model with random weights from SEED on ``device``, the
+    card by default): ``model`` is a preset's name or a config."""
+    from kubeflow_tpu_torch.models import llama
+
+    cfg = _config(model)
+    m = llama.Llama(cfg, device=device or "cuda")
+    m.init_weights(SEED)
+    return cfg, m
+
+
+class _GangRecorder:
+    """Each program a gang rank runs, in order: its key, a copy of its
+    output tensor and the kernel launches it made. Rank 0's engine runs
+    through ``GangEngine._dispatch.run``, a follower's through
+    ``ContinuousEngine.replay``; both ranks run the same sequence, so entry
+    ``i`` of one is entry ``i`` of the other."""
+
+    def __init__(self):
+        self.rows: list = []
+        self.engines: list = []
+
+    def wrap(self, fn):
+        import torch
+
+        def run(key, *args):
+            before = [dict(c) for c in _counters()]
+            out = fn(key, *args)
+            delta = {k: c[k] - b.get(k, 0)
+                     for c, b in zip(_counters(), before) for k in c}
+            self.rows.append((tuple(key), out.clone()
+                              if isinstance(out, torch.Tensor) else None,
+                              delta))
+            return out
+        return run
+
+    def install(self, rank: int, ledger=None):
+        """Patch the class ``serve_main`` builds on this rank; returns the
+        undo."""
+        from kubeflow_tpu_torch.serving import continuous, gang
+
+        rec = self
+        if rank == 0:
+            base = gang.GangEngine
+
+            class Recording(base):
+                def __init__(self, *a, **kw):
+                    super().__init__(*a, **kw)
+                    if ledger is not None:
+                        self.attach_block_ledger(ledger)
+                    self._dispatch.run = rec.wrap(self._dispatch.run)
+                    rec.engines.append(self)
+
+            gang.GangEngine = Recording
+            return lambda: setattr(gang, "GangEngine", base)
+        base = continuous.ContinuousEngine
+
+        class Following(base):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                self.replay = rec.wrap(self.replay)
+                rec.engines.append(self)
+
+        continuous.ContinuousEngine = Following
+        return lambda: setattr(continuous, "ContinuousEngine", base)
+
+    def digests(self) -> list:
+        import hashlib
+
+        return [(list(k), None if t is None else hashlib.sha256(
+            t.cpu().numpy().tobytes()).hexdigest())
+            for k, t, _ in self.rows]
+
+
+def _http_json(url: str, payload: Optional[dict] = None,
+               timeout: float = 600) -> dict:
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(
+        url, data=data, headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read().decode() or "{}")
+
+
+def _drive_gang(rec, url: str, prompts, sizes: dict, out: dict) -> None:
+    """Rank 0's client: wait for the gang's frontend, one priming request
+    of one prompt (a process's first requests pay a one-time cost), then
+    ``rounds`` timed rounds of ``prompts`` through ``/v1/models/m:predict``
+    (one request, every prompt an instance, so they share the pool);
+    kernel launch counts set to 0 just before the first timed round and
+    read just after it. Then SIGTERM to this process, which ends
+    ``serve_main``."""
+    import os
+    import signal
+    import traceback
+    import urllib.error
+
+    try:
+        deadline = time.monotonic() + 900
+        while True:
+            try:
+                _http_json(url + "/v2/health/ready", timeout=5)
+                break
+            except (OSError, urllib.error.URLError, ValueError):
+                require(time.monotonic() < deadline,
+                        "the gang's frontend never answered")
+                time.sleep(0.2)
+        eng = rec.engines[-1]
+        predict = url + "/v1/models/m:predict"
+        _http_json(predict, {"instances": prompts[:1]})
+        seconds, steps, streams = [], [], []
+        for r in range(sizes["rounds"]):
+            if r == 0:
+                for c in _counters():
+                    for key in c:
+                        c[key] = 0
+                lo = len(rec.rows)
+            s0 = eng.stats()["decode_steps"]
+            t0 = time.perf_counter()
+            streams.append(_http_json(predict,
+                                      {"instances": prompts})["predictions"])
+            seconds.append(time.perf_counter() - t0)
+            steps.append(eng.stats()["decode_steps"] - s0)
+            if r == 0:
+                hi = len(rec.rows)
+                out["launches"] = {k: v for c in _counters()
+                                   for k, v in c.items()}
+        tps = [len(prompts) * sizes["new"] / s for s in seconds]
+        out.update(
+            tokens=streams[0], seconds=seconds, decode_steps=steps,
+            window=[lo, hi], tokens_per_sec=statistics.median(tps),
+            tokens_per_sec_rounds=tps,
+            ms_per_dispatch=statistics.median(
+                s / max(n, 1) * 1e3 for s, n in zip(seconds, steps)),
+            stats=eng.stats(), graphs=eng.graphs, backend=eng.backend)
+    except Exception:  # noqa: BLE001 — handed to the phase, which fails
+        out["error"] = traceback.format_exc()
+    finally:
+        os.kill(os.getpid(), signal.SIGTERM)
+
+
+def _moe_layers(model) -> list:
+    from kubeflow_tpu_torch.models.moe import MoeMlp
+
+    return [m for m in model.modules() if isinstance(m, MoeMlp)]
+
+
+def _teacher_forced(model, prompts, streams, pins=None) -> tuple:
+    """(logits [rows, len(stream), vocab] f32, expert ids of each forward)
+    of ``model``'s decode path fed ``prompts`` and ``streams`` (a batch of
+    rows, every prompt of one length, every stream of one length): the
+    prompts in one forward through a KV cache of this rank's heads (the
+    prefill), then every column of the streams but the last, one a forward
+    (the decode steps); ``[r, i]`` scores ``streams[r][i]``. With ``pins``
+    (the ids another model's forwards chose) every MoE layer routes to
+    them (``_pin_routing``). Every rank of a TP model calls this
+    together."""
+    import types
+
+    import torch
+
+    from kubeflow_tpu_torch.models.llama import KvCache
+
+    cfg = model.cfg
+    dev = model.embedder.embedding.device
+    layers = _moe_layers(model)
+    ids: list = []
+    for layer in layers if pins is None else []:
+        route = type(layer).route
+
+        def recorded(self, x, _route=route):
+            probs, gates, idx = _route(self, x)
+            ids[-1].append(idx)
+            return probs, gates, idx
+
+        layer.route = types.MethodType(recorded, layer)
+    plen, new = len(prompts[0]), len(streams[0])
+    cache = KvCache.zeros(cfg, len(prompts), plen + new, device=dev,
+                          kv_heads=model.kv_heads)
+    cols = torch.tensor(streams, device=dev)
+    steps = [torch.tensor(prompts, device=dev)] + [
+        cols[:, i:i + 1] for i in range(new - 1)]
+    rows, at = [], 0
+    try:
+        with torch.no_grad():
+            for j, toks in enumerate(steps):
+                ids.append([])
+                for layer, idx in zip(layers, [] if pins is None
+                                      else pins[j]):
+                    _pin_routing(layer, idx)
+                s = toks.shape[1]
+                pos = torch.arange(at, at + s, device=dev)[None]
+                rows.append(model(toks, pos, cache=cache)[:, -1].float())
+                at += s
+    finally:
+        for layer in layers:
+            layer.__dict__.pop("route", None)
+    return torch.stack(rows, dim=1), ids
+
+
+def _teacher_forced_check(unsharded, tp_model, prompts, streams) -> dict:
+    """The unsharded streams fed through the TP model's decode path and
+    the unsharded model's (``_teacher_forced``, the streams of one length
+    batched; MoE layers of the TP model routed as the unsharded one
+    chose): the largest relative L2 distance of the TP logits from the
+    unsharded ones over every position, and at how many positions the
+    greedy token agrees. Every rank calls it with the same inputs."""
+    groups: dict = {}
+    for p, st in zip(prompts, streams):
+        groups.setdefault((len(p), len(st)), []).append((p, st))
+    moe = bool(_moe_layers(unsharded))
+    rel, agree, n = 0.0, 0, 0
+    for rows in groups.values():
+        ps, sts = [r[0] for r in rows], [r[1] for r in rows]
+        want, ids = _teacher_forced(unsharded, ps, sts)
+        got, _ = _teacher_forced(tp_model, ps, sts,
+                                 pins=ids if moe else None)
+        rel = max(rel, float((got - want).norm(dim=-1).div(
+            want.norm(dim=-1)).max()))
+        agree += int((got.argmax(-1) == want.argmax(-1)).sum())
+        n += want.shape[0] * want.shape[1]
+    return {"rel_l2_max": rel, "positions": n, "argmax_agree": agree,
+            "routing_pinned": moe}
+
+
+def _gang_serve_case(rank: int, ports: list, model, sizes: dict,
+                     device=None, streams=None) -> dict:
+    """One gang of two ranks through ``serve_main`` (rank 0's
+    ``ModelServer`` over a ``GangEngine``, rank 1 following), serving
+    ``sizes["prompts"]`` prompts over HTTP (``_drive_gang``); then
+    ``streams`` (the unsharded engine's) fed through the gang's laid-out
+    model and the unsharded one (``_teacher_forced_check``)."""
+    import os
+    import threading
+
+    from kubeflow_tpu_torch.analysis.runtime import BlockLedger
+    from kubeflow_tpu_torch.runtime import bootstrap
+    from kubeflow_tpu_torch.serving import gang, storage
+
+    cfg, m = _gang_model(model, device)
+    key = f"gang-serve-{rank}"
+    conf = {"params_ref": storage.register_mem(key, (cfg, m.state_dict())),
+            "model_name": "m", "mesh_axes": {"model": 2},
+            "gang_port": ports[0], "serve_port": ports[1],
+            "gang_token": "chip-smoke", "max_new_tokens": sizes["new"],
+            "warmup_groups": [[sizes["prompts"], sizes["prompt_len"]],
+                              [1, sizes["prompt_len"]]], **GANG_ENGINE}
+    os.environ[gang.ENV_SERVE_CONFIG] = json.dumps(conf)
+    ctx = bootstrap.PodContext(
+        num_processes=2, process_id=rank,
+        coordinator_address=f"127.0.0.1:{ports[2]}", device=device or "cuda")
+    rec, ledger, out = _GangRecorder(), BlockLedger(), {}
+    undo = rec.install(rank, ledger)
+    prompts = _prompts(cfg, sizes["prompts"], sizes["prompt_len"])
+    try:
+        if rank == 0:
+            t = threading.Thread(target=_drive_gang, args=(
+                rec, f"http://127.0.0.1:{ports[1]}", prompts, sizes, out))
+            t.start()
+            try:
+                gang.serve_main(ctx)
+            finally:
+                t.join()
+            require("error" not in out, f"gang client: {out.get('error')}")
+            eng = rec.engines[-1]
+            out.update(pool_heads=int(eng._pool.k.shape[3]),
+                       kv_pool_bytes=eng.kv_pool_bytes,
+                       leaked=ledger.leaked_total,
+                       ledger_errors=list(ledger.conservation_errors))
+        else:
+            gang.serve_main(ctx)
+            eng = rec.engines[-1]
+            out.update(pool_heads=int(eng._pool.k.shape[3]),
+                       kv_pool_bytes=eng.kv_pool_bytes)
+        out["teacher_forced"] = _teacher_forced_check(
+            m, rec.engines[-1].model, prompts, streams)
+        out["digests"] = rec.digests()
+        out["row_launches"] = [d for _, _, d in rec.rows]
+    finally:
+        undo()
+        storage._MEM_REGISTRY.pop(key, None)
+        del m
+        _free_card(device is None)
+    return out
+
+
+def _gang_leader(port: int, cfg, params, kw: dict, ledger=None):
+    from kubeflow_tpu_torch.serving.gang import GangChannel, GangEngine
+
+    ch = GangChannel.listen(port, 1, token="chip-smoke", timeout=300)
+    eng = GangEngine(cfg, params, channel=ch, mesh_axes={"model": 2}, **kw)
+    if ledger is not None:
+        eng.attach_block_ledger(ledger)
+    return eng
+
+
+def _gang_follow(port: int, cfg, params, kw: dict) -> dict:
+    from kubeflow_tpu_torch.serving import continuous
+    from kubeflow_tpu_torch.serving.gang import GangChannel, follow
+
+    ch = GangChannel.connect("127.0.0.1", port, rank=1, token="chip-smoke",
+                             timeout=300)
+    eng = continuous.ContinuousEngine(cfg, params, mesh_axes={"model": 2},
+                                      **kw)
+    try:
+        follow(eng, ch)
+    finally:
+        ch.close()
+    return {}
+
+
+def _gang_wire_case(rank: int, port: int, model, sizes: dict,
+                    device=None) -> dict:
+    """A live sequence of the TP=2 gang exported (every head gathered to
+    rank 0) after ``at`` tokens and moved over the kv_migrate wire into an
+    unsharded engine on rank 0's card, where it finishes; the other prompt
+    finishes in the gang."""
+    from kubeflow_tpu_torch.analysis.runtime import BlockLedger
+    from kubeflow_tpu_torch.serving import continuous
+    from kubeflow_tpu_torch.serving.gang import (
+        KvMigrationServer,
+        migrate_sequence,
+        register_migration_handle,
+    )
+
+    cfg, m = _gang_model(model, device)
+    sd = m.state_dict()
+    kw = dict(WIRE_ENGINE, device=device)
+    warm = [(sizes["prompts"], sizes["prompt_len"]), (1, sizes["prompt_len"])]
+    if rank:
+        out = _gang_follow(port, cfg, sd, kw)
+        del m, sd
+        _free_card(device is None)
+        return out
+    ledger = BlockLedger()
+    src = _gang_leader(port, cfg, sd, kw, ledger)
+    dst = continuous.ContinuousEngine(cfg, m, **kw)
+    dst.attach_block_ledger(ledger)
+    srv = KvMigrationServer(dst, token="chip-smoke")
+    try:
+        src.warmup(warm)
+        dst.warmup(warm)
+        prompts = _prompts(cfg, sizes["prompts"], sizes["prompt_len"])
+        reqs = [src.submit(p, max_new_tokens=sizes["new"]) for p in prompts]
+        _wait_tokens(reqs[:1], sizes["at"], "wire_migrate")
+        t0 = time.perf_counter()
+        snap = src.export_sequence(reqs[0])
+        t1 = time.perf_counter()
+        ok = migrate_sequence(snap, "127.0.0.1", srv.port,
+                              token="chip-smoke",
+                              mid=register_migration_handle(reqs[0]))
+        t2 = time.perf_counter()
+        src.release_sequence(reqs[0])
+        streams = [r.wait(600) for r in reqs]
+        return {"ok": ok, "streams": streams,
+                "snapshot_heads": int(snap["blocks"][0][0].shape[3]),
+                "snapshot_blocks": len(snap["blocks"]),
+                "export_ms": (t1 - t0) * 1e3, "wire_ms": (t2 - t1) * 1e3,
+                "imports": srv.imports_total,
+                "clean": _require_clean("wire_migrate", ledger, src, dst)}
+    finally:
+        srv.close()
+        dst.stop()
+        src.stop()
+        del m, sd
+        _free_card(device is None)
+
+
+def _gang_resize_case(rank: int, port: int, model, sizes: dict,
+                      device=None) -> dict:
+    """A live TP=2 gang serves a stream undisturbed, then the same stream
+    again, during which it shrinks to 1 (rank 1 parked, the group
+    re-formed) after ``shrink_at`` tokens and grows back to 2 after
+    ``grow_at``; the stream is read on its handle throughout."""
+    from kubeflow_tpu_torch.analysis.runtime import BlockLedger
+    from kubeflow_tpu_torch.serving.resize import GangResizer
+
+    cfg, m = _gang_model(model, device)
+    sd = m.state_dict()
+    kw = dict(RESIZE_ENGINE, device=device)
+    warm = [(1, sizes["prompt_len"])]
+    if rank:
+        out = _gang_follow(port, cfg, sd, kw)
+        del m, sd
+        _free_card(device is None)
+        return out
+    ledger = BlockLedger()
+    eng = _gang_leader(port, cfg, sd, kw, ledger)
+    del m
+    eng.warmup(warm)
+    resizer = GangResizer(eng, reshard_token="chip-smoke",
+                          warmup_groups=warm)
+    try:
+        prompt = _prompts(cfg, 1, sizes["prompt_len"])[0]
+        # the same stream with no resize: what the resized one must equal
+        undisturbed = eng.submit(prompt,
+                                 max_new_tokens=sizes["new"]).wait(600)
+        req = eng.submit(prompt, max_new_tokens=sizes["new"])
+        _wait_tokens([req], sizes["shrink_at"], "tp_resize")
+        one = resizer.resize({"model": 1})
+        shrink = {"at": len(req.tokens), "tp_degree": one.tp_degree,
+                  "graphs": one.graphs, "timings": resizer.last_timings}
+        _wait_tokens([req], sizes["grow_at"], "tp_resize")
+        two = resizer.resize({"model": 2})
+        grow = {"at": len(req.tokens), "tp_degree": two.tp_degree,
+                "graphs": two.graphs, "backend": two.backend,
+                "timings": resizer.last_timings}
+        tokens = req.wait(600)
+        return {"tokens": tokens, "undisturbed": undisturbed,
+                "shrink": shrink, "grow": grow,
+                "resizes": resizer.resizes_total,
+                "clean": _require_clean("tp_resize", ledger, two)}
+    finally:
+        resizer.engine.stop()
+        del sd
+        _free_card(device is None)
+
+
+def _collective_ms(vocab: int, reps: int = 50, device=None) -> dict:
+    """ms of one collective of the group at a TP decode step's sizes, as the
+    model issues them (``collectives.reduce_from_group``,
+    ``gather_last_dim``): the all-reduce of a row-parallel product's [8,
+    1024] bf16 and the all-gather of the head's [8, vocab / 2] bf16
+    logits, each the mean of ``reps`` after a first one and a barrier
+    (every rank calls this together)."""
+    import torch
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch.parallel.collectives import (
+        gather_last_dim,
+        reduce_from_group,
+    )
+
+    dev = device or "cuda"
+    group = dist.group.WORLD
+    x = torch.ones(8, 1024, dtype=torch.bfloat16, device=dev)
+    logits = torch.ones(8, vocab // 2, dtype=torch.bfloat16, device=dev)
+
+    def timed(fn) -> float:
+        fn()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        dist.barrier(group=group)  # both ranks start the clock together
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    return {"backend": dist.get_backend(),
+            "all_reduce_ms": timed(lambda: reduce_from_group(x, group)),
+            "all_gather_ms": timed(lambda: gather_last_dim(logits, group))}
+
+
+def _gang_rank(rank: int, ports: list, dense, moe, sizes: dict,
+               device=None, streams=None) -> dict:
+    """Every gang case on one of the two ranks, in order (a spawn each is
+    a process start and a model build more): ``tp_serve`` and
+    ``moe_tp_serve`` through ``serve_main`` (``streams``: the unsharded
+    engine's, for the teacher-forced check), then the wire export and the
+    resize."""
+    import torch
+
+    if device is None:
+        torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"collectives": _collective_ms(_config(dense).vocab_size,
+                                         device=device)}
+    t0 = time.perf_counter()
+    out["tp_serve"] = _gang_serve_case(rank, ports[0:3], dense,
+                                       sizes["tp_serve"], device,
+                                       streams["tp_serve"])
+    t1 = time.perf_counter()
+    out["moe_tp_serve"] = _gang_serve_case(rank, ports[3:6], moe,
+                                           sizes["moe_tp_serve"], device,
+                                           streams["moe_tp_serve"])
+    t2 = time.perf_counter()
+    out["wire"] = _gang_wire_case(rank, ports[6], dense, sizes["wire"],
+                                  device)
+    t3 = time.perf_counter()
+    out["resize"] = _gang_resize_case(rank, ports[7], _resize_model(dense),
+                                      sizes["resize"], device)
+    out["seconds"] = {"tp_serve": t1 - t0, "moe_tp_serve": t2 - t1,
+                      "wire": t3 - t2, "resize": time.perf_counter() - t3}
+    return out
+
+
+def _truth(cfg, model, prompts, new: int, warm, engine_kw: dict,
+           counters: bool = False) -> dict:
+    """One engine's streams on the device ``model`` lives on, the
+    unsharded baseline of a gang case."""
+    return _serve(cfg, model, prompts, new, warm, counters=counters,
+                  device=model.embedder.embedding.device, **engine_kw)
+
+
+def _diffs(name: str, cfg, model, prompts, want, got) -> list:
+    """``got``'s first differences from ``want``, each required to sit at
+    a near tie (``_near_tie``): a tensor-parallel rank sums partial
+    products over the group, a rounding the unsharded product does not
+    make."""
+    diffs = _first_difference(cfg, model, prompts, want, got)
+    _require_streams(name, diffs)
+    return diffs
+
+
+def gang_serving(dense, moe, device=None, sizes=GANG,
+                 line: str = "") -> dict:
+    """The gang phases (``tp_serve``, ``moe_tp_serve``, the gang half of
+    ``wire_migrate``, ``tp_resize``): two ranks share the card over gloo
+    (``device=None``; ``"cpu"`` with tiny configs rehearses them), each
+    case held against the unsharded engine on the same device: the serving
+    cases' streams, and their decode path teacher-forced on those streams
+    (``TEACHER_TOL``); the resized stream bitwise against the same stream
+    undisturbed, in f32 (``_resize_model``)."""
+    from kubeflow_tpu_torch.parallel import dryrun
+    from kubeflow_tpu_torch.utils.net import free_port
+
+    dev = device or "cuda"
+    baselines = {}
+    for name, model in (("tp_serve", dense), ("moe_tp_serve", moe)):
+        cfg, m = _gang_model(model, dev)
+        s = sizes[name]
+        prompts = _prompts(cfg, s["prompts"], s["prompt_len"])
+        baselines[name] = (cfg, m, prompts, _truth(
+            cfg, m, prompts, s["new"], [(s["prompts"], s["prompt_len"]),
+                                        (1, s["prompt_len"])],
+            GANG_ENGINE, counters=True))
+    cfg, m = baselines["tp_serve"][:2]
+    w = sizes["wire"]
+    wire_prompts = _prompts(cfg, w["prompts"], w["prompt_len"])
+    wire_truth = _truth(cfg, m, wire_prompts, w["new"],
+                        [(w["prompts"], w["prompt_len"]),
+                         (1, w["prompt_len"])], WIRE_ENGINE)
+    r = sizes["resize"]
+    rcfg, rm = _gang_model(_resize_model(dense), dev)
+    resize_prompt = _prompts(rcfg, 1, r["prompt_len"])
+    resize_truth = _truth(rcfg, rm, resize_prompt, r["new"],
+                          [(1, r["prompt_len"])], RESIZE_ENGINE)
+    _free_card(device is None)
+    ports = [free_port() for _ in range(8)]
+    streams = {n: b[3]["tokens"] for n, b in baselines.items()}
+    t0 = time.perf_counter()
+    ranks = dryrun.spawn(2, _gang_rank, ports, dense, moe, sizes, device,
+                         streams, backend="gloo", timeout=sizes["timeout"])
+    spawn_s = time.perf_counter() - t0
+    lead, follower = ranks
+    out = {"spawn_seconds": spawn_s, "case_seconds": lead["seconds"]}
+    collectives = [r["collectives"] for r in ranks]
+    for name in ("tp_serve", "moe_tp_serve"):
+        cfg_n, m_n, prompts, truth = baselines[name]
+        a, b = lead[name], follower[name]
+        require(all(x["teacher_forced"]["rel_l2_max"] <= TEACHER_TOL
+                    for x in (a, b)),
+                f"{name}: the TP decode path's logits are "
+                f"{a['teacher_forced']['rel_l2_max']} / "
+                f"{b['teacher_forced']['rel_l2_max']} (relative L2) from "
+                f"the unsharded model's, over {TEACHER_TOL}")
+        diffs = _diffs(name, cfg_n, m_n, prompts, truth["tokens"],
+                       a["tokens"])
+        lo, hi = a["window"]
+        launches = {"rank0": a["launches"],
+                    "rank1": _sum_launches(b["row_launches"][lo:hi])}
+        st = a["stats"]
+        model = dense if name == "tp_serve" else moe
+        row = dict(card=line,
+                   model=model if isinstance(model, str) else "custom",
+                   mesh={"model": 2},
+                   backend=a["backend"], graphs=a["graphs"],
+                   engine=GANG_ENGINE, **sizes[name],
+                   tokens_per_sec=a["tokens_per_sec"],
+                   tokens_per_sec_rounds=a["tokens_per_sec_rounds"],
+                   ms_per_dispatch=a["ms_per_dispatch"],
+                   decode_steps=a["decode_steps"], seconds=a["seconds"],
+                   unsharded_tokens_per_sec=truth["tokens_per_sec"],
+                   unsharded_ms_per_dispatch=truth["ms_per_dispatch"],
+                   kv_pool_bytes_per_rank=[a["kv_pool_bytes"],
+                                           b["kv_pool_bytes"]],
+                   unsharded_kv_pool_bytes=truth["stats"]["kv_pool_bytes"],
+                   pool_heads=[a["pool_heads"], b["pool_heads"]],
+                   captures_after_warmup=st["graph_captures_total"],
+                   blocks_leaked=a["leaked"],
+                   ledger_errors=a["ledger_errors"],
+                   differences_from_unsharded=diffs,
+                   teacher_forced=[a["teacher_forced"],
+                                   b["teacher_forced"]],
+                   follower_outputs_equal=a["digests"] == b["digests"],
+                   collective_ms_per_rank=collectives,
+                   programs_run=len(a["digests"]), launches=launches,
+                   unsharded_launches=truth["launches"])
+        emit(name, **row)
+        out[name] = row
+        require(a["digests"] == b["digests"],
+                f"{name}: rank 1's program outputs differ from rank 0's")
+        require(2 * a["kv_pool_bytes"] == truth["stats"]["kv_pool_bytes"]
+                and a["pool_heads"] == cfg_n.num_kv_heads // 2,
+                f"{name}: the pool of a rank is not half the unsharded one")
+        require(st["graph_captures_total"] == 0, f"{name}: captures")
+        require(a["leaked"] == 0 and not a["ledger_errors"],
+                f"{name}: leaked blocks")
+        require(st["tp_degree"] == 2, f"{name}: tp_degree {st['tp_degree']}")
+        if cfg_n.moe_experts and device is None:
+            require(launches["rank0"].get("gmm", 0) > 0
+                    and launches["rank1"].get("gmm", 0) > 0,
+                    f"{name}: gmm launches {launches}")
+    wr = lead["wire"]
+    wire_diffs = _diffs("wire_migrate", cfg, m, wire_prompts,
+                        wire_truth["tokens"], wr["streams"])
+    require(wr["ok"] is True and wr["imports"] == 1,
+            f"wire_migrate: the TP=2 export was not imported: {wr['ok']}")
+    require(wr["snapshot_heads"] == cfg.num_kv_heads,
+            f"wire_migrate: a TP=2 snapshot of {wr['snapshot_heads']} heads")
+    out["wire"] = {**{k: v for k, v in wr.items() if k != "streams"},
+                   "differences_from_unsharded": wire_diffs}
+    rs = lead["resize"]
+    require(rs["tokens"] == rs["undisturbed"],
+            "tp_resize: the resized stream differs from the same stream "
+            f"undisturbed: {rs['tokens']} vs {rs['undisturbed']}")
+    resize_diffs = _diffs("tp_resize", rcfg, rm, resize_prompt,
+                          resize_truth["tokens"], [rs["tokens"]])
+    require(rs["shrink"]["tp_degree"] == 1 and rs["grow"]["tp_degree"] == 2
+            and rs["resizes"] == 2, f"tp_resize: {rs}")
+    require(0 < rs["shrink"]["at"] < rs["grow"]["at"] < sizes["resize"][
+        "new"], f"tp_resize: the stream was not live across both resizes "
+        f"{rs['shrink']['at']}, {rs['grow']['at']}")
+    row = dict(card=line, engine=RESIZE_ENGINE, **sizes["resize"],
+               dtype="float32", equal_to_undisturbed=True,
+               shrink=rs["shrink"], grow=rs["grow"], clean=rs["clean"],
+               differences_from_unsharded=resize_diffs,
+               seconds=lead["seconds"]["resize"])
+    emit("tp_resize", **row)
+    out["tp_resize"] = row
+    del m, rm, baselines
+    _free_card(device is None)
+    return out
+
+
+def _sum_launches(rows: list) -> dict:
+    out: dict = {}
+    for delta in rows:
+        for k, v in delta.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def wire_local(model, device=None, sizes=GANG["wire"]) -> dict:
+    """The kv_migrate wire in one process: ``DisaggregatedPool(wire=True)``
+    (every prefill-to-decode handoff over loopback TCP) and
+    ``migrate_sequence`` of a live sequence between two engines, each
+    against one engine's streams."""
+    from kubeflow_tpu_torch.analysis.runtime import BlockLedger
+    from kubeflow_tpu_torch.serving import continuous
+    from kubeflow_tpu_torch.serving.gang import (
+        KvMigrationServer,
+        migrate_sequence,
+        register_migration_handle,
+    )
+
+    cfg, m = _gang_model(model, device or "cuda")
+    kw = dict(WIRE_ENGINE, device=device)
+    prompts = _prompts(cfg, 4, sizes["prompt_len"])
+    warm = [(4, sizes["prompt_len"]), (1, sizes["prompt_len"])]
+    truth = _truth(cfg, m, prompts, sizes["new"], warm, WIRE_ENGINE)
+    pool = continuous.DisaggregatedPool(
+        cfg, m, wire=True, **dict(kw, prefill_budget=64))
+    try:
+        pool.warmup(warm)
+        streams, seconds = _serve_all(pool, prompts, sizes["new"])
+        pst = pool.stats()
+    finally:
+        pool.stop()
+    disagg_diffs = _diffs("wire_migrate", cfg, m, prompts, truth["tokens"],
+                          streams)
+    ledger = BlockLedger()
+    src = continuous.ContinuousEngine(cfg, m, **kw)
+    dst = continuous.ContinuousEngine(cfg, m, **kw)
+    for e in (src, dst):
+        e.attach_block_ledger(ledger)
+    srv = KvMigrationServer(dst, token="chip-smoke")
+    try:
+        src.warmup(warm)
+        dst.warmup(warm)
+        reqs = [src.submit(p, max_new_tokens=sizes["new"]) for p in prompts]
+        _wait_tokens(reqs, sizes["at"], "wire_migrate")
+        # both freeze first (copy), then move (cutover); the destination
+        # resolves each request's handle from the migration id
+        snaps = [src.export_sequence(req) for req in reqs[:2]]
+        for req, snap in zip(reqs, snaps):
+            require(snap is not None
+                    and migrate_sequence(
+                        snap, "127.0.0.1", srv.port, token="chip-smoke",
+                        mid=register_migration_handle(req)) is True,
+                    "wire_migrate: a transfer failed")
+            src.release_sequence(req)
+        streams = [r.wait(600) for r in reqs]
+        clean = _require_clean("wire_migrate", ledger, src, dst)
+    finally:
+        srv.close()
+        src.stop()
+        dst.stop()
+    mig_diffs = _diffs("wire_migrate", cfg, m, prompts, truth["tokens"],
+                       streams)
+    require(pst["kv_migrations_total"] == len(prompts),
+            f"wire_migrate: {pst['kv_migrations_total']} handoffs")
+    del m
+    _free_card(device is None)
+    return {"disagg": {"seconds": seconds,
+                       "kv_migrations_total": pst["kv_migrations_total"],
+                       "kv_migrate_bytes_total":
+                           pst["kv_migrate_bytes_total"],
+                       "differences": disagg_diffs},
+            "migrate_sequence": {"moved": 2, "clean": clean,
+                                 "imports": srv.imports_total,
+                                 "differences": mig_diffs}}
+
+
+def nccl_graph_capture(model, sizes=NCCL_CAPTURE) -> dict:
+    """The NCCL capture path a multi-GPU host runs, on the one card: a
+    one-rank NCCL group through ``bootstrap``; a CUDA graph holding the
+    tensor-parallel all-reduce and all-gather (``collectives.
+    reduce_from_group``/``gather_last_dim``) captured, replayed on new
+    inputs and held against the eager result; then the serving engine on
+    the model with its tensor-parallel code path forced on (every module
+    given the one-rank group), every program, its collectives included,
+    captured in warmup and replayed, its greedy streams against the same
+    engine without collectives."""
+    import torch
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch.parallel.collectives import (
+        gather_last_dim,
+        reduce_from_group,
+    )
+    from kubeflow_tpu_torch.parallel.sharding import AxisGroup
+    from kubeflow_tpu_torch.runtime import bootstrap
+    from kubeflow_tpu_torch.utils.net import free_port
+
+    ctx = bootstrap.PodContext(
+        num_processes=1, coordinator_address=f"127.0.0.1:{free_port()}",
+        dist_backend="nccl")
+    bootstrap.initialize(ctx)
+    try:
+        require(dist.get_backend() == "nccl", "not an NCCL group")
+        group = dist.group.WORLD
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+        a = torch.randn(64, 1024, generator=gen, device="cuda")
+        w = torch.randn(1024, 2048, generator=gen, device="cuda")
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            eager = gather_last_dim(reduce_from_group(a @ w, group), group)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=stream):
+                static = gather_last_dim(reduce_from_group(a @ w, group),
+                                         group)
+        torch.cuda.current_stream().wait_stream(stream)
+        a.copy_(torch.randn(64, 1024, generator=gen, device="cuda"))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = gather_last_dim(reduce_from_group(a @ w, group), group)
+        direct = {"max_abs_err": abs_err(static, want),
+                  "first_replay_changed": not torch.equal(static, eager)}
+        require(direct["max_abs_err"] == 0.0,
+                f"nccl_graph_capture: replay differs {direct}")
+        cfg, m = _gang_model(model)
+        prompts = _prompts(cfg, sizes["prompts"], sizes["prompt_len"])
+        warm = [(sizes["prompts"], sizes["prompt_len"]),
+                (1, sizes["prompt_len"])]
+        plain = _truth(cfg, m, prompts, sizes["new"], warm, SERVE_ENGINE)
+        forced = AxisGroup(group, 1, 0)
+        mods = [mod for mod in m.modules() if hasattr(mod, "tp")]
+        for mod in mods:
+            mod.tp = forced
+        try:
+            tp = _truth(cfg, m, prompts, sizes["new"], warm, SERVE_ENGINE)
+        finally:
+            for mod in mods:
+                del mod.tp
+        st = tp["stats"]
+        row = {"backend": dist.get_backend(), "direct": direct,
+               "modules_on_the_group": len(mods),
+               "graphs_captured_in_warmup": st["graph_captures_warmup"],
+               "captures_after_warmup": st["graph_captures_total"],
+               "cuda_graphs": st["cuda_graphs"],
+               "streams_equal": tp["tokens"] == plain["tokens"],
+               "tokens_per_sec": tp["tokens_per_sec"],
+               "plain_tokens_per_sec": plain["tokens_per_sec"]}
+        require(st["cuda_graphs"] == 1 and st["graph_captures_total"] == 0,
+                f"nccl_graph_capture: {row}")
+        require(row["streams_equal"],
+                "nccl_graph_capture: the captured collectives changed the "
+                "streams")
+    finally:
+        bootstrap.shutdown()
+        _free_card(True)
+    return row
+
+
+def phase_gang(line: str) -> dict:
+    """``tp_gmm_time``, ``nccl_graph_capture``, ``wire_migrate`` (in one
+    process, then the TP=2 export) and the gang phases (``tp_serve``,
+    ``moe_tp_serve``, ``tp_resize``) on the bench models at full width
+    and depth."""
+    t0 = time.perf_counter()
+    phase_tp_gmm_time()
+    t1 = time.perf_counter()
+    emit("nccl_graph_capture", card=line, **nccl_graph_capture(
+        "bench_model"))
+    t2 = time.perf_counter()
+    local = wire_local("bench_model")
+    t3 = time.perf_counter()
+    gangs = gang_serving("bench_model", "bench_moe_model", line=line)
+    emit("wire_migrate", card=line, **local, tp2_export=gangs["wire"])
+    t4 = time.perf_counter()
+    return {"tp_gmm_time": t1 - t0, "nccl_graph_capture": t2 - t1,
+            "wire_local": t3 - t2, "gang": t4 - t3,
+            "gang_cases": gangs["case_seconds"]}
+
+
 def run() -> int:
     import torch
 
@@ -4691,6 +5604,8 @@ def run() -> int:
     phase_pipeline_train(line, baseline)
     t16 = time.perf_counter()
     phase_dist_pods(line)
+    t17 = time.perf_counter()
+    gang_s = phase_gang(line)
     now = time.perf_counter()
     emit("phase_seconds", total=now - started,
          speculation_and_prefix=t1 - t0, migration_and_tiers=t2 - t1,
@@ -4701,7 +5616,7 @@ def run() -> int:
          mesh_train=t11 - t10, moe_mesh_train=t12 - t11,
          nccl_one_rank=t13 - t12, seq_train=t14 - t13,
          ring_attention_check=t15 - t14, pipeline_train=t16 - t15,
-         dist_pods=now - t16)
+         dist_pods=t17 - t16, multi_gpu_serving=now - t17, **gang_s)
     # each kernel's launches from the run of the path that carries it
     launches.update(gmm=moe_launches["gmm"], tgmm=moe_launches["tgmm"])
     kernels = []

@@ -31,6 +31,7 @@ import functools
 import json
 import math
 import os
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -303,17 +304,19 @@ class KvCache:
 
     @classmethod
     def zeros(cls, cfg: "LlamaConfig", rows: int, seq_len: int, *,
-              device, scratch: int = 1) -> "KvCache":
+              device, scratch: int = 1,
+              kv_heads: Optional[int] = None) -> "KvCache":
         """A zeroed cache of ``rows`` rows and ``seq_len`` positions plus
-        ``scratch`` positions of scratch."""
-        shape = (cfg.num_layers, rows, seq_len + scratch, cfg.num_kv_heads,
-                 cfg.head_dim)
+        ``scratch`` positions of scratch, holding ``kv_heads`` heads (all
+        of the config's by default; a tensor-parallel rank's own
+        ``Llama.kv_heads``)."""
+        kv = cfg.num_kv_heads if kv_heads is None else kv_heads
+        shape = (cfg.num_layers, rows, seq_len + scratch, kv, cfg.head_dim)
         dt = torch.int8 if cfg.quant_kv else cfg.dtype
         k, v = (torch.zeros(shape, dtype=dt, device=device) for _ in "kv")
         scales = [None, None]
         if cfg.quant_kv:
-            sshape = (cfg.num_layers, rows, cfg.num_kv_heads,
-                      seq_len + scratch)
+            sshape = (cfg.num_layers, rows, kv, seq_len + scratch)
             scales = [torch.zeros(sshape, device=device) for _ in "kv"]
         return cls(k, v, *scales, seq_len=seq_len)
 
@@ -525,7 +528,7 @@ class Attention(_Projections):
             vq, vs = _quantize(v)
             kc[rows, widx] = kq
             vc[rows, widx] = vq
-            heads = torch.arange(cfg.num_kv_heads, device=q.device)
+            heads = torch.arange(k.shape[2], device=q.device)
             srow, shead, spos = rows[:, :, None], heads, widx[:, :, None]
             kscale, vscale = cache.k_scale[layer], cache.v_scale[layer]
             kscale[srow, shead, spos] = ks
@@ -538,8 +541,9 @@ class Attention(_Projections):
             kc[rows, widx] = k.to(cfg.dtype)
             vc[rows, widx] = v.to(cfg.dtype)
             kf, vf = kc[:, :attend].float(), vc[:, :attend].float()
-        qh = q.reshape(b, sc, cfg.num_kv_heads, cfg.q_per_kv,
-                       cfg.head_dim).float()
+        # this rank's heads (all of them, or h/tp and kv/tp under TP)
+        heads, kv_heads = q.shape[2], k.shape[2]
+        qh = q.reshape(b, sc, kv_heads, cfg.q_per_kv, cfg.head_dim).float()
         logits = torch.einsum("bqkgh,bskh->bkgqs", qh, kf)
         valid = (torch.arange(attend, device=q.device)[None, None, :]
                  <= cpos[:, :, None])                       # [b, q, s]
@@ -559,11 +563,10 @@ class Attention(_Projections):
             out = (torch.einsum("bkgqs,bskh->bqkgh", probs[..., :sp],
                                 pv.float())
                    + torch.einsum("bkgqs,bskh->bqkgh", probs[..., sp:], vf))
-            return out.reshape(b, sc, cfg.num_heads,
-                               cfg.head_dim).to(cfg.dtype)
+            return out.reshape(b, sc, heads, cfg.head_dim).to(cfg.dtype)
         logits = logits / scale
         out = torch.einsum("bkgqs,bskh->bqkgh", logits.softmax(dim=-1), vf)
-        return out.reshape(b, sc, cfg.num_heads, cfg.head_dim).to(cfg.dtype)
+        return out.reshape(b, sc, heads, cfg.head_dim).to(cfg.dtype)
 
 
 class Mlp(_Projections):
@@ -717,6 +720,13 @@ class Llama(nn.Module):
         self.layers = nn.ModuleList(
             Block(cfg, device) for _ in range(cfg.num_layers))
         self.head = Head(cfg, device)
+
+    @property
+    def kv_heads(self) -> int:
+        """The kv heads this rank's blocks hold: all of the config's, or
+        ``num_kv_heads / tp`` under tensor parallelism (the decode path's
+        caches hold this many)."""
+        return next(iter(self.layers)).attn.wk.shape[1]
 
     def _init_plan(self) -> list:
         """``init_weights``' draws in order: (submodule name, fill,

@@ -249,9 +249,8 @@ class shard_context:
 def reshard_plan(params, src_shardings, dst_shardings) -> list[dict]:
     """Per-leaf repartition plan for moving a weight tree between two mesh
     layouts: each entry records the leaf's path, shape, dtype and its
-    source/destination spec as plain JSON values. Its consumer, the gang
-    resizer's reshard wire (``serving/resize.py``), is queued as ROADMAP
-    A7. ``src_shardings`` /
+    source/destination spec as plain JSON values. Its consumer is the gang
+    resizer's reshard wire (``serving/resize.py``). ``src_shardings`` /
     ``dst_shardings`` are ``param_shardings`` results (a missing entry or
     None = replicated).
 

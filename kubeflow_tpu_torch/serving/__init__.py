@@ -4,7 +4,10 @@ it: ``ModelServer`` (``server.py``: V1/V2/OpenAI HTTP, ``/metrics``,
 ``/traces``), ``TextGenerator`` (``text.py``), request tracing
 (``trace.py``), the QoS door and preemptor (``traffic.py``), the
 session reaper (``autoscale.py``), the serving runtimes (``runtimes.py``,
-``ContinuousLlamaGenerator``), and the control-plane side: the
+``ContinuousLlamaGenerator``), multi-GPU serving (``sharded.py``: the
+tensor-parallel engine, one process a card; ``gang.py``: the serving gang
+with its control stream and the kv_migrate wire; ``resize.py``: the
+elastic TP resize), and the control-plane side: the
 InferenceService controller and its ``Router`` (``controller.py``), the
 InferenceGraph (``graph.py``), transformer and explainer components; the
 port of ``kubeflow_tpu/serving``.
@@ -38,6 +41,11 @@ _EXPORTS = {
     "TrafficPlane": "traffic",
     "validate_qos": "traffic",
     "SessionReaper": "autoscale",
+    "GangChannel": "gang",
+    "GangEngine": "gang",
+    "KvMigrationServer": "gang",
+    "GangResizer": "resize",
+    "ElasticGangSupervisor": "resize",
 }
 
 __all__ = sorted(_EXPORTS)

@@ -96,9 +96,12 @@ finished on the thread that delivered the response. ``warmup`` records an
 on the card each times the shape's eager run and CUDA-graph capture (the
 counterpart of the reference's compile), on the CPU its first eager run.
 
-Knobs not ported yet raise ``NotImplementedError`` naming their ROADMAP
-item: serving meshes and the program-artifact cache, and the
-disaggregated pool's wire transport.
+A tensor-parallel engine (``mesh_axes``) is one rank of a serving gang
+(``sharded.py``, ``gang.py``): one process drives one card. Its programs
+hold the model's collectives; on an NCCL group they are captured as CUDA
+graphs like any other, on gloo they run eagerly on the card's tensors.
+The program-artifact cache is not ported yet: it raises
+``NotImplementedError`` naming its ROADMAP item (A12).
 
 Thread contract, as in the reference: scheduler state (the slot table,
 ``_waiting``, the allocator, the pool) is owned by the scheduler thread,
@@ -131,6 +134,7 @@ from ..ops import flash_attention as _fa
 from ..ops import grouped_matmul as _gm
 from .paged import (
     KV_MIGRATE_GROUP,
+    MIGRATE_LEAVES,
     BlockAllocator,
     HostBlockPool,
     block_keys,
@@ -141,6 +145,7 @@ from .paged import (
     scatter_working_view,
     write_window_tables,
 )
+from . import sharded
 from .model import Model
 from .storage import fetch_mem
 from .trace import Trace
@@ -199,15 +204,18 @@ class Request:
         return self.first_token_at - self.submitted_at
 
 
-def cache_shapes(cfg: LlamaConfig, batch: int) -> dict[str, tuple]:
+def cache_shapes(cfg: LlamaConfig, batch: int,
+                 kv_heads: Optional[int] = None) -> dict[str, tuple]:
     """``{leaf: (shape, dtype)}`` of a ``batch``-row KV cache of
-    ``cfg.max_seq_len`` positions, scratch not counted."""
-    kv = (cfg.num_layers, batch, cfg.max_seq_len, cfg.num_kv_heads,
-          cfg.head_dim)
+    ``cfg.max_seq_len`` positions, scratch not counted, holding
+    ``kv_heads`` heads (default all: a tensor-parallel rank holds
+    ``num_kv_heads / tp``)."""
+    heads = cfg.num_kv_heads if kv_heads is None else kv_heads
+    kv = (cfg.num_layers, batch, cfg.max_seq_len, heads, cfg.head_dim)
     dt = torch.int8 if cfg.quant_kv else cfg.dtype
     out = {"k": (kv, dt), "v": (kv, dt)}
     if cfg.quant_kv:
-        sc = (cfg.num_layers, batch, cfg.num_kv_heads, cfg.max_seq_len)
+        sc = (cfg.num_layers, batch, heads, cfg.max_seq_len)
         out.update(k_scale=(sc, torch.float32), v_scale=(sc, torch.float32))
     return out
 
@@ -279,7 +287,8 @@ def make_prefill_program(cfg: LlamaConfig, attend: int):
 
     def prefill(model, prompt, lengths):
         g, length = prompt.shape
-        cache = KvCache.zeros(cfg, g, cfg.max_seq_len, device=prompt.device)
+        cache = KvCache.zeros(cfg, g, cfg.max_seq_len, device=prompt.device,
+                              kv_heads=model.kv_heads)
         positions = torch.arange(length, device=prompt.device).expand(
             g, length)
         logits_all = model(prompt, positions, cache=cache, attend=attend)
@@ -642,7 +651,8 @@ def make_suffix_admit_program(cfg: LlamaConfig, attend: int, seg_att: int,
     def admit(model, seg, toks, seg_ids, plens, slens):
         g = toks.shape[0]
         pk, pv = _seg_kv(seg, seg_ids, seg_att)
-        cache = KvCache.zeros(cfg, g, cfg.max_seq_len, device=toks.device)
+        cache = KvCache.zeros(cfg, g, cfg.max_seq_len, device=toks.device,
+                              kv_heads=model.kv_heads)
         local = torch.arange(suffix_bucket, device=toks.device).expand(
             g, suffix_bucket)
         logits_all = model(toks, plens[:, None] + local, cache=cache,
@@ -771,10 +781,16 @@ class _Dispatch:
     and replay on the card, eager runs on the CPU, token fetches."""
 
     def __init__(self, device: torch.device, counter: CaptureCounter,
-                 ring: int, observer: Callable):
+                 ring: int, observer: Callable, graphs: bool = True):
         self.device = device
         self.cuda = device.type == "cuda"
+        #: capture and replay CUDA graphs (on the card); False runs every
+        #: program eagerly, on the card as on the CPU
+        self.graphs = self.cuda and graphs
         self.counter = counter
+        #: optional callable(key, host) called before every program runs:
+        #: a serving gang's rank 0 publishes the dispatch there
+        self.publish: Optional[Callable] = None
         #: callable(family, "compile", t0, t1) for each program shape first
         #: run before the counter is armed (the warmup trace's spans)
         self.observer = observer
@@ -861,8 +877,10 @@ class _Dispatch:
             prog = _Program(fn, spec, self.device)
             self.programs[key] = prog
             self.counter.note()
+        if self.publish is not None:
+            self.publish(key, host)
         self._upload(prog, host)
-        if not self.cuda:
+        if not self.graphs:
             out = prog.run()
         else:
             if fresh:
@@ -873,7 +891,7 @@ class _Dispatch:
                 for k, n in delta.items():
                     c[k] += n
         if fresh and not self.counter.armed:
-            # on the card: the eager run and the capture; the replay is
+            # with graphs: the eager run and the capture; the replay is
             # only enqueued
             self.observer(":".join(str(k) for k in key), "compile", t0,
                           time.perf_counter())
@@ -971,7 +989,6 @@ class NgramProposer(DraftProposer):
 
 #: knob -> (its default, the ROADMAP item that ports it)
 _UNPORTED = {
-    "mesh_axes": (None, "A7"),
     "program_cache": (None, "A12"),
 }
 
@@ -1024,6 +1041,16 @@ class ContinuousEngine:
       only). A ``prefill`` engine freezes each sequence at its final chunk
       and calls ``on_prefilled`` (set by ``DisaggregatedPool``), which
       hands it to a decode engine by migration;
+    - ``mesh_axes``: a tensor-parallel serving mesh, ``{"model": N}``.
+      One process drives one card, so the engine is then one rank of a
+      ``torch.distributed`` group of N ranks (``sharded.py``): its model
+      holds this rank's shards and its pool ``num_kv_heads / N`` heads,
+      and it runs only as a serving gang (``gang.py``: rank 0's
+      ``GangEngine`` decides, the others ``follow``). Without a group of
+      N ranks it raises ``ValueError``. On an NCCL group every program is
+      captured as a CUDA graph, collectives included; on gloo (the only
+      backend that lets two ranks share one card) the programs run
+      eagerly on the card's tensors;
     - ``temperature``, ``eos_id``, ``seq_buckets``,
       ``default_max_new_tokens`` as in the reference.
 
@@ -1056,6 +1083,7 @@ class ContinuousEngine:
         host_watermark: float = 0.25,
         admission_policy: Optional[Callable[[Request], bool]] = None,
         role: str = "mixed",
+        mesh_axes: Optional[dict[str, int]] = None,
         device=None,
         **unported,
     ):
@@ -1114,11 +1142,36 @@ class ContinuousEngine:
                 f"{cfg.max_seq_len}")
         self.device = resolve_device(device)
         self.cfg = cfg
-        if isinstance(params, Llama):
+        #: the serving mesh's axes, and the ``DeviceMesh`` of a
+        #: tensor-parallel engine (None for one process)
+        self.mesh_axes = dict(mesh_axes) if mesh_axes else None
+        self.mesh = (sharded.build_serving_mesh(self.mesh_axes)
+                     if sharded.degree_of(mesh_axes) > 1 else None)
+        if isinstance(params, Llama) and (
+                self.mesh is None or sharded.tp_group(params) is not None):
+            # one process's model, or one already laid out on the group
             self.model = params
+        elif self.mesh is not None:
+            # a state dict or an unsharded ``Llama``: this rank's shards
+            self.model = sharded.place_params(cfg, params, self.mesh,
+                                              self.device)
         else:
             self.model = Llama(cfg, device=self.device)
             self.model.load_state_dict(params, strict=True)
+        #: the ``model`` axis group (None unsharded), this rank's kv heads
+        self._tp = sharded.tp_group(self.model)
+        self.kv_heads = self.model.kv_heads
+        self.tp_degree = 1 if self._tp is None else self._tp.size
+        #: the group's backend, and whether programs run as CUDA graphs:
+        #: on the card, unless a gloo group's collectives (which a graph
+        #: cannot hold) are in them
+        self.backend = None
+        if self._tp is not None:
+            import torch.distributed as dist
+
+            self.backend = dist.get_backend(self._tp.group)
+        self.graphs = (self.device.type == "cuda"
+                       and self.backend in (None, "nccl"))
         self.num_slots = num_slots
         self.decode_chunk = decode_chunk
         self.prefill_budget = int(prefill_budget)
@@ -1221,11 +1274,13 @@ class ContinuousEngine:
         #: the slot pool's KV bytes at max_seq_len, scratch not counted
         self.kv_pool_bytes = sum(
             int(np.prod(shape)) * torch.empty(0, dtype=dt).element_size()
-            for shape, dt in cache_shapes(cfg, num_slots).values())
+            for shape, dt in cache_shapes(cfg, num_slots,
+                                          self.kv_heads).values())
         self._captures = CaptureCounter()
         self._dispatch = _Dispatch(self.device, self._captures,
                                    ring=pipeline_depth + 1,
-                                   observer=self._note_warm)
+                                   observer=self._note_warm,
+                                   graphs=self.graphs)
         self._init_pool()
 
         self._queue: "queue.Queue[Request]" = queue.Queue()
@@ -1295,16 +1350,18 @@ class ContinuousEngine:
             # rows = blocks (plus the scratch block), seq = block_size
             self._pool = KvCache.zeros(cfg, self.num_blocks + 1,
                                        self.block_size, device=dev,
-                                       scratch=0)
+                                       scratch=0, kv_heads=self.kv_heads)
         else:
             self._pool = KvCache.zeros(cfg, self.num_slots + 1,
-                                       cfg.max_seq_len, device=dev)
+                                       cfg.max_seq_len, device=dev,
+                                       kv_heads=self.kv_heads)
         self._pool_logits = torch.zeros(self.num_slots + 1, cfg.vocab_size,
                                         dtype=cfg.dtype, device=dev)
         if self.prefix_segments > 0:
             # one scratch row past the segments, for the warmup's writes
             self._seg = KvCache.zeros(self._seg_cfg, self.prefix_segments + 1,
-                                      self.segment_len, device=dev)
+                                      self.segment_len, device=dev,
+                                      kv_heads=self.kv_heads)
         #: the uniform noise of one dispatch's draws (a verify draws
         #: spec_k + 1 times), filled only when a slot samples
         self._noise = torch.zeros(max(self.decode_chunk, self.spec_k + 1),
@@ -1461,7 +1518,7 @@ class ContinuousEngine:
                 return (lambda v: prog(m, self._pool, self._pool_logits,
                                        v["slot"], *self._chunk_args(v)),
                         self._chunk_spec(budget))
-            key = ("chunk", attend)
+            key = ("chunk", attend, budget)
         self._dispatch.run(key, build, host)
 
     def _verify_spec(self) -> dict:
@@ -1598,6 +1655,22 @@ class ContinuousEngine:
 
         return self._dispatch.run(("prefix_decode", attend, seg_att,
                                    filtered), build, host)
+
+    def replay(self, key: tuple, host: dict):
+        """Run program ``key`` on the host inputs ``host``, as another
+        engine of the same config dispatched it (a serving gang's rank 0
+        publishes both, ``gang.py``): the program is rebuilt from its key.
+        Returns the program's output."""
+        fam = key[0]
+        if fam == "block_copy":
+            return self._run_block_copy(int(host["src"][0]),
+                                        int(host["dst"][0]))
+        # every other family is its ``_run_*`` method's name (the paged
+        # pool's behind a prefix), the rest of the key its arguments
+        run = getattr(self, "_run_" + fam.removeprefix("paged_"), None)
+        if run is None:
+            raise RuntimeError(f"unknown program family {fam!r}")
+        return run(*key[1:], host)
 
     def _draw_noise(self) -> None:
         """Fill the draw's noise when an active slot samples (greedy slots
@@ -1955,6 +2028,11 @@ class ContinuousEngine:
             "segment_evictions": self.segment_evictions,
             # captures after warmup stall every live request: must stay 0
             "graph_captures_total": self._captures.count,
+            # the serving mesh: ranks of the tensor-parallel group, and
+            # whether programs replay as CUDA graphs (0 on the CPU and on
+            # a gloo group)
+            "tp_degree": self.tp_degree,
+            "cuda_graphs": int(self.graphs),
             "graph_captures_warmup": self._captures.warmup,
             # the slot pool's KV at max_seq_len (what num_blocks=0 buys)
             "kv_pool_bytes": self.kv_pool_bytes,
@@ -2096,6 +2174,10 @@ class ContinuousEngine:
             bt = np.full(g, self._alloc.pad_block, np.int64)
             bt[:len(grp)] = grp
             leaves = kv_export(self._pool, self._to_device(bt))
+            if self._tp is not None:
+                # a snapshot holds every head, whatever the degree
+                leaves = sharded.gather_heads(leaves, self._head_dims(),
+                                              self._tp)
             if not host:
                 host = [torch.empty((len(ids), *x.shape[1:]), dtype=x.dtype,
                                     pin_memory=self._dispatch.cuda)
@@ -2103,6 +2185,21 @@ class ContinuousEngine:
             for h, x in zip(host, leaves):
                 self._to_host(x[:len(grp)], h[i:i + len(grp)])
         return host
+
+    def _head_dims(self) -> list[int]:
+        """The kv-heads dim of each leaf an export carries."""
+        names = self._pool.leaves()
+        return sharded.head_dims([n for n in MIGRATE_LEAVES if n in names])
+
+    def _install_logits(self, row: torch.Tensor, slot: int) -> None:
+        """Set the pool's logits row ``slot`` (a migration's import or
+        resume): from a pinned host row, or a device row stashed at a
+        freeze."""
+        if row.device.type != self.device.type:
+            staged = row
+            row = row.to(self.device, non_blocking=True)
+            self._hold([staged])
+        logits_set(self._pool_logits, row, slot)
 
     def _hold(self, tensors: list) -> None:
         """Keep the pinned host tensors of copies to the card alive until
@@ -2115,7 +2212,11 @@ class ContinuousEngine:
     def _import_blocks(self, ids: list[int], leaves: list) -> None:
         """Enqueue the copy of host leaves ([len(ids), ...] each, the
         export's layout) to the card and their scatter into blocks ``ids``,
-        in groups of ``KV_MIGRATE_GROUP``."""
+        in groups of ``KV_MIGRATE_GROUP``. Under tensor parallelism the
+        leaves hold every head and this rank keeps its own."""
+        if self._tp is not None:
+            leaves = [x.contiguous() for x in sharded.local_heads(
+                leaves, self._head_dims(), self._tp)]
         if self._dispatch.cuda:
             leaves = [x if x.is_pinned() else x.pin_memory() for x in leaves]
         g = KV_MIGRATE_GROUP
@@ -2815,9 +2916,7 @@ class ContinuousEngine:
                                         imported=True)
             else:
                 nbytes += int(row.nbytes)
-                logits_set(self._pool_logits,
-                           row.to(self.device, non_blocking=True), slot)
-                self._hold([row])
+                self._install_logits(row, slot)
                 self._slot_content[slot] = prompt + generated
                 self._slot_owner[slot] = req
                 self._positions[slot] = position
@@ -2873,7 +2972,7 @@ class ContinuousEngine:
         else:
             if rec.get("logits") is not None:
                 # reinstall the row as it was at the freeze
-                logits_set(self._pool_logits, rec["logits"], slot)
+                self._install_logits(rec["logits"], slot)
             self._active[slot] = True
             if req.trace is not None:
                 req.trace.phase("engine.decode", resumed=True)
@@ -4027,16 +4126,16 @@ class DisaggregatedPool:
     prefill engine, and the request handle is re-targeted in place. The
     engines share one ``Llama`` and each has its own stream and graphs.
     Engine-shaped: ``submit``/``generate``/``warmup``/``stop``/``stats``.
-    ``wire=True`` (the ``kv_migrate`` TCP framing) is not ported (ROADMAP
-    A7)."""
+
+    ``wire=True`` routes every handoff through the authenticated,
+    length-framed ``kv_migrate`` stream (``gang.py``) over loopback TCP,
+    the bytes a cross-host deployment ships, with the destination
+    resolving the request handle from the migration-id registry."""
 
     def __init__(self, cfg: LlamaConfig, params: Any, *,
                  prefill_replicas: int = 1, decode_replicas: int = 1,
-                 wire: bool = False, seq_buckets=None, device=None, **kw):
-        if wire:
-            raise NotImplementedError(
-                "disaggregation wire transport (gang.py's kv_migrate) is "
-                "not ported yet (ROADMAP A7)")
+                 wire: bool = False, migrate_token: str = "",
+                 sock_wrap=None, seq_buckets=None, device=None, **kw):
         if int(kw.get("block_size", 0)) <= 0:
             raise ValueError(
                 "disaggregation requires the paged pool (block_size > 0)")
@@ -4061,6 +4160,21 @@ class DisaggregatedPool:
         self._stopping = threading.Event()
         #: recent handoff latencies (ms); the engines keep the histogram
         self.migration_latencies_ms: "deque[float]" = deque(maxlen=4096)
+        self._servers = []
+        if wire and not migrate_token:
+            # the tiers share a process: a per-pool secret instead of an
+            # open loopback listener; cross-process deployments pass theirs
+            import secrets
+
+            migrate_token = secrets.token_hex(16)
+        self._wire_token = migrate_token
+        self._sock_wrap = sock_wrap
+        if wire:
+            from .gang import KvMigrationServer  # gang.py imports this module
+
+            for eng in self.decode:
+                self._servers.append(KvMigrationServer(
+                    eng, token=migrate_token, sock_wrap=sock_wrap))
         for eng in self.prefill:
             eng.on_prefilled = (
                 lambda req, _e=eng: self._handoff_q.put((_e, req)))
@@ -4077,13 +4191,54 @@ class DisaggregatedPool:
             except queue.Empty:
                 continue
             with self._tier_lock:
-                deng = max(self.decode, key=lambda e: e._alloc.free_blocks)
-
-            def transfer(snap, _r=req, _e=deng):
-                return _e.import_sequence(snap, req=_r) is not None
+                di = max(range(len(self.decode)),
+                         key=lambda i: self.decode[i]._alloc.free_blocks)
+                deng = self.decode[di]
+            if self._servers:
+                def transfer(snap, _r=req, _d=di):
+                    return self._send_wire(snap, _r, _d)
+            else:
+                def transfer(snap, _r=req, _e=deng):
+                    return _e.import_sequence(snap, req=_r) is not None
             # a failed transfer decodes on the prefill engine
             _migrate_one(src, req, transfer,
                          self.migration_latencies_ms.append)
+
+    def _send_wire(self, snap: dict, req: Request, di: int) -> bool:
+        """One wire handoff, the reference's: a definitive outcome (ack,
+        explicit rejection, or a death before ``kv_commit`` went out)
+        resolves at once; an indeterminate one (commit delivered, ack
+        lost) must not resume blind, or the request would decode twice:
+        it waits for the destination to own the request, for the import's
+        bounded service time."""
+        from .gang import (
+            migrate_sequence,
+            register_migration_handle,
+            unregister_migration_handle,
+        )
+
+        srv = self._servers[di]
+        mid = register_migration_handle(req)
+        st = migrate_sequence(snap, "127.0.0.1", srv.port,
+                              token=self._wire_token, mid=mid,
+                              sock_wrap=self._sock_wrap)
+        if st is True:
+            return True
+        if st is False:
+            unregister_migration_handle(mid)
+            return False
+        if unregister_migration_handle(mid):
+            return False  # the commit never arrived: the source resumes
+        deadline = time.perf_counter() + 60.0
+        while time.perf_counter() < deadline:
+            if (self.decode[di]._find_req_slot(req) is not None
+                    or req.done.is_set()):
+                return True
+            time.sleep(0.01)
+        log.warning(
+            "kv_migrate cutover unresolved after 60s (commit delivered, "
+            "no ack, destination never installed): resuming the source")
+        return False
 
     def submit(self, prompt, max_new_tokens=None, temperature=None,
                top_p=None, top_k=None, priority=None, trace=None,
@@ -4113,6 +4268,8 @@ class DisaggregatedPool:
     def stop(self) -> None:
         self._stopping.set()
         self._worker.join(timeout=30)
+        for srv in self._servers:
+            srv.close()
         for eng in self.pools:
             eng.stop()
 
@@ -4167,8 +4324,13 @@ class DisaggregatedPool:
         role (its prefills in flight finish and decode locally). Decode ->
         prefill: the emptiest decode engine first drains its live
         sequences onto the others (a failed move aborts the flip). Runs
-        on the caller's thread. True when the split changed."""
+        on the caller's thread. True when the split changed. A wire pool
+        refuses: its migration servers are placement this does not
+        manage."""
         target = int(prefill_replicas)
+        if self._servers:
+            raise RuntimeError(
+                "tier rebalance unsupported on wire=True pools")
         if not 1 <= target <= len(self.pools) - 1:
             raise ValueError(
                 f"prefill_replicas {target} out of range "

@@ -17,10 +17,13 @@ The KServe control plane rebuilt on this cluster (SURVEY.md §2.2, §3.3)
 
 The port's copy of ``kubeflow_tpu/serving/controller.py``, device-free
 like it, with the same names; it imports nothing of the reference
-package. It differs where the port lacks a module: a gang predictor,
-``mesh_axes`` and the autoscaler's TP resize (ROADMAP A7) and ``aot``
-(A12) are refused, ``resolve_class`` refuses the JAX package's class
-paths, the Router listens with ``BurstHTTPServer``'s backlog, a request waiting
+package. It differs where the port lacks a module or runs one process a card:
+``aot`` (ROADMAP A12) is refused; a gang predictor runs
+``kubeflow_tpu_torch.serving.gang:serve_main`` in one pod for each rank
+(``hosts x chips_per_host`` pods), and an in-process predictor whose
+``mesh_axes`` spans more than one card becomes a one-host gang
+(``hosts=1``, ``chips_per_host=N``); ``resolve_class`` refuses the JAX
+package's class paths, the Router listens with ``BurstHTTPServer``'s backlog, a request waiting
 at the activator keeps the idle clock from running (a cold start longer
 than the idle window scaled its own replica away), and a torn-down
 deployment's Router is left with no backends.
@@ -61,30 +64,169 @@ ACTIVATION_TIMEOUT = 15.0
 log = logging.getLogger("kubeflow_tpu_torch.serving")
 
 
+class _GangMetrics:
+    """Concurrency probe for a gang replica: rank 0's /metrics exposes
+    the server's ``kft_requests_inflight`` gauge — the same signal the
+    in-process autoscaler reads directly, fetched over HTTP with a short
+    cache (the reconcile loop runs at 4 Hz)."""
+
+    def __init__(self, url: str) -> None:
+        self._url = url
+        self._val = 0
+        self._ts = 0.0
+        self._fail_ts = -10.0
+
+    @property
+    def inflight(self) -> int:
+        now = time.monotonic()
+        if now - self._fail_ts < 2.0:
+            return 0  # negative cache: a booting/restarting gang must
+            # not stall the shared reconcile worker on every pass
+        if now - self._ts > 0.5:
+            self._ts = now
+            try:
+                with urllib.request.urlopen(
+                        self._url + "/metrics", timeout=0.3) as r:
+                    val = 0
+                    for line in r.read().decode().splitlines():
+                        if line.startswith("kft_requests_inflight"):
+                            val = int(float(line.split()[-1]))
+                            break
+                self._val = val
+            except (OSError, ValueError):
+                self._fail_ts = now
+                self._val = 0
+        return self._val
+
+
 class _GangPredictor:
-    """A gang-placed predictor: N host processes launched as a JaxJob with
-    rank 0's frontend as the replica (the reference's
-    ``serving/gang.py`` ``serve_main``). The gang serving path is not
-    ported yet; ``_new_revision`` refuses a gang spec first, so the
-    reconcile turns it into one Failed status."""
+    """ModelServer-shaped handle for a gang-placed predictor.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_UNPORTED_GANG)
+    The data plane is one process a card, ``hosts x chips_per_host`` of
+    them, launched as a JaxJob (serving/gang.py serve_main); rank 0's
+    HTTP frontend lives at a port
+    this handle allocates and freezes into the job's env, so ``url`` is
+    known before the gang is even admitted — readiness is probed, not
+    assumed.  Restarts belong to the JaxJob controller (gang semantics);
+    this handle only creates/deletes the job.  Gang REPLICAS scale like
+    in-process ones (min/max, concurrency via the /metrics probe,
+    activator): one handle per gang, ordinal-named.
+    """
 
+    def __init__(self, store: Store, isvc, rev: int, gang, cfg: dict,
+                 ordinal: int = 0):
+        from ..api.common import (
+            Container, ObjectMeta, ReplicaSpec, Resources, RestartPolicy,
+            RunPolicy,
+        )
+        from ..api.jaxjob import WORKER, JaxJob, JaxJobSpec
+        from .gang import ENV_SERVE_CONFIG
 
-_UNPORTED_GANG = ("predictor.gang (a multi-host serving gang) is not ported "
-                  "yet (ROADMAP A7)")
+        self.store = store
+        self.namespace = isvc.metadata.namespace
+        self.job_name = f"{isvc.metadata.name}-gang-r{rev}-g{ordinal}"
+        #: the GangSpec this handle placed — the elastic shrink path
+        #: reads it to compute the surviving shape
+        self.gang = gang
+        self.port = allocate_port()
+        self.metrics = _GangMetrics(f"http://127.0.0.1:{self.port}")
+        self._ready_at: float = 0.0
+        self._ready_fail_at: float = -10.0
+        import os
+        import secrets
+        import tempfile
 
+        conf = dict(cfg)
+        conf["serve_port"] = self.port
+        conf["gang_port"] = allocate_port()
+        # per-job shared secret guarding the gang control stream,
+        # delivered over a side channel: a 0600 token FILE (the
+        # Secret-mount analog), because the JaxJob env is cluster-readable
+        # through the API server and an inline token would let any tenant
+        # who can GET the job join the stream.  Only the file's PATH
+        # enters the env.
+        fd, token_path = tempfile.mkstemp(
+            prefix=f"kft-gang-{self.job_name}-", suffix=".token")
+        try:
+            os.fchmod(fd, 0o600)
+            os.write(fd, secrets.token_hex(16).encode())
+        finally:
+            os.close(fd)
+        self._token_path = token_path
+        conf["gang_token_file"] = token_path
+        conf["mesh_axes"] = dict(gang.mesh_axes)
+        conf.setdefault("model_name", isvc.metadata.name)
+        logger = isvc.spec.predictor.logger
+        if logger is not None:
+            conf["logger_url"] = logger.url
+            conf["logger_mode"] = logger.mode
+        conf["chips_per_host"] = int(gang.chips_per_host)
+        env = {ENV_SERVE_CONFIG: json.dumps(conf)}
+        if cfg.get("device"):
+            # every rank's pod computes there ("cpu"); unset, each pod
+            # takes its own card, cuda:<rank mod chips_per_host>
+            env["KFT_POD_DEVICE"] = str(cfg["device"])
+        job = JaxJob(
+            metadata=ObjectMeta(name=self.job_name, namespace=self.namespace),
+            spec=JaxJobSpec(
+                run_policy=RunPolicy(backoff_limit=gang.backoff_limit),
+                replica_specs={
+                    # one process drives one card: a pod for each rank
+                    WORKER: ReplicaSpec(
+                        replicas=gang.hosts * gang.chips_per_host,
+                        restart_policy=RestartPolicy.ON_FAILURE,
+                        template=Container(
+                            entrypoint=("kubeflow_tpu_torch.serving.gang:"
+                                        "serve_main"),
+                            env=env,
+                            resources=Resources(tpu=1),
+                        ),
+                    )
+                },
+            ),
+        )
+        store.create(job)
 
-def degree_of(mesh_axes: Optional[dict]) -> int:
-    """TP degree a mesh-axes dict denotes (None/empty = 1); the
-    reference's ``serving/resize.py`` function."""
-    if not mesh_axes:
-        return 1
-    n = 1
-    for v in mesh_axes.values():
-        n *= int(v)
-    return n
+    @property
+    def url(self) -> str:
+        return f"http://127.0.0.1:{self.port}"
+
+    @property
+    def ready(self) -> bool:
+        """Rank 0 frontend answering its readiness probe (cached briefly —
+        the reconcile loop runs at 4 Hz and a gang is not a thing to poll
+        into the ground)."""
+        now = time.monotonic()
+        if now < self._ready_at + 1.0:
+            return True
+        if now < self._ready_fail_at + 1.0:
+            return False  # negative cache: a booting gang must not stall
+            # the shared reconcile worker on every 4 Hz pass
+        try:
+            with urllib.request.urlopen(
+                    self.url + "/v2/health/ready", timeout=0.5) as resp:
+                ok = resp.status == 200
+        except OSError:
+            ok = False
+        if ok:
+            self._ready_at = now
+        else:
+            self._ready_fail_at = now
+        return ok
+
+    def stop(self) -> None:
+        import os
+
+        from ..api.jaxjob import KIND_JAXJOB
+
+        try:
+            self.store.delete(KIND_JAXJOB, self.job_name, self.namespace)
+        except NotFound:
+            pass
+        try:
+            os.unlink(self._token_path)
+        except OSError:
+            pass
 
 
 def resolve_class(ref: str) -> type:
@@ -955,12 +1097,6 @@ class InferenceServiceController(Controller):
         runtime_cls, cfg = self._resolve(isvc)
         # what the port does not serve yet is ONE Failed status here, not
         # a replica failing at load
-        if isvc.spec.predictor.gang is not None:
-            raise NotImplementedError(_UNPORTED_GANG)
-        if cfg.get("mesh_axes"):
-            raise NotImplementedError(
-                "mesh_axes (a tensor-parallel serving mesh) is not ported "
-                "yet (ROADMAP A7)")
         if cfg.get("aot") is not None:
             raise NotImplementedError(
                 "aot (the program-artifact cache) is not ported yet "
@@ -1187,9 +1323,19 @@ class InferenceServiceController(Controller):
                     "pool (block_size > 0) — the resize snapshot unit "
                     "is the KV block")
         dep.rev_counter += 1
-        return _Revision(
-            dep.rev_counter, fingerprint, isvc.spec.model_copy(deep=True),
-            runtime_cls, cfg)
+        spec = isvc.spec.model_copy(deep=True)
+        from .resize import degree_of
+
+        n = degree_of(cfg.get("mesh_axes"))
+        if spec.predictor.gang is None and n > 1:
+            # one process drives one card: a predictor over N cards is a
+            # one-host gang of N ranks
+            from ..api.inference import GangSpec
+
+            spec.predictor.gang = GangSpec(
+                hosts=1, chips_per_host=n, mesh_axes=dict(cfg["mesh_axes"]))
+        return _Revision(dep.rev_counter, fingerprint, spec, runtime_cls,
+                         cfg)
 
     def reconcile(self, namespace: str, name: str) -> Optional[Result]:
         key = f"{namespace}/{name}"
@@ -1372,6 +1518,7 @@ class InferenceServiceController(Controller):
         is the escalate-or-give-up policy when the gang's own
         supervisor could not, e.g. a member lost before the gang ever
         formed.)"""
+        from .resize import degree_of
 
         min_degree = int(elastic.get("min_degree", 1))
         for rev in dep.revisions:
@@ -2175,13 +2322,19 @@ class InferenceServiceController(Controller):
 
     def _resize_replicas_to_degree(self, isvc, dep: _Deployment,
                                    degree: int) -> None:
-        """TP-degree actuator for in-process replicas (the reference runs
-        ``serving/resize.py``'s ``GangResizer`` on every paged engine): the
-        resize is not ported yet. Raises, so the autoscaler's bounded-retry
-        backoff sees a refused actuation, not a silent no-op."""
+        """TP-degree actuator: refused (ROADMAP A7d). The reference runs
+        ``GangResizer`` on its in-process replicas, each one process over
+        N devices. In the port an in-process replica is one process on one
+        card, so always at degree 1 (``_new_revision`` makes every
+        predictor of a larger degree a gang), and a gang's degree is
+        changed live by its own ``ElasticGangSupervisor`` (``resize.py``)
+        inside ``serve_main``. Raises, so the loop's bounded-retry backoff
+        sees a decision the fleet cannot act on."""
         raise RuntimeError(
-            f"no replica engine accepted a TP resize to {degree}: the "
-            "elastic resize is not ported yet (ROADMAP A7)")
+            f"TP resize to degree {degree}: no actuator in the port "
+            "(ROADMAP A7d): an in-process replica is one process on one "
+            "card, and a gang's degree belongs to its "
+            "ElasticGangSupervisor")
 
     def _measure_cold_start(self, dep: _Deployment) -> None:
         """Close the wake-from-zero clock once every stable replica

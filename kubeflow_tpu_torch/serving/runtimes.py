@@ -30,6 +30,7 @@ import torch
 
 from ..device import resolve_device
 from ..models import llama as llamalib
+from . import sharded
 from .model import Model
 from .storage import fetch_mem
 
@@ -122,7 +123,13 @@ class LlamaGenerator(Model):
       weights_dtype: cast every floating weight once at load (e.g.
                     "bfloat16": decode streams every weight per token)
       device:       "cpu" to serve on the CPU (default: the CUDA card)
-      mesh_axes:    a tensor-parallel serving mesh: not ported (ROADMAP A7)
+      mesh_axes:    a tensor-parallel serving mesh, ``{"model": N}``: one
+                    process a card, so the model is then one rank's
+                    shards in a ``torch.distributed`` group of N ranks
+                    (``sharded.py``), and every rank of the group loads
+                    it and calls ``predict_batch`` with the same
+                    instances (the collectives line the ranks up; the
+                    sampling seed is rank 0's)
 
     Instances are token-id lists; predictions are continuation token lists.
     Ragged prompts batch together: the cache holds PER-ROW positions
@@ -140,10 +147,6 @@ class LlamaGenerator(Model):
         self._req_counter = 0
 
     def load(self) -> None:
-        if self.config.get("mesh_axes"):
-            raise NotImplementedError(
-                f"model {self.name}: mesh_axes (the sharded predictor, "
-                "serving/sharded.py) is not ported yet (ROADMAP A7)")
         ref = self.config.get("params_ref")
         if ref:
             self.cfg, params = fetch_mem(ref[len("mem://"):])
@@ -175,14 +178,26 @@ class LlamaGenerator(Model):
         self.device = resolve_device(self.config.get("device"))
         if isinstance(params, torch.nn.Module):
             params = params.state_dict()  # a registered model: its own copy
-        model = llamalib.Llama(self.cfg, device=self.device)
-        model.load_state_dict(params, strict=True)
+        self._base_seed = int.from_bytes(os.urandom(4), "little")
+        axes = self.config.get("mesh_axes")
+        if sharded.degree_of(axes) > 1:
+            import torch.distributed as dist
+
+            model = sharded.place_params(
+                self.cfg, params, sharded.build_serving_mesh(axes),
+                self.device)
+            # every rank draws rank 0's noise: the same tokens everywhere
+            seed = [self._base_seed]
+            dist.broadcast_object_list(seed, src=0)
+            self._base_seed = seed[0]
+        else:
+            model = llamalib.Llama(self.cfg, device=self.device)
+            model.load_state_dict(params, strict=True)
         wd = self.config.get("weights_dtype")
         if wd:
             # once, here: the int8 leaves of a quantized model stay int8
             model.to(getattr(torch, str(wd)))
         self.model = model.eval()
-        self._base_seed = int.from_bytes(os.urandom(4), "little")
         self.ready = True
 
     def stop(self) -> None:
@@ -231,7 +246,8 @@ class LlamaGenerator(Model):
         gen = self._generator() if self.temperature > 0 else None
         with torch.inference_mode():
             cache = llamalib.KvCache.zeros(self.cfg, batch, attend,
-                                           device=dev)
+                                           device=dev,
+                                           kv_heads=self.model.kv_heads)
             tok = torch.from_numpy(toks).to(dev)
             pos = torch.from_numpy(lengths).to(dev)
             logits = self.model(tok, cache=cache, attend=attend)

@@ -272,9 +272,8 @@ class TextGenerator(Model):
     def __init__(self, name: str, config: Optional[dict[str, Any]] = None,
                  engine=None):
         super().__init__(name, config)
-        #: a prebuilt in-process engine — load() then attaches only the
-        #: tokenizer (the reference also takes the serving gang's rank-0
-        #: GangEngine here; the port has no gang yet, ROADMAP A7)
+        #: a prebuilt engine — load() then attaches only the tokenizer
+        #: (an in-process one, or a serving gang's rank-0 GangEngine)
         self.engine = engine
         self.tokenizer = None
         #: per-tenant QoS front door (serving/traffic.py) — built by
@@ -442,12 +441,13 @@ class TextGenerator(Model):
 
         self.tokenizer = resolve_tokenizer(self.config)
         if self.engine is not None:
+            # a gang's GangEngine is a ContinuousEngine
             if not isinstance(self.engine, (ContinuousEngine, TieredEngine,
                                             DisaggregatedPool)):
-                raise NotImplementedError(
-                    f"{type(self.engine).__name__}: only the in-process "
-                    "engines are ported; the serving gang's GangEngine is "
-                    "not (ROADMAP A7)")
+                raise TypeError(
+                    f"{type(self.engine).__name__} is not a serving engine "
+                    "(ContinuousEngine, GangEngine, TieredEngine or "
+                    "DisaggregatedPool)")
             if getattr(self.tokenizer, "vocab_size", 0) > \
                     self.engine.cfg.vocab_size:
                 raise ValueError(

@@ -14,8 +14,9 @@ their own ``mem://`` registries (the port's replicas with ``"device":
   ``tests/test_serving.py::TestCanaryRollout``), delete tears down: the same
   observable behaviour in both.
 - What the port refuses: a ServingRuntime naming a ``kubeflow_tpu.`` class
-  (the message names the port's class), ``gang`` and ``mesh_axes`` (ROADMAP
-  A7), ``aot`` (A12).
+  (the message names the port's class), ``aot`` (A12). A ``gang`` predictor
+  and an in-process one with ``mesh_axes`` (ROADMAP A7) are placed as a
+  JaxJob of ``serving.gang:serve_main`` pods, one for each rank.
 - A burst of 32 connections opened at once is answered within 0.9 s each by
   a port ``ModelServer`` and a port ``Router`` (the listen backlog).
 
@@ -391,13 +392,39 @@ UNPORTED = {
 
 @pytest.mark.parametrize("knob", list(UNPORTED))
 def test_unported_knobs_fail(clusters, knob):
+    """``aot`` (A12) is one Failed status. ``gang`` and ``mesh_axes`` (A7)
+    are ported: the revision places a JaxJob of the port's ``serve_main``,
+    a pod for each rank (``hosts x chips_per_host``; ``mesh_axes`` over N
+    cards is a one-host gang of N), each on the config's device."""
     pkg, c, key = clusters[1]
     pred, item = UNPORTED[knob]
-    _apply(pkg, c, _isvc(pkg, key, f"unported-{knob.replace('_', '-')}",
-                         "llama-continuous", **pred))
-    msg = _wait(c, f"unported-{knob.replace('_', '-')}", "Failed")\
-        .status.message
-    assert f"ROADMAP {item}" in msg and msg.startswith("NotImplementedError")
+    name = f"unported-{knob.replace('_', '-')}"
+    _apply(pkg, c, _isvc(pkg, key, name, "llama-continuous", **pred))
+    if item == "A12":
+        msg = _wait(c, name, "Failed").status.message
+        assert f"ROADMAP {item}" in msg and msg.startswith(
+            "NotImplementedError")
+        return
+    pods = {"gang": 8, "mesh_axes": 2}[knob]
+    deadline = time.time() + WAIT_S
+    jobs = []
+    while time.time() < deadline and not jobs:
+        jobs = [j for j in c.store.list("JaxJob")
+                if j.metadata.name.startswith(f"{name}-gang-")]
+        time.sleep(0.05)
+    try:
+        assert jobs, f"{name}: no gang JaxJob placed"
+        spec = next(iter(jobs[0].spec.replica_specs.values()))
+        assert spec.replicas == pods
+        assert spec.template.entrypoint == \
+            "kubeflow_tpu_torch.serving.gang:serve_main"
+        assert spec.template.env["KFT_POD_DEVICE"] == "cpu"
+        conf = json.loads(spec.template.env["KFT_SERVE_CONFIG"])
+        assert conf["chips_per_host"] * (2 if knob == "gang" else 1) == pods
+        isvc = c.store.get("InferenceService", name)
+        assert str(isvc.status.phase.value) != "Failed", isvc.status
+    finally:
+        c.store.delete("InferenceService", name)
 
 
 def _burst(url: str, n: int = 32) -> list[float]:

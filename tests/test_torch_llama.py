@@ -219,6 +219,9 @@ def test_port_imports_no_jax():
         "kubeflow_tpu_torch.parallel.sharding, "
         "kubeflow_tpu_torch.parallel.collectives, "
         "kubeflow_tpu_torch.parallel.dryrun\n"
+        "import kubeflow_tpu_torch.serving.sharded, "
+        "kubeflow_tpu_torch.serving.gang, "
+        "kubeflow_tpu_torch.serving.resize\n"
         "c = Cluster(); c.enable_serving()\n"
         "from kubeflow_tpu_torch.api.inference import KIND_SERVING_RUNTIME\n"
         "paths = [r.spec.server_class for r in "

@@ -114,7 +114,9 @@ def test_llama_generator_refusals(refs):
         LlamaGenerator,
     )
 
-    with pytest.raises(NotImplementedError, match="A7"):
+    # a tensor-parallel generator runs inside a group of that many ranks
+    # (tests/test_torch_sharded.py); outside one it says so
+    with pytest.raises(ValueError, match="needs a gang of 2 ranks"):
         LlamaGenerator("gen", {"params_ref": refs[1], "device": "cpu",
                                "mesh_axes": {"model": 2}}).start()
     with pytest.raises(RuntimeError, match="need params_ref or storage_uri"):

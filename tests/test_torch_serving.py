@@ -177,6 +177,14 @@ def test_eos_stops_a_request(models, reference_tokens):
     ("program_cache", object(), "A12"),
 ], ids=["mesh_axes-value4-A7", "program_cache-value5-A12"])
 def test_unported_knobs_raise(models, knob, value, item):
+    """``program_cache`` (A12) is not ported; ``mesh_axes`` (A7) is, and a
+    tensor-parallel engine outside a gang of that many ranks raises
+    ``ValueError`` naming the gang (``tests/test_torch_sharded.py``
+    serves one)."""
+    if item == "A7":
+        with pytest.raises(ValueError, match="needs a gang of 2 ranks"):
+            _port_engine(models, **{knob: value})
+        return
     with pytest.raises(NotImplementedError, match=item):
         _port_engine(models, **{knob: value})
 
@@ -198,12 +206,27 @@ def test_paged_only_knobs_refuse_the_slot_pool(models, knobs, match):
                                           "wire": True}}, "A7")],
     ids=["aot-A12", "mesh_axes-A7", "disaggregation_wire-A7"])
 def test_build_engine_refuses_unported_config(models, config, item):
+    """``aot`` (A12) is refused. Of A7, a ``mesh_axes`` config outside a
+    gang raises ``ValueError`` naming the gang, and the disaggregated
+    pool's ``wire`` transport builds (``tests/test_torch_gang.py`` serves
+    through it)."""
     _, llama, convert, continuous, _ = _port()
     cfg = llama.tiny()
+    params = convert.state_dict_from_jax(models[False][1], cfg)
+    if "disaggregation" in config:
+        pool = continuous.build_engine(
+            cfg, params, {**config, "warmup_groups": []}, device="cpu")
+        try:
+            assert len(pool._servers) == 1
+        finally:
+            pool.stop()
+        return
+    if item == "A7":
+        with pytest.raises(ValueError, match="needs a gang of 2 ranks"):
+            continuous.build_engine(cfg, params, config, device="cpu")
+        return
     with pytest.raises(NotImplementedError, match=item):
-        continuous.build_engine(
-            cfg, convert.state_dict_from_jax(models[False][1], cfg),
-            config, device="cpu")
+        continuous.build_engine(cfg, params, config, device="cpu")
 
 
 def test_build_engine_serves_int8_kv(models):

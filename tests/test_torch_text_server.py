@@ -267,11 +267,15 @@ def test_load_refuses_a_missing_card():
 
 
 def test_prebuilt_gang_engine_is_refused():
-    """Only the in-process engines are ported; anything else in ``engine=``
-    (the reference's GangEngine) names ROADMAP A7."""
+    """A serving gang's rank-0 ``GangEngine`` is a ``ContinuousEngine``,
+    which ``engine=`` takes; anything that is not a serving engine is
+    refused with a ``TypeError`` naming the engines."""
+    from kubeflow_tpu_torch.serving.continuous import ContinuousEngine
+    from kubeflow_tpu_torch.serving.gang import GangEngine
     from kubeflow_tpu_torch.serving.text import TextGenerator
 
-    with pytest.raises(NotImplementedError, match="A7"):
+    assert issubclass(GangEngine, ContinuousEngine)
+    with pytest.raises(TypeError, match="GangEngine"):
         TextGenerator("m", {}, engine=object()).load()
 
 
