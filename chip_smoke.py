@@ -37,7 +37,11 @@ accumulation (host syncs made errors; the first step held against the CPU),
 and ``finetune_serve`` serves the merged fine-tune with int8 weights and KV
 against the same model unquantized; ``corpus_train`` runs the pod entry on
 that base fed a packed ~4M-token corpus through the native loader (every
-batch held to ``PackedLmCorpus``, K1-K3 counted). Then the platform's
+batch held to ``PackedLmCorpus``, K1-K3 counted), and ``hpo_sweep`` runs
+an HPO experiment on that base: a ``bayesianoptimization`` sweep of the
+LoRA's learning rate on ``LocalPlatform``, submitted with the CLI, its
+trials pod processes on the card, the best trial run once more in this
+process with its K1-K3 counted. Then the platform's
 other workloads: ``bert_serve`` (BERT-base behind ``BertClassifierModel``
 and ``kft-bert`` InferenceServices from ``mem://`` and a snapshot, a 2-layer
 cut held against the CPU), ``resnet_train`` (ResNet-50 at 224 x 224, batch
@@ -45,7 +49,10 @@ cut held against the CPU), ``resnet_train`` (ResNet-50 at 224 x 224, batch
 ``jaxjob_pods`` (MNIST and ResNet-50 JaxJobs as real pod processes on the
 card through the port's ``LocalKubelet``) and ``darts_search`` (the DARTS
 supernet at the bench model's width on K1-K3; one small step pair held
-against the CPU). Then the distributed runtime and the parallel layouts:
+against the CPU), then ``nas_experiment`` (a ``darts`` experiment whose
+suggestion service trains the same supernet in this process and whose
+trials train the suggested shapes in pods). Then the distributed runtime
+and the parallel layouts:
 ``mesh_train`` (the bench model on ``{"fsdp": 2}`` and ``{"model": 2}``, two
 ranks sharing the card over gloo, 3 steps each against the same steps
 unsharded; K1-K3 counted on every rank, 4 query heads under ``model: 2``),
@@ -74,8 +81,11 @@ program output of rank 1 held bitwise against rank 0's, greedy streams
 against the unsharded engine's), ``wire_migrate`` (``DisaggregatedPool(
 wire=True)``, ``migrate_sequence`` between two engines, and a TP=2 gang's
 export imported by an unsharded engine) and ``tp_resize`` (a live TP=2 gang
-shrunk to 1 and grown back to 2 with a stream open). Each phase
-prints one JSON
+shrunk to 1 and grown back to 2 with a stream open). Every served greedy
+stream is also fed back through the plain model (teacher forcing): its
+tokens must be the model's top or within the near-tie bound of it (an MoE
+model's also under one near-tie routing flip). Each
+phase prints one JSON
 line; the line before the last is the card's name and power limit from
 nvidia-smi, the last line is ``{"ok": true, "device": {...}}``. Any failure
 raises and exits non-zero before that line. Needs a CUDA card; imports
@@ -1279,6 +1289,221 @@ def _near_tie(d: dict) -> bool:
     return min(d["margin_rel"], d.get("router_margin_rel", 1.0)) < 2e-2
 
 
+#: C11: every token of a served greedy stream, fed back through the plain
+#: model (teacher forcing), must be the model's top token or sit within
+#: this gap of it, relative to the top logit: the near-tie bound. A path
+#: that emits wrong tokens fails it (``_stream_gaps``' control)
+STREAM_GAP_TOL = 2e-2
+#: an MoE stream's positions over STREAM_GAP_TOL must each be reproduced
+#: by the plain forward with one token's routing flipped at one layer where
+#: its k-th and (k+1)-th expert probabilities sit within ROUTE_TIE of each
+#: other, relative (``_routing_explained``). A served path's attention runs
+#: in other numerics than the plain forward (the decode path's f32 attend
+#: over a bf16 cache, not K1), so its router probabilities move by more
+#: than one GEMM shape's rounding: on the card one position took a flip at
+#: a margin between 2e-2 and 5e-2, and tokens drawn from the seed stay over
+#: the limit under every such flip
+ROUTE_TIE = 5e-2
+
+
+def _forced_logits(model, prompts, streams):
+    """Logits [rows, len(stream), vocab] whose ``[r, i]`` scores
+    ``streams[r][i]`` (every prompt of one length, every stream of one
+    length): one plain forward over each prompt and its stream, through a
+    KV cache for an int8-KV model (its KV rounding lives in its cache)."""
+    import torch
+
+    from kubeflow_tpu_torch.models.llama import KvCache
+
+    plen, new = len(prompts[0]), len(streams[0])
+    dev = model.embedder.embedding.device
+    tokens = torch.tensor([p + s for p, s in zip(prompts, streams)],
+                          device=dev)
+    with torch.no_grad():
+        if model.cfg.quant_kv:
+            cache = KvCache.zeros(model.cfg, len(prompts), plen + new,
+                                  device=dev, kv_heads=model.kv_heads)
+            pos = torch.arange(plen + new, device=dev)[None]
+            logits = model(tokens, pos, cache=cache)
+        else:
+            logits = model(tokens)
+    return logits[:, plen - 1:plen + new - 1].float()
+
+
+def _forced_distance(plain, other, prompts, streams) -> dict:
+    """``streams`` fed through ``plain`` and ``other``
+    (``_forced_logits``): the largest relative L2 distance of ``other``'s
+    logits from ``plain``'s over every position, and at how many
+    positions the greedy token agrees."""
+    t0 = time.perf_counter()
+    want = _forced_logits(plain, prompts, streams)
+    got = _forced_logits(other, prompts, streams)
+    return {"rel_l2_max": float((got - want).norm(dim=-1).div(
+                want.norm(dim=-1)).max()),
+            "positions": want.shape[0] * want.shape[1],
+            "argmax_agree": int((got.argmax(-1) == want.argmax(-1)).sum()),
+            "seconds": time.perf_counter() - t0}
+
+
+def _rel_gaps(logits, toks):
+    """Per position, how far the logit of ``toks`` ([rows, n]) sits below
+    the top of ``logits`` ([rows, n, vocab]), relative to the top."""
+    top = logits.max(-1).values
+    chosen = logits.gather(-1, toks.to(logits.device)[..., None])[..., 0]
+    return ((top - chosen) / top.abs()).cpu()
+
+
+def _flipped_forward(model, seq, plen: int, flips: list) -> tuple:
+    """The plain forward of ``seq`` ([1, S]: a prompt of ``plen`` tokens
+    and its stream) once for each entry of ``flips``, in one batch, each
+    MoE layer routing as it does but at the entry's (layer, token) pairs,
+    where a token's k-th expert is swapped for its (k+1)-th: (logits
+    [rows, S - plen, vocab] f32 scoring the stream, router probabilities
+    [layers, rows, S, experts])."""
+    import torch
+
+    layers = _moe_layers(model)
+    k = model.cfg.moe_top_k
+    masks = torch.zeros(len(layers), len(flips), seq.shape[1],
+                        dtype=torch.bool)
+    for row, pairs in enumerate(flips):
+        for layer, tok in pairs:
+            masks[layer, row, tok] = True
+    probs = []
+    for layer, mask in zip(layers, masks.to(seq.device)):
+        def flipped(self, x, _route=type(layer).route, _mask=mask):
+            p, gates, idx = _route(self, x)
+            probs.append(p)
+            if _mask.any():
+                idx = idx.clone()
+                idx[..., k - 1] = torch.where(
+                    _mask, p.topk(k + 1, dim=-1).indices[..., k],
+                    idx[..., k - 1])
+                gates = p.gather(-1, idx)
+                if self.cfg.moe_normalize_topk:
+                    gates = gates / (gates.sum(dim=-1, keepdim=True) + 1e-9)
+            return p, gates, idx
+
+        layer.route = types.MethodType(flipped, layer)
+    try:
+        with torch.no_grad():
+            logits = model(seq.expand(len(flips), -1))[:, plen - 1:-1]
+    finally:
+        for layer in layers:
+            layer.__dict__.pop("route", None)
+    return logits.float(), torch.stack(probs)
+
+
+def _routing_explained(model, prompt, stream, scored):
+    """An MoE model fed ``prompt`` and its served ``stream``: for each token
+    row of ``scored`` ([n] tokens scored at the stream's positions), its
+    gaps [rows, n] each the smallest under the plain forward and under
+    every single near-tie routing flip (``_flipped_forward``; margin under
+    ROUTE_TIE, prompt tokens included) that reaches its position: what a
+    served path whose other numerics rounded that routing the other way
+    computed."""
+    import torch
+
+    k, plen = model.cfg.moe_top_k, len(prompt)
+    seq = torch.tensor([prompt + stream],
+                       device=model.embedder.embedding.device)
+    rows = torch.stack([torch.as_tensor(t) for t in scored])
+    logits, probs = _flipped_forward(model, seq, plen, [[]])
+    best = _rel_gaps(logits.expand(len(rows), -1, -1), rows)
+    width = seq.shape[1] - 1  # the last token's routing scores nothing
+    top = probs[:, 0, :width].topk(k + 1, dim=-1).values
+    margin = ((top[..., k - 1] - top[..., k]) / top[..., k - 1]).flatten()
+    ties = [(i // width, i % width)
+            for i in (margin < ROUTE_TIE).nonzero().flatten().tolist()]
+    for at in range(0, len(ties), 128):
+        chunk = ties[at:at + 128]
+        tried, _ = _flipped_forward(model, seq, plen, [[c] for c in chunk])
+        # position i is scored by token plen + i - 1: a flip at token t
+        # moves the positions from t - plen + 1 on
+        first = torch.tensor([t - plen + 1 for _, t in chunk])[:, None]
+        still = torch.arange(len(stream))[None] < first
+        for r in range(len(rows)):
+            g = _rel_gaps(tried, rows[r].expand(len(chunk), -1))
+            best[r] = torch.minimum(best[r], g.masked_fill(
+                still, float("inf")).min(0).values)
+    return best
+
+
+def _stream_gaps(model, prompts, streams) -> dict:
+    """Served greedy ``streams`` of ``model`` held by teacher forcing: the
+    model fed each prompt and its own stream (``_forced_logits``); at
+    every position the gap between the top logit and the stream token's,
+    relative to the top. A greedy engine emits the top token, so a gap
+    can only be the rounding of another program shape (a near tie). For
+    an MoE model, where a router near tie rounded the other way moves the
+    logits by far more, each position is held at its smallest gap under
+    one near-tie routing flip (``_routing_explained``).
+    ``control_over_tol``: the share of tokens drawn uniformly from SEED,
+    scored at the same positions the same way, that sit over the limit:
+    what a path emitting wrong tokens would show."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    groups: dict = {}
+    for p, st in zip(prompts, streams):
+        groups.setdefault((len(p), len(st)), []).append((p, st))
+    moe = bool(_moe_layers(model))
+    gaps, control, over, explained, plain_max = [], [], [], 0, 0.0
+    for rows in groups.values():
+        ps, sts = [r[0] for r in rows], [r[1] for r in rows]
+        logits = _forced_logits(model, ps, sts)
+        drawn = torch.from_numpy(rng.integers(0, logits.shape[-1],
+                                              (len(sts), len(sts[0]))))
+        g = _rel_gaps(logits, torch.tensor(sts))
+        c = _rel_gaps(logits, drawn)
+        plain_max = max(plain_max, float(g.max()))
+        for r in range(len(sts)) if moe else ():
+            before = int((g[r] > STREAM_GAP_TOL).sum())
+            g[r], c[r] = _routing_explained(model, ps[r], sts[r],
+                                            [sts[r], drawn[r]])
+            explained += before - int((g[r] > STREAM_GAP_TOL).sum())
+        gaps.append(g)
+        control.append(c)
+        for r, i in (g > STREAM_GAP_TOL).nonzero().tolist():
+            over.append({"row": r, "position": i, "gap": float(g[r, i])})
+    gaps = torch.cat([g.flatten() for g in gaps])
+    control = torch.cat([c.flatten() for c in control])
+    return {"positions": int(gaps.numel()), "gap_max": float(gaps.max()),
+            "off_top": int((gaps > 0).sum()), "gap_max_unflipped": plain_max,
+            "routing_explained": explained,
+            "over_tol": over,
+            "control_over_tol": float((control > STREAM_GAP_TOL).float()
+                                      .mean()),
+            "seconds": time.perf_counter() - t0}
+
+
+def _gaps(model, prompts, runs: dict) -> dict:
+    """``_stream_gaps`` of each run's streams (run name -> streams); runs
+    whose streams are equal share one teacher-forced pass."""
+    done: dict = {}
+    out = {}
+    for run, streams in runs.items():
+        key = json.dumps(streams)
+        if key not in done:
+            done[key] = _stream_gaps(model, prompts, streams)
+        out[run] = done[key]
+    return out
+
+
+def _require_gaps(name: str, gaps: dict) -> None:
+    """No position of any run (``_gaps``) over ``STREAM_GAP_TOL``, and the
+    control over it at nine positions in ten or more (the limit, and for
+    an MoE model the routing flips, tell a wrong path from rounding)."""
+    for run, g in gaps.items():
+        require(not g["over_tol"], f"{name} {run}: stream tokens sit below "
+                f"the plain model's top by more than {STREAM_GAP_TOL}: {g}")
+        require(g["control_over_tol"] >= 0.9,
+                f"{name} {run}: the gap limit does not tell drawn tokens "
+                f"from the model's: {g}")
+
+
 def phase_serve_variants() -> None:
     """The bench model's 4 prompts x 32 new tokens through the slot pool,
     the slot pool with chunked admission (prefill_budget 64), and the paged
@@ -1305,12 +1530,13 @@ def phase_serve_variants() -> None:
     diffs = _first_difference(cfg, model, prompts, runs["slot"]["tokens"],
                               runs["chunked"]["tokens"])
     paged_equal = runs["paged"]["tokens"] == runs["chunked"]["tokens"]
+    gaps = _gaps(model, prompts, {k: r["tokens"] for k, r in runs.items()})
     emit("serve_variants", prompts=4, new=32, engine=kw,
          tokens_per_sec={k: r["tokens_per_sec"] for k, r in runs.items()},
          captures_after_warmup={k: r["stats"]["graph_captures_total"]
                                 for k, r in runs.items()},
          paged_equal_to_slot_pool=paged_equal,
-         slot_vs_chunked_differences=diffs,
+         slot_vs_chunked_differences=diffs, teacher_forced=gaps,
          blocks_leaked=runs["paged"]["leaked"],
          ledger_errors=runs["paged"]["ledger_errors"],
          kv_blocks_free=runs["paged"]["stats"]["kv_blocks_free"],
@@ -1319,6 +1545,7 @@ def phase_serve_variants() -> None:
     require(all(d["margin_rel"] < 2e-2 for d in diffs),
             f"whole-prompt vs chunked admission differ where the top-2 "
             f"margin is not small: {diffs}")
+    _require_gaps("serve_variants", gaps)
     require(runs["paged"]["leaked"] == 0
             and not runs["paged"]["ledger_errors"],
             "the paged pool leaked blocks")
@@ -1412,6 +1639,7 @@ def _spec_runs(phase: str, model_name: str, n_prompts: int, new: int,
     diffs = {name: _first_difference(cfg, model, prompts,
                                      runs["off"]["tokens"], r["tokens"])
              for name, r in runs.items() if name != "off"}
+    gaps = _gaps(model, prompts, {n: r["tokens"] for n, r in runs.items()})
     emit(phase, model=model_name, prompts=n_prompts, prompt_len=128,
          new=new, engine=SPEC_ENGINE, spec_k=SPEC_K,
          tokens_per_sec={n: r["tokens_per_sec"] for n, r in runs.items()},
@@ -1423,7 +1651,7 @@ def _spec_runs(phase: str, model_name: str, n_prompts: int, new: int,
                 for n, r in runs.items()},
          launches=({n: r["launches"] for n, r in runs.items()}
                    if counters else None),
-         differences_from_off=diffs)
+         differences_from_off=diffs, teacher_forced=gaps)
     for name, r in runs.items():
         require(r["stats"]["graph_captures_total"] == 0,
                 f"{name}: captures after warmup")
@@ -1431,6 +1659,7 @@ def _spec_runs(phase: str, model_name: str, n_prompts: int, new: int,
         require(all(map(_near_tie, d)),
                 f"{name} differs from plain decode where no margin is "
                 f"small: {d}")
+    _require_gaps(phase, gaps)
     rep = runs["replay"]["stats"]
     require(rep["spec_tokens_accepted_total"]
             > rep["spec_tokens_proposed_total"] / 2,
@@ -1538,6 +1767,7 @@ def phase_prefix_serve() -> None:
                                      runs[ref]["tokens"],
                                      runs[name]["tokens"])
              for name, ref in base.items()}
+    gaps = _gaps(model, prompts, {n: r["tokens"] for n, r in runs.items()})
     keys = ("prefix_hits", "prefix_tokens_saved", "prefix_block_hits_total",
             "kv_blocks_cow_copies_total", "segment_hits",
             "segment_tokens_shared", "graph_captures_total",
@@ -1552,7 +1782,7 @@ def phase_prefix_serve() -> None:
                 for n, r in runs.items()},
          blocks_leaked={n: r["leaked"] for n, r in runs.items()},
          ledger_errors={n: r["ledger_errors"] for n, r in runs.items()},
-         differences=diffs)
+         differences=diffs, teacher_forced=gaps)
     for name in ("slot_on", "paged_on"):
         require(runs[name]["stats"]["prefix_hits"] == 7,
                 f"{name}: {runs[name]['stats']['prefix_hits']} prefix hits")
@@ -1567,6 +1797,7 @@ def phase_prefix_serve() -> None:
         require(all(map(_near_tie, d)),
                 f"{name} differs from {base[name]} where the top-2 margin "
                 f"is not small: {d}")
+    _require_gaps("prefix_serve", gaps)
 
 
 #: the migration and KV-tier phases: the paged pool, block_size 16
@@ -1742,6 +1973,10 @@ def phase_migrate_serve() -> None:
                                        [held]),
              "mid_prefill": _first_difference(cfg, model, long_prompt,
                                               plain_long, mid)}
+    gaps = {**_gaps(model, prompts, {"plain": plain, "drain": migrated}),
+            **_gaps(model, prompts[:1], {"held": [held]}),
+            **_gaps(model, long_prompt, {"plain_long": plain_long,
+                                         "mid_prefill": mid})}
     out.update(
         moved=moved, failed=failed, bytes_exported=out_bytes,
         bytes_imported=in_bytes, export_ms=export_ms, import_ms=import_ms,
@@ -1753,7 +1988,7 @@ def phase_migrate_serve() -> None:
         held_import_bytes=hold_bytes, held_import_ms=hold_ms,
         held_import_gb_per_s=hold_bytes / hold_ms / 1e6,
         held_until_resume=held_still, mid_prefill_position=mid_position,
-        pinned_copy=copy, differences=diffs, **clean)
+        pinned_copy=copy, differences=diffs, teacher_forced=gaps, **clean)
     emit("migrate_serve", model="bench_model", engine=MIGRATE_ENGINE,
          **MIGRATE, **out)
     require(moved == MIGRATE["prompts"] and failed == 0,
@@ -1761,6 +1996,7 @@ def phase_migrate_serve() -> None:
     require(held_still, "a held import decoded before its resume")
     for name, d in diffs.items():
         _require_streams(f"migrate_serve {name}", d)
+    _require_gaps("migrate_serve", gaps)
 
 
 def phase_moe_migrate_serve() -> dict:
@@ -1792,13 +2028,15 @@ def phase_moe_migrate_serve() -> dict:
         a.stop()
         b.stop()
     diffs = _first_difference(cfg, model, prompts, plain, migrated)
+    gaps = _gaps(model, prompts, {"plain": plain, "migrated": migrated})
     emit("moe_migrate_serve", model="bench_moe_model", prompts=4,
          prompt_len=128, new=32, at=16, engine=MIGRATE_ENGINE, moved=moved,
          failed=failed, launches_on_b_after_the_drain=launches,
-         differences=diffs, **clean)
+         differences=diffs, teacher_forced=gaps, **clean)
     require(moved == 4 and failed == 0, f"moved {moved}, failed {failed}")
     require(launches["gmm"] > 0, "B launched no gmm after the import")
     _require_streams("moe_migrate_serve", diffs)
+    _require_gaps("moe_migrate_serve", gaps)
     return launches
 
 
@@ -1861,6 +2099,7 @@ def phase_hibernate_serve() -> None:
             a.stop()
             b.stop()
     diffs = _first_difference(cfg, model, prompts, plain, thawed)
+    gaps = _gaps(model, prompts, {"plain": plain, "thawed": thawed})
     keys = ("kv_spills_total", "kv_thaws_total", "kv_thaws_degraded_total",
             "kv_spill_verify_failures_total", "kv_sessions_hibernated")
     emit("hibernate_serve", model="bench_model", sessions=5, prompt_len=128,
@@ -1868,13 +2107,15 @@ def phase_hibernate_serve() -> None:
          spill_write_ms=write_ms, thaw_ms=thaw_ms,
          degraded_reprefill_ms=reprefill_ms, degraded=info["degraded"],
          stats_a={k: st_a[k] for k in keys},
-         stats_b={k: st_b[k] for k in keys}, differences=diffs, **clean)
+         stats_b={k: st_b[k] for k in keys}, differences=diffs,
+         teacher_forced=gaps, **clean)
     require(all(hibernated), f"hibernated {hibernated}")
     require(info["degraded"] and st_b["kv_thaws_degraded_total"] == 1,
             "the torn spill did not thaw degraded")
     require(st_b["kv_thaws_total"] == 5 and st_a["kv_spills_total"] == 5,
             "spill and thaw counts")
     _require_streams("hibernate_serve", diffs)
+    _require_gaps("hibernate_serve", gaps)
 
 
 HOST_TIER = dict(rounds=8, shared=512, tail=16, new=32, churn_new=64)
@@ -1933,14 +2174,17 @@ def phase_host_tier_serve() -> None:
             "prefix_block_hits_total")
     restored = [r["ttft_ms"] for r in rounds if r["restored"]]
     diffs = _first_difference(cfg, model, prompts, plain, streams)
+    gaps = _gaps(model, prompts, {"plain": plain, "host_tier": streams})
     emit("host_tier_serve", model="bench_model", **HOST_TIER,
          engine=HOST_ENGINE, rounds_detail=rounds,
          ttft_ms_cold=rounds[0]["ttft_ms"],
          ttft_ms_restored_median=(statistics.median(restored)
                                   if restored else None),
-         stats={k: st[k] for k in keys}, differences=diffs, **clean)
+         stats={k: st[k] for k in keys}, differences=diffs,
+         teacher_forced=gaps, **clean)
     require(st["kv_host_restores_total"] > 0, "no host-tier restore")
     _require_streams("host_tier_serve", diffs)
+    _require_gaps("host_tier_serve", gaps)
 
 
 def phase_disagg_serve() -> None:
@@ -1991,6 +2235,8 @@ def phase_disagg_serve() -> None:
     diffs = {"disagg": _first_difference(cfg, model, prompts, want, got),
              "tier_ladder": _first_difference(cfg, model, prompts, want,
                                               ladder)}
+    gaps = _gaps(model, prompts, {"mixed": want, "disagg": got,
+                                  "tier_ladder": ladder})
     emit("disagg_serve", model="bench_model", prompts=8, prompt_len=128,
          new=64, engine=MIGRATE_ENGINE,
          tokens_per_sec={"mixed": tokens / mixed_s,
@@ -1999,11 +2245,12 @@ def phase_disagg_serve() -> None:
          handoff_ms_median=statistics.median(handoff), handoff_ms=handoff,
          kv_migrations_total=st["kv_migrations_total"],
          kv_migrate_bytes_total=st["kv_migrate_bytes_total"],
-         differences=diffs, **clean)
+         differences=diffs, teacher_forced=gaps, **clean)
     require(st["kv_migrations_total"] == len(prompts),
             f"{st['kv_migrations_total']} handoffs")
     for name, d in diffs.items():
         _require_streams(f"disagg_serve {name}", d)
+    _require_gaps("disagg_serve", gaps)
 
 
 #: the fine-tune job (phase ``finetune``): llama_1b at full width and
@@ -2386,6 +2633,13 @@ def phase_adafactor_step(base: str, card: str) -> None:
 #: the published fine-tune served: the base snapshot plus the adapter,
 #: merged at load, 8 prompts x 128 tokens, 64 new, greedy, paged pool
 FINETUNE_SERVE = dict(prompts=8, prompt_len=128, new=64, rounds=2)
+#: the int8 serving model's logits against the plain model's on the plain
+#: streams (``_forced_distance``): int8 weights move them by a relative L2
+#: distance of 0.036 in the reference's tiny config and 0.062 / 0.044 at
+#: llama_1b's depth and dtype with its width cut to 256 / 512 (the port's
+#: forward through an int8 KV cache: 0.044, 0.065, 0.050), on the CPU
+#: (``python -m tests._torch_measure int8``); a wrong path moves them by O(1)
+INT8_TEACHER_TOL = 0.1
 
 
 def phase_finetune_serve(base: str, adapter: str, card: str) -> None:
@@ -2413,7 +2667,7 @@ def phase_finetune_serve(base: str, adapter: str, card: str) -> None:
     cfg, params = resolve_model_source(common)
     resolve_s = time.perf_counter() - t0
     prompts = _prompts(cfg, fs["prompts"], fs["prompt_len"])
-    runs, plain_model = {}, None
+    runs, models = {}, {}
     for name, extra in (("int8", {"quant_weights": True, "quant_kv": True}),
                         ("plain", {})):
         ledger = BlockLedger()
@@ -2446,26 +2700,39 @@ def phase_finetune_serve(base: str, adapter: str, card: str) -> None:
             "graph_captures_warmup": st["graph_captures_warmup"], **clean}
         require(all(t == rounds[0][0] for t, _ in rounds),
                 f"finetune_serve {name}: rounds differ")
-        if name == "plain":
-            plain_model = eng.model
+        models[name] = eng.model
         del eng
         gc.collect()
         torch.cuda.empty_cache()
+    plain_model = models["plain"]
     diffs = _first_difference(cfg, plain_model, prompts,
                               runs["plain"]["tokens"], runs["int8"]["tokens"])
+    # each engine's streams held by its own model, and the int8 model's
+    # logits held to the plain model's on the plain streams
+    gaps = {**_gaps(plain_model, prompts, {"plain": runs["plain"]["tokens"]}),
+            **_gaps(models["int8"], prompts, {"int8": runs["int8"]["tokens"]})}
+    int8 = _forced_distance(plain_model, models["int8"], prompts,
+                            runs["plain"]["tokens"])
     for r in runs.values():
         r.pop("tokens")
     emit("finetune_serve", model="llama_1b", merged_adapter=adapter,
          prompts=fs["prompts"], prompt_len=fs["prompt_len"], new=fs["new"],
          resolve_s=resolve_s, runs=runs,
-         int8_vs_plain_differences=diffs,
+         int8_vs_plain_differences=diffs, teacher_forced=gaps,
+         int8_vs_plain_teacher_forced=int8,
+         int8_teacher_tol=INT8_TEACHER_TOL,
          int8_weight_bytes=sum(runs["int8"]["weight_bytes"].values()),
          plain_weight_bytes=sum(runs["plain"]["weight_bytes"].values()),
          card=card)
     require(runs["int8"]["quant_weights"] and runs["int8"]["quant_kv"],
             "the quantized engine does not run int8")
     _require_streams("finetune_serve int8 vs plain", diffs)
-    del plain_model, params
+    _require_gaps("finetune_serve", gaps)
+    require(int8["rel_l2_max"] <= INT8_TEACHER_TOL,
+            f"finetune_serve: the int8 model's logits sit "
+            f"{int8['rel_l2_max']} from the plain model's (limit "
+            f"{INT8_TEACHER_TOL}): {int8}")
+    del plain_model, models, params
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3233,16 +3500,18 @@ def isvc_serve(cfg, model, moe_cfg, moe_model, device=None, sizes=ISVC,
         diffs = _first_difference(cfg, model, tprompts, got, want) \
             if cuda else [d for d in ({"prompt": i} for i, (a, b) in
                                       enumerate(zip(got, want)) if a != b)]
+        gaps = _gaps(model, tprompts, {"llm": got})
         if cuda:
             _require_streams("isvc_serve llm", diffs)
         else:
             require(not diffs, f"isvc_serve llm: tokens differ {diffs}")
+        _require_gaps("isvc_serve llm", gaps)
         ms = min(times) * 1e3
         out["llm"] = {"ms_per_request": ms,
                       "ms_per_token": ms / sizes["llm_new"],
                       "request_s": times, "instances": len(tprompts),
                       "prompt_lengths": list(sizes["llm_lengths"]),
-                      "differences": diffs}
+                      "differences": diffs, "teacher_forced": gaps}
         cluster.store.delete("InferenceService", "llm")
         step("llm")
 
@@ -3760,6 +4029,45 @@ def _token_stream(vocab: int, batch: int, seq: int, seed: int = SEED):
         yield rng.integers(0, vocab, (batch, seq + 1)).astype(np.int32)
 
 
+class _PairMarks:
+    """``darts_search``'s ``on_step``: a CUDA event after each step pair
+    (a host clock reading on the CPU); ``ms()`` is the mean ms a pair
+    between the first mark and the last."""
+
+    def __init__(self, cuda: bool):
+        self.cuda, self.marks = cuda, []
+
+    def __call__(self, i, loss) -> None:
+        if self.cuda:
+            import torch
+
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks.append(ev)
+        else:
+            self.marks.append(time.perf_counter())
+
+    def ms(self) -> float:
+        m = self.marks
+        if self.cuda:
+            import torch
+
+            torch.cuda.synchronize()
+            return m[0].elapsed_time(m[-1]) / (len(m) - 1)
+        return (m[-1] - m[0]) / (len(m) - 1) * 1e3
+
+
+def _darts_launches(layers: int, steps: int, keys) -> dict:
+    """The kernel launches of ``steps`` DARTS step pairs of a supernet
+    ``layers`` deep, for every counter key in ``keys``. No remat: K1 once
+    a layer in each step's forward; the alpha step's backward skips the
+    first layer's attention (its input is the frozen embedding: nothing
+    there needs a gradient), so K2 and K3 run 2L - 1 times a pair."""
+    per_pair = {"flash_fwd": 2 * layers, "flash_bwd_dkv": 2 * layers - 1,
+                "flash_bwd_dq": 2 * layers - 1}
+    return {k: per_pair.get(k, 0) * steps for k in keys}
+
+
 def darts_run(base, small, device=None, sizes=DARTS,
               kernels: bool = True) -> dict:
     """``hpo/nas.py`` ``darts_search`` at ``base``'s width (``phase_darts_
@@ -3779,16 +4087,7 @@ def darts_run(base, small, device=None, sizes=DARTS,
     _free_card(cuda)
     space = nas.ArchSpace(max_layers=sizes["max_layers"],
                           ffn_widths=tuple(sizes["ffn_widths"]))
-    marks = []
-
-    def on_step(i, loss):
-        if cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            marks.append(ev)
-        else:
-            marks.append(time.perf_counter())
-
+    on_step = _PairMarks(cuda)
     for c in _counters():
         for key in c:
             c[key] = 0
@@ -3799,19 +4098,8 @@ def darts_run(base, small, device=None, sizes=DARTS,
         steps=sizes["steps"], seed=SEED, device=dev, on_step=on_step)
     wall = time.perf_counter() - t0
     launches = {k: v for c in _counters() for k, v in c.items()}
-    if cuda:
-        torch.cuda.synchronize()
-        pair_ms = marks[0].elapsed_time(marks[-1]) / (len(marks) - 1)
-    else:
-        pair_ms = (marks[-1] - marks[0]) / (len(marks) - 1) * 1e3
-    # no remat: K1 once a layer in each step's forward; the alpha step's
-    # backward skips the first layer's attention (its input is the frozen
-    # embedding: nothing there needs a gradient), so K2 and K3 run 2L - 1
-    # times a pair
-    layers = space.max_layers
-    per_pair = {"flash_fwd": 2 * layers, "flash_bwd_dkv": 2 * layers - 1,
-                "flash_bwd_dq": 2 * layers - 1}
-    expect = {k: per_pair.get(k, 0) * sizes["steps"] for k in launches}
+    pair_ms = on_step.ms()
+    expect = _darts_launches(space.max_layers, sizes["steps"], launches)
     out = {"hidden": base.hidden_size, "heads": base.num_heads,
            "head_dim": base.head_dim, "vocab": base.vocab_size,
            "attention_impl": base.attention_impl, "dtype": str(base.dtype),
@@ -3995,6 +4283,443 @@ def phase_corpus_train(base: str, work: str, line: str) -> dict:
     base snapshot) at 8 x 2048 through the pod entry."""
     r = corpus_train(base, work)
     emit("corpus_train", card=line, model="llama_1b", **r)
+    return r
+
+
+# -- HPO sweeps: the Katib tier on LocalPlatform -------------------------------
+
+#: hpo_sweep: a user's learning-rate sweep of the fine-tune (a rank-8 LoRA
+#: of the ``finetune`` phase's llama_1b base at 8 x 2048, 4 steps a trial);
+#: one card runs one trainer at a time, so one trial at a time
+HPO_SWEEP = dict(trials=3, steps=4, lora_rank=8, batch=8, seq=2048,
+                 lr_min=1e-5, lr_max=1e-3, timeout=900)
+#: nas_experiment: the darts suggester on ``darts_run``'s task, then each
+#: suggested (layers, ffn_width) trained at the bench width, 3 steps of
+#: 8 x 1024 (``arch_trial_main``)
+NAS_EXPERIMENT = dict(trials=2, steps=3, batch=8, seq=1024,
+                      base="bench_model", timeout=600)
+NAS_TASK = "chip-smoke-darts"
+
+
+def _sweep_manifest(base: str, sizes: dict) -> str:
+    """``examples/04-experiment-bo.yaml``'s shape: a ``bayesianoptimization``
+    sweep of ``lr`` (log scale) minimizing the trainer's ``loss``, each
+    trial a JaxJob of one worker running the pod entry ``train_main``."""
+    return f"""\
+apiVersion: kubeflow-tpu.dev/v1
+kind: Experiment
+metadata:
+  name: lr-sweep
+spec:
+  objective:
+    type: minimize
+    objectiveMetricName: loss
+  algorithm:
+    algorithmName: bayesianoptimization
+  parameters:
+    - name: lr
+      parameterType: double
+      feasibleSpace:
+        min: {sizes["lr_min"]}
+        max: {sizes["lr_max"]}
+        logScale: true
+  parallelTrialCount: 1
+  maxTrialCount: {sizes["trials"]}
+  trialTemplate:
+    jobManifest:
+      kind: JaxJob
+      metadata:
+        name: placeholder
+      spec:
+        replicaSpecs:
+          worker:
+            replicas: 1
+            template:
+              entrypoint: kubeflow_tpu_torch.train.llm:train_main
+              env:
+                KFT_INIT_FROM: "file://{base}"
+                KFT_LORA_RANK: "{sizes["lora_rank"]}"
+                KFT_SEQ_LEN: "{sizes["seq"]}"
+                KFT_BATCH: "{sizes["batch"]}"
+                KFT_STEPS: "{sizes["steps"]}"
+                KFT_LOG_EVERY: "1"
+                KFT_LR: "${{trialParameters.lr}}"
+"""
+
+
+class _TimedSuggestions:
+    """Times every GetSuggestions call the port's suggestion controller
+    makes in this process (the RPC to its algorithm service)."""
+
+    def __enter__(self):
+        from kubeflow_tpu_torch.hpo import service
+
+        self.ms: list = []
+        self._cls = service.SuggestionClient
+        self._real = real = self._cls.get_suggestions
+        calls = self.ms
+
+        def timed(client, *a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real(client, *a, **kw)
+            finally:
+                calls.append((time.perf_counter() - t0) * 1e3)
+
+        self._cls.get_suggestions = timed
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.get_suggestions = self._real
+
+
+def _local_platform(device):
+    """The port's ``LocalPlatform`` (real pod processes; no
+    ``KFT_POD_DEVICE``, so pods take the card, unless ``device`` names
+    one) with its API server and dashboard up: (platform, api URL,
+    dashboard URL)."""
+    from kubeflow_tpu_torch.runtime.platform import LocalPlatform
+
+    p = LocalPlatform(root_dir=tempfile.mkdtemp(prefix="kft-hpo-"),
+                      env_overrides={} if device is None else {
+                          "KFT_POD_DEVICE": device})
+    p.start()
+    return p, p.cluster.serve_api(), p.cluster.serve_dashboard()
+
+
+def _wait_experiment(p, name: str, timeout: float) -> tuple:
+    """(the Experiment once completed, seconds waited); a failed trial
+    fails at once, with its job's message."""
+    t0 = time.perf_counter()
+    while True:
+        exp = p.store.try_get("Experiment", name)
+        for t in p.store.list("Trial"):
+            job = p.store.try_get("JaxJob", t.metadata.name)
+            require(t.status.phase != "Failed", f"{name}: {t.metadata.name} "
+                    f"failed: {job and job.status.conditions}")
+        if exp is not None and exp.status.completed:
+            return exp, time.perf_counter() - t0
+        require(time.perf_counter() - t0 < timeout,
+                f"{name} not done in {timeout} s: {exp and exp.status}")
+        time.sleep(0.2)
+
+
+def _trial_rows(p, exp_name: str, device) -> list[dict]:
+    """Per trial of ``exp_name``, in issue order: its assignments and
+    observation, s from the Trial's creation to its pod Running, the pod's
+    wall s and the s of it before its first metric (the process's start,
+    imports, model and first step), its log naming the device, and its
+    metric rows."""
+    import os
+
+    rows = []
+    trials = sorted((t for t in p.store.list("Trial")
+                     if t.spec.experiment_name == exp_name),
+                    key=lambda t: t.metadata.name)
+    for t in trials:
+        pod_name = f"{t.metadata.name}-worker-0"
+        pod = p.store.get("Pod", pod_name)
+        with open(p.kubelet.pod_log_path("default", pod_name)) as f:
+            log = f.read()
+        with open(os.path.join(p.root_dir, "status", "default", pod_name,
+                               "metrics.jsonl")) as f:
+            metrics = [json.loads(x) for x in f]
+        job = p.store.get("JaxJob", t.metadata.name)
+        tps = [r["value"] for r in _metric(metrics,
+                                            "tokens_per_sec_per_chip")]
+        rows.append({
+            "trial": t.metadata.name, "phase": t.status.phase,
+            "assignments": {a.name: a.value for a in t.spec.assignments},
+            "observation": t.status.observation,
+            "created_to_running_s": (pod.status.start_time
+                                     - t.metadata.creation_timestamp),
+            "pod_wall_s": pod.status.finish_time - pod.status.start_time,
+            "pod_start_to_first_metric_s": (
+                metrics[0]["ts"] - pod.status.start_time if metrics
+                else None),
+            "log_names_device": f"on {device or 'cuda'}" in log,
+            "losses": [r["value"] for r in _metric(metrics, "loss")],
+            "tokens_per_sec": (statistics.median(tps[1:]) if len(tps) > 1
+                               else (tps[0] if tps else None)),
+            "env": dict(job.spec.replica_specs["worker"].template.env)})
+    return rows
+
+
+def _cli(*argv) -> str:
+    """The port's CLI in this process: its standard output."""
+    import contextlib
+    import io
+
+    from kubeflow_tpu_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(list(argv))
+    require(rc == 0, f"kft {' '.join(argv)}: exit {rc}")
+    return out.getvalue()
+
+
+def hpo_sweep(base: str, work: str, device=None, sizes=HPO_SWEEP,
+              kernels: bool = True) -> dict:
+    """An HPO sweep on the port's ``LocalPlatform`` (``phase_hpo_sweep``:
+    llama_1b's rank-8 LoRA on the card), submitted through the CLI
+    (``kft apply -f``) to the API server: a ``bayesianoptimization``
+    experiment over ``lr``, its trials pod processes running the pod entry
+    ``train_main``. The experiment must succeed with every trial, every
+    trial's log naming the device and every loss finite; the optimum must
+    be the trial of the lowest final loss; the db must hold each trial's
+    per-step curve and the dashboard's experiment page list every trial.
+    Then the best trial's env runs once more in this process
+    (``_train_main``): K1/K2/K3 must launch 2/1/1 a layer and step
+    (``kernels``), and its per-step losses must be the pod's within
+    ``MESH_LOSS_TOL``; every trial's first loss (before any update, so
+    whatever its lr) must agree within it too."""
+    import os
+    import urllib.request
+
+    from kubeflow_tpu_torch.models import llama
+
+    cuda = device is None
+    _free_card(cuda)
+    cfg = llama.load_pretrained_config(base)
+    manifest = os.path.join(work, "lr-sweep.yaml")
+    with open(manifest, "w") as f:
+        f.write(_sweep_manifest(base, sizes))
+    saved = os.environ.pop("KFT_POD_DEVICE", None)
+    p, url, dash = _local_platform(device)
+    try:
+        with _TimedSuggestions() as rpc:
+            t0 = time.perf_counter()
+            applied = _cli("--server", url, "apply", "-f", manifest)
+            exp, wall = _wait_experiment(p, "lr-sweep", sizes["timeout"])
+        print(_cli("--server", url, "get", "experiments"), end="")
+        print(_cli("--server", url, "describe", "exp", "lr-sweep"), end="")
+        trials = _trial_rows(p, "lr-sweep", device)
+        # a trial's curve reaches the db just after its phase turns
+        # Succeeded, so the last one may trail the experiment's completion
+        deadline = time.perf_counter() + 30
+        while True:
+            curves = {}
+            for r in p.cluster._db_client.get_observation_log("lr-sweep"):
+                if r["step"] >= 0:
+                    curves.setdefault(r["trial"], []).append(r["value"])
+            if len(curves) == len(trials) or time.perf_counter() > deadline:
+                break
+            time.sleep(0.2)
+        with urllib.request.urlopen(
+                f"{dash}/api/experiments/default/lr-sweep", timeout=30) as r:
+            page = (r.status, json.loads(r.read()))
+    finally:
+        p.stop()
+        if saved is not None:
+            os.environ["KFT_POD_DEVICE"] = saved
+    require(applied.strip() == "experiment/lr-sweep created",
+            f"hpo_sweep: kft apply said {applied!r}")
+    require(exp.status.trials_succeeded == sizes["trials"]
+            and len(trials) == sizes["trials"]
+            and all(t["phase"] == "Succeeded" for t in trials),
+            f"hpo_sweep: {exp.status}")
+    for t in trials:
+        require(t["log_names_device"], f"hpo_sweep: {t['trial']}'s log "
+                f"does not name {device or 'cuda'}")
+        require(len(t["losses"]) == sizes["steps"]
+                and all(map(math.isfinite, t["losses"])),
+                f"hpo_sweep: {t['trial']} losses {t['losses']}")
+        require(t["observation"] == t["losses"][-1],
+                f"hpo_sweep: {t['trial']} observed {t['observation']}")
+    best = min(trials, key=lambda t: t["observation"])
+    require(exp.status.current_optimal_trial == best["trial"],
+            f"hpo_sweep: optimum {exp.status.current_optimal_trial} is not "
+            f"the lowest loss {best['trial']}")
+    require(all(curves.get(t["trial"]) == t["losses"] for t in trials),
+            f"hpo_sweep: the db's curves {curves}")
+    require(page[0] == 200 and sorted(page[1]["curves"]) == sorted(
+        t["trial"] for t in trials), f"hpo_sweep: dashboard {page}")
+    first = [t["losses"][0] for t in trials]
+    first_rel = max(abs(x - first[0]) / abs(first[0]) for x in first)
+    require(first_rel <= MESH_LOSS_TOL,
+            f"hpo_sweep: the trials' first losses differ: {first}")
+    # the best trial once more in this process, where its launches count
+    env = {**best["env"], **({} if cuda else {"KFT_POD_DEVICE": device})}
+    t, rows, launches, seconds = _train_main(
+        env, os.path.join(work, "hpo-twin-status"))
+    del t
+    twin = [r["value"] for r in _metric(rows, "loss")]
+    twin_rel = max(abs(a - b) / abs(b) for a, b in zip(twin, best["losses"]))
+    expect = {k: FINETUNE_PER_LAYER.get(k, 0) * cfg.num_layers
+              * sizes["steps"] for k in launches}
+    out = {"experiment_wall_s": wall, "suggestion_rpc_ms": rpc.ms,
+           "optimal_trial": exp.status.current_optimal_trial,
+           "optimal_lr": best["assignments"]["lr"],
+           "trials": [{k: v for k, v in t.items() if k != "env"}
+                      for t in trials],
+           "first_loss_rel_spread": first_rel,
+           "twin": {"losses": twin, "max_rel_err_vs_pod": twin_rel,
+                    "launches": launches, "launches_expected": expect,
+                    "seconds": seconds}}
+    require(twin_rel <= MESH_LOSS_TOL,
+            f"hpo_sweep: the in-process twin's losses {twin} are not the "
+            f"best trial pod's {best['losses']}")
+    if kernels:
+        require(launches == expect and all(
+            launches[k] > 0 for k in FINETUNE_PER_LAYER),
+            f"hpo_sweep: twin launches {launches} != {expect}")
+    _free_card(cuda)
+    return out
+
+
+def phase_hpo_sweep(base: str, work: str, line: str) -> dict:
+    """``hpo_sweep`` on the ``finetune`` phase's llama_1b base."""
+    r = hpo_sweep(base, work)
+    emit("hpo_sweep", card=line, model="llama_1b", sizes=HPO_SWEEP, **r)
+    return r
+
+
+def arch_trial_main(ctx) -> None:
+    """The pod entry of ``nas_experiment``'s trials: the width of the
+    model named by ``KFT_ARCH_BASE`` (default ``bench_model``) at the
+    suggested depth ``KFT_LAYERS`` and FFN width ``KFT_FFN_WIDTH``, trained
+    ``KFT_STEPS`` steps of ``KFT_BATCH`` x ``KFT_SEQ_LEN`` from SEED on
+    the pod's device; emits ``loss`` and ``tokens_per_sec_per_chip``
+    every step (``bootstrap.emit_metric``)."""
+    import dataclasses
+    import os
+
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.runtime import bootstrap
+    from kubeflow_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    e = os.environ
+    model = dataclasses.replace(
+        getattr(llama, e.get("KFT_ARCH_BASE", "bench_model"))(),
+        num_layers=int(e["KFT_LAYERS"]),
+        intermediate_size=int(e["KFT_FFN_WIDTH"]))
+    t = Trainer(TrainConfig(model=model, global_batch=int(e["KFT_BATCH"]),
+                            seq_len=int(e["KFT_SEQ_LEN"]),
+                            steps=int(e["KFT_STEPS"]), log_every=1),
+                device=bootstrap.pod_device(ctx))
+    print(f"arch_trial: training {e['KFT_LAYERS']} layers, ffn "
+          f"{e['KFT_FFN_WIDTH']} on {t.device}", flush=True)
+    t.init_state(SEED)
+
+    def on_metrics(m) -> None:
+        bootstrap.emit_metric(ctx, "loss", m.loss, step=m.step)
+        bootstrap.emit_metric(ctx, "tokens_per_sec_per_chip",
+                              m.tokens_per_sec_per_chip, step=m.step)
+
+    t.train(on_metrics=on_metrics)
+
+
+def nas_experiment(base, ranked_top: list, device=None, sizes=NAS_EXPERIMENT,
+                   darts=DARTS, kernels: bool = True) -> dict:
+    """A ``darts`` experiment on the port's ``LocalPlatform``
+    (``phase_nas_experiment``: the supernet at the bench width on the card):
+    ``settings.task_ref`` names ``darts_run``'s task (``base``'s width,
+    ``darts``' sizes, SEED), registered in this process, where the
+    suggestion service trains the supernet; each trial trains its
+    suggested shape in a pod (``arch_trial_main``). The trials must be
+    ``ranked_top``'s first, in order (``phase_darts_search``'s ranking of
+    the same task), the K1-K3 launches in this process ``darts_run``'s
+    (``kernels``), and both trials must succeed on the device with finite
+    losses."""
+    import os
+
+    from kubeflow_tpu_torch.hpo import nas
+    from kubeflow_tpu_torch.sdk import KatibClient
+
+    cuda = device is None
+    dev = device or "cuda"
+    _free_card(cuda)
+    space = nas.ArchSpace(max_layers=darts["max_layers"],
+                          ffn_widths=tuple(darts["ffn_widths"]))
+    on_step = _PairMarks(cuda)
+    nas.register_task(NAS_TASK, lambda: (
+        base, space, _token_stream(base.vocab_size, darts["batch"],
+                                   darts["seq"]),
+        {"device": dev, "on_step": on_step}))
+    exp = {
+        "kind": "Experiment", "metadata": {"name": "arch-search"},
+        "spec": {
+            "objective": {"type": "minimize", "objective_metric_name": "loss"},
+            "algorithm": {"algorithm_name": "darts", "settings": {
+                "task_ref": NAS_TASK,
+                "supernet_steps": str(darts["steps"])}},
+            "parameters": [
+                {"name": "layers", "parameter_type": "int",
+                 "feasible_space": {"min": 1, "max": space.max_layers}},
+                {"name": "ffn_width", "parameter_type": "categorical",
+                 "feasible_space": {"list": [str(w) for w in
+                                             space.ffn_widths]}}],
+            "parallel_trial_count": 1, "max_trial_count": sizes["trials"],
+            "trial_template": {"job_manifest": {
+                "kind": "JaxJob", "metadata": {"name": "placeholder"},
+                "spec": {"replica_specs": {"worker": {"replicas": 1,
+                         "template": {
+                             "entrypoint": "chip_smoke:arch_trial_main",
+                             "env": {
+                                 "KFT_ARCH_BASE": sizes["base"],
+                                 "KFT_LAYERS": "${trialParameters.layers}",
+                                 "KFT_FFN_WIDTH":
+                                     "${trialParameters.ffn_width}",
+                                 "KFT_STEPS": str(sizes["steps"]),
+                                 "KFT_BATCH": str(sizes["batch"]),
+                                 "KFT_SEQ_LEN": str(sizes["seq"])}}}}}}}}}
+    for c in _counters():
+        for key in c:
+            c[key] = 0
+    saved = os.environ.pop("KFT_POD_DEVICE", None)
+    p, url, dash = _local_platform(device)
+    try:
+        with _TimedSuggestions() as rpc:
+            KatibClient(p).create_experiment(exp)
+            got, wall = _wait_experiment(p, "arch-search", sizes["timeout"])
+        launches = {k: v for c in _counters() for k, v in c.items()}
+        trials = _trial_rows(p, "arch-search", device)
+    finally:
+        p.stop()
+        if saved is not None:
+            os.environ["KFT_POD_DEVICE"] = saved
+    pair_ms = on_step.ms()
+    expect = _darts_launches(space.max_layers, darts["steps"], launches)
+    want = [{"layers": int(l), "ffn_width": int(w)}
+            for l, w in ranked_top[:sizes["trials"]]]
+    out = {"experiment_wall_s": wall, "suggestion_rpc_ms": rpc.ms,
+           "supernet_ms_per_step_pair": pair_ms,
+           "step_pairs": len(on_step.marks),
+           "launches": launches, "launches_expected": expect,
+           "assignments": [t["assignments"] for t in trials],
+           "ranked_top": want,
+           "optimal_trial": got.status.current_optimal_trial,
+           "trials": [{k: v for k, v in t.items() if k != "env"}
+                      for t in trials]}
+    require(got.status.trials_succeeded == sizes["trials"]
+            and len(trials) == sizes["trials"],
+            f"nas_experiment: {got.status}")
+    require(out["assignments"] == want,
+            f"nas_experiment: suggested {out['assignments']}, "
+            f"darts_search ranked {want}")
+    for t in trials:
+        require(t["log_names_device"], f"nas_experiment: {t['trial']}'s "
+                f"log does not name {dev}")
+        require(len(t["losses"]) == sizes["steps"]
+                and all(map(math.isfinite, t["losses"])),
+                f"nas_experiment: {t['trial']} losses {t['losses']}")
+    if kernels:
+        require(launches == expect and all(
+            launches[k] > 0 for k in FLASH_PER_LAYER),
+            f"nas_experiment: suggester launches {launches} != {expect}")
+    _free_card(cuda)
+    return out
+
+
+def phase_nas_experiment(line: str, ranked_top: list) -> dict:
+    """``nas_experiment`` on ``phase_darts_search``'s task: the bench
+    model's width, ``DARTS`` sizes."""
+    from kubeflow_tpu_torch.models import llama
+
+    r = nas_experiment(llama.bench_model(), ranked_top)
+    emit("nas_experiment", card=line, model="bench_model supernet",
+         sizes=NAS_EXPERIMENT, **r)
     return r
 
 
@@ -5579,6 +6304,8 @@ def run() -> int:
         phase_finetune_serve(ft["base"], ft["adapter"], line)
         t5 = time.perf_counter()
         phase_corpus_train(ft["base"], work, line)
+        t_hpo = time.perf_counter()
+        phase_hpo_sweep(ft["base"], work, line)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     t6 = time.perf_counter()
@@ -5588,7 +6315,9 @@ def run() -> int:
     t8 = time.perf_counter()
     phase_jaxjob_pods(line)
     t9 = time.perf_counter()
-    phase_darts_search(line)
+    darts = phase_darts_search(line)
+    t_nas = time.perf_counter()
+    phase_nas_experiment(line, darts["ranked_top"])
     t10 = time.perf_counter()
     mesh = phase_mesh_train(line)
     t11 = time.perf_counter()
@@ -5611,8 +6340,10 @@ def run() -> int:
          speculation_and_prefix=t1 - t0, migration_and_tiers=t2 - t1,
          http_serve=t_isvc - t2, isvc_serve=t_http - t_isvc,
          finetune=t3 - t_http, adafactor_step=t4 - t3,
-         finetune_serve=t5 - t4, corpus_train=t6 - t5, bert_serve=t7 - t6,
-         resnet_train=t8 - t7, jaxjob_pods=t9 - t8, darts_search=t10 - t9,
+         finetune_serve=t5 - t4, corpus_train=t_hpo - t5,
+         hpo_sweep=t6 - t_hpo, bert_serve=t7 - t6, resnet_train=t8 - t7,
+         jaxjob_pods=t9 - t8, darts_search=t_nas - t9,
+         nas_experiment=t10 - t_nas,
          mesh_train=t11 - t10, moe_mesh_train=t12 - t11,
          nccl_one_rank=t13 - t12, seq_train=t14 - t13,
          ring_attention_check=t15 - t14, pipeline_train=t16 - t15,

@@ -7,9 +7,9 @@ cluster underneath) the substrate itself — Nodes and a gang scheduler.
 
 The port's copy of ``kubeflow_tpu/controlplane/cluster.py``, device-free
 like it, with the same names; it imports nothing of the reference
-package. It registers the port's runtimes; the ux and hpo tiers raise
-naming ROADMAP A15 until they are copied. Its metrics endpoint listens
-with ``BurstHTTPServer``'s backlog.
+package. It registers the port's runtimes, and its ux and hpo tiers are
+the port's copies. Its metrics endpoint listens with
+``BurstHTTPServer``'s backlog.
 """
 
 from __future__ import annotations
@@ -50,12 +50,6 @@ def register_default_admission(store: Store) -> None:
         mutate=default_inference_service,
         validate=validate_inference_service,
     )
-
-
-def _not_copied(what: str, modules: str) -> None:
-    raise NotImplementedError(
-        f"Cluster.{what} needs {modules}, which is not copied into the "
-        "port yet (ROADMAP A15)")
 
 
 class Cluster:
@@ -125,9 +119,17 @@ class Cluster:
         self.add_controller(InferenceGraphController(self.store))
 
     def enable_platform_ux(self) -> None:
-        """The L7 shell tier (Profiles' controller, Notebooks, PodDefaults):
-        ``ux/`` is not copied into the port yet."""
-        _not_copied("enable_platform_ux", "ux/")
+        """Register the L7 shell tier (SURVEY.md §2.4): Profile multi-
+        tenancy (quota enforced by the gang scheduler), Notebook workbenches,
+        PodDefault injection.  The dashboard is ``serve_dashboard``."""
+        from ..controlplane.objects import KIND_POD
+        from ..ux.notebooks import NotebookController
+        from ..ux.poddefaults import pod_default_mutator
+        from ..ux.profiles import ProfileController
+
+        self.store.register_admission(KIND_POD, mutate=pod_default_mutator(self.store))
+        self.add_controller(ProfileController(self.store))
+        self.add_controller(NotebookController(self.store))
 
     def serve_api(self, port: int = 0, token: "str | None" = None,
                   profile_tokens: "dict[str, str] | None" = None) -> str:
@@ -148,8 +150,17 @@ class Cluster:
         return self._apiserver.url
 
     def serve_dashboard(self, port: int = 0) -> str:
-        """The central dashboard: ``ux/`` is not copied into the port yet."""
-        _not_copied("serve_dashboard", "ux/")
+        """Start the central dashboard over this cluster's store; returns
+        its URL.  Stopped with the cluster.  When HPO is enabled the
+        dashboard also gets the observation DB (experiment curves) and
+        the pod-log resolver (log views)."""
+        from ..ux.dashboard import Dashboard
+
+        self._dashboard = Dashboard(
+            self.store, port=port or None,
+            db=getattr(self, "_db_client", None),
+            log_path_for=getattr(self, "_log_path_for", None))
+        return self._dashboard.url
 
     def enable_hpo(
         self,
@@ -157,10 +168,48 @@ class Cluster:
         log_path_for=None,
         db_path: Optional[str] = None,
     ) -> None:
-        """The Katib-tier reconcilers: the hpo controllers, service, db and
-        algorithms are not copied into the port yet (its ``hpo/`` holds
-        ``nas.py`` alone)."""
-        _not_copied("enable_hpo", "hpo/{controllers,service,db,algorithms}.py")
+        """Register the Katib-tier reconcilers (SURVEY.md §2.3).  Separate
+        from __init__ because the trial metrics collector needs the kubelet's
+        filesystem layout, which only the platform knows.
+
+        ``db_path`` (defaulting to ``<metrics_root>/observations.sqlite``
+        when a metrics root exists) stands up the durable observation store
+        behind its gRPC facade (hpo/db.py, the katib-db-manager analog):
+        completed-trial history then survives control-plane restarts."""
+        import os
+
+        from ..hpo.controllers import (
+            ExperimentController,
+            SuggestionController,
+            TrialController,
+        )
+        from ..hpo.db import DbManagerClient, DbManagerServer
+
+        self._log_path_for = log_path_for  # also feeds dashboard + apiserver
+        dashboard = getattr(self, "_dashboard", None)
+        if dashboard is not None:
+            # dashboard started before HPO: hand it the log source now
+            dashboard.log_path_for = log_path_for
+        apiserver = getattr(self, "_apiserver", None)
+        if apiserver is not None:
+            apiserver.log_path_for = log_path_for  # kft logs
+        if db_path is None and metrics_root is not None:
+            db_path = os.path.join(metrics_root, "observations.sqlite")
+        db_client = None
+        if db_path is not None:
+            self._db_server = DbManagerServer(db_path).start()
+            db_client = self._db_client = DbManagerClient(self._db_server.address)
+            if dashboard is not None:
+                dashboard.db = db_client
+
+        self.add_controller(ExperimentController(self.store, db=db_client))
+        self.add_controller(SuggestionController(self.store, db=db_client))
+        self.add_controller(
+            TrialController(
+                self.store, metrics_root=metrics_root,
+                log_path_for=log_path_for, db=db_client,
+            )
+        )
 
     def add_node(
         self,

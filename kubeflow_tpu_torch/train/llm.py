@@ -160,6 +160,7 @@ def train_main(ctx: bootstrap.PodContext, *, device=None) -> trainlib.Trainer:
     cfg = config_from_env(ctx)
     bootstrap.initialize(ctx)
     t = trainlib.Trainer(cfg, device=bootstrap.pod_device(ctx, device))
+    print(f"llm: training on {t.device}", flush=True)
     source = source_from_env(cfg, t.batch_index, t.batch_count)
     if ctx.is_coordinator and t.ckpt is not None:
         # observable resume marker: > 0 when a restart picked up a

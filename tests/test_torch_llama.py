@@ -222,7 +222,24 @@ def test_port_imports_no_jax():
         "import kubeflow_tpu_torch.serving.sharded, "
         "kubeflow_tpu_torch.serving.gang, "
         "kubeflow_tpu_torch.serving.resize\n"
+        "import kubeflow_tpu_torch.hpo, kubeflow_tpu_torch.hpo.algorithms, "
+        "kubeflow_tpu_torch.hpo.early_stopping, "
+        "kubeflow_tpu_torch.hpo.service, kubeflow_tpu_torch.hpo.db, "
+        "kubeflow_tpu_torch.hpo.controllers, "
+        "kubeflow_tpu_torch.runtime.platform, kubeflow_tpu_torch.sdk, "
+        "kubeflow_tpu_torch.sdk.client, kubeflow_tpu_torch.sdk.katib, "
+        "kubeflow_tpu_torch.sdk.kserve, kubeflow_tpu_torch.cli, "
+        "kubeflow_tpu_torch.__main__, kubeflow_tpu_torch.ux, "
+        "kubeflow_tpu_torch.ux.poddefaults, kubeflow_tpu_torch.ux.profiles, "
+        "kubeflow_tpu_torch.ux.notebooks, "
+        "kubeflow_tpu_torch.ux.notebook_server, "
+        "kubeflow_tpu_torch.ux.dashboard\n"
+        "from kubeflow_tpu_torch.hpo import (ExperimentController, "
+        "SuggestionServer, get_suggester)\n"
+        "from kubeflow_tpu_torch.__main__ import main as cli_main\n"
+        "assert cli_main is kubeflow_tpu_torch.cli.main\n"
         "c = Cluster(); c.enable_serving()\n"
+        "c.enable_hpo(); c.enable_platform_ux()\n"
         "from kubeflow_tpu_torch.api.inference import KIND_SERVING_RUNTIME\n"
         "paths = [r.spec.server_class for r in "
         "c.store.list(KIND_SERVING_RUNTIME)]\n"

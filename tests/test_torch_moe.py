@@ -215,3 +215,52 @@ def test_moe_remat_matches_no_remat_and_recomputes_gmm(monkeypatch):
     for name, g in grads[0].items():
         np.testing.assert_allclose(grads[1][name].numpy(), g.numpy(),
                                    atol=1e-6, err_msg=name)
+
+
+def test_chip_smoke_moe_stream_gaps_tell_a_wrong_path():
+    """``chip_smoke._stream_gaps`` on a tiny bf16 MoE model: a served
+    stream whose routing rounded one near tie the other way (row 3, at
+    its smallest router margin) is reproduced by one routing flip, with
+    drawn tokens over the limit; the same stream with every fourth token
+    from position 8 on the model's second choice is not."""
+    import torch
+
+    import chip_smoke
+    from kubeflow_tpu_torch.models import llama
+
+    torch.set_num_threads(2)
+    cfg = llama.tiny(moe_experts=8, moe_top_k=2, moe_dispatch="ragged",
+                     dtype=torch.bfloat16, max_seq_len=96)
+    model = llama.Llama(cfg, device="cpu")
+    model.init_weights(1)
+    prompts = np.random.default_rng(0).integers(
+        1, cfg.vocab_size, (4, 48)).tolist()
+
+    def greedy(prompt, flips):
+        seq = list(prompt)
+        for _ in range(32):
+            # a trailing token makes the slice score the last real one
+            lg, _ = chip_smoke._flipped_forward(
+                model, torch.tensor([seq + [0]]), len(seq),
+                [[f for f in flips if f[1] < len(seq)]])
+            seq.append(int(lg[0, -1].argmax()))
+        return seq[len(prompt):]
+
+    streams = [greedy(p, []) for p in prompts]
+    seq = torch.tensor([prompts[3] + streams[3]])
+    _, probs = chip_smoke._flipped_forward(model, seq, 48, [[]])
+    top = probs[:, 0, 48:68].topk(3, dim=-1).values
+    margin = ((top[..., 1] - top[..., 2]) / top[..., 1]).flatten()
+    at = int(margin.argmin())
+    streams[3] = greedy(prompts[3], [(at // 20, 48 + at % 20)])
+    served = chip_smoke._stream_gaps(model, prompts, streams)
+    assert served["gap_max_unflipped"] > chip_smoke.STREAM_GAP_TOL
+    assert not served["over_tol"] and served["routing_explained"] >= 1
+    assert served["control_over_tol"] >= 0.9
+    second = chip_smoke._forced_logits(model, prompts, streams).topk(
+        2, dim=-1).indices[..., 1]
+    wrong = [list(s) for s in streams]
+    for r in range(4):
+        for i in range(8, 32, 4):
+            wrong[r][i] = int(second[r, i])
+    assert chip_smoke._stream_gaps(model, prompts, wrong)["over_tol"]

@@ -8,11 +8,17 @@ reference's ``kubeflow_tpu/hpo/nas.py`` (CPU, f32).
 - ``OneShotNas.suggest`` returns the reference's suggestions for the same
   task and requests, the suggester-exhausted contract included (fewer than
   asked at the end of the space, none past it).
+- A ``darts`` experiment through the port's HPO controllers (fake kubelet,
+  an in-process metric writer) issues the reference's ranking as its
+  trials.
 
 torch and the port are imported inside the tests.
 """
 
 import dataclasses
+import json
+import threading
+import time
 
 import jax
 import jax.numpy as jnp
@@ -103,3 +109,91 @@ def test_one_shot_suggester_matches_reference():
     with pytest.raises(ValueError, match="task_ref"):
         nas.OneShotNas().suggest(ref_alg.SuggestRequest(
             parameters=[], objective_type=None, settings={}))
+
+
+def test_darts_experiment_reaches_the_port_supernet(tmp_path):
+    """A ``darts`` experiment through the port's controllers: the
+    Suggestion's assignments are the reference ``OneShotNas``'s ranking on
+    the same task (the tiny task of ``tests/test_torch_nas.py``, started
+    from the reference's initial supernet)."""
+    from kubeflow_tpu_torch.api.experiment import Experiment
+    from kubeflow_tpu_torch.controlplane import Cluster
+    from kubeflow_tpu_torch.controlplane.fake_kubelet import FakeKubelet
+
+    _, nas, _, _ = _port()
+    # the reference's ranking under the key of the suggester test above
+    # (its supernet run is cached per key, steps and seed); the port's task
+    # under a key of its own, so that the controllers' call runs the search
+    ref.register_task("torch-nas-task",
+                      lambda: (_ref_base(), ref.ArchSpace(**SPACE),
+                               _stream()))
+    want = ref.OneShotNas().suggest(ref_alg.SuggestRequest(
+        parameters=[], objective_type=None, count=2, settings={
+            "task_ref": "torch-nas-task", "supernet_steps": str(STEPS)}))
+    key = "torch-nas-task-controllers"
+    nas.register_task(key, _port_task)
+    settings = {"task_ref": key, "supernet_steps": str(STEPS)}
+
+    cluster = Cluster()
+    cluster.add_tpu_slice("slice-0", 1, 4)
+    cluster.enable_hpo(metrics_root=str(tmp_path))
+    kubelet = FakeKubelet(cluster.store)
+    stop = threading.Event()
+
+    def metric_writer():
+        while not stop.is_set():
+            for pod in cluster.store.list("Pod"):
+                env = pod.spec.container.env
+                d = tmp_path / "status" / pod.metadata.namespace / pod.metadata.name
+                if "KFT_LAYERS" not in env or (d / "metrics.jsonl").exists():
+                    continue
+                d.mkdir(parents=True, exist_ok=True)
+                loss = 1.0 / int(env["KFT_LAYERS"]) + int(env["KFT_FFN_WIDTH"])
+                (d / "metrics.jsonl").write_text(
+                    json.dumps({"name": "loss", "value": loss}) + "\n")
+            stop.wait(0.01)
+
+    exp = Experiment.model_validate({
+        "metadata": {"name": "arch-search"},
+        "spec": {
+            "objective": {"type": "minimize", "objective_metric_name": "loss"},
+            "algorithm": {"algorithm_name": "darts", "settings": settings},
+            "parameters": [
+                {"name": "layers", "parameter_type": "int",
+                 "feasible_space": {"min": 1, "max": SPACE["max_layers"]}},
+                {"name": "ffn_width", "parameter_type": "categorical",
+                 "feasible_space": {"list": [str(w) for w in
+                                             SPACE["ffn_widths"]]}}],
+            "parallel_trial_count": 1, "max_trial_count": 2,
+            "trial_template": {"job_manifest": {
+                "kind": "JaxJob", "metadata": {"name": "placeholder"},
+                "spec": {"replica_specs": {"worker": {"replicas": 1,
+                         "template": {"entrypoint": "none:main", "env": {
+                             "KFT_LAYERS": "${trialParameters.layers}",
+                             "KFT_FFN_WIDTH":
+                                 "${trialParameters.ffn_width}"}}}}}}}}})
+    writer = threading.Thread(target=metric_writer, daemon=True)
+    with cluster:
+        kubelet.start()
+        writer.start()
+        try:
+            cluster.store.create(exp)
+            deadline = time.time() + 60
+            while time.time() < deadline:
+                got = cluster.store.try_get("Experiment", "arch-search")
+                if got is not None and got.status.completed:
+                    break
+                time.sleep(0.05)
+            assert got is not None and got.status.completed, got
+            trials = sorted(cluster.store.list("Trial"),
+                            key=lambda t: t.metadata.name)
+        finally:
+            stop.set()
+            kubelet.stop()
+    assert len(want) == 2
+    assert [{a.name: a.value for a in t.spec.assignments}
+            for t in trials] == want
+    assert got.status.trials_succeeded == 2
+    best = min(want, key=lambda a: 1.0 / a["layers"] + a["ffn_width"])
+    assert {a.name: a.value for a in
+            got.status.current_optimal_assignments} == best
