@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written Hopper kernels (flash attention K1-K3, grouped GEMM
+First runs the port's lint, device-free (``lint``: the analyzer's
+self-test and its ratchet over this checkout, each in a subprocess). Then
+builds the hand-written Hopper kernels (flash attention K1-K3, grouped GEMM
 K4a/K4b) from ``kubeflow_tpu_torch/ops/csrc`` into ``build/kernels/``,
 checks in their SASS that every kernel runs on wgmma and TMA and that no
 kernel spills, holds each kernel against its plain f32 version (outputs in
@@ -21,10 +23,13 @@ errors, and the serving engine (``kubeflow_tpu_torch.serving``, every program
 a CUDA graph) serves the bench model as ``bench.py``'s serving row does
 (``serve``), in its three pool and admission variants (``serve_variants``),
 and serves the MoE bench model (``moe_serve``, on ``gmm``, which is also
-checked and timed at the serving shapes); then speculation and prefix reuse
+checked and timed at the serving shapes; ``serve`` and ``moe_serve`` hold
+the engine's ``stats()`` to the metrics contract with
+``audit_stats_pair``); then speculation and prefix reuse
 (``spec_serve``, ``moe_spec_serve``, ``prefix_serve``) and moving and
 storing sequences (``migrate_serve``, ``moe_migrate_serve``,
-``hibernate_serve``, ``host_tier_serve``, ``disagg_serve``), and the
+``hibernate_serve`` with a ``LockAudit`` over the locks its threads share,
+``host_tier_serve``, ``disagg_serve``), and the
 serving plane over HTTP (``http_serve``: ``ModelServer`` and
 ``TextGenerator`` over the bench model, every greedy completion held to the
 engine's own text, SSE streams timed, a QoS preemption, then the MoE bench
@@ -262,6 +267,50 @@ def phase_env() -> str:
 #: kernels whose SASS must hold wgmma (HGMMA) fed by TMA loads (UTMALDG)
 HOPPER_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "gmm", "tgmm")
 HOPPER_OPS = ("HGMMA", "UTMALDG")
+
+
+def lint_run(root: str) -> dict:
+    """The port's lint on the checkout at ``root``, device-free, each step
+    in a subprocess: ``python -m kubeflow_tpu_torch.analysis --self-test``
+    (every rule's true-positive and near-miss fixtures), then the ratchet
+    (``--json``: the whole port's findings against its ``baseline.json``).
+    Returns each step's exit code, seconds and counts."""
+    out = {}
+    for step, argv in (("self_test", ["--self-test"]),
+                       ("ratchet", ["--json"])):
+        t0 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-m", "kubeflow_tpu_torch.analysis", *argv],
+            cwd=root, capture_output=True, text=True, timeout=300)
+        row = {"rc": p.returncode, "seconds": time.perf_counter() - t0}
+        if step == "self_test":
+            m = re.search(r"self-test: (\d+)/(\d+) fixtures green", p.stdout)
+            row["fixtures_green"] = (f"{m.group(1)}/{m.group(2)}" if m
+                                     else None)
+        elif p.returncode in (0, 1):
+            rep = json.loads(p.stdout)
+            row.update(findings=rep["total"], by_rule=rep["by_rule"],
+                       baselined=rep["baseline_total"],
+                       new=[f"{f['path']}:{f['line']}: {f['rule']}"
+                            for f in rep["new"]],
+                       lint_s=rep["elapsed_s"])
+        if p.returncode != 0:
+            row["output"] = (p.stdout + p.stderr)[-4000:]
+        out[step] = row
+    return out
+
+
+def phase_lint(line: str) -> dict:
+    """``lint_run`` on this checkout; both steps must exit 0 (every fixture
+    green, no finding above the baseline)."""
+    import os
+
+    r = lint_run(os.path.dirname(os.path.abspath(__file__)))
+    emit("lint", card=line, **r)
+    for step, row in r.items():
+        require(row["rc"] == 0, f"lint {step}: exit {row['rc']}: "
+                f"{row.get('output', '')}")
+    return r
 
 
 def _cuobjdump(*args: str) -> str:
@@ -1138,7 +1187,10 @@ def _serve(cfg, model, prompts, new: int, warmup, prime: int = 0,
     medians are reported, the tokens are the first round's). With
     ``counters`` the kernel launch counts are set to 0 just before the
     first timed round and read just after the last; a ``ledger`` is
-    attached to a paged engine before warmup."""
+    attached to a paged engine before warmup. ``stats_audit`` is
+    ``audit_stats_pair`` of the engine's ``stats()`` after warmup and
+    after the last round (empty: the metrics contract holds)."""
+    from kubeflow_tpu_torch.analysis.runtime import audit_stats_pair
     from kubeflow_tpu_torch.serving.continuous import ContinuousEngine
 
     eng = ContinuousEngine(cfg, model, **engine_kw)
@@ -1149,6 +1201,9 @@ def _serve(cfg, model, prompts, new: int, warmup, prime: int = 0,
         t0 = time.perf_counter()
         eng.warmup(warmup)
         warmup_s = time.perf_counter() - t0
+        # the metrics contract's runtime half: this snapshot against the
+        # one after the last round (neither inside a timed window)
+        stats0 = eng.stats()
         if prime:
             for r in [eng.submit(p, max_new_tokens=prime) for p in prompts]:
                 r.wait(600)
@@ -1167,6 +1222,7 @@ def _serve(cfg, model, prompts, new: int, warmup, prime: int = 0,
         stats = eng.stats()
     finally:
         eng.stop()
+    stats_audit = audit_stats_pair(stats0, stats)
     vocab = cfg.vocab_size
     for tokens in streams:
         require(all(len(t) == new for t in tokens), "short token streams")
@@ -1178,13 +1234,15 @@ def _serve(cfg, model, prompts, new: int, warmup, prime: int = 0,
             "tokens_per_sec": statistics.median(tps),
             "tokens_per_sec_rounds": tps, "decode_dispatches": dispatches,
             "ms_per_dispatch": statistics.median(ms),
-            "launches": launches, "stats": stats}
+            "launches": launches, "stats": stats, "stats_audit": stats_audit}
 
 
 def phase_serve() -> None:
     """bench.py's serving row on the port: the 271M bench model at full
     width and depth, random weights, 8 x 128-token prompts, 64 new tokens
-    each after a 16-token priming round, every program a CUDA graph."""
+    each after a 16-token priming round, every program a CUDA graph. The
+    engine's ``stats()`` must keep the metrics contract across the run
+    (``audit_stats_pair``)."""
     import torch
 
     from kubeflow_tpu_torch.models import llama
@@ -1216,9 +1274,11 @@ def phase_serve() -> None:
          roofline_inputs={"weight_bytes": wbytes, "kv_bytes_per_slot":
                           kvbytes, "bytes_per_sec": PEAK_BYTES},
          vs_roofline=r["tokens_per_sec"] / roofline_tps,
-         first_tokens=r["tokens"][0][:8])
+         first_tokens=r["tokens"][0][:8], stats_audit=r["stats_audit"])
     require(st["graph_captures_total"] == 0,
             f"{st['graph_captures_total']} captures after warmup")
+    require(r["stats_audit"] == [],
+            f"serve: the metrics contract {r['stats_audit']}")
     require(st["kv_pool_bytes"] == 536_870_912,
             f"KV pool of {st['kv_pool_bytes']} B")
 
@@ -1556,7 +1616,8 @@ def phase_serve_variants() -> None:
 def phase_moe_serve() -> dict:
     """The MoE bench model (8 experts, top-2, dropless, on K4a ``gmm``)
     serving 4 prompts x 128 tokens, 32 new tokens each, in the slot pool;
-    the gmm launches of the timed round are counted."""
+    the gmm launches of the timed round are counted, and the engine's
+    ``stats()`` must keep the metrics contract (``audit_stats_pair``)."""
     import torch
 
     cfg, model = _serve_model("bench_moe_model")
@@ -1573,9 +1634,12 @@ def phase_moe_serve() -> dict:
          launches=r["launches"],
          graph_captures_warmup=st["graph_captures_warmup"],
          graph_captures_after_warmup=st["graph_captures_total"],
-         peak_mem_bytes=torch.cuda.max_memory_allocated())
+         peak_mem_bytes=torch.cuda.max_memory_allocated(),
+         stats_audit=r["stats_audit"])
     require(r["launches"]["gmm"] > 0, "MoE serving launched no gmm")
     require(st["graph_captures_total"] == 0, "captures after warmup")
+    require(r["stats_audit"] == [],
+            f"moe_serve: the metrics contract {r['stats_audit']}")
     return r["launches"]
 
 
@@ -2040,13 +2104,43 @@ def phase_moe_migrate_serve() -> dict:
     return launches
 
 
+def audit_hibernate_locks(a, b, store, ledger) -> tuple:
+    """(a ``LockAudit``, the names it instruments) over the locks that
+    ``hibernate_serve``'s threads share (the caller's, and engines A's and
+    B's schedulers): each engine's gate and tier lock, the spill store's
+    and the ledger's. Instrument before warmup (which takes the gates)."""
+    from kubeflow_tpu_torch.analysis.runtime import LockAudit
+
+    audit = LockAudit()
+    sites = [(a, "_gate", "A._gate"), (a, "_tier_mu", "A._tier_mu"),
+             (b, "_gate", "B._gate"), (b, "_tier_mu", "B._tier_mu"),
+             (store, "_mu", "KvSpillStore._mu"),
+             (ledger, "_mu", "BlockLedger._mu")]
+    for obj, attr, name in sites:
+        audit.instrument(obj, attr, name)
+    return audit, [name for _, _, name in sites]
+
+
+def require_lock_audit(phase: str, audit, names: list) -> dict:
+    """No lock pair taken in both orders, and every instrumented lock
+    taken at least once (a lock never taken would audit nothing)."""
+    rep = audit.report()
+    require(audit.inversions() == [], f"{phase}: lock inversions {rep}")
+    missing = sorted(set(names) - set(rep["locks"]))
+    require(not missing, f"{phase}: instrumented locks never taken: "
+            f"{missing}")
+    return rep
+
+
 def phase_hibernate_serve() -> None:
     """Hibernate and thaw on the bench model: 5 sessions of 128-token
     prompts and 380 new tokens on A (the last hibernation must find its
     session still decoding); after 16 tokens each is hibernated into a
     ``KvSpillStore`` under a temporary directory; four thaw on B from the
     store, and the fifth, its ``blocks.bin`` cut in half, thaws degraded
-    (re-prefilled from the manifest's tokens)."""
+    (re-prefilled from the manifest's tokens). A ``LockAudit`` records the
+    real acquisition order of the locks the threads share: no pair may be
+    taken in both orders."""
     import os
     import tempfile
 
@@ -2060,6 +2154,7 @@ def phase_hibernate_serve() -> None:
     a, b = _paged_engine(cfg, model, ledger), _paged_engine(cfg, model, ledger)
     with tempfile.TemporaryDirectory() as root:
         store = KvSpillStore(root)
+        audit, audited = audit_hibernate_locks(a, b, store, ledger)
         write_ms, thaw_ms = [], []
         write = store.write
 
@@ -2098,6 +2193,7 @@ def phase_hibernate_serve() -> None:
         finally:
             a.stop()
             b.stop()
+    locks = require_lock_audit("hibernate_serve", audit, audited)
     diffs = _first_difference(cfg, model, prompts, plain, thawed)
     gaps = _gaps(model, prompts, {"plain": plain, "thawed": thawed})
     keys = ("kv_spills_total", "kv_thaws_total", "kv_thaws_degraded_total",
@@ -2108,7 +2204,7 @@ def phase_hibernate_serve() -> None:
          degraded_reprefill_ms=reprefill_ms, degraded=info["degraded"],
          stats_a={k: st_a[k] for k in keys},
          stats_b={k: st_b[k] for k in keys}, differences=diffs,
-         teacher_forced=gaps, **clean)
+         teacher_forced=gaps, lock_audit=locks, **clean)
     require(all(hibernated), f"hibernated {hibernated}")
     require(info["degraded"] and st_b["kv_thaws_degraded_total"] == 1,
             "the torn spill did not thaw degraded")
@@ -4468,7 +4564,8 @@ def hpo_sweep(base: str, work: str, device=None, sizes=HPO_SWEEP,
     ``train_main``. The experiment must succeed with every trial, every
     trial's log naming the device and every loss finite; the optimum must
     be the trial of the lowest final loss; the db must hold each trial's
-    per-step curve and the dashboard's experiment page list every trial.
+    per-step curve when the experiment completes (read once, no wait) and
+    the dashboard's experiment page list every trial.
     Then the best trial's env runs once more in this process
     (``_train_main``): K1/K2/K3 must launch 2/1/1 a layer and step
     (``kernels``), and its per-step losses must be the pod's within
@@ -4492,20 +4589,16 @@ def hpo_sweep(base: str, work: str, device=None, sizes=HPO_SWEEP,
             t0 = time.perf_counter()
             applied = _cli("--server", url, "apply", "-f", manifest)
             exp, wall = _wait_experiment(p, "lr-sweep", sizes["timeout"])
+        # read at completion, with no wait: a trial reports its curve to
+        # the db before its phase turns Succeeded, and the experiment
+        # completes on those phases
+        curves = {}
+        for r in p.cluster._db_client.get_observation_log("lr-sweep"):
+            if r["step"] >= 0:
+                curves.setdefault(r["trial"], []).append(r["value"])
         print(_cli("--server", url, "get", "experiments"), end="")
         print(_cli("--server", url, "describe", "exp", "lr-sweep"), end="")
         trials = _trial_rows(p, "lr-sweep", device)
-        # a trial's curve reaches the db just after its phase turns
-        # Succeeded, so the last one may trail the experiment's completion
-        deadline = time.perf_counter() + 30
-        while True:
-            curves = {}
-            for r in p.cluster._db_client.get_observation_log("lr-sweep"):
-                if r["step"] >= 0:
-                    curves.setdefault(r["trial"], []).append(r["value"])
-            if len(curves) == len(trials) or time.perf_counter() > deadline:
-                break
-            time.sleep(0.2)
         with urllib.request.urlopen(
                 f"{dash}/api/experiments/default/lr-sweep", timeout=30) as r:
             page = (r.status, json.loads(r.read()))
@@ -6266,6 +6359,9 @@ def run() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     line = phase_env()
+    t_lint = time.perf_counter()
+    phase_lint(line)
+    lint_s = time.perf_counter() - t_lint
     phase_build()
     max_abs = phase_kernels_check()
     times = {**phase_kernels_time(), **phase_grouped_time()}
@@ -6336,7 +6432,7 @@ def run() -> int:
     t17 = time.perf_counter()
     gang_s = phase_gang(line)
     now = time.perf_counter()
-    emit("phase_seconds", total=now - started,
+    emit("phase_seconds", total=now - started, lint=lint_s,
          speculation_and_prefix=t1 - t0, migration_and_tiers=t2 - t1,
          http_serve=t_isvc - t2, isvc_serve=t_http - t_isvc,
          finetune=t3 - t_http, adafactor_step=t4 - t3,

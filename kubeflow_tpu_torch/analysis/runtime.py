@@ -9,14 +9,27 @@
   warmup's paid-once set; the engine arms it when warmup ends, and every
   later capture counts: a capture stalls every live request, so the
   engine's ``graph_captures_total`` gauge must stay 0.
+- :class:`LockAudit` (with :class:`_AuditedLock` and :func:`audit_many`):
+  copied from the reference: wraps ``threading`` locks and records the
+  REAL per-thread acquisition order; ``inversions()`` returns the (A, B)
+  pairs observed in both orders — each one a deadlock that needs nothing
+  more than worse timing. The static ``lock-order`` rule sees lexical
+  nesting; this sees the interleavings a run produced.
 - :class:`BlockLedger`: copied from the reference: shadow refcounts over a
   ``BlockAllocator``'s ``alloc``/``ref``/``release``, the
   zero-leaked-blocks audit, and the host tier's conservation check over a
   ``HostBlockPool`` (``attach_host_pool``/``audit_host``).
+- :func:`audit_stats_pair`: copied from the reference: the
+  ``metrics-contract`` rule's value-dependent half over two ``stats()``
+  snapshots (``_total`` counters monotonic, every numeric key a valid
+  Prometheus name suffix).
+
+Pure stdlib, like the lint half of this package.
 """
 
 from __future__ import annotations
 
+import re
 import sys
 import threading
 from typing import Any, Iterable, Optional
@@ -39,6 +52,135 @@ class CaptureCounter:
             self.count += 1
         else:
             self.warmup += 1
+
+
+class _AuditedLock:
+    """Context-manager/acquire-release proxy recording into a LockAudit."""
+
+    def __init__(self, audit: "LockAudit", lock: Any, name: str):
+        self._audit = audit
+        self._lock = lock
+        self.name = name
+
+    def acquire(self, blocking: bool = True, timeout: float = -1) -> bool:
+        got = self._lock.acquire(blocking, timeout)
+        if got:
+            self._audit._acquired(self.name)
+        return got
+
+    def release(self) -> None:
+        self._lock.release()
+        self._audit._released(self.name)
+
+    def __enter__(self):
+        self.acquire()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.release()
+
+    def locked(self) -> bool:
+        return self._lock.locked()
+
+    def __getattr__(self, name: str):
+        # passthrough for wrapped-lock extras (RLock internals etc.);
+        # only acquire/release order is audited
+        return getattr(self._lock, name)
+
+
+class LockAudit:
+    """Record real lock-acquisition order across threads.
+
+    Usage (chaos tests)::
+
+        audit = LockAudit()
+        audit.instrument(channel, "_lock")      # wrap an object's lock
+        gate = audit.wrap(threading.Lock(), "gate")   # or wrap directly
+        ... run the faulted scenario ...
+        assert audit.inversions() == []
+
+    Every acquisition while other audited locks are held by the SAME
+    thread records ordered edges ``held -> acquired``.  An *inversion*
+    is a pair observed in both orders — the textbook two-lock deadlock,
+    needing only two threads to hit the two sites concurrently.  The
+    recorder itself takes one private lock only to mutate the edge map
+    (never while a wrapped lock is being waited on), so it cannot
+    introduce the orderings it reports.
+    """
+
+    def __init__(self) -> None:
+        self._tls = threading.local()
+        self._mu = threading.Lock()
+        #: (outer, inner) -> occurrences observed
+        self._edges: dict[tuple[str, str], int] = {}
+        #: names ever acquired (for reporting)
+        self._seen: set[str] = set()
+
+    def wrap(self, lock: Any, name: str) -> _AuditedLock:
+        return _AuditedLock(self, lock, name)
+
+    def instrument(self, obj: Any, attr: str,
+                   name: Optional[str] = None) -> _AuditedLock:
+        """Replace ``obj.attr`` with an audited proxy in place."""
+        wrapped = self.wrap(getattr(obj, attr),
+                            name or f"{type(obj).__name__}.{attr}")
+        setattr(obj, attr, wrapped)
+        return wrapped
+
+    def _held(self) -> list:
+        held = getattr(self._tls, "held", None)
+        if held is None:
+            held = self._tls.held = []
+        return held
+
+    def _acquired(self, name: str) -> None:
+        held = self._held()
+        with self._mu:
+            self._seen.add(name)
+            for outer in held:
+                if outer != name:
+                    key = (outer, name)
+                    self._edges[key] = self._edges.get(key, 0) + 1
+        held.append(name)
+
+    def _released(self, name: str) -> None:
+        held = self._held()
+        # remove the most recent occurrence (locks release LIFO in with-
+        # blocks, but hand-rolled release orders must not corrupt state)
+        for i in range(len(held) - 1, -1, -1):
+            if held[i] == name:
+                del held[i]
+                return
+
+    def edges(self) -> dict[tuple[str, str], int]:
+        with self._mu:
+            return dict(self._edges)
+
+    def inversions(self) -> list[tuple[str, str]]:
+        """(A, B) pairs acquired in BOTH orders, A < B; empty = clean."""
+        with self._mu:
+            out = sorted(
+                (a, b) for (a, b) in self._edges
+                if a < b and (b, a) in self._edges)
+        return out
+
+    def report(self) -> dict:
+        """JSON-ready summary (chaos harness artifacts)."""
+        inversions = self.inversions()  # takes _mu itself: compute FIRST
+        with self._mu:
+            return {
+                "locks": sorted(self._seen),
+                "edges": {f"{a} -> {b}": n
+                          for (a, b), n in sorted(self._edges.items())},
+                "inversions": [f"{a} <-> {b}" for a, b in inversions],
+            }
+
+
+def audit_many(audit: LockAudit,
+               targets: Iterable[tuple[Any, str]]) -> None:
+    """Instrument a batch of (obj, attr) lock sites in one call."""
+    for obj, attr in targets:
+        audit.instrument(obj, attr)
 
 
 class _Books:
@@ -386,3 +528,57 @@ class BlockLedger:
                 before = len(self.conservation_errors)
                 self._check_host(books, pool, check_capacity=True)
                 return self.conservation_errors[before:]
+
+
+# ---------------------------------------------------------------------------
+# metrics-contract: the runtime (value-dependent) half
+# ---------------------------------------------------------------------------
+
+_METRIC_NAME = re.compile(r"^[a-zA-Z0-9_]+$")
+
+
+def audit_stats_pair(before: dict, after: dict) -> list[str]:
+    """The ``metrics-contract`` rule's runtime half (the static half —
+    name validity at lint time — is rules_metrics.py): given two engine
+    ``stats()`` snapshots taken around any amount of work, return the
+    contract violations.
+
+    - a ``_total``-suffixed key is an OpenMetrics counter: it must be
+      present in both snapshots and monotonically non-decreasing —
+      scrapes rate() counters, and a "counter" that goes down silently
+      corrupts every rate computed over it;
+    - every numeric key (both snapshots) must render to a valid
+      Prometheus name once the exporter splices ``kft_engine_<key>``.
+
+    Empty list = contract holds.  Pin it in tests around real traffic:
+    ``assert audit_stats_pair(s0, eng.stats()) == []``.
+    """
+    errors: list[str] = []
+    for which, stats in (("before", before), ("after", after)):
+        for k, v in stats.items():
+            if not isinstance(v, (int, float)) or isinstance(v, bool):
+                continue
+            if not _METRIC_NAME.match(str(k)):
+                errors.append(
+                    f"{which}: key `{k}` is not a valid Prometheus "
+                    "name suffix (kft_engine_<key>)")
+    for k, v0 in before.items():
+        if not str(k).endswith("_total"):
+            continue
+        if isinstance(v0, bool) or not isinstance(v0, (int, float)):
+            errors.append(f"counter `{k}` is not numeric: {v0!r}")
+            continue
+        if k not in after:
+            errors.append(
+                f"counter `{k}` vanished from the later snapshot — "
+                "a disappearing series resets every rate() over it")
+            continue
+        v1 = after[k]
+        if isinstance(v1, bool) or not isinstance(v1, (int, float)):
+            errors.append(f"counter `{k}` became non-numeric: {v1!r}")
+        elif v1 < v0:
+            errors.append(
+                f"counter `{k}` went DOWN across the audit pair "
+                f"({v0} -> {v1}): `_total` claims monotonic counter "
+                "semantics")
+    return errors

@@ -538,7 +538,9 @@ class TrialController(Controller):
                     f"objective {trial.spec.objective_metric_name!r} never "
                     "observed in any worker's metrics", type_="Warning")
                 return None
-            self._set_phase(trial, "Succeeded", observation=objective, metrics=metrics)
+            # report to the db BEFORE the phase moves: the experiment
+            # completes on its trials' phases, so a reader at completion
+            # must already find every trial's observation and curve there
             if self.db is not None:
                 try:
                     assignments = {
@@ -565,6 +567,7 @@ class TrialController(Controller):
                     self.emit_event(
                         trial, "ObservationReportFailed",
                         "db-manager unreachable", type_="Warning")
+            self._set_phase(trial, "Succeeded", observation=objective, metrics=metrics)
             self.emit_event(
                 trial, "TrialSucceeded",
                 f"{trial.spec.objective_metric_name}={objective}")

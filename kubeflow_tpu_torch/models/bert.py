@@ -37,7 +37,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
-from .llama import _trunc_normal
+from .llama import _trunc_normal, publish_file
 
 
 @dataclasses.dataclass(frozen=True)
@@ -286,13 +286,11 @@ def save_pretrained(path: str, cfg: BertConfig, params) -> None:
     d = dataclasses.asdict(cfg)
     d["dtype"] = _dtype_name(cfg.dtype)
     d["param_dtype"] = _dtype_name(cfg.param_dtype)
-    with open(os.path.join(path, "config.json"), "w") as f:
-        json.dump(d, f, indent=1)
+    publish_file(os.path.join(path, "config.json"),
+                 lambda f: json.dump(d, f, indent=1))
     tree = convert.bert_to_reference(params, cfg)
-    tmp = os.path.join(path, f"weights.msgpack.tmp-{os.getpid()}")
-    with open(tmp, "wb") as f:
-        _msgpack.dump(tree, f)
-    os.replace(tmp, os.path.join(path, "weights.msgpack"))
+    publish_file(os.path.join(path, "weights.msgpack"),
+                 lambda f: _msgpack.dump(tree, f), binary=True)
 
 
 def load_pretrained(path: str) -> tuple[BertConfig, dict]:

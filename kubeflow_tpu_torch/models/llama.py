@@ -977,20 +977,27 @@ def config_from_dict(d: dict) -> LlamaConfig:
     return LlamaConfig(**d)
 
 
+def publish_file(path: str, write, binary: bool = False) -> None:
+    """Write ``path`` through the commit protocol: ``write(f)`` into a
+    staging name, flush and fsync, then an atomic rename. A reader, or a
+    crash, never sees a torn file at the final name."""
+    tmp = f"{path}.tmp-{os.getpid()}"
+    with open(tmp, "wb" if binary else "w") as f:
+        write(f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+
+
 def _write_config(path: str, cfg: LlamaConfig) -> None:
-    with open(os.path.join(path, "config.json"), "w") as f:
-        json.dump(config_to_dict(cfg), f, indent=1)
+    publish_file(os.path.join(path, "config.json"),
+                 lambda f: json.dump(config_to_dict(cfg), f, indent=1))
 
 
 def _write_msgpack(path: str, tree: dict) -> None:
-    """Written under a staging name, then renamed: a reader never sees a
-    torn file."""
     from . import _msgpack
 
-    tmp = f"{path}.tmp-{os.getpid()}"
-    with open(tmp, "wb") as f:
-        _msgpack.dump(tree, f)
-    os.replace(tmp, path)
+    publish_file(path, lambda f: _msgpack.dump(tree, f), binary=True)
 
 
 def save_pretrained(path: str, cfg: LlamaConfig, params) -> None:

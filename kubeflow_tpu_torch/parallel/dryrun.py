@@ -74,10 +74,12 @@ def _child(rank: int, world: int, port: int, backend: str, out_dir: str,
             result = ("ok", fn(rank, *args))
         finally:
             dist.destroy_process_group()
-    except Exception:
+    except Exception:  # noqa: BLE001 — forwarded: spawn() raises it
         result = ("error", traceback.format_exc())
     with open(path + ".tmp", "wb") as f:
         pickle.dump(result, f)
+        f.flush()
+        os.fsync(f.fileno())
     os.replace(path + ".tmp", path)
 
 
@@ -118,6 +120,7 @@ def spawn(n: int, fn: Callable, *args, backend: str = "gloo",
                        else f"exited {procs[r].exitcode} without a result")
                 raise RuntimeError(f"rank {r} of {n} {why}")
             with open(path, "rb") as f:
+                # analysis: ok unsafe-pickle — our own ranks' results, private temp dir
                 status, value = pickle.load(f)
             if status != "ok":
                 raise RuntimeError(f"rank {r} of {n} failed:\n{value}")

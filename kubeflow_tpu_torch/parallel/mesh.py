@@ -131,12 +131,14 @@ def rank_layout(plan: MeshPlan) -> list:
 
     ranks = np.arange(plan.num_devices)
     if not plan.dcn_axes:
+        # analysis: ok host-sync-in-dispatch — host topology math
         return ranks.reshape(plan.shape).tolist()
     n = len(plan.axis_names)
     per_slice = tuple(plan.ici_axes.get(a, 1) for a in plan.axis_names)
     dcn = tuple(plan.dcn_axes.get(a, 1) for a in plan.axis_names)
     arr = ranks.reshape(*dcn, *per_slice)
     order = [i for pair in ((k, k + n) for k in range(n)) for i in pair]
+    # analysis: ok host-sync-in-dispatch — host topology math
     return arr.transpose(order).reshape(plan.shape).tolist()
 
 

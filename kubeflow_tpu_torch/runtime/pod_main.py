@@ -39,10 +39,9 @@ def resolve_target(spec: str):
 
 
 def _fail(ctx: bootstrap.PodContext, code: int) -> int:
-    """Print the traceback, write its last line as the termination
-    message, return ``code``."""
+    """Write the last line of the traceback being handled as the
+    termination message, return ``code`` (the handler prints it)."""
     text = traceback.format_exc()
-    print(text, file=sys.stderr, end="")
     if ctx.status_dir:
         os.makedirs(ctx.status_dir, exist_ok=True)
         lines = [x for x in text.strip().splitlines() if x.strip()]
@@ -60,13 +59,16 @@ def main() -> int:
     try:
         fn = resolve_target(target_spec)
     except Exception:
+        traceback.print_exc()
         return _fail(ctx, 2)
     try:
         bootstrap.initialize(ctx)
         bootstrap.barrier(ctx)
     except NotImplementedError:
+        traceback.print_exc()
         return _fail(ctx, 1)
     except Exception:
+        traceback.print_exc()
         # rendezvous failures are retryable by convention (another rank may
         # have died first; a gang restart can heal it)
         return _fail(ctx, 42)
@@ -76,6 +78,7 @@ def main() -> int:
     except SystemExit as e:
         return int(e.code or 0)
     except Exception:
+        traceback.print_exc()
         return _fail(ctx, 1)
 
 

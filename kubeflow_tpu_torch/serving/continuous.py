@@ -712,6 +712,7 @@ def _stack_leaves(blocks: list) -> list[torch.Tensor]:
     out = []
     for li in range(len(blocks[0])):
         parts = [b[li] if isinstance(b[li], torch.Tensor)
+                 # analysis: ok host-sync-in-dispatch — host numpy leaves
                  else torch.from_numpy(np.array(b[li]))
                  for b in blocks]
         first = parts[0]
@@ -817,12 +818,14 @@ class _Dispatch:
         entry = self._stage[self._n % self.ring]
         self._n += 1
         if entry[2] is not None:
+            # analysis: ok host-sync-in-dispatch — ring reuse of a pinned entry
             entry[2].synchronize()  # the last copy out of this entry ended
         for j, arr in ((0, ints), (1, floats)):
             if entry[j] is None or entry[j].numel() < arr.size:
                 entry[j] = torch.empty(max(arr.size, 256),
                                        dtype=torch.from_numpy(arr).dtype,
                                        pin_memory=True)
+            # analysis: ok host-sync-in-dispatch — pinned host staging buffer
             entry[j][:arr.size].numpy()[:] = arr
         prog.ibuf[:ints.size].copy_(entry[0][:ints.size], non_blocking=True)
         prog.fbuf[:floats.size].copy_(entry[1][:floats.size],
@@ -901,6 +904,7 @@ class _Dispatch:
         """Start copying a dispatch's tokens to the host; returns the handle
         ``fetch`` waits on."""
         if not self.cuda:
+            # analysis: ok host-sync-in-dispatch — CPU tokens, no device value
             return toks.numpy().copy(), None
         host_out.copy_(toks, non_blocking=True)
         ev = torch.cuda.Event()
@@ -916,7 +920,9 @@ class _Dispatch:
         out, ev = handle
         if ev is None:
             return out
+        # analysis: ok host-sync-in-dispatch — the one intended fetch
         ev.synchronize()
+        # analysis: ok host-sync-in-dispatch — numpy view after the fetch
         return out.numpy().copy()
 
 
@@ -1431,6 +1437,7 @@ class ContinuousEngine:
     def _filtered(self) -> bool:
         """The reference's ``lax.cond`` predicate, decided on the host:
         does any slot set top-k or top-p?"""
+        # analysis: ok host-sync-in-dispatch — host numpy scheduler state
         return bool(((self._top_ks > 0) | (self._top_ps < 1.0)).any())
 
     def _run_admit(self, g: int, bucket: int, host: dict) -> None:
@@ -1675,6 +1682,7 @@ class ContinuousEngine:
     def _draw_noise(self) -> None:
         """Fill the draw's noise when an active slot samples (greedy slots
         never read it)."""
+        # analysis: ok host-sync-in-dispatch — host numpy scheduler state
         if bool((self._temps[self._active] > 0).any()):
             torch.rand(self._noise.shape, generator=self._gen,
                        device=self.device, out=self._noise)
@@ -1714,6 +1722,7 @@ class ContinuousEngine:
                 with self._dispatch.stream_ctx():
                     self._warmup_locked(groups)
                 if self._dispatch.cuda:
+                    # analysis: ok lock-order — warmup's phase barrier
                     torch.cuda.synchronize(self.device)
             finally:
                 if collecting:
@@ -1995,6 +2004,7 @@ class ContinuousEngine:
         return {
             **paged,
             "slots_capacity": self.num_slots,
+            # analysis: ok host-sync-in-dispatch — host numpy scheduler state
             "slots_live": int(self._active.sum()),
             "queue_depth": len(self._waiting) + self._queue.qsize(),
             "decode_steps": self.step_counter,
@@ -2488,8 +2498,10 @@ class ContinuousEngine:
         for s in range(self.num_slots):
             content = self._slot_content[s]
             if self._slot_blocks[s] and len(content) >= self.block_size:
+                # analysis: ok host-sync-in-dispatch — host token list, no device value
                 records.append(np.asarray(content, np.int64))
         for toks, blocks in self._alloc._seqs.values():
+            # analysis: ok host-sync-in-dispatch — host token list, no device value
             records.append(np.asarray(
                 toks[: len(blocks) * self.block_size], np.int64))
         out["tokens"] = records
@@ -2588,6 +2600,7 @@ class ContinuousEngine:
         leaves = _stack_leaves(blocks) if blocks else []
         row = snapshot.get("logits")
         if row is not None and not isinstance(row, torch.Tensor):
+            # analysis: ok host-sync-in-dispatch — host numpy logits row
             row = torch.from_numpy(np.array(row))
         if self._dispatch.cuda:
             leaves = [x if x.is_pinned() else x.pin_memory() for x in leaves]
@@ -3041,6 +3054,7 @@ class ContinuousEngine:
             self._admit_paged(taken, plans)
             return
         stall_t0 = time.perf_counter()
+        # analysis: ok host-sync-in-dispatch — host numpy scheduler state
         had_live = bool(self._active.any())
         dispatched = False
         # the segment route sees the whole prompt (a suffix-slot pool's
@@ -3098,6 +3112,7 @@ class ContinuousEngine:
                 slots[j] = slot
             try:
                 self._run_seg_admit(
+                    # analysis: ok host-sync-in-dispatch — host numpy scheduler state
                     g, self._rung(bucket), self._seg_rung(int(plens.max())),
                     bucket, {"toks": toks, "seg_ids": seg_ids,
                              "plens": plens, "slens": slens, "slots": slots})
@@ -3156,6 +3171,7 @@ class ContinuousEngine:
         the next-token logits)."""
         best_slot, best_lp = -1, 0
         cap = len(prompt) - 1
+        # analysis: ok host-sync-in-dispatch — host token list, no device value
         p = np.asarray(prompt, np.int64)
         for s, content in enumerate(self._slot_content):
             if min(len(content), cap) <= best_lp:
@@ -3267,6 +3283,7 @@ class ContinuousEngine:
         # segment KV at positions < lcp depends only on tokens < lcp, so any
         # prompt sharing them may attend that much of the segment
         best, blen = -1, 0
+        # analysis: ok host-sync-in-dispatch — host token list, no device value
         p_arr = np.asarray(prompt, np.int64)
         for i, content in enumerate(self._seg_content):
             if min(len(content), cap) <= blen:
@@ -3340,6 +3357,7 @@ class ContinuousEngine:
                 # RAM: scattering it back beats prefilling it again (full
                 # blocks only, into fresh blocks)
                 hid, hlcp = self._host_pool.match(
+                    # analysis: ok host-sync-in-dispatch — host token list, no device value
                     np.asarray(prompt, np.int64), len(prompt) - 1)
                 hstart = (hlcp // bs) * bs
                 if hstart > start and hstart >= self.min_prefix:
@@ -3366,6 +3384,7 @@ class ContinuousEngine:
         cap = len(prompt) - 1 if cap is None else cap
         if cap <= 0:
             return (), 0
+        # analysis: ok host-sync-in-dispatch — host token list, no device value
         p = np.asarray(prompt, np.int64)
         best_blocks: tuple = ()
         best = 0
@@ -3387,6 +3406,7 @@ class ContinuousEngine:
         chunk driven (with ``prefill_budget == 0`` one chunk covers the
         rest of the prompt)."""
         stall_t0 = time.perf_counter()
+        # analysis: ok host-sync-in-dispatch — host numpy scheduler state
         had_live = bool(self._active.any())
         dispatched = False
         for (req, slot), (prompt, start, table, cow_src, shared,
@@ -3594,6 +3614,7 @@ class ContinuousEngine:
                 self._wake.wait(timeout=0.05)
                 self._wake.clear()
                 continue
+            # analysis: ok host-sync-in-dispatch — host numpy scheduler state
             live = bool(self._active.any())
             if live:
                 self.step_counter += 1
@@ -3609,6 +3630,7 @@ class ContinuousEngine:
             traced = any(r.trace is not None for _, r, _ in snapshot)
             family, rung = "decode", 0  # the dispatch spans' attrs
             live_seg = (live and self.prefix_segments > 0
+                        # analysis: ok host-sync-in-dispatch — host numpy scheduler state
                         and bool((self._slot_plen[self._active] > 0).any()))
             use_spec, drafts, proposed = (
                 self._plan_spec() if live and self.spec_k > 0 and not live_seg
@@ -3616,6 +3638,7 @@ class ContinuousEngine:
             # the window covers every live position plus this dispatch's
             # writes: decode_chunk steps, or the verify's t1 + spec_k drafts
             span = self.spec_k + 1 if use_spec else self.decode_chunk
+            # analysis: ok host-sync-in-dispatch — host numpy scheduler state
             needed = ((int(self._positions[self._active].max()) + span)
                       if live else self.decode_chunk)
             filtered = self._filtered()
@@ -3627,6 +3650,7 @@ class ContinuousEngine:
                 # verify's residual mask: pending bans would go stale
                 self._spec_ban[:] = -1
                 seg_att = self._seg_rung(
+                    # analysis: ok host-sync-in-dispatch — host numpy scheduler state
                     int(self._slot_plen[self._active].max()))
                 host = {**self._host_decode(),
                         "plens": np.where(self._active, self._slot_plen, 0),
@@ -3768,6 +3792,7 @@ class ContinuousEngine:
                 p = list(p)[:lim]  # an overlong proposal is clamped
                 drafts[slot, :len(p)] = p
                 proposed += len(p)
+        # analysis: ok host-sync-in-dispatch — host numpy scheduler state
         use = proposed > 0 or bool((self._spec_ban[self._active] >= 0).any())
         return use, drafts, proposed
 
@@ -3788,6 +3813,7 @@ class ContinuousEngine:
             if req.done.is_set():
                 self.tokens_discarded += take
                 continue
+            # analysis: ok host-sync-in-dispatch — numpy after the fetch
             emitted = toks[slot, :take].tolist()
             if self._slot_owner[slot] is req:
                 self._slot_content[slot].extend(emitted)
@@ -3835,6 +3861,7 @@ class ContinuousEngine:
                 continue
             take = min(1 + a, int(self._remaining[slot]))
             self.tokens_discarded += (1 + a) - take
+            # analysis: ok host-sync-in-dispatch — numpy after the fetch
             emitted = toks[slot, :take].tolist()
             self._positions[slot] += take
             self._remaining[slot] -= take

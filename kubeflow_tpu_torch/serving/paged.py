@@ -424,6 +424,7 @@ class HostBlockPool:
             return -1
         if nbytes is None:
             nbytes = sum(int(x.nbytes) for blk in blocks for x in blk)
+        # analysis: ok host-sync-in-dispatch — host token list, no device value
         toks = np.asarray(list(tokens)[: n * self.block_size], np.int64)
         with self._lock:
             hid = self._next
@@ -477,6 +478,7 @@ class HostBlockPool:
         """True when some entry already covers >= ``min_tokens`` of
         ``tokens``: the spill path's dedup probe (re-spilling a hot shared
         prefix on every retirement would churn the LRU)."""
+        # analysis: ok host-sync-in-dispatch — host token list, no device value
         arr = np.asarray(list(tokens), np.int64)
         _hid, n = self.match(arr, len(arr))
         return n >= max(int(min_tokens), 1)

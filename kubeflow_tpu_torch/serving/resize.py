@@ -99,6 +99,7 @@ def resize_block_budget(num_blocks: int, src_degree: int, dst_degree: int,
 def flatten_params(params) -> list[tuple[str, torch.Tensor]]:
     """Sorted (name, CPU tensor) pairs of a state dict, the reshard wire's
     transfer unit."""
+    # analysis: ok host-sync-in-dispatch — resize worker thread copy
     return [(k, torch.as_tensor(v).detach().cpu())
             for k, v in sorted(params.items())]
 
@@ -114,6 +115,7 @@ def full_params(engine) -> dict:
     it (a gang leader publishes ``("params",)`` first)."""
     layout = getattr(engine.model, "layout", None)
     if layout is None:
+        # analysis: ok host-sync-in-dispatch — resize worker thread copy
         return {k: v.detach().cpu()
                 for k, v in engine.model.state_dict().items()}
     return layout.full_state_dict()
@@ -555,6 +557,7 @@ class GangResizer:
         engine resumed in place on any failure before cutover."""
         with self._lock:
             # the lock is the drain barrier: one resize at a time
+            # analysis: ok lock-blocking-call — lock is the drain barrier
             return self._resize_locked(mesh_axes, num_blocks)
 
     def _group(self, ranks: list[int]) -> dict:

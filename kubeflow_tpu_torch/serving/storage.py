@@ -446,7 +446,9 @@ def _stale_staging_dirs(cache_dir: str, key: str) -> list[str]:
 def _host_tensor(x) -> torch.Tensor:
     """A leaf as a contiguous torch CPU tensor (numpy arrays by view)."""
     if not isinstance(x, torch.Tensor):
+        # analysis: ok host-sync-in-dispatch — snapshot leaves are host memory (spill worker)
         x = torch.from_numpy(np.ascontiguousarray(np.asarray(x)))
+    # analysis: ok host-sync-in-dispatch — snapshot leaves are host memory (spill worker)
     return x.detach().cpu().contiguous()
 
 
@@ -455,6 +457,7 @@ def _dtype_name(x) -> str:
     ``"int8"``, and ``"bfloat16"`` as ``ml_dtypes`` spells it)."""
     if isinstance(x, torch.Tensor):
         return str(x.dtype).removeprefix("torch.")
+    # analysis: ok host-sync-in-dispatch — snapshot leaves are host memory (spill worker)
     return str(np.asarray(x).dtype)
 
 
@@ -466,6 +469,7 @@ def _spill_dtype(name: str) -> torch.dtype:
 
 
 def _pack_spill_leaves(leaves) -> bytes:
+    # analysis: ok host-sync-in-dispatch — snapshot leaves are host memory (spill worker)
     return b"".join(_host_tensor(x).reshape(-1).view(torch.uint8)
                     .numpy().tobytes() for x in leaves)
 
@@ -594,13 +598,15 @@ class KvSpillStore:
 
     # -- write (spill) -----------------------------------------------------
 
-    def _write_file(self, path: str, data: bytes) -> dict:
-        with open(path, "wb") as f:
+    def _write_file(self, staged_path: str, data: bytes) -> dict:
+        """Write one payload file inside the entry's staging directory
+        (``write`` publishes the directory by rename)."""
+        with open(staged_path, "wb") as f:
             f.write(data)
             if self.fsync:
                 f.flush()
                 os.fsync(f.fileno())
-        return {"path": os.path.basename(path), "size": len(data),
+        return {"path": os.path.basename(staged_path), "size": len(data),
                 "sha256": hashlib.sha256(data).hexdigest()}
 
     def write(self, session_id: str, snapshot: dict,

@@ -286,3 +286,86 @@ def test_experiment_matches_reference(early_stopping, tmp_path, monkeypatch):
     assert want["events"] == sorted(
         ["MaxTrialsReached", "SuggestionCreated"] + ["TrialCreated"] * 4)
 
+
+
+class _PhaseRecordingDb:
+    """A db-manager stub that records, at each report, the phase the
+    trial has in the store at that moment (``fail`` makes every report
+    raise, as an unreachable db does)."""
+
+    def __init__(self, store, fail: bool = False):
+        self.store, self.fail = store, fail
+        self.phases: list[tuple[str, str]] = []
+
+    def _record(self, what: str, namespace: str, trial: str) -> None:
+        t = self.store.try_get("Trial", trial, namespace)
+        self.phases.append((what, t.status.phase))
+        if self.fail:
+            raise ConnectionError("db-manager unreachable")
+
+    def report_observation(self, *, experiment, trial, assignments, value,
+                           namespace):
+        self._record("observation", namespace, trial)
+
+    def report_observation_series(self, *, experiment, trial, assignments,
+                                  series, namespace):
+        self._record("series", namespace, trial)
+
+
+def _succeeded_trial(tmp_path, fail: bool):
+    """The port's ``TrialController`` reconciling one trial whose job has
+    succeeded and whose pod wrote a three-step objective curve, with a
+    ``_PhaseRecordingDb``; returns (db, trial after the reconcile, the
+    trial's event reasons)."""
+    api_exp = _mod("kubeflow_tpu_torch", "api.experiment")
+    common = _mod("kubeflow_tpu_torch", "api.common")
+    yaml_io = _mod("kubeflow_tpu_torch", "api.yaml_io")
+    store_mod = _mod("kubeflow_tpu_torch", "controlplane.store")
+    ctl = _mod("kubeflow_tpu_torch", "hpo.controllers")
+    events_for = _mod("kubeflow_tpu_torch",
+                      "controlplane.controller").events_for
+    store = store_mod.Store()
+    manifest = {"kind": "JaxJob", "metadata": {"name": "t0"},
+                "spec": {"replica_specs": {"worker": {"replicas": 1,
+                         "template": {"entrypoint": "none:main"}}}}}
+    trial = api_exp.Trial.model_validate({
+        "metadata": {"name": "t0"},
+        "spec": {"experiment_name": "sweep", "objective_metric_name": "loss",
+                 "assignments": [{"name": "lr", "value": "0.01"}],
+                 "job_manifest": manifest},
+        "status": {"phase": "Running"}})
+    store.create(trial)
+    job = yaml_io.from_dict(manifest)
+    job.status.conditions = [common.JobCondition(
+        type=common.JobConditionType.SUCCEEDED)]
+    store.create(job)
+    d = tmp_path / "status" / "default" / common.replica_pod_name(
+        "t0", "worker", 0)
+    d.mkdir(parents=True)
+    (d / "metrics.jsonl").write_text("".join(
+        json.dumps({"name": "loss", "value": v, "step": s}) + "\n"
+        for s, v in ((1, 3.0), (2, 2.5), (3, 2.0))))
+    db = _PhaseRecordingDb(store, fail=fail)
+    ctl.TrialController(store, metrics_root=str(tmp_path),
+                        db=db).reconcile("default", "t0")
+    return (db, store.try_get("Trial", "t0", "default"),
+            [e.reason for e in events_for(store, "Trial", "t0")])
+
+
+def test_trial_reports_to_the_db_before_it_succeeds(tmp_path):
+    """The experiment completes on its trials' phases, so a reader at
+    completion reads the db: every report of a trial must be in the db
+    before the trial turns Succeeded."""
+    db, trial, events = _succeeded_trial(tmp_path, fail=False)
+    assert db.phases == [("observation", "Running"), ("series", "Running")]
+    assert trial.status.phase == "Succeeded"
+    assert trial.status.observation == 2.0
+    assert "ObservationReportFailed" not in events
+
+
+def test_trial_succeeds_when_the_db_is_down(tmp_path):
+    db, trial, events = _succeeded_trial(tmp_path, fail=True)
+    assert db.phases == [("observation", "Running")]
+    assert trial.status.phase == "Succeeded"
+    assert "ObservationReportFailed" in events
+    assert "TrialSucceeded" in events
