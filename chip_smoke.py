@@ -56,8 +56,14 @@ card through the port's ``LocalKubelet``) and ``darts_search`` (the DARTS
 supernet at the bench model's width on K1-K3; one small step pair held
 against the CPU), then ``nas_experiment`` (a ``darts`` experiment whose
 suggestion service trains the same supernet in this process and whose
-trials train the suggested shapes in pods). Then the distributed runtime
-and the parallel layouts:
+trials train the suggested shapes in pods). The distributed runtime, the
+parallel layouts and multi-GPU serving below run in a second process on the
+same card (``--track``), started after ``moe_serve`` and joined after
+``nas_experiment``: each of them is two or more processes over gloo that
+leave the card idle most of the time, so the kernel, training and serving
+readings before it are taken with the card to themselves, and what is
+timed after it is read with both tracks running. Its lines follow the main
+sequence's. In that track:
 ``mesh_train`` (the bench model on ``{"fsdp": 2}`` and ``{"model": 2}``, two
 ranks sharing the card over gloo, 3 steps each against the same steps
 unsharded; K1-K3 counted on every rank, 4 query heads under ``model: 2``),
@@ -74,9 +80,10 @@ sequence) and
 1F1B and interleaved 1F1B), each two ranks sharing the card over gloo
 against the same steps unsharded, and ``dist_pods``
 (``examples/02`` and a two-worker ``examples/01`` as pod processes on the
-card, every rank's ``loss=`` lines equal). Last, multi-GPU serving:
-``tp_gmm_time`` (K4a at the experts' shapes under ``{"model": 2}``, K
-1024 -> N 1408 and K 1408 -> N 1024, checked and timed), ``nccl_graph_capture``
+card, every rank's ``loss=`` lines equal). Last, multi-GPU serving
+(``tp_gmm_time``, K4a at the experts' shapes under ``{"model": 2}``, K
+1024 -> N 1408 and K 1408 -> N 1024, checked and timed, runs in the main
+sequence after ``serve_gmm_time``): ``nccl_graph_capture``
 (a one-rank NCCL group: a CUDA graph holding the tensor-parallel
 all-reduce and all-gather, and the serving engine with its collectives
 forced on, every program captured), ``tp_serve`` and ``moe_tp_serve`` (the
@@ -89,7 +96,13 @@ export imported by an unsharded engine) and ``tp_resize`` (a live TP=2 gang
 shrunk to 1 and grown back to 2 with a stream open). Every served greedy
 stream is also fed back through the plain model (teacher forcing): its
 tokens must be the model's top or within the near-tie bound of it (an MoE
-model's also under one near-tie routing flip). Each
+model's also under one near-tie routing flip). ``isvc_serve`` and
+``tp_resize`` boot their engines through the program-artifact cache
+(``aot``, a fresh root under ``build/``): the text-llm wake from zero, a
+second boot of the MoE service and the grow-back (both ranks) must find
+every program record and kernel library there, and a third MoE engine
+meets one torn record and a torn tgmm library, which it must count and
+republish; ``aot_boots`` prints the cold and warm boots by part. Each
 phase prints one JSON
 line; the line before the last is the card's name and power limit from
 nvidia-smi, the last line is ``{"ok": true, "device": {...}}``. Any failure
@@ -102,8 +115,10 @@ from __future__ import annotations
 import itertools
 import json
 import math
+import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -323,8 +338,9 @@ def _cuobjdump(*args: str) -> str:
                           text=True).stdout
 
 
-def phase_build() -> None:
-    """Builds every kernel library, then reads what was compiled: the SASS
+def phase_build() -> float:
+    """Builds every kernel library (returns the seconds that took), then
+    reads what was compiled: the SASS
     of every library in ``HOPPER_KERNELS`` must hold wgmma and TMA loads, and
     no kernel may spill (ptxas's report for what was built now, the
     registers and local memory of every library from cuobjdump, cached ones
@@ -356,6 +372,7 @@ def phase_build() -> None:
     for name, counts in sass.items():
         require(all(counts.values()),
                 f"{name} does not use Hopper's paths in its SASS: {counts}")
+    return seconds
 
 
 def _inputs(b, s, h, kv, d, gen):
@@ -3246,6 +3263,73 @@ ISVC = dict(completions=16, prompt_chars=48, new=32, affinity=4,
 ACCEPT_MS_PR10 = {"p50": "368.2-409.0", "max": "1373.7-1431.4"}
 
 
+def fresh_aot_root(tag: str) -> str:
+    """A fresh program-artifact cache root under the checkout's gitignored
+    ``build/`` (the caller removes it)."""
+    import os
+
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(base, exist_ok=True)
+    return tempfile.mkdtemp(prefix=f"aot-{tag}-", dir=base)
+
+
+def boot_report(eng) -> dict:
+    """An engine boot's warmup through its program cache: seconds by part
+    (kernel libraries, eager pre-runs, captures, record checks), the
+    programs and libraries that hit or missed, and the cache's counters."""
+    rep = eng.warmup_report
+    outcomes = rep["outcomes"]
+    return {"warmup_s": rep["wall_s"], **rep["split"],
+            "programs": {o: sum(1 for k, v in outcomes.items()
+                                if v == o and not k.startswith("kernels:"))
+                         for o in ("hit", "miss")},
+            "libraries": {k[len("kernels:"):]: v for k, v in outcomes.items()
+                          if k.startswith("kernels:")},
+            "aot": {k[len("aot_cache_"):]: v
+                    for k, v in eng.stats().items()
+                    if k.startswith("aot_cache_")}}
+
+
+def require_warm(name: str, rep: dict, kernels: bool) -> None:
+    """A warm boot: every program and library a hit, no miss, no torn
+    entry (``kernels``: the libraries went through the cache, gmm's
+    among them)."""
+    aot = rep["aot"]
+    require(aot["misses_total"] == 0 and aot["hits_total"] > 0
+            and aot["load_failures_total"] == 0 and rep["programs"]["miss"]
+            == 0 and rep["programs"]["hit"] > 0, f"{name}: not warm: {rep}")
+    require(not kernels or (rep["libraries"].get("gmm") == "hit" and set(
+        rep["libraries"].values()) == {"hit"}),
+        f"{name}: the kernel libraries were not all hits: {rep}")
+
+
+def tear_entries(root: str, kernel: Optional[str]) -> dict:
+    """Tear (truncate to half) the first program record in ``root`` and
+    kernel library ``kernel``'s entry (None: no library); returns what was
+    torn."""
+    import os
+
+    torn = {}
+    for name in sorted(os.listdir(root)):
+        man = os.path.join(root, name, "artifact.json")
+        if name.startswith(".") or not os.path.exists(man):
+            continue
+        with open(man) as f:
+            meta = json.load(f)["meta"]
+        what = ("library" if meta["family"] == "kernels" else "record")
+        if what in torn or (what == "library" and (
+                kernel is None
+                or not meta["library"].startswith(f"lib{kernel}-"))):
+            continue
+        path = os.path.join(root, name, "program.bin")
+        with open(path, "r+b") as f:
+            f.truncate(os.path.getsize(path) // 2)
+        torn[what] = meta.get("library", meta["family"])
+    require(len(torn) == 1 + (kernel is not None),
+            f"no record or no {kernel} library in {root}: {torn}")
+    return torn
+
+
 def _isvc_wait(cluster, name: str, cond, what: str, timeout: float = 600):
     """The InferenceService ``name`` once ``cond(isvc)`` holds."""
     deadline = time.perf_counter() + timeout
@@ -3291,8 +3375,17 @@ def isvc_serve(cfg, model, moe_cfg, moe_model, device=None, sizes=ISVC,
     (``phase_isvc_serve`` on the card; ``device="cpu"`` with tiny models
     rehearses it). Every greedy text through a Router is held to the
     serving engine's own ``generate`` of the same ids; returns the
-    readings. ``kernels``: the MoE service must launch ``gmm``."""
+    readings. ``kernels``: the MoE service must launch ``gmm``.
+
+    Both services carry an ``aot`` block (a fresh root each under
+    ``build/``): the text-llm wake from zero must boot warm (no miss,
+    every program and library a hit; the controller's ``_wake_was_warm``
+    true), the MoE service booted a second time on its root too (gmm's
+    library a hit, answers bitwise the first boot's), and a third MoE
+    engine on that root, one record and tgmm's library torn, counts both
+    as load failures, republishes them and answers the same."""
     import gc
+    import os
 
     import numpy as np
     import torch
@@ -3300,7 +3393,7 @@ def isvc_serve(cfg, model, moe_cfg, moe_model, device=None, sizes=ISVC,
     from kubeflow_tpu_torch.analysis.runtime import BlockLedger
     from kubeflow_tpu_torch.api import from_dict
     from kubeflow_tpu_torch.controlplane import Cluster
-    from kubeflow_tpu_torch.serving import storage
+    from kubeflow_tpu_torch.serving import continuous, storage
     from kubeflow_tpu_torch.serving.controller import (
         InferenceServiceController,
     )
@@ -3321,6 +3414,9 @@ def isvc_serve(cfg, model, moe_cfg, moe_model, device=None, sizes=ISVC,
     def step(name):
         steps[name] = time.perf_counter() - started - sum(steps.values())
     keys = {"bench": "chip-smoke-isvc", "moe": "chip-smoke-isvc-moe"}
+    aot_base = fresh_aot_root("isvc")
+    aot = {name: {"root": os.path.join(aot_base, name)}
+           for name in ("text-llm", "moe")}
     storage.register_mem(keys["bench"], (cfg, model))
     storage.register_mem(keys["moe"], (moe_cfg, moe_model))
     cluster = Cluster()
@@ -3381,7 +3477,8 @@ def isvc_serve(cfg, model, moe_cfg, moe_model, device=None, sizes=ISVC,
         # 1. text-llm, 2 replicas behind the Router
         t0 = time.perf_counter()
         apply("text-llm", "text-llm", {**ISVC_ENGINE,
-                                       "params_ref": f"mem://{keys['bench']}"},
+                                       "params_ref": f"mem://{keys['bench']}",
+                                       "aot": aot["text-llm"]},
               min_replicas=2, max_replicas=2)
         isvc = _isvc_wait(cluster, "text-llm", lambda o: str(
             o.status.phase.value) == "Ready" and o.status.active_replicas == 2,
@@ -3389,6 +3486,7 @@ def isvc_serve(cfg, model, moe_cfg, moe_model, device=None, sizes=ISVC,
         out["text_llm_ready_s"] = time.perf_counter() - t0
         step("text_llm_ready")
         adopt("text-llm")
+        out["text_llm_boots"] = [boot_report(e) for e in engines["text-llm"]]
         router_url = isvc.status.url
         reps = replicas("text-llm")
         tg = reps[0].models()["text-llm"]
@@ -3512,6 +3610,10 @@ def isvc_serve(cfg, model, moe_cfg, moe_model, device=None, sizes=ISVC,
             and o.status.active_replicas == 3), "canary Ready")
         out["canary_ready_s"] = time.perf_counter() - t0
         adopt("text-llm", "canary")
+        # the canary's config (decode_chunk 2) boots cold: it publishes
+        # the records the wake from zero must meet
+        out["cold_boot"] = {"text-llm": boot_report(
+            replicas("text-llm", "canary")[0].models()["text-llm"].engine)}
         canary_urls = {r.url for r in replicas("text-llm", "canary")}
         before = _router_requests(router_url)
         cq = _http_prompts(sizes["canary"], sizes["prompt_chars"], SEED + 13)
@@ -3559,6 +3661,13 @@ def isvc_serve(cfg, model, moe_cfg, moe_model, device=None, sizes=ISVC,
         out["requests_per_backend_end"] = _router_requests(router_url)
         adopt("text-llm")
         ztg = replicas("text-llm")[0].models()["text-llm"]
+        out["warm_boot"] = {"text-llm": boot_report(ztg.engine)}
+        require_warm("isvc_serve wake from zero",
+                     out["warm_boot"]["text-llm"], kernels)
+        out["wake_was_warm"] = InferenceServiceController._wake_was_warm(
+            replicas("text-llm"))
+        require(out["wake_was_warm"] is True,
+                "isvc_serve: the controller did not see the wake as warm")
         require(body["choices"][0]["text"] == ztg.tokenizer.decode(
             ztg.engine.generate(ztg.tokenizer.encode(zq),
                                 sizes["zero_new"], timeout=600)),
@@ -3612,15 +3721,17 @@ def isvc_serve(cfg, model, moe_cfg, moe_model, device=None, sizes=ISVC,
         step("llm")
 
         # 5. llama-continuous on the MoE bench model: gmm on this path
-        apply("moe", "llama-continuous", {
+        moe_config = {
             **{k: v for k, v in ISVC_ENGINE.items()
                if k not in ("tracing", "affinity_block")},
             "params_ref": f"mem://{keys['moe']}",
-            "max_new_tokens": sizes["moe_new"]})
+            "max_new_tokens": sizes["moe_new"], "aot": aot["moe"]}
+        apply("moe", "llama-continuous", moe_config)
         murl = _isvc_wait(cluster, "moe", lambda o: str(
             o.status.phase.value) == "Ready", "Ready").status.url
         adopt("moe")
         meng = engines["moe"][0]
+        out["cold_boot"]["moe"] = boot_report(meng)
         mq = [rng.integers(1, moe_cfg.vocab_size,
                            size=sizes["moe_len"]).tolist()
               for _ in range(sizes["moe"])]
@@ -3640,6 +3751,56 @@ def isvc_serve(cfg, model, moe_cfg, moe_model, device=None, sizes=ISVC,
         del meng
         teardown("moe")
         step("moe")
+
+        # 6. the MoE service again on its root: a warm boot
+        t0 = time.perf_counter()
+        apply("moe", "llama-continuous", moe_config)
+        murl = _isvc_wait(cluster, "moe", lambda o: str(
+            o.status.phase.value) == "Ready", "Ready").status.url
+        out["moe_warm_ready_s"] = time.perf_counter() - t0
+        adopt("moe")
+        out["warm_boot"]["moe"] = boot_report(engines["moe"][0])
+        require_warm("isvc_serve moe second boot", out["warm_boot"]["moe"],
+                     kernels)
+        again = _in_threads(lambda q: _http_post(
+            murl + "/v1/models/moe:predict", {"instances": [q]})[
+                "predictions"][0], mq)
+        require(again == mgot, "isvc_serve: the MoE warm boot's answers "
+                "differ from the first boot's")
+        teardown("moe")
+        step("moe_warm_boot")
+
+        # 7. one record and tgmm's library torn on that root: the next
+        # engine counts both, republishes both and answers the same
+        out["torn"] = tear_entries(aot["moe"]["root"],
+                                   "tgmm" if kernels else None)
+        n_torn = len(out["torn"])
+        teng = continuous.build_engine(
+            moe_cfg, moe_model, {**moe_config, **extra}, device=device)
+        try:
+            rep = boot_report(teng)
+            tgot = [r.wait(600) for r in [teng.submit(q, sizes["moe_new"])
+                                          for q in mq]]
+            rep["captures_after_warmup"] = teng.stats()[
+                "graph_captures_total"]
+        finally:
+            teng.stop()
+        out["torn_boot"] = rep
+        aot_n = rep["aot"]
+        require(aot_n["load_failures_total"] == n_torn
+                and aot_n["misses_total"] == n_torn
+                and aot_n["published_total"] == n_torn
+                and rep["programs"]["miss"] == 1
+                and rep["captures_after_warmup"] == 0
+                and (not kernels or rep["libraries"] == {
+                    n: "miss" if n == "tgmm" else "hit"
+                    for n in rep["libraries"]}),
+                f"isvc_serve: the torn entries were not degraded and "
+                f"republished: {rep}")
+        require(tgot == mgot, "isvc_serve: the MoE answers after the torn "
+                "entries differ from the first boot's")
+        del teng
+        step("moe_torn_boot")
         out["step_s"] = steps
     except BaseException:
         emit("isvc_serve_partial", **out)  # what was read before the miss
@@ -3656,6 +3817,7 @@ def isvc_serve(cfg, model, moe_cfg, moe_model, device=None, sizes=ISVC,
         cluster.stop()
         for key in keys.values():
             storage._MEM_REGISTRY.pop(key, None)
+        shutil.rmtree(aot_base, ignore_errors=True)
     if cuda:
         gc.collect()
         out["memory_after_delete_mib"] = (
@@ -5823,6 +5985,9 @@ def _gang_leader(port: int, cfg, params, kw: dict, ledger=None):
 
 
 def _gang_follow(port: int, cfg, params, kw: dict) -> dict:
+    """Rank 1 follows to the leader's stop. With a ``program_cache`` in
+    ``kw``, ``"aot"`` holds its counters at each engine a resize hands
+    over and at the end."""
     from kubeflow_tpu_torch.serving import continuous
     from kubeflow_tpu_torch.serving.gang import GangChannel, follow
 
@@ -5830,11 +5995,19 @@ def _gang_follow(port: int, cfg, params, kw: dict) -> dict:
                              timeout=300)
     eng = continuous.ContinuousEngine(cfg, params, mesh_axes={"model": 2},
                                       **kw)
+    cache = kw.get("program_cache")
+    aot: list = []
+
+    def on_engine(_new):
+        if cache is not None:
+            aot.append(cache.stats())
+
     try:
-        follow(eng, ch)
+        follow(eng, ch, on_engine=on_engine)
     finally:
         ch.close()
-    return {}
+    on_engine(None)
+    return {"aot": aot} if cache is not None else {}
 
 
 def _gang_wire_case(rank: int, port: int, model, sizes: dict,
@@ -5895,17 +6068,23 @@ def _gang_wire_case(rank: int, port: int, model, sizes: dict,
 
 
 def _gang_resize_case(rank: int, port: int, model, sizes: dict,
-                      device=None) -> dict:
+                      device=None, aot_root=None) -> dict:
     """A live TP=2 gang serves a stream undisturbed, then the same stream
     again, during which it shrinks to 1 (rank 1 parked, the group
     re-formed) after ``shrink_at`` tokens and grows back to 2 after
-    ``grow_at``; the stream is read on its handle throughout."""
+    ``grow_at``; the stream is read on its handle throughout. Each rank's
+    engines share a program cache on ``aot_root`` (the gang's ``aot``):
+    the grow-back meets the degree-2 records of the first boot; rank 0's
+    ``grow["aot"]`` is its counters' change over the grow."""
     from kubeflow_tpu_torch.analysis.runtime import BlockLedger
+    from kubeflow_tpu_torch.serving import programs
     from kubeflow_tpu_torch.serving.resize import GangResizer
 
     cfg, m = _gang_model(model, device)
     sd = m.state_dict()
-    kw = dict(RESIZE_ENGINE, device=device)
+    kw = dict(RESIZE_ENGINE, device=device,
+              program_cache=programs.build_program_cache(
+                  {"aot": {"root": aot_root}} if aot_root else None))
     warm = [(1, sizes["prompt_len"])]
     if rank:
         out = _gang_follow(port, cfg, sd, kw)
@@ -5929,10 +6108,15 @@ def _gang_resize_case(rank: int, port: int, model, sizes: dict,
         shrink = {"at": len(req.tokens), "tp_degree": one.tp_degree,
                   "graphs": one.graphs, "timings": resizer.last_timings}
         _wait_tokens([req], sizes["grow_at"], "tp_resize")
+        cache = kw["program_cache"]
+        before = cache.stats() if cache is not None else {}
         two = resizer.resize({"model": 2})
         grow = {"at": len(req.tokens), "tp_degree": two.tp_degree,
                 "graphs": two.graphs, "backend": two.backend,
                 "timings": resizer.last_timings}
+        if cache is not None:
+            grow["aot"] = {k: v - before[k]
+                           for k, v in cache.stats().items()}
         tokens = req.wait(600)
         return {"tokens": tokens, "undisturbed": undisturbed,
                 "shrink": shrink, "grow": grow,
@@ -5982,7 +6166,7 @@ def _collective_ms(vocab: int, reps: int = 50, device=None) -> dict:
 
 
 def _gang_rank(rank: int, ports: list, dense, moe, sizes: dict,
-               device=None, streams=None) -> dict:
+               device=None, streams=None, aot_root=None) -> dict:
     """Every gang case on one of the two ranks, in order (a spawn each is
     a process start and a model build more): ``tp_serve`` and
     ``moe_tp_serve`` through ``serve_main`` (``streams``: the unsharded
@@ -6009,7 +6193,7 @@ def _gang_rank(rank: int, ports: list, dense, moe, sizes: dict,
                                   device)
     t3 = time.perf_counter()
     out["resize"] = _gang_resize_case(rank, ports[7], _resize_model(dense),
-                                      sizes["resize"], device)
+                                      sizes["resize"], device, aot_root)
     out["seconds"] = {"tp_serve": t1 - t0, "moe_tp_serve": t2 - t1,
                       "wire": t3 - t2, "resize": time.perf_counter() - t3}
     return out
@@ -6069,9 +6253,14 @@ def gang_serving(dense, moe, device=None, sizes=GANG,
     _free_card(device is None)
     ports = [free_port() for _ in range(8)]
     streams = {n: b[3]["tokens"] for n, b in baselines.items()}
+    resize_root = fresh_aot_root("tp-resize")
     t0 = time.perf_counter()
-    ranks = dryrun.spawn(2, _gang_rank, ports, dense, moe, sizes, device,
-                         streams, backend="gloo", timeout=sizes["timeout"])
+    try:
+        ranks = dryrun.spawn(2, _gang_rank, ports, dense, moe, sizes, device,
+                             streams, resize_root, backend="gloo",
+                             timeout=sizes["timeout"])
+    finally:
+        shutil.rmtree(resize_root, ignore_errors=True)
     spawn_s = time.perf_counter() - t0
     lead, follower = ranks
     out = {"spawn_seconds": spawn_s, "case_seconds": lead["seconds"]}
@@ -6152,6 +6341,17 @@ def gang_serving(dense, moe, device=None, sizes=GANG,
     require(0 < rs["shrink"]["at"] < rs["grow"]["at"] < sizes["resize"][
         "new"], f"tp_resize: the stream was not live across both resizes "
         f"{rs['shrink']['at']}, {rs['grow']['at']}")
+    # the grow-back meets the first boot's degree-2 records on both ranks
+    # (rank 1: from the grow's hand-over to its end)
+    f0, f1 = follower["resize"]["aot"][-2:]
+    grow_aot = {"rank0": rs["grow"]["aot"],
+                "rank1": {k: f1[k] - f0[k] for k in f1}}
+    require(all(a["aot_cache_hits_total"] > 0
+                and a["aot_cache_misses_total"] == 0
+                and a["aot_cache_load_failures_total"] == 0
+                for a in grow_aot.values()),
+            f"tp_resize: the grow-back did not boot warm: {grow_aot}")
+    rs["grow"]["aot"] = grow_aot
     row = dict(card=line, engine=RESIZE_ENGINE, **sizes["resize"],
                dtype="float32", equal_to_undisturbed=True,
                shrink=rs["shrink"], grow=rs["grow"], clean=rs["clean"],
@@ -6326,12 +6526,9 @@ def nccl_graph_capture(model, sizes=NCCL_CAPTURE) -> dict:
 
 
 def phase_gang(line: str) -> dict:
-    """``tp_gmm_time``, ``nccl_graph_capture``, ``wire_migrate`` (in one
-    process, then the TP=2 export) and the gang phases (``tp_serve``,
-    ``moe_tp_serve``, ``tp_resize``) on the bench models at full width
-    and depth."""
-    t0 = time.perf_counter()
-    phase_tp_gmm_time()
+    """``nccl_graph_capture``, ``wire_migrate`` (in one process, then the
+    TP=2 export) and the gang phases (``tp_serve``, ``moe_tp_serve``,
+    ``tp_resize``) on the bench models at full width and depth."""
     t1 = time.perf_counter()
     emit("nccl_graph_capture", card=line, **nccl_graph_capture(
         "bench_model"))
@@ -6341,9 +6538,151 @@ def phase_gang(line: str) -> dict:
     gangs = gang_serving("bench_model", "bench_moe_model", line=line)
     emit("wire_migrate", card=line, **local, tp2_export=gangs["wire"])
     t4 = time.perf_counter()
-    return {"tp_gmm_time": t1 - t0, "nccl_graph_capture": t2 - t1,
-            "wire_local": t3 - t2, "gang": t4 - t3,
-            "gang_cases": gangs["case_seconds"]}
+    return {"nccl_graph_capture": t2 - t1, "wire_local": t3 - t2,
+            "gang": t4 - t3, "gang_cases": gangs["case_seconds"],
+            "tp_resize_grow": gangs["tp_resize"]["grow"]}
+
+
+# -- the background track: a second process on the same card -----------------
+
+#: the phases ``background_track`` runs, in order, in a second process
+#: beside the main sequence: the parallel layouts and multi-GPU serving.
+#: Each is two or more processes over gloo sharing the card, which stays
+#: idle most of their time. The track starts once the kernel, training and
+#: serving readings are taken (those are read with the card to themselves);
+#: what either track times after that is read with the other one running
+BACKGROUND_PHASES = (
+    "mesh_train", "moe_mesh_train", "nccl_one_rank", "seq_train",
+    "ring_attention_check", "pipeline_train", "dist_pods",
+    "nccl_graph_capture", "wire_local", "gang")
+
+
+def background_track(line: str) -> dict:
+    """``BACKGROUND_PHASES`` in order; returns each one's seconds (the
+    gang's cases too) and the grow-back's cache outcome for
+    ``aot_boots``."""
+    seconds, t = {}, time.perf_counter()
+
+    def lap(name: str) -> None:
+        nonlocal t
+        now = time.perf_counter()
+        seconds[name], t = now - t, now
+
+    mesh = phase_mesh_train(line)
+    lap("mesh_train")
+    phase_moe_mesh_train(line)
+    lap("moe_mesh_train")
+    phase_nccl_one_rank(line)
+    lap("nccl_one_rank")
+    baseline = (mesh["unsharded_losses"], mesh["unsharded_grad_norms"], [])
+    phase_seq_train(line, baseline)
+    lap("seq_train")
+    phase_ring_attention_check(line)
+    lap("ring_attention_check")
+    phase_pipeline_train(line, baseline)
+    lap("pipeline_train")
+    phase_dist_pods(line)
+    lap("dist_pods")
+    gang = phase_gang(line)
+    grow = gang.pop("tp_resize_grow")
+    seconds.update(gang)
+    return {"seconds": seconds, "tp_resize_grow": grow}
+
+
+def run_track(result_path: str) -> int:
+    """``python3 chip_smoke.py --track RESULT``: ``background_track`` in
+    this process; its phase lines go to stdout, its result as JSON to
+    RESULT. SIGTERM unwinds it, so that every phase stops the processes
+    it started."""
+    import torch
+
+    def _stop(*_):
+        raise SystemExit(143)
+
+    signal.signal(signal.SIGTERM, _stop)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = background_track(card_line())
+    with open(result_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+class BackgroundTrack:
+    """``run_track`` in a child process of its own session, its stdout and
+    stderr in files until ``join`` prints them after the main sequence's
+    lines."""
+
+    #: seconds the track may take from its start
+    TIMEOUT = 1200
+
+    def __init__(self):
+        here = os.path.abspath(__file__)
+        self.dir = tempfile.mkdtemp(prefix="kft-track-")
+        self.result = os.path.join(self.dir, "result.json")
+        self.out = open(os.path.join(self.dir, "stdout"), "w+")
+        self.err = open(os.path.join(self.dir, "stderr"), "w+")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, here, "--track", self.result],
+            cwd=os.path.dirname(here), stdout=self.out, stderr=self.err,
+            start_new_session=True)
+
+    def _forward(self) -> str:
+        """Prints the track's lines; returns the end of its stderr."""
+        self.out.seek(0)
+        sys.stdout.write(self.out.read())
+        sys.stdout.flush()
+        self.err.seek(0)
+        err = self.err.read()
+        sys.stderr.write(err)
+        sys.stderr.flush()
+        return err[-4000:]
+
+    def check(self) -> None:
+        """Fails at once when the track has failed, instead of after the
+        rest of the main sequence."""
+        rc = self.proc.poll()
+        if rc not in (None, 0):
+            tail = self._forward()
+            raise RuntimeError(f"background track exited {rc}:\n{tail}")
+
+    def join(self) -> dict:
+        """Waits for the track; its result, with ``wall`` (s from its start
+        to its end) and ``waited`` (s the main sequence waited for it)."""
+        t = time.perf_counter()
+        left = self.TIMEOUT - (t - self.t0)
+        try:
+            rc = self.proc.wait(max(left, 1.0))
+        except subprocess.TimeoutExpired:
+            self._forward()
+            raise RuntimeError(f"background track not done in "
+                               f"{self.TIMEOUT} s") from None
+        done = time.perf_counter()
+        tail = self._forward()
+        require(rc == 0, f"background track exited {rc}:\n{tail}")
+        with open(self.result) as f:
+            out = json.load(f)
+        out.update(wall=done - self.t0, waited=done - t)
+        return out
+
+    def stop(self) -> None:
+        """Ends the track (SIGTERM, SIGKILL after 60 s) and whatever is
+        left of its session, and removes its files."""
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGTERM)
+            try:
+                self.proc.wait(60)
+            except subprocess.TimeoutExpired:
+                pass
+        try:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        except (ProcessLookupError, PermissionError):
+            pass
+        self.proc.wait()
+        self.out.close()
+        self.err.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
 
 
 def run() -> int:
@@ -6362,7 +6701,7 @@ def run() -> int:
     t_lint = time.perf_counter()
     phase_lint(line)
     lint_s = time.perf_counter() - t_lint
-    phase_build()
+    nvcc_s = phase_build()
     max_abs = phase_kernels_check()
     times = {**phase_kernels_time(), **phase_grouped_time()}
     phase_moe_no_sync()
@@ -6373,77 +6712,96 @@ def run() -> int:
                    moe_dispatch="ragged")
     phase_step_no_sync()
     phase_serve_gmm_time()
+    t_tp = time.perf_counter()
+    phase_tp_gmm_time()
+    tp_gmm_s = time.perf_counter() - t_tp
     phase_serve()
     phase_serve_variants()
     phase_moe_serve()
-    t0 = time.perf_counter()
-    phase_spec_serve()
-    phase_moe_spec_serve()
-    phase_prefix_serve()
-    t1 = time.perf_counter()
-    phase_migrate_serve()
-    phase_moe_migrate_serve()
-    phase_hibernate_serve()
-    phase_host_tier_serve()
-    phase_disagg_serve()
-    t2 = time.perf_counter()
-    phase_http_serve(line)
-    t_isvc = time.perf_counter()
-    phase_isvc_serve(line)
-    t_http = time.perf_counter()
-    work = tempfile.mkdtemp(prefix="kft-finetune-")
+    # the layouts and multi-GPU serving from here on in a second process
+    t_split = time.perf_counter()
+    track = BackgroundTrack()
     try:
-        ft = phase_finetune(work, line)
-        t3 = time.perf_counter()
-        phase_adafactor_step(ft["base"], line)
-        t4 = time.perf_counter()
-        phase_finetune_serve(ft["base"], ft["adapter"], line)
-        t5 = time.perf_counter()
-        phase_corpus_train(ft["base"], work, line)
-        t_hpo = time.perf_counter()
-        phase_hpo_sweep(ft["base"], work, line)
+        t0 = time.perf_counter()
+        phase_spec_serve()
+        phase_moe_spec_serve()
+        phase_prefix_serve()
+        t1 = time.perf_counter()
+        track.check()
+        phase_migrate_serve()
+        phase_moe_migrate_serve()
+        phase_hibernate_serve()
+        phase_host_tier_serve()
+        phase_disagg_serve()
+        t2 = time.perf_counter()
+        track.check()
+        phase_http_serve(line)
+        t_isvc = time.perf_counter()
+        track.check()
+        isvc = phase_isvc_serve(line)
+        t_http = time.perf_counter()
+        track.check()
+        work = tempfile.mkdtemp(prefix="kft-finetune-")
+        try:
+            ft = phase_finetune(work, line)
+            t3 = time.perf_counter()
+            phase_adafactor_step(ft["base"], line)
+            t4 = time.perf_counter()
+            track.check()
+            phase_finetune_serve(ft["base"], ft["adapter"], line)
+            t5 = time.perf_counter()
+            phase_corpus_train(ft["base"], work, line)
+            t_hpo = time.perf_counter()
+            track.check()
+            phase_hpo_sweep(ft["base"], work, line)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        t6 = time.perf_counter()
+        track.check()
+        phase_bert_serve(line)
+        t7 = time.perf_counter()
+        phase_resnet_train(line)
+        t8 = time.perf_counter()
+        phase_jaxjob_pods(line)
+        t9 = time.perf_counter()
+        track.check()
+        darts = phase_darts_search(line)
+        t_nas = time.perf_counter()
+        phase_nas_experiment(line, darts["ranked_top"])
+        t10 = time.perf_counter()
+        bg = track.join()
     finally:
-        shutil.rmtree(work, ignore_errors=True)
-    t6 = time.perf_counter()
-    phase_bert_serve(line)
-    t7 = time.perf_counter()
-    phase_resnet_train(line)
-    t8 = time.perf_counter()
-    phase_jaxjob_pods(line)
-    t9 = time.perf_counter()
-    darts = phase_darts_search(line)
-    t_nas = time.perf_counter()
-    phase_nas_experiment(line, darts["ranked_top"])
-    t10 = time.perf_counter()
-    mesh = phase_mesh_train(line)
-    t11 = time.perf_counter()
-    phase_moe_mesh_train(line)
-    t12 = time.perf_counter()
-    phase_nccl_one_rank(line)
-    t13 = time.perf_counter()
-    baseline = (mesh["unsharded_losses"], mesh["unsharded_grad_norms"], [])
-    phase_seq_train(line, baseline)
-    t14 = time.perf_counter()
-    phase_ring_attention_check(line)
-    t15 = time.perf_counter()
-    phase_pipeline_train(line, baseline)
-    t16 = time.perf_counter()
-    phase_dist_pods(line)
-    t17 = time.perf_counter()
-    gang_s = phase_gang(line)
+        track.stop()
+    grow = bg["tp_resize_grow"]
     now = time.perf_counter()
+    # the program-artifact cache's boots in one line: cold (an empty root)
+    # against warm (the same config again), with what nvcc took when
+    # build/kernels/ was empty
+    emit("aot_boots", card=line, nvcc_build_s=nvcc_s,
+         cold=isvc["cold_boot"], warm=isvc["warm_boot"],
+         torn=isvc["torn"], torn_boot=isvc["torn_boot"],
+         moe_warm_ready_s=isvc["moe_warm_ready_s"],
+         isvc_steps_s={k: isvc["step_s"][k]
+                       for k in ("moe_warm_boot", "moe_torn_boot")},
+         tp_resize_grow={"aot": grow["aot"],
+                         "reshard_s": grow["timings"]["reshard_s"]})
+    # the background track's phases ran beside the main sequence's from
+    # ``before_split`` on: ``main_track`` and ``background_track`` are the
+    # two tracks' walls from there, ``waited`` what the main sequence
+    # waited for the other at its end
+    gang_s = bg["seconds"]
     emit("phase_seconds", total=now - started, lint=lint_s,
+         before_split=t_split - started, main_track=t10 - t_split,
+         background_track=bg["wall"], waited=bg["waited"],
          speculation_and_prefix=t1 - t0, migration_and_tiers=t2 - t1,
          http_serve=t_isvc - t2, isvc_serve=t_http - t_isvc,
          finetune=t3 - t_http, adafactor_step=t4 - t3,
          finetune_serve=t5 - t4, corpus_train=t_hpo - t5,
          hpo_sweep=t6 - t_hpo, bert_serve=t7 - t6, resnet_train=t8 - t7,
          jaxjob_pods=t9 - t8, darts_search=t_nas - t9,
-         nas_experiment=t10 - t_nas,
-         mesh_train=t11 - t10, moe_mesh_train=t12 - t11,
-         nccl_one_rank=t13 - t12, seq_train=t14 - t13,
-         ring_attention_check=t15 - t14, pipeline_train=t16 - t15,
-         dist_pods=t17 - t16, multi_gpu_serving=now - t17, **gang_s)
+         nas_experiment=t10 - t_nas, tp_gmm_time=tp_gmm_s,
+         multi_gpu_serving=sum(gang_s[k] for k in (
+             "nccl_graph_capture", "wire_local", "gang")), **gang_s)
     # each kernel's launches from the run of the path that carries it
     launches.update(gmm=moe_launches["gmm"], tgmm=moe_launches["tgmm"])
     kernels = []
@@ -6460,4 +6818,6 @@ def run() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--track"]:
+        sys.exit(run_track(sys.argv[2]))
     sys.exit(run())

@@ -7,6 +7,16 @@ library's file name carries a hash of its source, the shared headers and the
 flags, so an edited source is rebuilt and an unchanged one is reused. The
 first use builds every missing library at once, one ``nvcc`` per source, all
 started together. A failed build raises with the compiler's output.
+
+With a program-artifact cache (``serving/programs.py``; an engine hands its
+``program_cache`` over before warmup's first launch), each library is an
+entry of the cache, family ``kernels``, keyed by its name, the hash above,
+the compiler's release and the target: ``load_through`` takes each library
+from its verified entry (size and sha256 checked before ``ctypes.CDLL``, no
+compile) and writes it under its hashed name here; the misses (no
+entry, or a torn one, which the cache counts and deletes) are built with
+``nvcc`` as without a cache and published. Without a cache (``load``)
+nothing changes.
 """
 
 from __future__ import annotations
@@ -14,6 +24,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -35,8 +46,15 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+#: the target every library is built for (a part of its cache key)
+TARGET = "sm_90a"
+#: the per-engine half of a library's cache key: libraries are shared by
+#: every engine and model on one cache root
+KEY_BASE = "cuda-kernels"
+
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+_release: dict[str, str] = {}
 
 
 def nvcc_path() -> str:
@@ -53,13 +71,15 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build() -> dict[str, str]:
-    """Compile every library that is missing, in parallel.
+def build(names=None) -> dict[str, str]:
+    """Compile every library (of ``names``, default all) that is missing, in
+    parallel.
 
     Returns the compiler's output (ptxas register and spill report) for each
     library it built.
     """
-    todo = [n for n in KERNELS if not library_path(n).exists()]
+    todo = [n for n in (KERNELS if names is None else names)
+            if not library_path(n).exists()]
     if not todo:
         return {}
     nvcc = nvcc_path()
@@ -90,6 +110,69 @@ def build() -> dict[str, str]:
     return logs
 
 
+def nvcc_release() -> str:
+    """The compiler's version (``12.9.86``), as ``nvcc --version`` prints it
+    after ``V``; read once a process."""
+    nvcc = nvcc_path()
+    if nvcc not in _release:
+        out = subprocess.run([nvcc, "--version"], capture_output=True,
+                             text=True, check=True).stdout
+        found = re.search(r"\bV(\d+(?:\.\d+)+)", out)
+        if found is None:
+            raise RuntimeError(f"no release in nvcc --version: {out}")
+        _release[nvcc] = found.group(1)
+    return _release[nvcc]
+
+
+def library_sig(name: str) -> str:
+    """A library's signature in the program-artifact cache: its hashed
+    file name (source, headers, flags), the compiler's release and the
+    target."""
+    return "|".join((name, library_path(name).name, nvcc_release(), TARGET))
+
+
+def _install(path: Path, blob: bytes) -> None:
+    """Write verified library bytes under ``path``: temporary file, fsync,
+    then the rename that commits the name."""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    with open(tmp, "wb") as fh:
+        fh.write(blob)
+        fh.flush()
+        os.fsync(fh.fileno())
+    os.replace(tmp, path)
+
+
+def _through_cache(names, cache) -> dict[str, str]:
+    """Put the bytes of each library's verified cache entry at its
+    ``library_path``; returns ``"hit"`` or ``"miss"`` by name. A hit writes
+    the entry's bytes there unless the file there already has them; the
+    misses are built together (``nvcc`` only for a library missing here, as
+    without a cache) and published."""
+    outcomes, misses = {}, []
+    for name in names:
+        key = cache.entry_key(KEY_BASE, "kernels", library_sig(name))
+        out = library_path(name)
+        blob = cache.load(key)
+        if blob is None:
+            cache.note_miss()
+            misses.append((name, key, out))
+            continue
+        cache.note_hit()
+        outcomes[name] = "hit"
+        digest = hashlib.sha256(blob).hexdigest()
+        if not out.exists() or hashlib.sha256(
+                out.read_bytes()).hexdigest() != digest:
+            _install(out, blob)
+    if misses:
+        build([name for name, _, _ in misses])
+    for name, key, out in misses:
+        cache.publish(key, out.read_bytes(),
+                      meta={"family": "kernels", "library": out.name})
+        outcomes[name] = "miss"
+    return outcomes
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if missing."""
     with _lock:
@@ -99,3 +182,15 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             _loaded[name] = lib
         return lib
+
+
+def load_through(cache) -> dict[str, str]:
+    """Load every library through a program-artifact ``cache`` (see the
+    module docstring), also those this process has loaded already; returns
+    each one's ``"hit"`` or ``"miss"``."""
+    with _lock:
+        outcomes = _through_cache(list(KERNELS), cache)
+        for name in KERNELS:
+            if name not in _loaded:
+                _loaded[name] = ctypes.CDLL(str(library_path(name)))
+        return outcomes

@@ -95,13 +95,15 @@ finished on the thread that delivered the response. ``warmup`` records an
 ``engine.warmup`` trace with one ``warmup.compile`` span per program shape:
 on the card each times the shape's eager run and CUDA-graph capture (the
 counterpart of the reference's compile), on the CPU its first eager run.
+With a program-artifact cache (``program_cache``, ``programs.py``) the
+spans are ``warmup.hit`` / ``warmup.miss``, one more for each kernel
+library on the card, and the trace's meta carries ``aot_hits`` and
+``aot_misses``.
 
 A tensor-parallel engine (``mesh_axes``) is one rank of a serving gang
 (``sharded.py``, ``gang.py``): one process drives one card. Its programs
 hold the model's collectives; on an NCCL group they are captured as CUDA
 graphs like any other, on gloo they run eagerly on the card's tensors.
-The program-artifact cache is not ported yet: it raises
-``NotImplementedError`` naming its ROADMAP item (A12).
 
 Thread contract, as in the reference: scheduler state (the slot table,
 ``_waiting``, the allocator, the pool) is owned by the scheduler thread,
@@ -130,6 +132,7 @@ from ..analysis.runtime import CaptureCounter
 from ..device import resolve_device
 from ..models import llama as llamalib
 from ..models.llama import KvCache, Llama, LlamaConfig
+from ..ops import _build
 from ..ops import flash_attention as _fa
 from ..ops import grouped_matmul as _gm
 from .paged import (
@@ -145,6 +148,7 @@ from .paged import (
     scatter_working_view,
     write_window_tables,
 )
+from . import programs as programslib
 from . import sharded
 from .model import Model
 from .storage import fetch_mem
@@ -792,9 +796,23 @@ class _Dispatch:
         #: optional callable(key, host) called before every program runs:
         #: a serving gang's rank 0 publishes the dispatch there
         self.publish: Optional[Callable] = None
-        #: callable(family, "compile", t0, t1) for each program shape first
-        #: run before the counter is armed (the warmup trace's spans)
+        #: callable(family, outcome, t0, t1) for each program shape first
+        #: run before the counter is armed (the warmup trace's spans):
+        #: "compile" without a program cache, else "hit" or "miss"
         self.observer = observer
+        #: the program-artifact cache (``programs.py``) and this engine's
+        #: half of its keys: a program first run before the counter is
+        #: armed is held against its record there
+        self.cache: Optional[programslib.ProgramArtifactCache] = None
+        self.key_base = ""
+        #: called once, before the first program an unarmed engine builds
+        #: (its warmup's, or a follower's first replay): the kernel
+        #: libraries through the cache
+        self.libraries: Optional[Callable[[], None]] = None
+        #: seconds of the warmup's library hand-over, eager pre-runs,
+        #: captures and record checks (``ContinuousEngine.warmup_report``)
+        self.split = dict.fromkeys(
+            ("libraries_s", "prerun_s", "capture_s", "records_s"), 0.0)
         self.programs: dict[tuple, _Program] = {}
         self.ring = ring
         self._n = 0
@@ -839,8 +857,10 @@ class _Dispatch:
         target scratch rows and inactive slots, so that run changes no live
         state, and it loads the kernels and cuBLAS's handles before the
         capture. A capture that fails raises."""
+        t0 = time.perf_counter()
         if not self.counter.armed:
             prog.run()
+        t1 = time.perf_counter()
         counters = _launch_counters()
         before = [dict(c) for c in counters]
         graph = torch.cuda.CUDAGraph()
@@ -865,6 +885,8 @@ class _Dispatch:
         for c, b in zip(counters, before):
             c.update(b)
         prog.graph = graph
+        self.split["prerun_s"] += t1 - t0
+        self.split["capture_s"] += time.perf_counter() - t1
 
     @torch.no_grad()
     def run(self, key: tuple, build: Callable[[], tuple[Callable, dict]],
@@ -874,6 +896,9 @@ class _Dispatch:
         returns its output tensor (None for programs without one)."""
         prog = self.programs.get(key)
         fresh = prog is None
+        if fresh and self.libraries is not None and not self.counter.armed:
+            hand_over, self.libraries = self.libraries, None
+            hand_over()
         if fresh:
             t0 = time.perf_counter()
             fn, spec = build()
@@ -884,7 +909,16 @@ class _Dispatch:
             self.publish(key, host)
         self._upload(prog, host)
         if not self.graphs:
-            out = prog.run()
+            if fresh:
+                # the launches one run makes (none on the CPU)
+                before = [dict(c) for c in _launch_counters()]
+                t1 = time.perf_counter()
+                out = prog.run()
+                self.split["prerun_s"] += time.perf_counter() - t1
+                prog.launches = [{k: c[k] - b.get(k, 0) for k in c}
+                                 for c, b in zip(_launch_counters(), before)]
+            else:
+                out = prog.run()
         else:
             if fresh:
                 self._capture(prog)
@@ -896,7 +930,17 @@ class _Dispatch:
         if fresh and not self.counter.armed:
             # with graphs: the eager run and the capture; the replay is
             # only enqueued
-            self.observer(":".join(str(k) for k in key), "compile", t0,
+            outcome = "compile"
+            if self.cache is not None:
+                # unarmed only: no artifact I/O once the scheduler runs
+                t1 = time.perf_counter()
+                outcome = programslib.check_record(
+                    self.cache, self.key_base, str(key[0]),
+                    ":".join(str(k) for k in key[1:]),
+                    programslib.program_record(key, prog.spec, out,
+                                               prog.launches))
+                self.split["records_s"] += time.perf_counter() - t1
+            self.observer(":".join(str(k) for k in key), outcome, t0,
                           time.perf_counter())
         return out
 
@@ -993,12 +1037,6 @@ class NgramProposer(DraftProposer):
         return guess[1: k + 1]
 
 
-#: knob -> (its default, the ROADMAP item that ports it)
-_UNPORTED = {
-    "program_cache": (None, "A12"),
-}
-
-
 class ContinuousEngine:
     """Slot-pool continuous-batching decode engine over a Llama model.
 
@@ -1057,10 +1095,16 @@ class ContinuousEngine:
       captured as a CUDA graph, collectives included; on gloo (the only
       backend that lets two ranks share one card) the programs run
       eagerly on the card's tensors;
+    - ``program_cache``: an optional ``programs.ProgramArtifactCache``.
+      While the engine warms, each fresh program's capture is held against
+      its record there (equal: a hit; none: a miss that publishes; one
+      that does not match, or a torn one: a load failure, replaced), and
+      on the card every kernel library goes through it before warmup's
+      first launch (``ops/_build.py``). A graph is captured either way: a
+      CUDA graph cannot be loaded from disk. Once armed the engine never
+      touches the cache. ``stats()`` reports its ``aot_cache_*`` counters;
     - ``temperature``, ``eos_id``, ``seq_buckets``,
       ``default_max_new_tokens`` as in the reference.
-
-    The knobs in ``_UNPORTED`` raise ``NotImplementedError`` when set.
     """
 
     def __init__(
@@ -1090,16 +1134,9 @@ class ContinuousEngine:
         admission_policy: Optional[Callable[[Request], bool]] = None,
         role: str = "mixed",
         mesh_axes: Optional[dict[str, int]] = None,
+        program_cache: Optional[programslib.ProgramArtifactCache] = None,
         device=None,
-        **unported,
     ):
-        for name, value in unported.items():
-            if name not in _UNPORTED:
-                raise TypeError(f"unknown ContinuousEngine knob {name!r}")
-            default, item = _UNPORTED[name]
-            if value != default:
-                raise NotImplementedError(
-                    f"{name}={value!r} is not ported yet (ROADMAP {item})")
         if num_slots < 1:
             raise ValueError("num_slots must be >= 1")
         if decode_chunk < 1:
@@ -1287,6 +1324,22 @@ class ContinuousEngine:
                                    ring=pipeline_depth + 1,
                                    observer=self._note_warm,
                                    graphs=self.graphs)
+        #: the program-artifact cache, keyed by the model's structure, the
+        #: degree and the knobs that shape programs (the reference's)
+        self.program_cache = program_cache
+        if program_cache is not None:
+            self._dispatch.cache = program_cache
+            if self._dispatch.cuda:
+                self._dispatch.libraries = self._libraries_through_cache
+            self._dispatch.key_base = programslib.cache_key_base(
+                cfg, self.model, self.mesh_axes, slots=num_slots,
+                chunk=decode_chunk, budget=self.prefill_budget,
+                spec_k=self.spec_k, spec_ngram=self.spec_ngram,
+                block=self.block_size, segments=self.prefix_segments,
+                seglen=self.segment_len)
+        #: the last warmup's outcome per program (and kernel library) and
+        #: its seconds by part
+        self.warmup_report: dict = {}
         self._init_pool()
 
         self._queue: "queue.Queue[Request]" = queue.Queue()
@@ -1713,6 +1766,9 @@ class ContinuousEngine:
             self._warm_events = []
             tr = Trace(name="warmup", kind="engine")
             tr.phase("engine.warmup")
+            started = time.perf_counter()
+            split = self._dispatch.split
+            split.update(dict.fromkeys(split, 0.0))
             # on the card, one collection for every capture below (_capture)
             collecting = self._dispatch.cuda and gc.isenabled()
             if collecting:
@@ -1733,11 +1789,32 @@ class ContinuousEngine:
                     sp = tr.begin(f"warmup.{outcome}", family=family)
                     sp.start = t0
                     sp.done(at=t1)
+                self.warmup_report = {
+                    "outcomes": {f: o for f, o, _, _ in self._warm_events},
+                    "split": dict(split),
+                    "wall_s": time.perf_counter() - started}
                 self._warm_events = []
+                if self.program_cache is not None:
+                    st = self.program_cache.stats()
+                    tr.meta["aot_hits"] = st["aot_cache_hits_total"]
+                    tr.meta["aot_misses"] = st["aot_cache_misses_total"]
                 tr.finish()
                 self._warmup_trace = tr
                 self.flush_warmup_trace()
             self._captures.armed = True
+
+    def _libraries_through_cache(self) -> None:
+        """Hand the program cache to the kernel build before the first
+        launch of an unarmed engine (``_Dispatch.libraries``): every library
+        is taken from its verified entry (a hit) or built and published (a
+        miss); a span a library, each over the whole hand-over (the misses
+        build together)."""
+        t0 = time.perf_counter()
+        outcomes = _build.load_through(self.program_cache)
+        t1 = time.perf_counter()
+        for name, outcome in outcomes.items():
+            self._note_warm(f"kernels:{name}", outcome, t0, t1)
+        self._dispatch.split["libraries_s"] = t1 - t0
 
     def _note_warm(self, family: str, outcome: str, t0: float,
                    t1: float) -> None:
@@ -1946,8 +2023,7 @@ class ContinuousEngine:
                            top_p=top_p, top_k=top_k).wait(timeout)
 
     def stats(self) -> dict:
-        """Engine observability snapshot (the reference's keys, less the
-        program-cache ones)."""
+        """Engine observability snapshot (the reference's keys)."""
         if self.paged:
             a = self._alloc
             allocated = a.num_blocks - a.free_blocks
@@ -2047,6 +2123,10 @@ class ContinuousEngine:
             # the slot pool's KV at max_seq_len (what num_blocks=0 buys)
             "kv_pool_bytes": self.kv_pool_bytes,
             "kv_pool_bytes_allocated": self._pool.nbytes,
+            # the program-artifact cache (programs.py): warmup's record
+            # and library hits, misses, torn entries; zeros without one
+            **(self.program_cache.stats() if self.program_cache is not None
+               else programslib.EMPTY_STATS),
         }
 
     def _migration_histogram(self) -> dict:
@@ -4412,7 +4492,9 @@ class DisaggregatedPool:
             for k, v in st.items():
                 if isinstance(v, bool) or not isinstance(v, (int, float)):
                     continue
-                if k in config_keys:
+                if k in config_keys or k.startswith("aot_cache_"):
+                    # the pool's engines share ONE artifact cache: summing
+                    # its counters would multiply them by the engines
                     merged.setdefault(k, v)
                 else:
                     merged[k] = merged.get(k, 0) + v
@@ -4456,10 +4538,6 @@ def engine_kwargs(config: dict, *, default_eos=None,
         default_max_new_tokens=int(
             config.get("max_new_tokens", default_max_new_tokens)),
     )
-
-
-#: serving-config keys of engines and options not ported yet
-_UNPORTED_CONFIG = {"aot": "A12"}
 
 
 def resolve_model_source(config: dict, *, name: str = "model"):
@@ -4507,13 +4585,14 @@ def build_engine(cfg: LlamaConfig, params, config: dict, *, default_eos=None,
     ``DisaggregatedPool``, ``tier_lens`` or ``short_pool_len`` a
     ``TieredEngine``, else a ``ContinuousEngine``. ``quant_weights`` and
     ``quant_kv`` quantize first (``apply_serving_quant``);
-    ``"warmup_groups": []`` skips warmup."""
-    for key, item in _UNPORTED_CONFIG.items():
-        if config.get(key):
-            raise NotImplementedError(
-                f"serving config {key!r} is not ported yet (ROADMAP {item})")
+    ``"warmup_groups": []`` skips warmup. ``aot`` ({"root": dir[, "fsync":
+    bool]}) gives every engine built here one program-artifact cache
+    (``programs.build_program_cache``)."""
     kw = engine_kwargs(config, default_eos=default_eos,
                        default_max_new_tokens=default_max_new_tokens)
+    # constructed HERE, not in engine_kwargs: engine_kwargs is also the
+    # controller's validation probe and must stay side-effect-free
+    kw["program_cache"] = programslib.build_program_cache(config)
     cfg, params = apply_serving_quant(cfg, params, config)
     short_len = config.get("short_pool_len")
     tier_lens = config.get("tier_lens")

@@ -17,8 +17,8 @@ The KServe control plane rebuilt on this cluster (SURVEY.md §2.2, §3.3)
 
 The port's copy of ``kubeflow_tpu/serving/controller.py``, device-free
 like it, with the same names; it imports nothing of the reference
-package. It differs where the port lacks a module or runs one process a card:
-``aot`` (ROADMAP A12) is refused; a gang predictor runs
+package. It differs where the port runs one process a card: a gang
+predictor runs
 ``kubeflow_tpu_torch.serving.gang:serve_main`` in one pod for each rank
 (``hosts x chips_per_host`` pods), and an in-process predictor whose
 ``mesh_axes`` spans more than one card becomes a one-host gang
@@ -1095,12 +1095,6 @@ class InferenceServiceController(Controller):
 
     def _new_revision(self, isvc, dep: _Deployment, fingerprint: str) -> _Revision:
         runtime_cls, cfg = self._resolve(isvc)
-        # what the port does not serve yet is ONE Failed status here, not
-        # a replica failing at load
-        if cfg.get("aot") is not None:
-            raise NotImplementedError(
-                "aot (the program-artifact cache) is not ported yet "
-                "(ROADMAP A12)")
         if (isvc.spec.predictor.gang is not None
                 or any(k in cfg for k in self._ENGINE_KNOBS)
                 or "role" in cfg or "disaggregation" in cfg):
@@ -1269,6 +1263,17 @@ class InferenceServiceController(Controller):
 
             try:
                 validate_autoscale(cfg["autoscale"])
+            except (TypeError, ValueError) as e:
+                raise ValueError(f"invalid engine knobs: {e}") from e
+        # program-artifact cache knobs freeze here too: a missing root or
+        # a mistyped fsync flag is ONE Failed status at conf-freeze, not
+        # every replica failing its warmup at load; validate_aot is the
+        # one shared validator
+        if cfg.get("aot") is not None:
+            from .programs import validate_aot
+
+            try:
+                validate_aot(cfg["aot"])
             except (TypeError, ValueError) as e:
                 raise ValueError(f"invalid engine knobs: {e}") from e
         pps = cfg.get("prefix_poll_s")

@@ -61,6 +61,7 @@ import numpy as np
 import torch
 
 from . import continuous as contlib
+from . import programs as programslib
 from . import sharded
 from ..runtime import bootstrap
 
@@ -1131,6 +1132,8 @@ def follow(engine: Optional[contlib.ContinuousEngine], channel: GangChannel,
     prev: Optional[tuple] = None
     skipping = fresh
     device = None if engine is None else engine.device
+    #: the program-artifact cache, carried over a parked stretch too
+    cache = getattr(engine, "program_cache", None)
     while True:
         msg = channel.next()
         op = msg[0]
@@ -1140,7 +1143,8 @@ def follow(engine: Optional[contlib.ContinuousEngine], channel: GangChannel,
             from .resize import follower_resize
 
             prev = (engine, skipping)
-            engine = follower_resize(engine, channel, msg[1], device)
+            engine = follower_resize(engine, channel, msg[1], device,
+                                     program_cache=cache)
             skipping = engine is None
             if engine is not None:
                 device = engine.device
@@ -1231,14 +1235,16 @@ def serve_main(ctx: bootstrap.PodContext) -> None:
             "tiered pools (short_pool_len / tier_lens) are not "
             "gang-capable: the control stream drives ONE engine's "
             "dispatch order")
-    if conf.get("aot") or conf.get("program_cache"):
-        raise NotImplementedError(
-            "the program-artifact cache is not ported yet (ROADMAP A12)")
     cfg, params = contlib.resolve_model_source(
         conf, name=conf.get("model_name", "model"))
     cfg, params = contlib.apply_serving_quant(cfg, params, conf)
     kw = contlib.engine_kwargs(conf, default_eos=conf.get("eos_id"))
     kw["seq_buckets"] = conf.get("seq_buckets")
+    # AOT artifact cache: EVERY rank consults the same root (the config
+    # is identical gang-wide), so each rank's records and libraries are
+    # the leader's — the publish rename is atomic, concurrent ranks race
+    # safely and the losers verify the winner's entry
+    kw["program_cache"] = programslib.build_program_cache(conf)
     kw["device"] = bootstrap.pod_device(ctx)
     gang_port = int(conf["gang_port"])
     token = _resolve_gang_token(conf)

@@ -357,13 +357,17 @@ def _follower_device(engine, conf: dict, device) -> torch.device:
     return torch.device("cpu")
 
 
-def follower_resize(engine, channel, conf: dict, device=None):
+def follower_resize(engine, channel, conf: dict, device=None,
+                    program_cache=None):
     """A follower's ``resize``: receive the full weights over the rs wire
     (a member of the new degree), leave the old group and join the new
     one, build the new-degree engine and ack. Returns the new engine, or
     None when this rank is parked (not a member). A failed build acks the
     failure and returns ``engine``: the leader then aborts, and
-    ``follower_abort`` re-forms the old group."""
+    ``follower_abort`` re-forms the old group. The wire kwargs are
+    JSON-safe: the program-artifact cache carries over from the follower's
+    first engine instead (``program_cache``, which ``follow`` keeps over a
+    parked stretch)."""
     rank = channel.rank
     group = conf["group"]
     ranks = {int(k): int(v) for k, v in group["ranks"].items()}
@@ -383,6 +387,7 @@ def follower_resize(engine, channel, conf: dict, device=None):
         new = contlib.ContinuousEngine(
             conf["cfg"], unflatten_params(leaves),
             mesh_axes=_mesh_of(len(ranks)), device=dev,
+            program_cache=program_cache,
             **dict(conf.get("kwargs") or {}))
         client.ack(True)
         return new
@@ -512,7 +517,9 @@ class GangResizer:
             host_blocks=src.host_blocks,
             host_watermark=(src._host_watermark_blocks
                             / max(src.num_blocks, 1)),
-            admission_policy=orig_policy, role=src.role, device=src.device)
+            admission_policy=orig_policy, role=src.role, device=src.device,
+            # the artifact cache carries over from the engine replaced
+            program_cache=getattr(src, "program_cache", None))
 
     @staticmethod
     def _wire_kwargs(kw: dict, num_blocks: int) -> dict:

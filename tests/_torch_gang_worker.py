@@ -57,7 +57,9 @@ def _leader(port: int, cfg, sd, kw: dict, outs: list):
 
 
 def _follow(port: int, cfg, sd, kw: dict) -> dict:
-    """Rank 1: follow the leader's stream to its ``stop``."""
+    """Rank 1: follow the leader's stream to its ``stop``. With a
+    ``program_cache`` in ``kw``, ``"aot"`` holds its stats at each engine
+    a resize hands over and at the end."""
     from kubeflow_tpu_torch.serving import continuous
     from kubeflow_tpu_torch.serving.gang import GangChannel, follow
 
@@ -73,12 +75,20 @@ def _follow(port: int, cfg, sd, kw: dict) -> dict:
         return out
 
     eng.replay = replay
+    cache = kw.get("program_cache")
+    aot: list = []
+
+    def on_engine(new):
+        if cache is not None:
+            aot.append(cache.stats())
+
     try:
-        follow(eng, ch)
+        follow(eng, ch, on_engine=on_engine)
     finally:
         ch.close()
+    on_engine(None)
     return {"outs": outs, "pool_heads": int(eng._pool.k.shape[3]),
-            "kv_pool_bytes": eng.kv_pool_bytes}
+            "kv_pool_bytes": eng.kv_pool_bytes, "aot": aot}
 
 
 def _serve(eng, prompts, new, warm) -> dict:
@@ -256,16 +266,22 @@ def _idle_free(eng) -> tuple[int, int]:
 
 
 def run_resize(rank: int, port: int, sd: dict, prompt: list, new: int,
-               warm: list) -> dict:
+               warm: list, aot_root=None) -> dict:
     """``tests/test_torch_resize.py``: a live TP=2 gang; a resize killed
     mid-export (resumes in place); then, with a stream open, a shrink to
-    1 and a grow back to 2."""
+    1 and a grow back to 2. ``aot_root``: every rank's engines share a
+    program-artifact cache there; rank 0's ``"aot"`` holds its stats
+    before and after the grow."""
     _setup()
+    from kubeflow_tpu_torch.serving import programs
     from kubeflow_tpu_torch.serving.resize import GangResizer, ResizeAborted
 
     cfg = _cfg({})
     kw = {"mesh_axes": {"model": 2}, "num_slots": 2, "decode_chunk": 1,
           "block_size": 8, "prefix_cache": False}
+    if aot_root is not None:
+        kw["program_cache"] = programs.ProgramArtifactCache(aot_root,
+                                                            fsync=False)
     if rank:
         return _follow(port, cfg, sd, kw)
     outs: list = []
@@ -302,7 +318,12 @@ def run_resize(rank: int, port: int, sd: dict, prompt: list, new: int,
                      "timings": dict(resizer.last_timings),
                      "at": len(req.tokens)}
     _wait_tokens(req, len(req.tokens) + 3)
+    cache = kw.get("program_cache")
+    if cache is not None:
+        out["aot"] = [cache.stats()]
     two = resizer.resize({"model": 2})
+    if cache is not None:
+        out["aot"].append(cache.stats())
     out["grown"] = {"tp_degree": two.tp_degree,
                     "timings": dict(resizer.last_timings),
                     "at": len(req.tokens)}

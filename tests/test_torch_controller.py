@@ -14,7 +14,9 @@ their own ``mem://`` registries (the port's replicas with ``"device":
   ``tests/test_serving.py::TestCanaryRollout``), delete tears down: the same
   observable behaviour in both.
 - What the port refuses: a ServingRuntime naming a ``kubeflow_tpu.`` class
-  (the message names the port's class), ``aot`` (A12). A ``gang`` predictor
+  (the message names the port's class). A bad ``aot`` block (A12) is one
+  Failed status with the reference's message, and a good one serves
+  through the program-artifact cache. A ``gang`` predictor
   and an in-process one with ``mesh_axes`` (ROADMAP A7) are placed as a
   JaxJob of ``serving.gang:serve_main`` pods, one for each rank.
 - A burst of 32 connections opened at once is answered within 0.9 s each by
@@ -388,23 +390,57 @@ UNPORTED = {
     "mesh_axes": ({"config": {"mesh_axes": {"model": 2}}}, "A7"),
     "aot": ({"config": {"aot": {"root": "/nonexistent"}}}, "A12"),
 }
+#: the reference's ``test_bad_aot_knobs_are_one_failed_status`` cases
+BAD_AOT = {
+    "bad-aot-type": {"aot": ["/cache"]},
+    "bad-aot-root": {"aot": {"root": ""}},
+    "bad-aot-fsync": {"aot": {"root": "/cache", "fsync": 1}},
+    "bad-aot-key": {"aot": {"root": "/cache", "roots": "/x"}},
+}
+
+
+def _aot_cases(clusters, tmp_path):
+    """Each bad ``aot`` block is ONE Failed status naming the knob, with
+    the reference's message; a good one reaches Ready and its replica's
+    engine warmed through the cache (one record a program published)."""
+    for name, config in BAD_AOT.items():
+        for pkg, c, key in clusters:
+            _apply(pkg, c, _isvc(pkg, key, name, "llama-continuous",
+                                 config=config))
+    for name in BAD_AOT:
+        msgs = [_wait(c, name, "Failed").status.message
+                for _, c, _ in clusters]
+        assert msgs[1] == msgs[0] and "aot" in msgs[1], (name, msgs)
+    pkg, c, key = clusters[1]
+    root = str(tmp_path / "aot")
+    _apply(pkg, c, _isvc(pkg, key, "good-aot", "llama-continuous", config={
+        "aot": {"root": root, "fsync": False}, "warmup_groups": [[1, 32]]}))
+    try:
+        _wait(c, "good-aot")
+        engine = _replicas(c, "good-aot")[0].models()["good-aot"].engine
+        st = engine.stats()
+        assert engine.program_cache.root == root
+        assert st["aot_cache_published_total"] == \
+            st["graph_captures_warmup"] > 0
+    finally:
+        c.store.delete("InferenceService", "good-aot")
 
 
 @pytest.mark.parametrize("knob", list(UNPORTED))
-def test_unported_knobs_fail(clusters, knob):
-    """``aot`` (A12) is one Failed status. ``gang`` and ``mesh_axes`` (A7)
-    are ported: the revision places a JaxJob of the port's ``serve_main``,
-    a pod for each rank (``hosts x chips_per_host``; ``mesh_axes`` over N
-    cards is a one-host gang of N), each on the config's device."""
+def test_unported_knobs_fail(clusters, knob, tmp_path):
+    """Every knob here is ported now. ``aot`` (A12): a bad block is one
+    Failed status with the reference's message, a good one serves
+    (``_aot_cases``). ``gang`` and ``mesh_axes`` (A7): the revision places
+    a JaxJob of the port's ``serve_main``, a pod for each rank (``hosts x
+    chips_per_host``; ``mesh_axes`` over N cards is a one-host gang of N),
+    each on the config's device."""
+    if UNPORTED[knob][1] == "A12":
+        _aot_cases(clusters, tmp_path)
+        return
     pkg, c, key = clusters[1]
     pred, item = UNPORTED[knob]
     name = f"unported-{knob.replace('_', '-')}"
     _apply(pkg, c, _isvc(pkg, key, name, "llama-continuous", **pred))
-    if item == "A12":
-        msg = _wait(c, name, "Failed").status.message
-        assert f"ROADMAP {item}" in msg and msg.startswith(
-            "NotImplementedError")
-        return
     pods = {"gang": 8, "mesh_axes": 2}[knob]
     deadline = time.time() + WAIT_S
     jobs = []

@@ -9,7 +9,10 @@ on the CPU.
   (the group re-formed, rank 1 parked) and grows back to 2, and the
   stream's greedy tokens equal the reference engine's on the same weights
   (the reference's init converted by ``models/convert.py``), with zero
-  leaked blocks and the phases timed;
+  leaked blocks and the phases timed; every rank's engines share one
+  program-artifact cache (``aot``), and the grow back to 2 meets the
+  degree-2 records the first boot published: hits and no miss on both
+  ranks;
 - the controller's elastic knobs, as the reference's tests drive them: a
   bad ``elastic`` family is one Failed status, the degraded deadline
   re-places a gang at its surviving shape, ``min_degree`` floors it;
@@ -79,12 +82,13 @@ def truth(weights):
 
 
 @pytest.fixture(scope="module")
-def ranks(weights):
+def ranks(weights, tmp_path_factory):
     from kubeflow_tpu_torch.parallel import dryrun
     from kubeflow_tpu_torch.utils.net import free_port
 
+    root = str(tmp_path_factory.mktemp("aot"))
     return dryrun.spawn(2, worker.run_resize, free_port(), weights[2],
-                        PROMPT, NEW, WARM, timeout=SPAWN_TIMEOUT_S)
+                        PROMPT, NEW, WARM, root, timeout=SPAWN_TIMEOUT_S)
 
 
 def test_shrink_and_grow_back_keep_the_stream_bit_identical(ranks, truth):
@@ -100,6 +104,19 @@ def test_shrink_and_grow_back_keep_the_stream_bit_identical(ranks, truth):
     for phase in ("drain_s", "reshard_s", "resume_s", "total_s"):
         assert r["shrunk"]["timings"][phase] >= 0
         assert r["grown"]["timings"][phase] >= 0
+
+
+def test_grow_back_meets_the_first_boots_records(ranks):
+    """The rebuild at degree 2 carries the live engine's program cache
+    (the follower's over its parked stretch): every program it warms was
+    recorded at the first boot's degree 2, so both ranks count hits and
+    no miss (rank 1 from the grow's hand-over to its end)."""
+    before, after = ranks[0]["aot"]
+    follower = ranks[1]["aot"]
+    for a, b in ((before, after), (follower[-2], follower[-1])):
+        assert b["aot_cache_hits_total"] > a["aot_cache_hits_total"], (a, b)
+        assert b["aot_cache_misses_total"] == a["aot_cache_misses_total"]
+        assert b["aot_cache_load_failures_total"] == 0
 
 
 @pytest.mark.parametrize("phase", ["export", "commit"])

@@ -176,17 +176,28 @@ def test_eos_stops_a_request(models, reference_tokens):
     ("mesh_axes", {"model": 2}, "A7"),
     ("program_cache", object(), "A12"),
 ], ids=["mesh_axes-value4-A7", "program_cache-value5-A12"])
-def test_unported_knobs_raise(models, knob, value, item):
-    """``program_cache`` (A12) is not ported; ``mesh_axes`` (A7) is, and a
-    tensor-parallel engine outside a gang of that many ranks raises
-    ``ValueError`` naming the gang (``tests/test_torch_sharded.py``
-    serves one)."""
+def test_unported_knobs_raise(models, reference_tokens, knob, value, item,
+                              tmp_path):
+    """Both knobs are ported now. ``mesh_axes`` (A7): a tensor-parallel
+    engine outside a gang of that many ranks raises ``ValueError`` naming
+    the gang (``tests/test_torch_sharded.py`` serves one).
+    ``program_cache`` (A12) is accepted: the engine warms its programs
+    through the cache and reports its counters (``stats()``), publishing
+    one record a program, and serves the reference's greedy tokens
+    (``tests/test_torch_programs.py`` holds the rest)."""
     if item == "A7":
         with pytest.raises(ValueError, match="needs a gang of 2 ranks"):
             _port_engine(models, **{knob: value})
         return
-    with pytest.raises(NotImplementedError, match=item):
-        _port_engine(models, **{knob: value})
+    from kubeflow_tpu_torch.serving import programs
+
+    cache = programs.ProgramArtifactCache(str(tmp_path), fsync=False)
+    tokens, st = _serve(_port_engine(models, program_cache=cache))
+    assert st["aot_cache_misses_total"] == st["graph_captures_warmup"] > 0
+    assert st["aot_cache_published_total"] == st["aot_cache_misses_total"]
+    assert st["aot_cache_hits_total"] == 0
+    assert st["graph_captures_total"] == 0
+    assert tokens == reference_tokens["slot_pool"]
 
 
 @pytest.mark.parametrize("knobs,match", [
@@ -205,14 +216,34 @@ def test_paged_only_knobs_refuse_the_slot_pool(models, knobs, match):
     ({"block_size": 8, "disaggregation": {"prefill": 1, "decode": 1,
                                           "wire": True}}, "A7")],
     ids=["aot-A12", "mesh_axes-A7", "disaggregation_wire-A7"])
-def test_build_engine_refuses_unported_config(models, config, item):
-    """``aot`` (A12) is refused. Of A7, a ``mesh_axes`` config outside a
-    gang raises ``ValueError`` naming the gang, and the disaggregated
-    pool's ``wire`` transport builds (``tests/test_torch_gang.py`` serves
-    through it)."""
+def test_build_engine_refuses_unported_config(models, config, item,
+                                              tmp_path):
+    """Every config here is ported now. ``aot`` (A12) gives the engine a
+    program-artifact cache at its root (validated as the reference's;
+    a bad block raises its ``ValueError``). Of A7, a ``mesh_axes`` config
+    outside a gang raises ``ValueError`` naming the gang, and the
+    disaggregated pool's ``wire`` transport builds
+    (``tests/test_torch_gang.py`` serves through it)."""
     _, llama, convert, continuous, _ = _port()
     cfg = llama.tiny()
     params = convert.state_dict_from_jax(models[False][1], cfg)
+    if "aot" in config:
+        root = str(tmp_path / config["aot"]["root"])
+        eng = continuous.build_engine(
+            cfg, params, {"aot": {"root": root, "fsync": False},
+                          "warmup_groups": [(1, 32)]}, device="cpu")
+        try:
+            assert eng.program_cache.root == root
+            st = eng.stats()
+            assert st["aot_cache_published_total"] == \
+                st["graph_captures_warmup"] > 0
+        finally:
+            eng.stop()
+        with pytest.raises(ValueError, match="aot.fsync"):
+            continuous.build_engine(
+                cfg, params, {"aot": {"root": root, "fsync": "yes"}},
+                device="cpu")
+        return
     if "disaggregation" in config:
         pool = continuous.build_engine(
             cfg, params, {**config, "warmup_groups": []}, device="cpu")

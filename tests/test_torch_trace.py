@@ -38,9 +38,8 @@ TRACED = {"tracing": {"sample": 1.0, "ring": 64},
 
 #: reference engine families with no counterpart mechanism in the port:
 #: XLA recompiles (the port counts CUDA-graph captures instead, as
-#: ``graph_captures_*``), the AOT program-artifact cache (ROADMAP A12) and
-#: the sharded pool's mesh (A7)
-NOT_PORTED = ("jit_recompiles_total", "aot_", "mesh_")
+#: ``graph_captures_*``) and the sharded pool's mesh (A7)
+NOT_PORTED = ("jit_recompiles_total", "mesh_")
 
 
 @pytest.fixture(scope="module")
