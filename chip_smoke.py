@@ -56,31 +56,42 @@ card through the port's ``LocalKubelet``) and ``darts_search`` (the DARTS
 supernet at the bench model's width on K1-K3; one small step pair held
 against the CPU), then ``nas_experiment`` (a ``darts`` experiment whose
 suggestion service trains the same supernet in this process and whose
-trials train the suggested shapes in pods). The distributed runtime, the
-parallel layouts and multi-GPU serving below run in a second process on the
-same card (``--track``), started after ``moe_serve`` and joined after
-``nas_experiment``: each of them is two or more processes over gloo that
-leave the card idle most of the time, so the kernel, training and serving
-readings before it are taken with the card to themselves, and what is
-timed after it is read with both tracks running. Its lines follow the main
-sequence's. In that track:
+trials train the suggested shapes in pods). The parallel layouts and
+multi-GPU serving run in a second process on the same card (``--track``),
+started after ``moe_serve`` and joined at the end: each of them is two or
+more processes over gloo that leave the card idle most of the time, so
+the kernel, training and serving readings before it are taken with the
+card to themselves, and what is timed after it is read with both tracks
+running. Its lines follow the main sequence's. In that track:
 ``mesh_train`` (the bench model on ``{"fsdp": 2}`` and ``{"model": 2}``, two
 ranks sharing the card over gloo, 3 steps each against the same steps
 unsharded; K1-K3 counted on every rank, 4 query heads under ``model: 2``),
-``moe_mesh_train`` (the MoE bench model on ``{"expert": 2}``, routing
-pinned to the unsharded run's, K4a/K4b and the count matrix's host copies
-counted), ``nccl_one_rank`` (a one-rank NCCL group through ``bootstrap``,
-then FSDP2 over it on a one-rank ``fsdp`` mesh), then sequence and pipeline
-parallelism: ``seq_train`` (the bench model on ``{"seq": 2}`` with ring
-attention on K1-K3, the non-causal K1 counted), ``ring_attention_check``
-(ring and Ulysses attention over a two-rank ring at the bench attention
-shape against ``flash_attention`` and the plain attention on the whole
-sequence) and
-``pipeline_train`` (the bench model on ``{"pipeline": 2}`` under GPipe,
-1F1B and interleaved 1F1B), each two ranks sharing the card over gloo
-against the same steps unsharded, and ``dist_pods``
-(``examples/02`` and a two-worker ``examples/01`` as pod processes on the
-card, every rank's ``loss=`` lines equal). Last, multi-GPU serving
+then sequence and pipeline parallelism: ``seq_train`` (the bench model on
+``{"seq": 2}`` with ring attention on K1-K3, the non-causal K1 counted)
+and ``pipeline_train`` (the bench model on ``{"pipeline": 2}`` under
+GPipe, 1F1B and interleaved 1F1B), each two ranks sharing the card over
+gloo against the same steps unsharded, ``mesh_more_train`` (the layouts
+the port laid out last, 2 steps each against their own unsharded steps:
+a rank-8 LoRA on ``{"model": 2}`` from a base snapshot, its
+adapters-only checkpoint reloaded on one rank, and the int8 bench model
+laid out on ``{"model": 2}`` and teacher-forced on the unsharded int8
+engine's streams; the MoE bench model's capacity dispatch on
+``{"expert": 2}``; Adafactor on ``{"fsdp": 2}`` and ``{"model": 2}``;
+GPipe and 1F1B on ``{"pipeline": 2, "fsdp": 2}``, four ranks; the
+two-rank layouts in one spawn, the four-rank ones in another), then
+multi-GPU serving: ``wire_migrate``, ``tp_serve``, ``moe_tp_serve`` and
+``tp_resize`` (below). The main
+sequence ends with the rest of the parallel phases (``MAIN_TAIL_PHASES``,
+beside the track's gangs): ``nccl_one_rank`` (a one-rank NCCL group
+through ``bootstrap``, then FSDP2 over it on a one-rank ``fsdp`` mesh),
+``nccl_graph_capture`` (below), ``moe_mesh_train`` (the MoE bench model on
+``{"expert": 2}``, routing pinned to the unsharded run's, K4a/K4b and the
+count matrix's host copies counted), ``ring_attention_check`` (ring and
+Ulysses attention over a two-rank ring at the bench attention shape
+against ``flash_attention`` and the plain attention on the whole
+sequence) and ``dist_pods`` (``examples/02`` and a two-worker
+``examples/01`` as pod processes on the card, every rank's ``loss=``
+lines equal). Multi-GPU serving
 (``tp_gmm_time``, K4a at the experts' shapes under ``{"model": 2}``, K
 1024 -> N 1408 and K 1408 -> N 1024, checked and timed, runs in the main
 sequence after ``serve_gmm_time``): ``nccl_graph_capture``
@@ -2613,7 +2624,7 @@ def _adafactor_parity() -> dict:
 
     names = {id(p): n for n, p in gpu.model.named_parameters()}
     factored = {names[id(p)]: dims is not None
-                for parts, dims, _ in gpu.opt.groups for p in parts}
+                for parts, dims, *_ in gpu.opt.groups for p in parts}
     loss_g = float(gpu.loss_and_grads(tokens))
     g_card = grads(gpu)
     gpu.opt.step()
@@ -4991,6 +5002,18 @@ MESH_TRAIN = dict(batch=14, seq=1024, steps=3, ranks=2, timeout=900,
 #: all-reduce or a mis-routed expert moves by O(1), catch a wrong layout
 MESH_LOSS_TOL = 1e-4
 MESH_NORM_TOL = 1e-3
+#: where a layout's update is on trial (mesh_more_train's Adafactor,
+#: LoRA and pipeline x fsdp layouts): one more step, its sharded update
+#: against the unsharded optimizer's on the same gathered parameters,
+#: gradients and state (``_update_after``), per trained parameter
+#: ||p - p_unsharded_update|| over ||p_unsharded_update - p_before||, the
+#: worst. An update moves an element by ~lr (AdamW) or ~lr rms(p)
+#: (Adafactor), far below what the loss sees, and clipping and both
+#: updates hide a gradient's scale; a wrong mean or block sum moves this
+#: O(0.1-1), f32 rounding ~1e-4. (The parameters after the steps against
+#: the unsharded run's are printed, not held: bf16 activations summed in
+#: another order move them 0.2-16% on an H100, PR 19)
+MESH_UPDATE_TOL = 1e-3
 #: dist_pods: examples/02 as written (2 workers) and examples/01 at 2
 DIST_PODS = dict(mnist_steps=4, mnist_batch=16, replicas=2, timeout=300)
 
@@ -5081,14 +5104,15 @@ def _pin_step(model, routes: list, rows: slice) -> None:
 
 
 def _mesh_rank(rank: int, model_name, axes: dict, sizes: dict,
-               routes, device=None, train_kw=None) -> dict:
+               routes, device=None, train_kw=None, after=None) -> dict:
     """One rank of a sharded run on the card (``device=None``; ``"cpu"``
     rehearses it): ``sizes["steps"]`` steps of ``model_name`` (a preset's
     name or a config) on ``axes`` through the ``Trainer`` (``train_kw``:
     more ``TrainConfig`` fields; MoE layers pinned to ``routes[step]`` when
     given). Returns its losses, step times, peak memory, kernel launches,
     host copies, the query heads flash attention saw and the bytes it
-    handed to collectives per step."""
+    handed to collectives per step; ``after(trainer, sizes, device)``, run
+    once the counts are read, adds its entries under ``"after"``."""
     import torch
 
     from kubeflow_tpu_torch.models import moe as moelib
@@ -5098,6 +5122,8 @@ def _mesh_rank(rank: int, model_name, axes: dict, sizes: dict,
     cuda = device is None
     if cuda:
         torch.cuda.set_device(0)
+        # a run after another in the same process reads its own peaks
+        torch.cuda.reset_peak_memory_stats()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     heads = _heads_seen()
@@ -5135,7 +5161,7 @@ def _mesh_rank(rank: int, model_name, axes: dict, sizes: dict,
         step_ms.append((time.perf_counter() - t0) * 1e3)
         norms.append(float(norm))
     steps = sizes["steps"]
-    return {
+    out = {
         "rank": rank, "batch_shard": [t.batch_index, t.batch_count],
         "losses": losses, "grad_norms": norms, "step_ms": step_ms,
         "peak_mem_bytes": torch.cuda.max_memory_allocated() if cuda else 0,
@@ -5150,20 +5176,30 @@ def _mesh_rank(rank: int, model_name, axes: dict, sizes: dict,
         "stage_layers": t.layout.stage,
         "collective_bytes_per_step": {
             k: v / steps for k, v in counted.moved.items()}}
+    out["after"] = None if after is None else after(t, sizes, device)
+    return out
 
 
 def _unsharded_losses(model_name: str, sizes: dict, record_routes: bool,
-                      device=None) -> tuple[list, list, list]:
+                      device=None, train_kw=None,
+                      params_to=None) -> tuple[list, list, list]:
     """The same steps in this process, unsharded on the card: the losses,
     the global grad norms, and per step each MoE layer's expert ids (when
-    ``record_routes``)."""
+    ``record_routes``); ``train_kw``: more ``TrainConfig`` fields. With
+    ``params_to`` (a path) it saves there the trained parameters after the
+    steps, on the CPU, and how far the steps moved each (L2)."""
     import torch
 
     from kubeflow_tpu_torch.models.moe import MoeMlp
     from kubeflow_tpu_torch.train.trainer import Trainer
 
-    t = Trainer(_mesh_config(model_name, {}, sizes), device=device)
+    t = Trainer(_mesh_config(model_name, {}, sizes, **(train_kw or {})),
+                device=device)
     t.init_state(SEED)
+    trained = {k: p for k, p in t.model.named_parameters()
+               if p.requires_grad}
+    init = ({k: p.detach().cpu().clone() for k, p in trained.items()}
+            if params_to else None)
     routes: list = []
     if record_routes:
         layers = [m for m in t.model.modules() if isinstance(m, MoeMlp)]
@@ -5188,7 +5224,13 @@ def _unsharded_losses(model_name: str, sizes: dict, record_routes: bool,
         loss, norm = t.step(src.local_batch(step)["tokens"])
         losses.append(float(loss))
         norms.append(float(norm))
-    del t
+    if params_to:
+        final = {k: p.detach().cpu() for k, p in trained.items()}
+        torch.save({"final": final,
+                    "moved": {k: float((final[k] - init[k]).norm())
+                              for k in final}}, params_to)
+        del init, final
+    del t, trained
     _free_card(device is None)
     return losses, norms, routes
 
@@ -5201,61 +5243,91 @@ def _mesh_errors(losses: list, norms: list, want: list,
     return loss_rel, abs(norms[0] - want_norms[0]) / abs(want_norms[0])
 
 
-def mesh_runs(model_name, layouts, sizes: dict, launches_of, baseline,
-              device=None) -> dict:
-    """Each layout's ranks against the unsharded run on the card
-    (``device=None``; ``"cpu"`` with a tiny model rehearses it): every
-    rank's losses within ``MESH_LOSS_TOL`` of it and its step-1 grad norm
-    within ``MESH_NORM_TOL``, and its kernel launches equal to
-    ``launches_of(layout, rank result)``. A layout is (axes, more
-    ``TrainConfig`` fields); ``baseline`` is ``_unsharded_losses``' result
-    for the same model and sizes. Under a layout that shards the
-    parameters each rank's init peak must stay below the unsharded
-    parameters' bytes."""
+def _checked_layout(layout, ranks: list, baseline, launches_of,
+                    seconds: float) -> dict:
+    """``mesh_cases``' checks of one layout's rank results; its entry."""
+    want, want_norms, _ = baseline
+    axes, train_kw = layout
+    errs = [_mesh_errors(r["losses"], r["grad_norms"], want, want_norms)
+            for r in ranks]
+    loss_rel = max(e[0] for e in errs)
+    norm_rel = max(e[1] for e in errs)
+    require(loss_rel <= MESH_LOSS_TOL,
+            f"{axes}: losses {[r['losses'] for r in ranks]} "
+            f"vs unsharded {want}")
+    require(norm_rel <= MESH_NORM_TOL,
+            f"{axes}: step-1 grad norms "
+            f"{[r['grad_norms'][0] for r in ranks]} vs unsharded "
+            f"{want_norms[0]}")
+    shards = any(a in axes for a in ("fsdp", "model", "expert",
+                                     "pipeline"))
+    for r in ranks:
+        require(not shards
+                or r["init_peak_mem_bytes"] < r["full_param_bytes"],
+                f"{axes} rank {r['rank']}: the init's peak "
+                f"{r['init_peak_mem_bytes']} B is not below the "
+                f"unsharded parameters' {r['full_param_bytes']} B")
+        want_launches = launches_of(layout, r)
+        require(r["launches"] == want_launches,
+                f"{axes} rank {r['rank']}: launches "
+                f"{r['launches']} != {want_launches}")
+        upd = (r["after"] or {}).get("update_rel")
+        require(upd is None or upd["worst"] <= MESH_UPDATE_TOL,
+                f"{axes} rank {r['rank']}: {upd and upd['name']}'s "
+                f"sharded update is {upd and upd['worst']} (of its move) "
+                f"from the unsharded optimizer's on the same gradients")
+    return {"mesh": axes, "train": train_kw, "backend": "gloo",
+            "seconds": seconds, "unsharded_losses": want,
+            "unsharded_grad_norms": want_norms, "max_loss_rel": loss_rel,
+            "step1_norm_rel": norm_rel, "ranks": ranks}
+
+
+def _mesh_case_ranks(rank: int, runs: list, sizes: dict,
+                     device=None) -> list:
+    """One rank of several sharded runs in one spawn, in order: each
+    ``(model, axes, routes, train_kw, after)`` a ``_mesh_rank``, its
+    seconds beside it, the card's cache emptied between them."""
+    out = []
+    for model, axes, routes, train_kw, after in runs:
+        t0 = time.perf_counter()
+        r = _mesh_rank(rank, model, axes, sizes, routes, device, train_kw,
+                       after)
+        out.append({**r, "seconds": time.perf_counter() - t0})
+        _free_card(device is None)
+    return out
+
+
+def mesh_cases(cases: list, sizes: dict, device=None) -> list[dict]:
+    """Sharded runs on the card (``device=None``; ``"cpu"`` with a tiny
+    model rehearses them), every case in one spawn of ``sizes["ranks"]``
+    ranks sharing the card over gloo, each against its unsharded run.
+    A case is ``(model, layout, baseline, launches_of, after)``: a layout
+    is (axes, more ``TrainConfig`` fields), ``baseline``
+    ``_unsharded_losses``' result for the same model, sizes and fields
+    (its routes pin a MoE's), ``after`` ``_mesh_rank``'s. Every rank's
+    losses must be within ``MESH_LOSS_TOL`` of the baseline's, its step-1
+    grad norm within ``MESH_NORM_TOL``, its extra step's update within
+    ``MESH_UPDATE_TOL`` where ``after`` took one, and its kernel launches
+    equal to ``launches_of(layout, rank result)``; under a layout that
+    shards the parameters each rank's init peak must stay below the
+    unsharded parameters' bytes. Returns each case's
+    ``_checked_layout`` entry, in order."""
     from kubeflow_tpu_torch.parallel import dryrun
 
-    want, want_norms, routes = baseline
-    out = {"unsharded_losses": want, "unsharded_grad_norms": want_norms,
-           "layouts": []}
-    for layout in layouts:
-        axes, train_kw = layout
-        t0 = time.perf_counter()
-        ranks = dryrun.spawn(sizes["ranks"], _mesh_rank, model_name, axes,
-                             sizes, routes or None, device, train_kw,
-                             backend="gloo", timeout=sizes["timeout"])
-        errs = [_mesh_errors(r["losses"], r["grad_norms"], want, want_norms)
-                for r in ranks]
-        loss_rel = max(e[0] for e in errs)
-        norm_rel = max(e[1] for e in errs)
-        out["layouts"].append({"mesh": axes, "train": train_kw,
-                               "backend": "gloo",
-                               "seconds": time.perf_counter() - t0,
-                               "max_loss_rel": loss_rel,
-                               "step1_norm_rel": norm_rel, "ranks": ranks})
-        require(loss_rel <= MESH_LOSS_TOL,
-                f"{axes}: losses {[r['losses'] for r in ranks]} "
-                f"vs unsharded {want}")
-        require(norm_rel <= MESH_NORM_TOL,
-                f"{axes}: step-1 grad norms "
-                f"{[r['grad_norms'][0] for r in ranks]} vs unsharded "
-                f"{want_norms[0]}")
-        shards = any(a in axes for a in ("fsdp", "model", "expert",
-                                         "pipeline"))
-        for r in ranks:
-            require(not shards
-                    or r["init_peak_mem_bytes"] < r["full_param_bytes"],
-                    f"{axes} rank {r['rank']}: the init's peak "
-                    f"{r['init_peak_mem_bytes']} B is not below the "
-                    f"unsharded parameters' {r['full_param_bytes']} B")
-            want_launches = launches_of(layout, r)
-            require(r["launches"] == want_launches,
-                    f"{axes} rank {r['rank']}: launches "
-                    f"{r['launches']} != {want_launches}")
+    runs = [(model, layout[0], baseline[2] or None, layout[1], after)
+            for model, layout, baseline, _, after in cases]
+    ranks = dryrun.spawn(sizes["ranks"], _mesh_case_ranks, runs, sizes,
+                         device, backend="gloo", timeout=sizes["timeout"])
+    out = []
+    for i, (_, layout, baseline, launches_of, _) in enumerate(cases):
+        mine = [r[i] for r in ranks]
+        out.append(_checked_layout(layout, mine, baseline, launches_of,
+                                   mine[0]["seconds"]))
     return out
 
 
 def per_layer_launches(per_layer: dict):
-    """``mesh_runs``' ``launches_of`` for a path that launches each kernel
+    """``mesh_cases``' ``launches_of`` for a path that launches each kernel
     ``per_layer`` times a block a step (every counter's key; 0 where it
     names none)."""
     def launches_of(layout, r: dict) -> dict:
@@ -5270,8 +5342,10 @@ def phase_mesh_train(line: str) -> dict:
     ranks sharing the card over gloo; under ``model: 2`` flash attention
     must see 4 of the 8 query heads."""
     baseline = _unsharded_losses("bench_model", MESH_TRAIN, False)
-    out = mesh_runs("bench_model", MESH_TRAIN["dense_layouts"], MESH_TRAIN,
-                    per_layer_launches(FLASH_PER_LAYER), baseline)
+    launches = per_layer_launches(FLASH_PER_LAYER)
+    out = {"layouts": mesh_cases(
+        [("bench_model", layout, baseline, launches, None)
+         for layout in MESH_TRAIN["dense_layouts"]], MESH_TRAIN)}
     emit("mesh_train", card=line, model="bench_model", sizes=MESH_TRAIN,
          loss_tol=MESH_LOSS_TOL, norm_tol=MESH_NORM_TOL, **out)
     for layout in out["layouts"]:
@@ -5288,8 +5362,9 @@ def phase_moe_mesh_train(line: str) -> dict:
     the card over gloo, routing pinned to the unsharded run's; one host
     copy of the count matrix per MoE layer and step."""
     baseline = _unsharded_losses("bench_moe_model", MESH_TRAIN, True)
-    out = mesh_runs("bench_moe_model", (MESH_TRAIN["moe_layout"],),
-                    MESH_TRAIN, per_layer_launches(MOE_PER_LAYER), baseline)
+    out = {"layouts": mesh_cases(
+        [("bench_moe_model", MESH_TRAIN["moe_layout"], baseline,
+          per_layer_launches(MOE_PER_LAYER), None)], MESH_TRAIN)}
     emit("moe_mesh_train", card=line, model="bench_moe_model",
          sizes=MESH_TRAIN, loss_tol=MESH_LOSS_TOL, norm_tol=MESH_NORM_TOL,
          **out)
@@ -5433,8 +5508,8 @@ def phase_seq_train(line: str, baseline) -> dict:
     from kubeflow_tpu_torch.models import llama
 
     model = dataclasses.replace(llama.bench_model(), attention_impl="ring")
-    out = mesh_runs(model, (SEQ_LAYOUT,), MESH_TRAIN, seq_launches,
-                    baseline)
+    out = {"layouts": mesh_cases(
+        [(model, SEQ_LAYOUT, baseline, seq_launches, None)], MESH_TRAIN)}
     emit("seq_train", card=line, model="bench_model", attention="ring",
          sizes=MESH_TRAIN, loss_tol=MESH_LOSS_TOL, norm_tol=MESH_NORM_TOL,
          **out)
@@ -5445,14 +5520,369 @@ def phase_pipeline_train(line: str, baseline) -> dict:
     """The bench model on ``{"pipeline": 2}``: GPipe (2 microbatches),
     1F1B (7 of 2 rows) and interleaved 1F1B (2 chunks of 4 layers a rank),
     two ranks sharing the card over gloo, against the unsharded steps."""
-    out = mesh_runs("bench_model", PIPELINE_LAYOUTS, MESH_TRAIN,
-                    pipeline_launches, baseline)
+    out = {"layouts": mesh_cases(
+        [("bench_model", layout, baseline, pipeline_launches, None)
+         for layout in PIPELINE_LAYOUTS], MESH_TRAIN)}
     for layout in out["layouts"]:
         layout["schedule"] = pipeline_schedule_of(layout["mesh"],
                                                   layout["train"])
     emit("pipeline_train", card=line, model="bench_model",
          sizes=MESH_TRAIN, loss_tol=MESH_LOSS_TOL, norm_tol=MESH_NORM_TOL,
          **out)
+    return out
+
+
+#: mesh_more_train: the layouts the port laid out last (LoRA and int8
+#: under ``model``, the capacity dispatch under ``expert``, Adafactor over
+#: shards, FSDP2 inside pipeline stages), each at the bench models' full
+#: width and depth on MESH_TRAIN's batch against its own unsharded run, 2
+#: steps of MESH_TRAIN's 3 (the script's clock: each layout's later step
+#: costs 4-6 s on an H100 at 700 W, two ranks over gloo). The warmup gives
+#: the first update a rate of 0, so both losses are read before any real
+#: update: where the update is on trial (Adafactor, LoRA, pipeline x fsdp
+#: under GPipe) one more step is held against the unsharded optimizer on
+#: the same gradients (``MESH_UPDATE_TOL``); LoRA on every
+#: projection kind (column- and row-parallel); the int8 check
+#: teacher-forces 4 of the unsharded int8 engine's 32-token streams;
+#: pipeline x fsdp is four ranks, 7 microbatches of one row a rank (14
+#: rows over 2 batch shards)
+MORE_TRAIN = dict(
+    steps=2,
+    lora=dict(lora_rank=8, lora_targets=("wq", "wv", "wo", "w_down")),
+    int8=dict(prompts=4, prompt_len=128, new=32),
+    lora_layout=({"model": 2}, {}),
+    capacity_layout=({"expert": 2}, {}),
+    adafactor_layouts=(({"fsdp": 2}, {"optimizer": "adafactor"}),
+                       ({"model": 2}, {"optimizer": "adafactor"})),
+    pipeline_fsdp_layouts=(
+        ({"pipeline": 2, "fsdp": 2}, {"pipeline_schedule": "gpipe",
+                                      "num_microbatches": 7}),
+        ({"pipeline": 2, "fsdp": 2}, {"pipeline_schedule": "1f1b",
+                                      "num_microbatches": 7})),
+    pipeline_fsdp_ranks=4)
+
+
+def _int8_model(model, device=None):
+    """(int8 serving config, its state dict, the unsharded int8 model) of
+    ``model`` (a preset's name or a config) from SEED's random weights, as
+    ``quantize_for_serving`` makes them; the same on every process."""
+    from kubeflow_tpu_torch.models import llama
+
+    cfg, m = _gang_model(model, device)
+    qcfg, sd = llama.quantize_for_serving(cfg, m.state_dict(), kv=False)
+    del m
+    q = llama.Llama(qcfg, device=device or "cuda")
+    q.load_state_dict(sd)
+    return qcfg, sd, q
+
+
+def _rel_moves(got: dict, want: dict, moved: dict) -> dict:
+    """The worst over parameters of ||got - want|| / moved (L2), its name,
+    the median and how many."""
+    rel = {}
+    for k, w in want.items():
+        err = float((got[k].float() - w).norm())
+        rel[k] = (err / moved[k] if moved[k]
+                  else (0.0 if err == 0 else math.inf))
+    name = max(rel, key=rel.get)
+    return {"worst": rel[name], "name": name,
+            "median": sorted(rel.values())[len(rel) // 2],
+            "params": len(rel)}
+
+
+def _full_trained(t, of) -> dict:
+    """``of(p)`` of every trained parameter, whole, copied to the CPU,
+    every stage's (every rank joins). A copy: ``gather_full`` hands back
+    the tensor itself where nothing splits it."""
+    names = {id(p): k for k, p in t.model.named_parameters()}
+    return t.layout.all_stages({
+        names[id(p)]: t.layout.gather_full(names[id(p)], of(p)).to(
+            "cpu", copy=True) for p in t.opt.params})
+
+
+def _unsharded_optimizer(t, params: dict, state: dict):
+    """The optimizer ``t`` would build unsharded, over ``params`` (whole
+    tensors by name), loaded with ``state`` (``_opt_state_full``)."""
+    from kubeflow_tpu_torch.train import optim
+
+    cfg = t.cfg
+    sched = dict(learning_rate=cfg.learning_rate,
+                 warmup_steps=cfg.warmup_steps,
+                 decay_steps=max(cfg.steps, cfg.warmup_steps + 1),
+                 grad_clip_norm=cfg.grad_clip_norm)
+    order = t._opt_order()
+    if cfg.optimizer == "adafactor":
+        groups = []
+        for (layered, _), names in t._leaves(order).items():
+            parts = [params[n] for n in names]
+            shape = tuple(parts[0].shape)
+            groups.append(((len(parts), *shape) if layered else shape,
+                           parts, optim.LeafCut()))
+        opt = optim.Adafactor(groups, **sched)
+    else:
+        opt = optim.AdamW([params[n] for n in order], b1=cfg.b1, b2=cfg.b2,
+                          weight_decay=cfg.weight_decay,
+                          mu_dtype=cfg.mu_dtype, **sched)
+    opt.load_state_dict(state)
+    return opt
+
+
+def _update_after(t, sizes: dict, device, ref: str) -> dict:
+    """``_mesh_rank``'s ``after`` of a layout whose update is on trial.
+    ``"param_rel"``: the trained parameters after the steps against the
+    unsharded run's (``ref``: ``_unsharded_losses``' ``params_to`` file),
+    ||p - p_unsharded|| over how far the unsharded steps moved each, a
+    reading. ``"update_rel"``: one more step (the next batch, at the
+    schedule's full rate) taken as ``Trainer.step`` takes it, its sharded
+    update against the unsharded optimizer's on the same gathered
+    parameters, synced gradients and state. Every rank joins the gathers;
+    rank 0 alone reads both, the unsharded optimizer on its device, and
+    the others return nothing."""
+    import torch
+    import torch.distributed as dist
+
+    lead = dist.get_rank() == 0
+    before = _full_trained(t, lambda p: p.detach())
+    state = t._opt_state_full()
+    if lead:
+        # copies: a moment nothing splits is handed back as the tensor
+        # itself, which the step below moves
+        state = {k: [None if x is None else x.to("cpu", copy=True)
+                     for x in v] if isinstance(v, list) else v
+                 for k, v in state.items()}
+    tokens = t.data_source().local_batch(sizes["steps"])["tokens"]
+    t.loss_and_grads(tokens)
+    t.layout.sync_grads(t.opt.params)
+    grads = _full_trained(t, lambda p: p.grad)
+    t.opt.step()
+    t.model.zero_grad(set_to_none=True)
+    after = _full_trained(t, lambda p: p.detach())
+    if not lead:
+        return {}
+    saved = torch.load(ref)
+    out = {"param_rel": _rel_moves(before, saved["final"],
+                                   saved["moved"])}
+    del saved
+    params = {k: v.to(t.device, copy=True).requires_grad_()
+              for k, v in before.items()}
+    for k, p in params.items():
+        p.grad = grads[k].to(t.device)
+    del grads
+    _unsharded_optimizer(t, params, state).step()
+    want = {k: p.detach().cpu() for k, p in params.items()}
+    del params, state
+    out["update_rel"] = _rel_moves(after, want, {
+        k: float((want[k] - before[k]).norm()) for k in want})
+    return out
+
+
+def _lora_after(t, sizes: dict, device, model=None, int8=None,
+                ref=None) -> dict:
+    """``_mesh_rank``'s ``after`` of the LoRA layout: one more step, its
+    update held (``_update_after``, ``ref``), the adapters-only checkpoint
+    of that step (rank 0 writes every rank's shards gathered whole) and
+    the loss of the next batch; then, on the same ``model`` group, the int8 ``model`` laid out by
+    ``place_params`` and teacher-forced on the unsharded int8 engine's
+    streams (``int8``: prompts, streams) beside the unsharded int8 model
+    (``_teacher_forced_check``)."""
+    import torch
+
+    from kubeflow_tpu_torch.serving import sharded
+
+    update = _update_after(t, sizes, device, ref)
+    steps = sizes["steps"] + 1
+    t._save(steps, force=True)
+    t.ckpt.wait_until_finished()
+    with torch.no_grad():
+        tokens = torch.as_tensor(t.data_source().local_batch(steps)["tokens"],
+                                 device=t.device)
+        next_loss = float(t.global_mean(t._loss(tokens)))
+    qcfg, sd, unsharded = _int8_model(model, device)
+    mesh = sharded.build_serving_mesh({"model": 2})
+    tp = sharded.place_params(qcfg, sd, mesh, unsharded.embedder.embedding
+                              .device)
+    del sd
+    check = _teacher_forced_check(unsharded, tp, *int8)
+    del tp, unsharded
+    _free_card(device is None)
+    return {**update, "next_loss": next_loss, "int8_teacher_forced": check,
+            "int8_query_heads": qcfg.num_heads // 2}
+
+
+def _adafactor_after(t, sizes: dict, device, ref: str) -> dict:
+    """``_mesh_rank``'s ``after`` of an Adafactor layout: its update held
+    (``_update_after``) and how many of the rank's tensors hold factored
+    moments (``v_row``)."""
+    return {**_update_after(t, sizes, device, ref),
+            "factored": sum(v is not None for v in t.opt.v_row),
+            "tensors": len(t.opt.v_row)}
+
+
+def mesh_more_train(device=None, sizes=MESH_TRAIN, more=MORE_TRAIN,
+                    dense="bench_model", moe="bench_moe_model",
+                    per_layer=FLASH_PER_LAYER) -> dict:
+    """Every ``MORE_TRAIN`` layout against its unsharded run on the card
+    (``device=None``; ``"cpu"`` with tiny configs rehearses it): LoRA
+    under ``model`` from a base snapshot written here, one more step's
+    update held to the unsharded optimizer's on the same gradients
+    (``_update_after``) and the adapters-only checkpoint of that step
+    reloaded on one rank to the same next loss, and in the same spawn the
+    int8 model under ``model`` teacher-forced within ``TEACHER_TOL``; the
+    capacity dispatch under ``expert`` (routing pinned to the unsharded
+    run's); Adafactor under ``fsdp`` and ``model``, its projections
+    factored and its update held likewise; FSDP2 inside two pipeline
+    stages under GPipe and 1F1B, GPipe's update held likewise. The
+    two-rank layouts share one spawn and the four-rank ones another
+    (``mesh_cases``). ``per_layer``: each kernel's launches a block a step
+    (``per_layer_launches``; none on the CPU)."""
+    import dataclasses
+    import functools
+
+    import torch
+
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.train.trainer import Trainer
+
+    out, seconds = {}, {}
+    flash = per_layer_launches(per_layer)
+
+    def pipe_launches(layout, r: dict) -> dict:
+        # ``pipeline_launches`` with ``per_layer``
+        m = pipeline_schedule_of(*layout)["microbatches"]
+        return flash(layout, {**r, "steps": m * r["steps"]})
+
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="kft-mesh-more-")
+    try:
+        base = os.path.join(work, "base")
+        cfg, m = _gang_model(dense, device)
+        llama.save_pretrained(base, cfg, m)
+        del m
+        qcfg, _, q = _int8_model(dense, device)
+        i8 = more["int8"]
+        prompts = _prompts(qcfg, i8["prompts"], i8["prompt_len"])
+        streams = _truth(qcfg, q, prompts, i8["new"],
+                         [(i8["prompts"], i8["prompt_len"])],
+                         GANG_ENGINE)["tokens"]
+        del q
+        _free_card(device is None)
+        lcfg = dataclasses.replace(_config(dense), **more["lora"])
+        ccfg = dataclasses.replace(_config(moe), moe_dispatch="dense")
+        ckpt = os.path.join(work, "ckpt")
+        axes, kw = more["lora_layout"]
+        lora_layout = (axes, {**kw, "init_from": base,
+                              "checkpoint_dir": ckpt})
+        refs = {k: os.path.join(work, f"{k}.pt")
+                for k in ("lora", "adafactor", "adamw")}
+        lora_base = _unsharded_losses(lcfg, sizes, False, device,
+                                      {"init_from": base}, refs["lora"])
+        ada_base = _unsharded_losses(dense, sizes, False, device,
+                                     {"optimizer": "adafactor"},
+                                     refs["adafactor"])
+        cases = [
+            (lcfg, lora_layout, lora_base, flash,
+             functools.partial(_lora_after, model=dense,
+                               int8=(prompts, streams), ref=refs["lora"])),
+            (ccfg, more["capacity_layout"], _unsharded_losses(
+                ccfg, sizes, True, device), flash, None),
+            *((dense, layout, ada_base, flash,
+               functools.partial(_adafactor_after, ref=refs["adafactor"]))
+              for layout in more["adafactor_layouts"])]
+        seconds["baselines"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        two = mesh_cases(cases, sizes, device)
+        seconds["two_rank_spawn"] = time.perf_counter() - t1
+        out["lora"], out["capacity"] = two[0], two[1]
+        out["adafactor"] = two[2:]
+        # the adapters-only checkpoint of the extra step, whole, on one
+        # rank
+        saved_step = sizes["steps"] + 1
+        one = Trainer(_mesh_config(lcfg, {}, sizes, init_from=base,
+                                   checkpoint_dir=ckpt), device=device)
+        one.restore_or_init(SEED)
+        with torch.no_grad():
+            tokens = torch.as_tensor(one.data_source().local_batch(
+                saved_step)["tokens"], device=one.device)
+            reloaded = float(one._loss(tokens))
+        out["lora"]["reloaded_next_loss"] = reloaded
+        out["lora"]["reloaded_step"] = one.opt.count
+        del one
+        _free_card(device is None)
+        heads = _config(dense).num_heads // 2
+        for r in out["lora"]["ranks"]:
+            after = r["after"]
+            require(r["query_heads_seen"] == [heads],
+                    f"mesh_more_train lora: flash attention saw "
+                    f"{r['query_heads_seen']} query heads, not [{heads}]")
+            rel = abs(reloaded - after["next_loss"]) \
+                / abs(after["next_loss"])
+            require(out["lora"]["reloaded_step"] == saved_step
+                    and rel <= MESH_LOSS_TOL,
+                    f"mesh_more_train lora: the adapters-only checkpoint "
+                    f"reloaded on one rank at step "
+                    f"{out['lora']['reloaded_step']} gives loss "
+                    f"{reloaded} against the TP run's {after['next_loss']}")
+            tf = after["int8_teacher_forced"]
+            require(tf["rel_l2_max"] <= TEACHER_TOL,
+                    f"mesh_more_train int8: the TP logits are "
+                    f"{tf['rel_l2_max']} (relative L2) from the unsharded "
+                    f"int8 model's, over {TEACHER_TOL}")
+        for r in out["capacity"]["ranks"]:
+            require(r["host_copies_per_step"] == 0,
+                    f"mesh_more_train capacity: "
+                    f"{r['host_copies_per_step']} host copies a step: the "
+                    "slots are equal-sized")
+        for layout in out["adafactor"]:
+            for r in layout["ranks"]:
+                require(r["after"]["factored"] > 0,
+                        f"mesh_more_train adafactor {layout['mesh']}: no "
+                        "factored moment")
+
+        t1 = time.perf_counter()
+        pipe_base = _unsharded_losses(dense, sizes, False, device,
+                                      params_to=refs["adamw"])
+        seconds["baselines"] += time.perf_counter() - t1
+        t1 = time.perf_counter()
+        # the update check reads the gradients after their hand-off, the
+        # same under either schedule: GPipe's layout takes it
+        after = functools.partial(_update_after, ref=refs["adamw"])
+        out["pipeline_fsdp"] = mesh_cases(
+            [(dense, layout, pipe_base, pipe_launches, after if i == 0
+              else None)
+             for i, layout in enumerate(more["pipeline_fsdp_layouts"])],
+            {**sizes, "ranks": more["pipeline_fsdp_ranks"]}, device)
+        seconds["four_rank_spawn"] = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for layout in out["pipeline_fsdp"]:
+        layout["schedule"] = pipeline_schedule_of(layout["mesh"],
+                                                  layout["train"])
+    out["seconds"] = seconds
+    return out
+
+
+def step_peaks(layouts: list) -> list[dict]:
+    """Each layout's largest step peak over its ranks (bytes): what one
+    rank of it holds on the card at the most during a step."""
+    return [{"mesh": x["mesh"], "train": x["train"],
+             "peak_mem_bytes": max(r["peak_mem_bytes"] for r in x["ranks"])}
+            for x in layouts]
+
+
+def phase_mesh_more_train(line: str, pipe: dict) -> dict:
+    """``mesh_more_train`` on the bench models at ``MORE_TRAIN``'s steps;
+    beside pipeline x fsdp's step peaks it prints those of ``pipe``
+    (pipeline_train's result, read on the same card)."""
+    sizes = {**MESH_TRAIN, "steps": MORE_TRAIN["steps"]}
+    out = mesh_more_train(sizes=sizes)
+    emit("mesh_more_train", card=line, models=["bench_model",
+                                               "bench_moe_model"],
+         sizes=sizes, more=MORE_TRAIN, loss_tol=MESH_LOSS_TOL,
+         norm_tol=MESH_NORM_TOL, update_tol=MESH_UPDATE_TOL,
+         teacher_tol=TEACHER_TOL, **out)
+    emit("mesh_more_train_peaks", card=line,
+         pipeline_fsdp=step_peaks(out["pipeline_fsdp"]),
+         pipeline=step_peaks(pipe["layouts"]))
     return out
 
 
@@ -6525,21 +6955,23 @@ def nccl_graph_capture(model, sizes=NCCL_CAPTURE) -> dict:
     return row
 
 
-def phase_gang(line: str) -> dict:
-    """``nccl_graph_capture``, ``wire_migrate`` (in one process, then the
-    TP=2 export) and the gang phases (``tp_serve``, ``moe_tp_serve``,
-    ``tp_resize``) on the bench models at full width and depth."""
-    t1 = time.perf_counter()
+def phase_nccl_graph_capture(line: str) -> None:
     emit("nccl_graph_capture", card=line, **nccl_graph_capture(
         "bench_model"))
+
+
+def phase_gang(line: str) -> dict:
+    """``wire_migrate`` (in one process, then the TP=2 export) and the
+    gang phases (``tp_serve``, ``moe_tp_serve``, ``tp_resize``) on the
+    bench models at full width and depth."""
     t2 = time.perf_counter()
     local = wire_local("bench_model")
     t3 = time.perf_counter()
     gangs = gang_serving("bench_model", "bench_moe_model", line=line)
     emit("wire_migrate", card=line, **local, tp2_export=gangs["wire"])
     t4 = time.perf_counter()
-    return {"nccl_graph_capture": t2 - t1, "wire_local": t3 - t2,
-            "gang": t4 - t3, "gang_cases": gangs["case_seconds"],
+    return {"wire_local": t3 - t2, "gang": t4 - t3,
+            "gang_cases": gangs["case_seconds"],
             "tp_resize_grow": gangs["tp_resize"]["grow"]}
 
 
@@ -6552,9 +6984,13 @@ def phase_gang(line: str) -> dict:
 #: serving readings are taken (those are read with the card to themselves);
 #: what either track times after that is read with the other one running
 BACKGROUND_PHASES = (
-    "mesh_train", "moe_mesh_train", "nccl_one_rank", "seq_train",
-    "ring_attention_check", "pipeline_train", "dist_pods",
-    "nccl_graph_capture", "wire_local", "gang")
+    "mesh_train", "seq_train", "pipeline_train", "mesh_more_train",
+    "wire_local", "gang")
+#: the parallel phases the main sequence runs after ``nas_experiment``,
+#: so that the two tracks end together (``mesh_more_train`` made the
+#: background track the longer one)
+MAIN_TAIL_PHASES = ("nccl_one_rank", "nccl_graph_capture",
+                    "moe_mesh_train", "ring_attention_check", "dist_pods")
 
 
 def background_track(line: str) -> dict:
@@ -6570,23 +7006,30 @@ def background_track(line: str) -> dict:
 
     mesh = phase_mesh_train(line)
     lap("mesh_train")
-    phase_moe_mesh_train(line)
-    lap("moe_mesh_train")
-    phase_nccl_one_rank(line)
-    lap("nccl_one_rank")
-    baseline = (mesh["unsharded_losses"], mesh["unsharded_grad_norms"], [])
+    first = mesh["layouts"][0]
+    baseline = (first["unsharded_losses"], first["unsharded_grad_norms"], [])
     phase_seq_train(line, baseline)
     lap("seq_train")
-    phase_ring_attention_check(line)
-    lap("ring_attention_check")
-    phase_pipeline_train(line, baseline)
+    pipe = phase_pipeline_train(line, baseline)
     lap("pipeline_train")
-    phase_dist_pods(line)
-    lap("dist_pods")
+    more = phase_mesh_more_train(line, pipe)
+    lap("mesh_more_train")
+    seconds.update({f"mesh_more_train_{k}": v
+                    for k, v in more["seconds"].items()})
     gang = phase_gang(line)
     grow = gang.pop("tp_resize_grow")
     seconds.update(gang)
     return {"seconds": seconds, "tp_resize_grow": grow}
+
+
+def main_tail(line: str) -> dict:
+    """``MAIN_TAIL_PHASES`` in order; each one's seconds."""
+    seconds = {}
+    for name in MAIN_TAIL_PHASES:
+        t0 = time.perf_counter()
+        globals()[f"phase_{name}"](line)
+        seconds[name] = time.perf_counter() - t0
+    return seconds
 
 
 def run_track(result_path: str) -> int:
@@ -6769,6 +7212,9 @@ def run() -> int:
         t_nas = time.perf_counter()
         phase_nas_experiment(line, darts["ranked_top"])
         t10 = time.perf_counter()
+        track.check()
+        tail = main_tail(line)
+        t11 = time.perf_counter()
         bg = track.join()
     finally:
         track.stop()
@@ -6791,7 +7237,7 @@ def run() -> int:
     # waited for the other at its end
     gang_s = bg["seconds"]
     emit("phase_seconds", total=now - started, lint=lint_s,
-         before_split=t_split - started, main_track=t10 - t_split,
+         before_split=t_split - started, main_track=t11 - t_split,
          background_track=bg["wall"], waited=bg["waited"],
          speculation_and_prefix=t1 - t0, migration_and_tiers=t2 - t1,
          http_serve=t_isvc - t2, isvc_serve=t_http - t_isvc,
@@ -6800,8 +7246,8 @@ def run() -> int:
          hpo_sweep=t6 - t_hpo, bert_serve=t7 - t6, resnet_train=t8 - t7,
          jaxjob_pods=t9 - t8, darts_search=t_nas - t9,
          nas_experiment=t10 - t_nas, tp_gmm_time=tp_gmm_s,
-         multi_gpu_serving=sum(gang_s[k] for k in (
-             "nccl_graph_capture", "wire_local", "gang")), **gang_s)
+         multi_gpu_serving=(tail["nccl_graph_capture"] + gang_s["wire_local"]
+                            + gang_s["gang"]), **tail, **gang_s)
     # each kernel's launches from the run of the path that carries it
     launches.update(gmm=moe_launches["gmm"], tgmm=moe_launches["tgmm"])
     kernels = []

@@ -422,7 +422,11 @@ class _Projections(nn.Module):
         ``(x @ w.to(dtype)) * scale.to(dtype)``; LoRA adds
         ``((x @ a) @ b) * lora_scale``. Under tensor parallelism ``x`` and
         the result are this rank's shards, and a row-parallel product is
-        all-reduced over the group."""
+        all-reduced over the group; int8 scales are this rank's out slice
+        (column-parallel) or scale the partial sum before its all-reduce
+        (row-parallel, linear); an adapter's split factor follows its
+        kernel, and the gradient of the one held whole is summed over
+        the group."""
         cfg = self.cfg
         dt = cfg.dtype
         w = getattr(self, name).to(dt)
@@ -434,8 +438,19 @@ class _Projections(nn.Module):
             y = y * getattr(self, f"{name}_scale").to(dt).reshape(-1)
         if name in self._lora:
             r = cfg.lora_rank
-            a = getattr(self, f"{name}_lora_a").to(dt).reshape(-1, r)
-            b = getattr(self, f"{name}_lora_b").to(dt).reshape(r, -1)
+            a = getattr(self, f"{name}_lora_a")
+            b = getattr(self, f"{name}_lora_b")
+            if self.tp is not None:
+                # the factor every rank holds whole (a of a column-parallel
+                # product, b of a row-parallel one) gets only this rank's
+                # part of its gradient: the rest flows through the other
+                # ranks' slices of the split factor
+                if name in ROW_PARALLEL:
+                    b = copy_to_group(b, self.tp.group)
+                else:
+                    a = copy_to_group(a, self.tp.group)
+            a = a.to(dt).reshape(-1, r)
+            b = b.to(dt).reshape(r, -1)
             y = y + ((x @ a) @ b) * self._lora_scale
         if self.tp is not None and name in ROW_PARALLEL:
             y = reduce_from_group(y, self.tp.group)

@@ -24,8 +24,12 @@ grouped GEMM gives the same result on every device.
 
 Laid out on a mesh (``parallel.sharding.shard_model``):
 
-- ``expert`` axis of ``d > 1`` (``ep``): the reference's ``shard_body``
-  branch. Each rank holds ``e / d`` experts and its own rows of the batch.
+- ``expert`` axis of ``d > 1`` (``ep``), capacity dispatch: each rank
+  fills the capacity slots of its own rows and ``all_to_all`` moves them
+  to their experts' ranks and back (``_dense``);
+- ``expert`` axis of ``d > 1``, ragged dispatch: the reference's
+  ``shard_body`` branch. Each rank holds ``e / d`` experts and its own
+  rows of the batch.
   The ``[d, d]`` matrix of token counts (source rank x destination rank)
   is all-gathered and copied to the host once per layer in the forward
   pass (``dist.all_to_all_single`` takes its split sizes on the host; the
@@ -55,6 +59,7 @@ from ..ops.grouped_matmul import grouped_matmul
 from ..parallel.collectives import (
     _all_reduce,
     all_gather_rows,
+    all_to_all,
     all_reduce_sum,
     copy_to_group,
     ragged_all_to_all,
@@ -174,7 +179,13 @@ class MoeMlp(nn.Module):
         return y, aux
 
     def _dense(self, x, gates, expert_mask):
-        """GShard capacity dispatch (sequence-major priority)."""
+        """GShard capacity dispatch (sequence-major priority). Under an
+        expert axis of ``d`` ranks each rank fills the ``[e, b, c, h]``
+        slots of its own rows (capacity per sequence, so no rank waits on
+        another's queue), ``all_to_all`` hands every rank the slots of its
+        ``e / d`` experts from all of them, ``[e / d, d b, c, h]``, and the
+        outputs go back the inverse way: the all-to-all GSPMD inserts at
+        the reference's ``expert`` constraint."""
         cfg = self.cfg
         dt = cfg.dtype
         b, s, k, e = expert_mask.shape
@@ -189,10 +200,20 @@ class MoeMlp(nn.Module):
         combine = torch.einsum("bske,bskc,bsk->bsec", dispatch_k, cap_onehot,
                                gates)
         xin = torch.einsum("bsec,bsh->ebch", dispatch.to(dt), x)
+        if self.ep is not None:
+            d, h = self.ep.size, x.shape[-1]
+            # chunk j (experts of rank j) to rank j; chunk i back from i
+            xin = all_to_all(xin.reshape(d, e // d, b, capacity, h),
+                             self.ep.group)
+            xin = xin.transpose(0, 1).reshape(e // d, d * b, capacity, h)
         hidden = (F.silu(torch.einsum("ebch,ehm->ebcm", xin,
                                       self.w_gate.to(dt)))
                   * torch.einsum("ebch,ehm->ebcm", xin, self.w_up.to(dt)))
         out_e = torch.einsum("ebcm,emh->ebch", hidden, self.w_down.to(dt))
+        if self.ep is not None:
+            out_e = all_to_all(
+                out_e.reshape(e // d, d, b, capacity, h).transpose(0, 1),
+                self.ep.group).reshape(e, b, capacity, h)
         return torch.einsum("bsec,ebch->bsh", combine.to(dt), out_e)
 
     def _ragged(self, x, idx, gates):

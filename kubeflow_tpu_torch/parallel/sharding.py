@@ -15,10 +15,17 @@ per mesh dimension (``Shard(dim)`` or ``Replicate()``).
   the model's projections then run column- and row-parallel
   (``models/llama.py``);
 - ``expert``: each rank keeps ``e / d`` experts (``models/moe.py`` sends
-  tokens to them by ``ragged_all_to_all``);
+  tokens to them by ``ragged_all_to_all``, or its capacity slots by
+  ``all_to_all``);
 - ``fsdp``: FSDP2 ``fully_shard`` on every ``Block`` and at the root, each
   parameter sharded on the dim its ``fsdp`` rule names; with a ``data``
-  axis too, HSDP on the 2-D (data, fsdp) mesh;
+  axis too, HSDP on the 2-D (data, fsdp) mesh. Beside a ``pipeline`` axis
+  the schedules run the embedding, the stage's blocks and the head outside
+  the root module's forward, where FSDP2's hooks would gather them, so
+  there the root is the one FSDP2 unit: its shards are what a rank holds
+  between steps, and the trainer gathers the stage whole around each step
+  and averages its gradients over the FSDP2 dims once, after the last
+  microbatch (``Layout.gathered``);
 - ``seq`` (sequence parallelism): parameters are replicated; each rank
   holds one block of every row's sequence (``mesh.seq_slice``) and the
   model's attention runs ``parallel/ring_attention.py`` over the axis;
@@ -40,6 +47,7 @@ reference's JSON entries.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Optional, Sequence
@@ -365,6 +373,10 @@ class Layout:
         self.sync_divisor = math.prod(axis_size(mesh, a)
                                       for a in self.sync_dims
                                       if a != "pipeline")
+        #: ``pipeline`` beside FSDP2: the trainer runs each step on the
+        #: stage gathered whole (``gathered``)
+        self.gathers = bool(self.fsdp_dims) and self.axes.get(
+            "pipeline", 1) > 1
         self._groups: dict = {}
 
     # -- placements ------------------------------------------------------
@@ -379,6 +391,29 @@ class Layout:
         if "pipeline" in self.axes and key.startswith("layers."):
             dims.add("pipeline")
         return dims
+
+    def fsdp_dim(self, key: str) -> Optional[int]:
+        """The dim FSDP2 shards parameter ``key`` on: its ``fsdp`` rule's,
+        dim 0 when it has none (None without FSDP2)."""
+        if not self.fsdp_dims:
+            return None
+        dim = self.shardings[key].dim_of("fsdp")
+        return 0 if dim is None else dim
+
+    def cut_axes(self, key: str) -> dict[int, tuple[str, ...]]:
+        """{dim: the mesh dims that split it} of parameter ``key`` on this
+        layout: its manual ``model``/``expert`` dims and FSDP2's (dims of
+        one rank split nothing)."""
+        s = self.shardings[key]
+        out: dict[int, list] = {}
+        for axis in MANUAL_AXES:
+            dim = s.dim_of(axis)
+            if dim is not None and self.axes.get(axis, 1) > 1:
+                out.setdefault(dim, []).append(axis)
+        dim = self.fsdp_dim(key)
+        if dim is not None and self.axes.get("fsdp", 1) > 1:
+            out.setdefault(dim, []).append("fsdp")
+        return {d: tuple(a) for d, a in out.items()}
 
     def replication(self, key: str) -> int:
         """How many ranks hold each element of ``key``."""
@@ -395,37 +430,43 @@ class Layout:
 
     # -- full <-> local --------------------------------------------------
 
-    def local_slice(self, key: str, full):
+    def local_slice(self, key: str, full, drop: Optional[int] = None):
         """This rank's manual shard of a full tensor of ``key`` (before
-        FSDP2's own)."""
+        FSDP2's own). ``drop``: the tensor is ``key``'s with that dim
+        reduced away (an optimizer statistic), whole over whatever split
+        it."""
         from .mesh import axis_index, axis_size
 
         s = self.shardings[key]
         for axis in MANUAL_AXES:
-            dim = s.dim_of(axis)
+            dim = _after_drop(s.dim_of(axis), drop)
             if dim is not None and axis_size(self.mesh, axis) > 1:
                 full = _shard_slice(full, dim, axis_size(self.mesh, axis),
                                     axis_index(self.mesh, axis))
         return full
 
-    def gather_full(self, key: str, local, like=None):
+    def gather_full(self, key: str, local, like=None,
+                    drop: Optional[int] = None):
         """The full tensor of ``key`` from every rank's ``local`` shard
         (a DTensor parameter's or a plain tensor laid out as parameter
-        ``like``); every rank of the group gets it."""
+        ``like``; with ``drop``, as ``local_slice`` lays it out); every
+        rank of the group gets it."""
         import torch
         import torch.distributed as dist
         from torch.distributed.tensor import DTensor
 
-        if like is not None and isinstance(like, DTensor) \
-                and not isinstance(local, DTensor):
-            local = DTensor.from_local(local, like.device_mesh,
-                                       like.placements, shape=like.shape,
-                                       stride=like.stride())
         if isinstance(local, DTensor):
-            local = local.full_tensor()
+            local = _full_of(local.to_local(), local.device_mesh,
+                             local.placements, tuple(local.shape))
+        elif like is not None and isinstance(like, DTensor):
+            shape = tuple(like.shape)
+            if drop is not None:
+                shape = shape[:drop] + shape[drop + 1:]
+            local = _full_of(local, like.device_mesh,
+                             _drop_placements(like, drop), shape)
         s = self.shardings[key]
         for axis in reversed(MANUAL_AXES):
-            dim = s.dim_of(axis)
+            dim = _after_drop(s.dim_of(axis), drop)
             g = self.group((axis,))
             if dim is None or g is None:
                 continue
@@ -434,15 +475,18 @@ class Layout:
             local = torch.cat(parts, dim=dim)
         return local
 
-    def to_param_layout(self, key: str, full, param):
+    def to_param_layout(self, key: str, full, param,
+                        drop: Optional[int] = None):
         """``full`` as ``param`` holds it on this rank (manual slice, then
-        FSDP2's shard): the local tensor."""
+        FSDP2's shard): the local tensor (``drop``: as ``local_slice``)."""
         from torch.distributed.tensor import DTensor, distribute_tensor
 
-        local = self.local_slice(key, full).to(param.device, param.dtype)
+        local = self.local_slice(key, full, drop).to(param.device,
+                                                     param.dtype)
         if isinstance(param, DTensor):
             local = distribute_tensor(local, param.device_mesh,
-                                      param.placements).to_local()
+                                      _drop_placements(param, drop)
+                                      ).to_local()
         return local
 
     def load_full_state_dict(self, sd: dict) -> None:
@@ -528,6 +572,50 @@ class Layout:
                 for t in grads:
                     t.div_(self.sync_divisor)
 
+    @contextlib.contextmanager
+    def gathered(self):
+        """Under ``pipeline`` beside FSDP2 (``gathers``), one step's
+        forward and backward passes on the stage whole: every FSDP2 shard
+        is all-gathered into a plain parameter in its module, and on exit
+        each gradient is averaged over the FSDP2 dims (FSDP2's own mean)
+        once, after the last microbatch: reduce-scattered straight into
+        its shard (``_grad_shard_of``), which becomes the sharded
+        parameter's ``.grad``, and the whole gradient dropped. Elsewhere
+        it does nothing."""
+        if not self.gathers:
+            yield
+            return
+        import torch
+        from torch import nn
+        from torch.distributed.tensor import DTensor
+
+        held = []
+        with torch.no_grad():
+            for key, p in list(self.model.named_parameters()):
+                mod_name, _, leaf = key.rpartition(".")
+                mod = self.model.get_submodule(mod_name)
+                whole = nn.Parameter(
+                    _full_of(p.to_local(), p.device_mesh, p.placements,
+                             tuple(p.shape)), requires_grad=p.requires_grad)
+                held.append((mod, leaf, p, whole))
+                setattr(mod, leaf, whole)
+        try:
+            yield
+            with torch.no_grad():
+                for _, _, p, w in held:
+                    if not p.requires_grad:
+                        continue
+                    grad = (w.grad if w.grad is not None
+                            else torch.zeros_like(w))
+                    w.grad = None
+                    shard = DTensor.from_local(
+                        _grad_shard_of(grad, p), p.device_mesh,
+                        p.placements, shape=p.shape, stride=p.stride())
+                    p.grad = shard if p.grad is None else p.grad + shard
+        finally:
+            for mod, leaf, p, _ in held:
+                setattr(mod, leaf, p)
+
     def norm_weights(self, params) -> list[float]:
         """1 / replication of each parameter: the weight of its local
         squared gradient in a global-norm sum over the world."""
@@ -541,6 +629,87 @@ def _local(t):
     return t.to_local() if isinstance(t, DTensor) else t
 
 
+def _after_drop(dim: Optional[int], drop: Optional[int]) -> Optional[int]:
+    """Tensor dim ``dim`` once dim ``drop`` is reduced away (None: gone,
+    or no dim)."""
+    if dim is None or drop is None:
+        return dim
+    return None if dim == drop else dim - (dim > drop)
+
+
+def _drop_placements(dtensor, drop: Optional[int]) -> tuple:
+    """``dtensor``'s placements for its tensor with dim ``drop`` reduced
+    away: a shard of that dim becomes a replica."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    out = []
+    for pl in dtensor.placements:
+        if drop is None or not pl.is_shard():
+            out.append(pl)
+        else:
+            dim = _after_drop(pl.dim, drop)
+            out.append(Replicate() if dim is None else Shard(dim))
+    return tuple(out)
+
+
+def _full_of(local, mesh, placements, shape):
+    """The whole tensor (``shape``) of this rank's ``local`` shard laid
+    out by ``placements`` over ``mesh``: each sharded mesh dim gathered by
+    ``all_gather_into_tensor`` over its group, ``torch.chunk``'s short or
+    missing last chunks padded, as FSDP2 gathers. (DTensor's own
+    ``full_tensor`` goes through the functional all-gather, which crashes
+    on a CUDA tensor over gloo.)"""
+    import torch
+    import torch.distributed as dist
+
+    for i in reversed(range(len(placements))):
+        pl = placements[i]
+        if not pl.is_shard():
+            continue
+        n, size = mesh.size(i), shape[pl.dim]
+        chunk = -(-size // n)
+        x = local.movedim(pl.dim, 0)
+        if x.shape[0] < chunk:
+            x = torch.cat([x, x.new_zeros((chunk - x.shape[0],
+                                           *x.shape[1:]))])
+        out = x.new_empty((n * chunk, *x.shape[1:]))
+        dist.all_gather_into_tensor(out, x.contiguous(),
+                                    group=mesh.get_group(i))
+        local = out[:size].movedim(0, pl.dim)
+    return local.contiguous()
+
+
+def _grad_shard_of(full, like):
+    """This rank's shard (as DTensor ``like`` places it) of the mean over
+    ``like``'s mesh of every rank's ``full`` gradient: a reduce-scatter
+    over each sharded mesh dim, the chunks padded to ``torch.chunk``'s
+    size as ``_full_of`` pads them, and an all-reduce over each
+    replicated one (HSDP's)."""
+    import torch
+    import torch.distributed as dist
+
+    mesh = like.device_mesh
+    coord = mesh.get_coordinate()
+    out = full
+    for i, pl in enumerate(like.placements):
+        group = mesh.get_group(i)
+        if not pl.is_shard():
+            out = out.contiguous()
+            dist.all_reduce(out, group=group)
+            continue
+        n, size = mesh.size(i), out.shape[pl.dim]
+        chunk = -(-size // n)
+        x = out.movedim(pl.dim, 0)
+        if n * chunk > size:
+            x = torch.cat([x, x.new_zeros((n * chunk - size,
+                                           *x.shape[1:]))])
+        mine = x.new_empty((chunk, *x.shape[1:]))
+        dist.reduce_scatter_tensor(mine, x.contiguous(), group=group)
+        keep = max(0, min(chunk, size - coord[i] * chunk))
+        out = mine[:keep].movedim(0, pl.dim)
+    return (out / mesh.size()).contiguous()
+
+
 def shard_model(model, mesh, interleave: int = 1) -> Layout:
     """Lay ``model`` (a ``Llama`` holding full parameters, or on the meta
     device) out on ``mesh`` in place: this rank's pipeline stage (its model
@@ -548,10 +717,10 @@ def shard_model(model, mesh, interleave: int = 1) -> Layout:
     the ``seq`` axis on the attention, then FSDP2 over ``fsdp`` (HSDP with
     ``data``). Returns its ``Layout``.
 
-    A ``seq`` axis needs ``attention_impl="ring"``. Raises for what the
-    port does not lay out: LoRA or int8 weights under a ``model`` axis
-    (ROADMAP A5c), the capacity MoE dispatch under an ``expert`` axis
-    (A5d), and FSDP2 beside a ``pipeline`` axis (A5g)."""
+    A ``seq`` axis needs ``attention_impl="ring"``. LoRA adapters and
+    int8 weights follow their kernel (``param_axes``: an adapter's ``lora``
+    dim and the factor beside the split one are whole on every rank of the
+    ``model`` group), as do the MoE dispatches under ``expert``."""
     import torch
     from torch import nn
 
@@ -565,21 +734,6 @@ def shard_model(model, mesh, interleave: int = 1) -> Layout:
             f"a 'seq' mesh axis needs attention_impl='ring', not "
             f"{cfg.attention_impl!r}: each rank holds one block of the "
             "sequence")
-    if axis_size(mesh, "pipeline") > 1 and axis_size(mesh, "fsdp") > 1:
-        raise NotImplementedError(
-            "FSDP2 under a 'pipeline' axis is not ported yet (ROADMAP "
-            "A5g): the schedules run the embedding, the stages and the head "
-            "outside the root module's forward, where FSDP2 gathers them")
-    tp = axis_size(mesh, "model")
-    if tp > 1 and (cfg.lora_rank > 0 or cfg.quant_weights):
-        raise NotImplementedError(
-            "LoRA adapters and int8 weights under a 'model' axis are not "
-            "ported yet (ROADMAP A5c)")
-    if (axis_size(mesh, "expert") > 1 and cfg.moe_experts > 0
-            and cfg.moe_dispatch != "ragged"):
-        raise NotImplementedError(
-            "the capacity MoE dispatch under an 'expert' axis is not "
-            "ported yet (ROADMAP A5d); use moe_dispatch='ragged'")
     layout = Layout(model, mesh)
     stages = axis_size(mesh, "pipeline")
     if stages > 1:
@@ -627,8 +781,10 @@ def shard_model(model, mesh, interleave: int = 1) -> Layout:
 
 
 def _fully_shard(model, layout: Layout) -> None:
-    """FSDP2 on every Block and at the root, each parameter sharded on the
-    dim of its ``fsdp`` rule (dim 0 when it has none)."""
+    """FSDP2 on every Block and at the root, each parameter sharded on
+    ``Layout.fsdp_dim``; beside a ``pipeline`` axis at the root only
+    (``Layout.gathered``: the schedules never run the root's forward, so
+    FSDP2's hooks never gather a block there)."""
     from torch.distributed.fsdp import fully_shard
     from torch.distributed.tensor import Shard
 
@@ -638,9 +794,9 @@ def _fully_shard(model, layout: Layout) -> None:
     names = {id(p): k for k, p in model.named_parameters()}
 
     def placement(p):
-        dim = layout.shardings[names[id(p)]].dim_of("fsdp")
-        return Shard(dim if dim is not None else 0)
+        return Shard(layout.fsdp_dim(names[id(p)]))
 
-    for blk in model.layers:
-        fully_shard(blk, mesh=dp, shard_placement_fn=placement)
+    if not layout.gathers:
+        for blk in model.layers:
+            fully_shard(blk, mesh=dp, shard_placement_fn=placement)
     fully_shard(model, mesh=dp, shard_placement_fn=placement)

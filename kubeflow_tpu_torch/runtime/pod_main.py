@@ -9,9 +9,11 @@ receives the ``PodContext`` and its return value is ignored; failures map to
 exit codes the controller's RestartPolicy understands (SURVEY.md §5 failure
 detection).
 
-Two differences from the reference: a path the port does not have yet
-(``NotImplementedError``, naming its ROADMAP item) exits 1, permanent,
-where a rendezvous failure exits 42, retryable; and the last line of a
+Two differences from the reference: a ``NotImplementedError`` from the
+rendezvous exits 1, permanent, where any other rendezvous failure exits
+42, retryable (what the port still lacks raises from the user function,
+and exits 1 with every such failure: a mesh larger than the job's
+processes, ``MeshPlanError`` naming ROADMAP A13); and the last line of a
 failure's traceback is written to the status dir's ``TERMINATION_FILE``
 (Kubernetes' termination message), which the kubelet folds into the pod's
 status message.

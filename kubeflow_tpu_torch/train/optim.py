@@ -34,7 +34,9 @@ the norm equals the unsharded one.
 
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Any
 
 import numpy as np
 import torch
@@ -156,6 +158,19 @@ def factored_dims(shape, factored: bool = True,
     return int(sorted_dims[-2]), int(sorted_dims[-1])
 
 
+@dataclasses.dataclass(frozen=True)
+class LeafCut:
+    """How a leaf's tensors are split over ranks on a mesh
+    (``Trainer._leaf_groups``): ``dims`` maps a dim of one tensor to the
+    process group whose ranks hold its slices, and ``whole`` is the group
+    of every rank holding a part of the leaf (its slices and, under
+    ``pipeline``, its other layers), over which its block sums run. The
+    default is a leaf held whole by this process."""
+
+    dims: dict = dataclasses.field(default_factory=dict)
+    whole: Any = None
+
+
 class Adafactor:
     """``optax.chain(clip_by_global_norm(clip), adafactor(schedule,
     min_dim_size_to_factor=128))`` as the reference trainer builds it, with
@@ -167,7 +182,8 @@ class Adafactor:
 
     A "block" is one leaf of the reference's tree: with scan-stacked
     layers the stack of one projection over every layer. So ``groups``
-    lists each leaf as ``(stacked shape, [its tensors])``; its factored
+    lists each leaf as ``(stacked shape, [its tensors], LeafCut)``; its
+    factored
     axes come from the stacked shape, and its block RMS and parameter
     scale are taken over all its tensors. In order, per leaf:
 
@@ -180,26 +196,42 @@ class Adafactor:
     4. u = lr(count) * u;
     5. u *= max(rms(p), 1e-3) (rms(p) when above 1e-3, else 1e-3);
     6. p += -u.
+
+    On a mesh each tensor is this rank's shard, and the shape is still
+    the whole leaf's (every layer's, each tensor unsharded), so the
+    factored axes are the unsharded tree's. A mean over a split dim is the
+    local sum all-reduced over the group that splits it (``LeafCut.dims``,
+    keyed by the parameter's dim), over the whole size; the
+    block sums of u and p are all-reduced over every rank holding part of
+    the leaf; the global norm weighs each local square sum as ``AdamW``'s
+    (``norm_weights``). The moments are shaped like the shards, minus the
+    dim each reduces.
     """
 
     def __init__(self, groups, *, learning_rate: float, warmup_steps: int,
                  decay_steps: int, grad_clip_norm: float = 1.0,
                  min_dim_size_to_factor: int = 128, decay_rate: float = 0.8,
                  eps: float = 1e-30, clipping_threshold: float = 1.0,
-                 min_scale: float = 1e-3):
+                 min_scale: float = 1e-3,
+                 norm_weights: list[float] | None = None):
         self.lr, self.warmup, self.decay_steps = (
             learning_rate, warmup_steps, decay_steps)
         self.clip, self.decay_rate, self.eps = grad_clip_norm, decay_rate, eps
         self.threshold, self.min_scale = clipping_threshold, min_scale
+        self.norm_weights = norm_weights
+        #: each leaf's (tensors, factored axes of the stacked shape, of one
+        #: tensor, stacked shape, ``LeafCut``)
         self.groups = []
         self.v_row, self.v_col, self.v = [], [], []
-        for shape, parts in groups:
+        for shape, parts, cut in groups:
             parts = list(parts)
             shape = tuple(shape)
-            layered = tuple(parts[0].shape) != shape
-            if layered and shape != (len(parts), *parts[0].shape):
+            layered = len(shape) == parts[0].dim() + 1
+            one = tuple(parts[0].shape)
+            if cut.whole is None and shape != ((len(parts), *one)
+                                               if layered else one):
                 raise ValueError(f"leaf of shape {shape} from {len(parts)} "
-                                 f"tensors of {tuple(parts[0].shape)}")
+                                 f"tensors of {one}")
             dims = factored_dims(shape, True, min_dim_size_to_factor)
             off = 1 if layered else 0
             if dims is not None and off and 0 in dims:
@@ -207,8 +239,8 @@ class Adafactor:
                     f"factoring leaf {shape} over its layer axis")
             # the factored axes within one tensor of the leaf
             local = None if dims is None else (dims[0] - off, dims[1] - off)
-            self.groups.append((parts, dims, local))
-            for p in parts:
+            self.groups.append((parts, dims, local, shape, cut))
+            for p in map(_local, parts):
                 if local is None:
                     self.v_row.append(None)
                     self.v_col.append(None)
@@ -218,58 +250,99 @@ class Adafactor:
                     self.v_row.append(torch.zeros_like(p.sum(d0)))
                     self.v_col.append(torch.zeros_like(p.sum(d1)))
                     self.v.append(None)
-        self.params = [p for parts, _, _ in self.groups for p in parts]
+        self.params = [p for parts, *_ in self.groups for p in parts]
         self.count = 0
 
     @staticmethod
-    def _rms(tensors) -> torch.Tensor:
-        n = sum(t.numel() for t in tensors)
-        return torch.sqrt(sum(t.square().sum() for t in tensors) / n)
+    def _mean(tensors, dim: int, size: int, group) -> list:
+        """``t.mean(dim)`` of each tensor of a leaf, whose dim ``dim`` holds
+        ``size`` elements in all: one all-reduce of their local sums over
+        ``group``, the ranks that split that dim (None: none does)."""
+        if group is None:
+            return [t.mean(dim) for t in tensors]
+        import torch.distributed as dist
+
+        sums = torch.stack([t.sum(dim) for t in tensors])
+        dist.all_reduce(sums, group=group)
+        return list(sums / size)
+
+    def moment_drops(self) -> dict[str, list]:
+        """{moment: for each parameter, the dim of it that the moment
+        reduces away (None: shaped like it, or no moment)}: how a
+        checkpoint gathers and lays out each one."""
+        out: dict[str, list] = {"v_row": [], "v_col": [], "v": []}
+        for parts, _, local, *_ in self.groups:
+            for _ in parts:
+                out["v_row"].append(None if local is None else local[1])
+                out["v_col"].append(None if local is None else local[0])
+                out["v"].append(None)
+        return out
 
     @torch.no_grad()
     def step(self) -> torch.Tensor:
         """Apply one update from the params' ``.grad``; returns the global
         grad norm before clipping (a 0-d tensor on the params' device)."""
         f32 = np.float32
-        norm = _global_norm(p.grad for p in self.params)
+        grads = [_local(p.grad) for p in self.params]
+        norm = _global_norm(grads, self.norm_weights)
         lr = warmup_cosine_decay(self.count, self.lr, self.warmup,
                                  self.decay_steps)
         decay = f32(1.0) - f32(self.count + 1) ** f32(-self.decay_rate)
         d, one_minus_d = float(decay), float(f32(1.0) - decay)
         i = 0
-        for parts, dims, local in self.groups:
-            updates = []
-            for p in parts:
-                g = p.grad
-                g = torch.where(norm < self.clip, g, (g / norm) * self.clip)
-                g2 = g * g + self.eps
-                if local is None:
-                    v = self.v[i]
+        for parts, _, local, shape, cut in self.groups:
+            n = len(parts)
+            gs = [torch.where(norm < self.clip, g, (g / norm) * self.clip)
+                  for g in grads[i:i + n]]
+            g2s = [g * g + self.eps for g in gs]
+            if local is None:
+                updates = []
+                for v, g, g2 in zip(self.v[i:i + n], gs, g2s):
                     v.copy_(d * v + one_minus_d * g2)
-                    u = g * v ** -0.5
-                else:
-                    d1, d0 = local
-                    vr, vc = self.v_row[i], self.v_col[i]
-                    vr.copy_(d * vr + one_minus_d * g2.mean(d0))
-                    vc.copy_(d * vc + one_minus_d * g2.mean(d1))
-                    reduced_d1 = d1 - 1 if d1 > d0 else d1
-                    row_col_mean = vr.mean(reduced_d1, keepdim=True)
-                    row_factor = (vr / row_col_mean) ** -0.5
-                    col_factor = vc ** -0.5
-                    u = (g * row_factor.unsqueeze(d0)
-                         * col_factor.unsqueeze(d1))
-                updates.append(u)
-                i += 1
-            denom = torch.clamp_min(self._rms(updates) / self.threshold, 1.0)
-            rms_p = self._rms(parts)
+                    updates.append(g * v ** -0.5)
+            else:
+                d1, d0 = local
+                full = shape[len(shape) - gs[0].dim():]
+                vrs, vcs = self.v_row[i:i + n], self.v_col[i:i + n]
+                rows = self._mean(g2s, d0, full[d0], cut.dims.get(d0))
+                cols = self._mean(g2s, d1, full[d1], cut.dims.get(d1))
+                for vr, vc, r, c in zip(vrs, vcs, rows, cols):
+                    vr.copy_(d * vr + one_minus_d * r)
+                    vc.copy_(d * vc + one_minus_d * c)
+                # v_row's dim that was the parameter's d1; the group that
+                # splits it is d1's
+                reduced_d1 = d1 - 1 if d1 > d0 else d1
+                means = self._mean(vrs, reduced_d1, full[d1],
+                                   cut.dims.get(d1))
+                updates = [
+                    g * ((vr / m.unsqueeze(reduced_d1)) ** -0.5).unsqueeze(d0)
+                    * (vc ** -0.5).unsqueeze(d1)
+                    for g, vr, vc, m in zip(gs, vrs, vcs, means)]
+            held = [_local(p) for p in parts]
+            if cut.whole is None:
+                rms_u, rms_p = self._rms(updates), self._rms(held)
+            else:
+                import torch.distributed as dist
+
+                sq = torch.stack([sum(t.square().sum() for t in updates),
+                                  sum(t.square().sum() for t in held)])
+                dist.all_reduce(sq, group=cut.whole)
+                rms_u, rms_p = torch.sqrt(sq / math.prod(shape))
+            denom = torch.clamp_min(rms_u / self.threshold, 1.0)
             scale = torch.where(rms_p <= self.min_scale,
                                 torch.full_like(rms_p, self.min_scale), rms_p)
-            for p, u in zip(parts, updates):
+            for p, u in zip(held, updates):
                 u = lr * (u / denom)
                 u = u * scale
                 p.add_(u * -1)
+            i += n
         self.count += 1
         return norm
+
+    @staticmethod
+    def _rms(tensors) -> torch.Tensor:
+        n = sum(t.numel() for t in tensors)
+        return torch.sqrt(sum(t.square().sum() for t in tensors) / n)
 
     def state_dict(self) -> dict:
         return {"count": self.count, "v_row": list(self.v_row),

@@ -51,8 +51,12 @@ embedding's backward after it, the head and the loss in its last stage;
 ``pipeline_interleave`` model chunks a rank), both composing with
 ``accum_steps``, tied embeddings and the MoE balancing loss
 (``aux_loss_coef`` / (layers x microbatches) on each microbatch's sum).
-Adafactor on a mesh that shards parameters raises (ROADMAP A5e), a
-pipeline stage's included.
+Beside ``fsdp`` a stage is gathered whole for each step and its gradients
+averaged over the FSDP2 dims once, after the last microbatch
+(``Layout.gathered``). Adafactor runs on any of these layouts: each leaf's
+factored axes are the unsharded tree's, its means and block sums
+all-reduced over the ranks that split it (``optim.LeafCut``), and its
+moments checkpoint whole.
 """
 
 from __future__ import annotations
@@ -75,7 +79,7 @@ from ..parallel import mesh as meshlib
 from ..parallel import sharding as shardlib
 from . import checkpoint as ckptlib
 from . import data as datalib
-from .optim import Adafactor, AdamW
+from .optim import Adafactor, AdamW, LeafCut
 
 #: dense bf16 peak TFLOP/s by ``torch.cuda.get_device_name``, for MFU
 PEAK_TFLOPS = {"NVIDIA H100 80GB HBM3": 989.0}
@@ -213,12 +217,6 @@ class Trainer:
         self.batch_index, self.batch_count = meshlib.batch_sharding(
             self.mesh)
         meshlib.local_batch_size(self.mesh, cfg.global_batch)  # divides
-        if (cfg.optimizer == "adafactor" and self.layout is not None
-                and any(self.layout.sharded_over(k)
-                        for k in self.layout.shardings)):
-            raise NotImplementedError(
-                "Adafactor's factored moments over sharded parameters are "
-                "not ported yet (ROADMAP A5e); use optimizer='adamw'")
         self.opt: Optional[AdamW | Adafactor] = None
         self.ckpt = (ckptlib.CheckpointManager(
             cfg.checkpoint_dir, save_interval_steps=cfg.save_interval_steps)
@@ -266,19 +264,56 @@ class Trainer:
         return [(n, p) for n, p in self.model.named_parameters()
                 if p.requires_grad]
 
-    def _leaf_groups(self) -> list[tuple[tuple, list]]:
-        """The trainable params as the reference tree's leaves (scan-
-        stacked): (stacked shape, [per-layer params]) in tree order."""
+    def _trains(self, name: str) -> bool:
+        """Whether parameter ``name`` (any stage's) is trained: the
+        adapters alone under LoRA."""
+        return self.cfg.model.lora_rank == 0 or llamalib.is_lora_path(name)
+
+    def _leaves(self, names) -> dict[tuple, list[str]]:
+        """``names`` grouped into the reference tree's leaves (scan-
+        stacked), in tree order: {(layered, path): [names]}."""
         groups: dict[tuple, list] = {}
         moe = self.cfg.model.moe_experts > 0
-        for name, p in self._trainable():
+        for name in names:
             layer, path = convert.tree_path(name, moe)
-            groups.setdefault((layer is not None, path), []).append(p)
+            groups.setdefault((layer is not None, path), []).append(name)
+        return groups
+
+    def _leaf_groups(self) -> list[tuple]:
+        """The trainable params as the reference tree's leaves (scan-
+        stacked): (stacked shape, [per-layer params], ``optim.LeafCut``)
+        in tree order; on a mesh the shape is the whole leaf's."""
+        params = dict(self._trainable())
         out = []
-        for (layered, _), parts in groups.items():
-            shape = tuple(parts[0].shape)
-            out.append(((len(parts), *shape) if layered else shape, parts))
+        for (layered, _), names in self._leaves(params).items():
+            parts = [params[n] for n in names]
+            if self.layout is None:
+                shape = tuple(parts[0].shape)
+                out.append(((len(parts), *shape) if layered else shape,
+                            parts, LeafCut()))
+                continue
+            lay = self.layout
+            shape = lay.full_shapes[names[0]]
+            if layered:
+                shape = (self.cfg.model.num_layers, *shape)
+            cut = {d: g.group for d, axes in lay.cut_axes(names[0]).items()
+                   if (g := lay.group(axes)) is not None}
+            whole = lay.group(sorted(lay.sharded_over(names[0])))
+            out.append((shape, parts, LeafCut(
+                cut, None if whole is None else whole.group)))
         return out
+
+    def _opt_order(self) -> list[str]:
+        """The whole model's trainable parameter names in the order of the
+        unsharded optimizer's state (AdamW: the model's; Adafactor: the
+        tree's leaves)."""
+        names = [k for k in (self.layout.full_shapes if self.layout
+                             else dict(self.model.named_parameters()))
+                 if self._trains(k)]
+        if self.cfg.optimizer == "adafactor":
+            names = [n for group in self._leaves(names).values()
+                     for n in group]
+        return names
 
     def _fresh_optimizer(self) -> None:
         cfg = self.cfg
@@ -287,7 +322,11 @@ class Trainer:
                      decay_steps=max(cfg.steps, cfg.warmup_steps + 1),
                      grad_clip_norm=cfg.grad_clip_norm)
         if cfg.optimizer == "adafactor":
-            self.opt = Adafactor(self._leaf_groups(), **sched)
+            groups = self._leaf_groups()
+            params = [p for g in groups for p in g[1]]
+            self.opt = Adafactor(
+                groups, norm_weights=(self.layout.norm_weights(params)
+                                      if self.layout else None), **sched)
         else:
             params = [p for _, p in self._trainable()]
             self.opt = AdamW(
@@ -339,12 +378,17 @@ class Trainer:
         by leaf in the reference's sorted (scan-stacked) path order, B
         zeros: the reference's ``_fresh_adapters``."""
         cfg = self.cfg.model
-        _, lora = llamalib.split_lora(self.model)
+        # the whole model's shapes: a laid-out rank holds some of them
+        shapes = (self.layout.full_shapes if self.layout is not None else
+                  {k: tuple(p.shape)
+                   for k, p in self.model.named_parameters()})
         leaves: dict[tuple, dict[int, tuple]] = {}
-        for key, t in lora.items():
+        for key, shape in shapes.items():
+            if not llamalib.is_lora_path(key):
+                continue
             layer, path = convert.tree_path(key, cfg.moe_experts > 0)
             leaves.setdefault(("layers", "block", *path), {})[layer] = (
-                key, tuple(t.shape))
+                key, shape)
         rng = np.random.RandomState(0)
         out = {}
         for path, by_layer in sorted(leaves.items()):
@@ -387,32 +431,40 @@ class Trainer:
         names = {id(p): k for k, p in self.model.named_parameters()}
         return [names[id(p)] for p in self.opt.params]
 
+    def _moment_drops(self) -> dict[str, list]:
+        """{moment: per parameter, the dim it reduces away or None}."""
+        if isinstance(self.opt, Adafactor):
+            return self.opt.moment_drops()
+        return {what: [None] * len(self.opt.params) for what in ("mu", "nu")}
+
     def _opt_state_full(self) -> dict:
-        """The optimizer's state with every moment unsharded, in the whole
-        model's parameter order (every rank joins)."""
+        """The optimizer's state with every moment unsharded, in the
+        unsharded optimizer's order (``_opt_order``; every rank joins)."""
         state = self.opt.state_dict()
         if self.layout is None:
             return state
-        keys = self._opt_keys()
-        for what in ("mu", "nu"):
-            state[what] = list(self.layout.all_stages({
-                k: self.layout.gather_full(k, t, like=p).cpu()
-                for k, t, p in zip(keys, state[what], self.opt.params)
-            }).values())
+        keys, order = self._opt_keys(), self._opt_order()
+        for what, drops in self._moment_drops().items():
+            full = self.layout.all_stages({
+                k: None if t is None else self.layout.gather_full(
+                    k, t, like=p, drop=drop).cpu()
+                for k, t, p, drop in zip(keys, state[what], self.opt.params,
+                                         drops)})
+            state[what] = [full[k] for k in order]
         return state
 
     def _load_opt_state(self, state: dict) -> None:
         """A full optimizer state (``_opt_state_full``'s) into the
         optimizer, each moment this rank's shard (every rank joins)."""
         if self.layout is not None:
-            keys = self._opt_keys()
-            order = self.layout.all_stages(dict.fromkeys(keys))
+            keys, order = self._opt_keys(), self._opt_order()
             state = dict(state)
-            for what in ("mu", "nu"):
+            for what, drops in self._moment_drops().items():
                 full = dict(zip(order, state[what]))
                 state[what] = [
-                    self.layout.to_param_layout(k, full[k], p)
-                    for k, p in zip(keys, self.opt.params)]
+                    None if full[k] is None else self.layout.to_param_layout(
+                        k, full[k], p, drop=drop)
+                    for k, p, drop in zip(keys, self.opt.params, drops)]
         self.opt.load_state_dict(state)
 
     def _to_ckpt(self) -> dict:
@@ -574,6 +626,13 @@ class Trainer:
         if not isinstance(tokens, torch.Tensor):
             tokens = np.asarray(tokens)
         tokens = torch.as_tensor(tokens, device=self.device)
+        if self.layout is None:
+            return self._accumulate(tokens)
+        with self.layout.gathered():
+            return self._accumulate(tokens)
+
+    def _accumulate(self, tokens: torch.Tensor) -> torch.Tensor:
+        """``loss_and_grads`` over ``accum_steps`` microbatches."""
         accum = self.cfg.accum_steps
         grads = (self._loss_1f1b if self.model.pipe is not None
                  and self.cfg.pipeline_schedule == "1f1b"

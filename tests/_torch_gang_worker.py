@@ -168,17 +168,20 @@ def module_engine(sd: dict) -> dict:
 
 
 def run_sharded(rank: int, ports: list, cases: dict, sd: dict,
-                prompts: list, new: int, warm: list) -> dict:
+                prompts: list, new: int, warm: list,
+                case_sds: dict | None = None) -> dict:
     """``tests/test_torch_sharded.py``: the logits of a forward pass, the
     ``LlamaGenerator``'s tokens, and one gang run per engine variant
-    (``cases``: name -> (cfg kwargs, engine kwargs))."""
+    (``cases``: name -> (cfg kwargs, engine kwargs)), on ``sd`` or the
+    case's own weights in ``case_sds`` (int8 ones, say)."""
     _setup()
     out = {"logits": forward_logits(rank, {}, sd, [prompts[2]]),
            "generator": generator_tokens(sd, prompts, new),
            "module_engine": module_engine(sd)}
     for (name, (cfg_kw, kw)), port in zip(cases.items(), ports):
-        out[name] = gang_case(rank, port, cfg_kw, sd, kw, prompts, new,
-                              warm)
+        out[name] = gang_case(rank, port, cfg_kw,
+                              (case_sds or {}).get(name, sd), kw, prompts,
+                              new, warm)
     return out
 
 

@@ -32,6 +32,7 @@ ROUTER_SCALE = 50.0
 #: the trainer's loss-curve cases: name -> (mesh, num_slices, TrainConfig
 #: fields, model fields)
 PIPE = {"pipeline": 2, "data": 2}
+PIPE_FSDP = {"pipeline": 2, "fsdp": 2}
 TRAIN_CASES = {
     "gpipe": (PIPE, 1, {}, {}),
     "1f1b": (PIPE, 1, {"pipeline_schedule": "1f1b",
@@ -50,10 +51,19 @@ TRAIN_CASES = {
     "moe_1f1b": (PIPE, 1, {"pipeline_schedule": "1f1b",
                            "num_microbatches": 4}, MOE),
     "seq_fsdp": ({"seq": 2, "fsdp": 2}, 1, {}, {"attention_impl": "ring"}),
+    # FSDP2 inside each stage: the stage gathered whole for a step, its
+    # gradients averaged over fsdp once, after the last microbatch
+    "gpipe_fsdp": (PIPE_FSDP, 1, {}, {}),
+    "1f1b_fsdp": (PIPE_FSDP, 1, {"pipeline_schedule": "1f1b",
+                                 "num_microbatches": 4},
+                  {"tie_embeddings": True}),
     "pipeline_seq_dcn": ({"pipeline": 2, "seq": 2}, 2,
                          {"pipeline_schedule": "1f1b"},
                          {"attention_impl": "ring"}),
 }
+#: the cases whose params after the steps are held to the reference's too:
+#: the gradient shards FSDP2 takes from the gathered stage
+PARAM_CASES = ("gpipe_fsdp", "1f1b_fsdp")
 
 
 def _setup():
@@ -266,7 +276,11 @@ def _loss_curve(name: str, inits: dict) -> dict:
         loss, norm = t.step(src.local_batch(step)["tokens"])
         losses.append(float(loss))
         norms.append(float(norm))
-    return {"losses": losses, "norms": norms, "stage": t.layout.stage}
+    out = {"losses": losses, "norms": norms, "stage": t.layout.stage}
+    if name in PARAM_CASES:
+        out["params"] = {k: v.numpy()
+                         for k, v in t.full_state_dict().items()}
+    return out
 
 
 def init_key(model_kw: dict) -> str:
@@ -276,16 +290,16 @@ def init_key(model_kw: dict) -> str:
     return "tied" if model_kw.get("tie_embeddings") else "dense"
 
 
-def _checkpoint(ckpt_dir: str, init: dict) -> dict:
-    """Train 2 steps on ``{"pipeline": 2, "data": 2}`` (1F1B, 2 chunks a
-    stage) with checkpoints, restore onto ``{"fsdp": 2, "model": 2}``,
-    then one more step on each."""
+def _checkpoint(ckpt_dir: str, init: dict, mesh: dict = PIPE) -> dict:
+    """Train 2 steps on ``mesh`` (1F1B, 2 chunks a stage) with
+    checkpoints, restore onto ``{"fsdp": 2, "model": 2}``, then one more
+    step on each."""
     import dataclasses
 
     from kubeflow_tpu_torch.train.trainer import Trainer
 
     cfg = dataclasses.replace(
-        train_config(PIPE, steps=2, train_kw={
+        train_config(mesh, steps=2, train_kw={
             "pipeline_schedule": "1f1b", "num_microbatches": 2,
             "pipeline_interleave": 2}),
         checkpoint_dir=ckpt_dir)
@@ -318,4 +332,6 @@ def run_pipeline(rank: int, inits: dict, ckpt_dir: str) -> dict:
     for name in TRAIN_CASES:
         out[name] = _loss_curve(name, inits)
     out["checkpoint"] = _checkpoint(ckpt_dir, inits["dense"])
+    out["checkpoint_fsdp"] = _checkpoint(f"{ckpt_dir}-fsdp", inits["dense"],
+                                         PIPE_FSDP)
     return out

@@ -302,7 +302,7 @@ def test_adafactor_matches_optax(clip):
         parts = list(v.unbind(0)) if k == "stacked" else [v]
         for p in parts:
             p.requires_grad_()
-        groups.append((tuple(v.shape), parts))
+        groups.append((tuple(v.shape), parts, pt.optim.LeafCut()))
     opt = pt.optim.Adafactor(groups, learning_rate=lr, warmup_steps=warmup,
                              decay_steps=max(steps, warmup + 1),
                              grad_clip_norm=clip)
@@ -312,13 +312,13 @@ def test_adafactor_matches_optax(clip):
         updates, state = tx.update(jax.tree.map(jnp.asarray, grads), state,
                                    jp)
         jp = optax.apply_updates(jp, updates)
-        for (shape, parts), (k, g) in zip(groups, grads.items()):
+        for (shape, parts, _), (k, g) in zip(groups, grads.items()):
             gs = list(torch.tensor(g).unbind(0)) if k == "stacked" else \
                 [torch.tensor(g)]
             for p, gp in zip(parts, gs):
                 p.grad = gp.clone()
         opt.step()
-        for (shape, parts), k in zip(groups, params):
+        for (shape, parts, _), k in zip(groups, params):
             got = torch.stack(parts).detach().numpy().reshape(shape)
             np.testing.assert_allclose(got, np.asarray(jp[k]), rtol=1e-6,
                                        atol=1e-7, err_msg=f"{k} step {step}")

@@ -11,13 +11,19 @@ parallel/{mesh,sharding}.py``) against the reference's, in one process.
   the reference's extra leading dim);
 - ``reshard_plan`` for ``tiny()`` from ``{"fsdp": 2}`` to ``{"model": 2}``:
   the reference's entries, and its error for an illegal degree;
-- on a one-rank gloo group: ``build_mesh`` refuses a mesh larger than the
-  world naming ROADMAP A13 (a ``seq`` mesh of two on one rank too), the
-  unported features raise naming their items (and a ``seq`` axis without
-  ring attention, or a stack the pipeline stages do not divide, raise),
-  and the ``Trainer`` on a one-rank ``fsdp`` mesh (FSDP2 over
-  one rank, as a job with one card per process runs it) takes the unwrapped
-  model's steps;
+- what the layout cannot take raises: a ``seq`` axis without ring
+  attention, a stack the pipeline stages do not divide, and a mesh larger
+  than the job's processes (``plan_mesh``'s ``MeshPlanError``; on a
+  one-rank gloo group ``build_mesh``'s, naming ROADMAP A13, a ``seq``
+  mesh of two on one rank too);
+- ``shard_model`` lays out what it once refused, on a mesh of fake axes
+  over the one-rank group: LoRA and int8 weights under ``model`` (every
+  kernel, scale and adapter factor sliced as its logical axes say),
+  the capacity MoE dispatch under ``expert``, and FSDP2 beside
+  ``pipeline`` (one FSDP2 unit at the root, the stage gathered whole);
+- the ``Trainer`` on a one-rank ``fsdp`` mesh (FSDP2 over one rank, as a
+  job with one card per process runs it) takes the unwrapped model's
+  steps, with AdamW and with Adafactor;
 - ``Llama.init_streamed``, the module-at-a-time init a sharded trainer
   draws from, gives ``init_weights``' values exactly.
 
@@ -241,12 +247,21 @@ def one_rank_group():
 
 
 def _fake_mesh(axes):
-    """Just the mesh queries ``shard_model`` makes before it lays out."""
+    """Just the mesh queries ``shard_model`` makes: the axes' names and
+    sizes, and, on the one-rank group, coordinate 0 and that group for
+    every axis."""
     names = tuple(axes)
+
+    def group(name):
+        import torch.distributed as dist
+
+        return dist.group.WORLD
+
     return types.SimpleNamespace(
         mesh_dim_names=names,
         mesh=types.SimpleNamespace(shape=tuple(axes.values())),
-        size=lambda i: tuple(axes.values())[i])
+        size=lambda i: tuple(axes.values())[i],
+        get_local_rank=lambda name: 0, get_group=group)
 
 
 def test_unported_axes_and_features_raise_naming_items():
@@ -258,17 +273,84 @@ def test_unported_axes_and_features_raise_naming_items():
     three = pt.llama.Llama(pt.llama.tiny(num_layers=3), device="cpu")
     with pytest.raises(ValueError, match="3 layers not divisible by 2"):
         pt.sharding.shard_model(three, _fake_mesh({"pipeline": 2}))
-    with pytest.raises(NotImplementedError, match="ROADMAP A5g"):
-        pt.sharding.shard_model(dense, _fake_mesh({"pipeline": 2,
-                                                   "fsdp": 2}))
-    lora = pt.llama.Llama(pt.llama.tiny(lora_rank=2), device="cpu")
-    int8 = pt.llama.Llama(pt.llama.tiny(quant_weights=True), device="cpu")
-    for model in (lora, int8):
-        with pytest.raises(NotImplementedError, match="ROADMAP A5c"):
-            pt.sharding.shard_model(model, _fake_mesh({"model": 2}))
-    capacity = pt.llama.Llama(pt.llama.tiny(moe_experts=4), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A5d"):
-        pt.sharding.shard_model(capacity, _fake_mesh({"expert": 2}))
+    # more devices than the job has (A13's MeshPlanError on a group)
+    with pytest.raises(pt.mesh.MeshPlanError) as err:
+        pt.mesh.plan_mesh({"fsdp": 2, "model": 2}, num_devices=2)
+    with pytest.raises(ref_mesh.MeshPlanError) as want:
+        ref_mesh.plan_mesh({"fsdp": 2, "model": 2}, num_devices=2)
+    assert str(err.value) == str(want.value)
+
+
+class _FsdpMesh:
+    """A fake ``{"pipeline": 2, "fsdp": 2}`` mesh whose FSDP2 submesh is
+    the real one-rank mesh."""
+
+    def __init__(self, fake, real):
+        self._fake, self._real = fake, real
+
+    def __getattr__(self, name):
+        return getattr(self._fake, name)
+
+    def __getitem__(self, dims):
+        return self._real
+
+
+@pytest.mark.parametrize("case", ["lora", "int8", "capacity",
+                                  "pipeline_fsdp"])
+def test_former_refusals_lay_out(one_rank_group, case):
+    """The layouts ``shard_model`` refused until ROADMAP A5c, A5d and A5g
+    were ported now lay out: every key of an adapter or an int8 kernel is
+    this rank's slice of what its logical axes split (``model``: heads,
+    kv heads, mlp, vocab; ``lora`` and the in dims of a column-parallel
+    kernel whole), the experts of the capacity dispatch split over
+    ``expert``, and beside ``pipeline`` FSDP2 is one unit at the root."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.fsdp import FSDPModule
+
+    pt = _port()
+    torch = pt.torch
+    kw = {"lora": dict(lora_rank=2, lora_targets=("wq", "wv", "wo",
+                                                  "w_down")),
+          "int8": dict(quant_weights=True),
+          "capacity": dict(moe_experts=4, moe_dispatch="dense"),
+          "pipeline_fsdp": dict(num_layers=4)}[case]
+    axes = {"lora": {"model": 2}, "int8": {"model": 2},
+            "capacity": {"expert": 2},
+            "pipeline_fsdp": {"pipeline": 2, "fsdp": 2}}[case]
+    cfg = pt.llama.tiny(**kw)
+    whole = pt.llama.Llama(cfg, device="cpu")
+    full = {k: tuple(v.shape) for k, v in whole.state_dict().items()}
+    mesh = _fake_mesh(axes)
+    if case == "pipeline_fsdp":
+        mesh = _FsdpMesh(mesh, DeviceMesh("cpu", torch.zeros(
+            1, dtype=torch.int), mesh_dim_names=("fsdp",)))
+    model = pt.llama.Llama(cfg, device="meta")
+    layout = pt.sharding.shard_model(model, mesh)
+    got = {k: tuple(p.shape) for k, p in model.named_parameters()}
+    if case == "pipeline_fsdp":
+        assert layout.stage == [0, 1] and layout.gathers
+        assert isinstance(model, FSDPModule)
+        assert not any(isinstance(m, FSDPModule)
+                       for m in model.modules() if m is not model)
+        assert set(got) == {k for k in full if not k.startswith(
+            ("layers.2.", "layers.3."))}
+        return
+    split = {"lora": ("heads", "kv_heads", "mlp", "vocab"),
+             "int8": ("heads", "kv_heads", "mlp", "vocab"),
+             "capacity": ("expert",)}[case]
+    moe = cfg.moe_experts > 0
+    assert set(got) == set(full)
+    for key, shape in full.items():
+        names = pt.sharding.param_axes(key, moe)
+        want = tuple(n // 2 if a in split else n
+                     for n, a in zip(shape, names))
+        assert got[key] == want, key
+    if case == "lora":
+        # both kinds of product carry adapters: a whole factor each
+        for key in ("layers.0.attn.wq_lora_a", "layers.0.attn.wo_lora_b"):
+            assert got[key] == full[key], key
+    if case == "int8":
+        assert got["head.unembedding_scale"] == (cfg.vocab_size // 2,)
 
 
 def test_one_rank_meshes(one_rank_group):
@@ -288,9 +370,6 @@ def test_one_rank_meshes(one_rank_group):
                       steps=3, warmup_steps=1, mu_dtype=None)
     with pytest.raises(pt.mesh.MeshPlanError, match="ROADMAP A13"):
         Trainer(TrainConfig(mesh_axes={"seq": 2}), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A5e"):
-        Trainer(TrainConfig(model=pt.llama.tiny(), optimizer="adafactor",
-                            mesh_axes={"fsdp": 1}), device="cpu")
     plain = Trainer(cfg, device="cpu")
     assert plain.mesh is None
     sharded = Trainer(dataclasses.replace(cfg, mesh_axes={"fsdp": 1}),
@@ -310,6 +389,36 @@ def test_one_rank_meshes(one_rank_group):
     full = sharded.full_state_dict()
     for k, v in plain.model.state_dict().items():
         torch.testing.assert_close(full[k], v, rtol=1e-5, atol=1e-6)
+
+
+def test_one_rank_fsdp_adafactor(one_rank_group):
+    """Adafactor over FSDP2's one-rank shards (a width whose projections
+    factor) takes the unwrapped model's steps."""
+    from kubeflow_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    pt = _port()
+    cfg = TrainConfig(model=pt.llama.tiny(hidden_size=128,
+                                          intermediate_size=256,
+                                          head_dim=32),
+                      optimizer="adafactor", global_batch=4, seq_len=16,
+                      steps=3, warmup_steps=1)
+    plain = Trainer(cfg, device="cpu")
+    sharded = Trainer(dataclasses.replace(cfg, mesh_axes={"fsdp": 1}),
+                      device="cpu")
+    plain.init_state(0)
+    sharded.init_state(0)
+    assert any(v is not None for v in sharded.opt.v_row)
+    src = plain.data_source()
+    for step in range(cfg.steps):
+        tokens = src.local_batch(step)["tokens"]
+        want, want_norm = plain.step(tokens)
+        got, got_norm = sharded.step(tokens)
+        np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+        np.testing.assert_allclose(float(got_norm), float(want_norm),
+                                   rtol=1e-6)
+    full = sharded.full_state_dict()
+    for k, v in plain.model.state_dict().items():
+        pt.torch.testing.assert_close(full[k], v, rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("kw", [{}, {"moe_experts": 4, "moe_top_k": 2},

@@ -21,13 +21,15 @@ One spawn (``parallel.dryrun.spawn``: four gloo processes on the CPU,
   same mesh at rtol 1e-4 on ``{"pipeline": 2, "data": 2}`` (GPipe, 1F1B,
   1F1B with 2 chunks a stage, accumulation x 1F1B, tied embeddings x
   1F1B), the MoE balancing loss under both schedules on ``{"pipeline": 2,
-  "model": 2}``, ``{"seq": 2, "fsdp": 2}`` (ring attention), and
+  "model": 2}``, ``{"seq": 2, "fsdp": 2}`` (ring attention),
   ``{"pipeline": 2, "seq": 2}`` over two slices (the planner puts
-  ``pipeline`` on DCN);
+  ``pipeline`` on DCN), and ``{"pipeline": 2, "fsdp": 2}`` (FSDP2 inside
+  the stages) under GPipe and under 1F1B with tied embeddings;
 - a checkpoint written on ``{"pipeline": 2, "data": 2}`` (interleaved
-  stages) restores bit for bit on ``{"fsdp": 2, "model": 2}``, params and
-  both moments in the whole model's order, and the next step's loss
-  agrees (rtol 1e-6).
+  stages), and one written on ``{"pipeline": 2, "fsdp": 2}`` (each stage's
+  FSDP2 shards gathered whole), restores bit for bit on ``{"fsdp": 2,
+  "model": 2}``, params and both moments in the whole model's order, and
+  the next step's loss agrees (rtol 1e-6).
 
 torch and the port are imported inside the tests.
 """
@@ -195,7 +197,10 @@ def test_executors_match_sequential(ranks, case):
     assert covered == set(range(worker.EXEC["layers"]))
 
 
-def _ref_losses(name, init):
+def _ref_losses(name, init, params=False):
+    """The reference ``Trainer``'s losses in case ``name`` from ``init``;
+    with ``params``, also its grad norms and its params after the steps
+    (numpy tree)."""
     mesh, slices, train_kw, model_kw = worker.TRAIN_CASES[name]
     cfg = ref_train.TrainConfig(
         model=ref_llama.tiny(**_ref_model_kw(model_kw)), mesh_axes=mesh,
@@ -210,11 +215,15 @@ def _ref_losses(name, init):
     step_fn = t.compiled_step()
     source = ref_data.SyntheticLm(worker.BATCH, worker.SEQ,
                                   cfg.model.vocab_size)
-    out = []
+    out, norms = [], []
     for batch in ref_data.device_batches(source, t.batch_sharding,
                                          worker.STEPS):
         state, metrics = step_fn(state, batch)
         out.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    if params:
+        return out, norms, jax.tree.map(np.array,
+                                        nn.meta.unbox(state["params"]))
     return out
 
 
@@ -229,6 +238,34 @@ def test_loss_curve_matches_reference(ranks, name):
         assert res[name]["losses"] == results[0][name]["losses"]
 
 
+@pytest.mark.parametrize("name", worker.PARAM_CASES)
+def test_pipeline_fsdp_params_match_reference(ranks, name):
+    """FSDP2 inside the stages: the global grad norms and every parameter
+    after the steps against the reference's, each parameter within a
+    thousandth of its largest move (and its own rounding), so a gradient
+    shard handed to the wrong rank or averaged over the wrong ranks shows
+    where the loss hides it (clipping and AdamW do not see a gradient's
+    scale; the norm does)."""
+    from kubeflow_tpu_torch.models import convert
+
+    inits, results = ranks
+    model_kw = worker.TRAIN_CASES[name][3]
+    init = inits[worker.init_key(model_kw)]
+    _, norms, final = _ref_losses(name, init, params=True)
+    cfg = worker.train_config({}, **model_kw).model
+    before = convert.state_dict_from_jax(init, cfg)
+    after = convert.state_dict_from_jax(final, cfg)
+    for res in results:
+        np.testing.assert_allclose(res[name]["norms"], norms, rtol=1e-4)
+        got = res[name]["params"]
+        assert set(got) == set(after)
+        for k, p in got.items():
+            moved = np.abs(after[k].numpy() - before[k].numpy()).max()
+            assert moved > 0, k
+            np.testing.assert_allclose(p, after[k].numpy(), rtol=2 ** -22,
+                                       atol=1e-3 * moved, err_msg=k)
+
+
 def test_stage_layout(ranks):
     """Each rank holds its stage's blocks: contiguous for GPipe, the model
     chunks {d, P+d} under interleaving."""
@@ -238,6 +275,8 @@ def test_stage_layout(ranks):
     stages = {tuple(r["1f1b_interleave"]["stage"]) for r in results}
     assert stages == {(0, 2), (1, 3)}
     assert {tuple(r["seq_fsdp"]["stage"]) for r in results} == {(0, 1, 2, 3)}
+    assert {tuple(r["gpipe_fsdp"]["stage"]) for r in results} == {(0, 1),
+                                                                  (2, 3)}
 
 
 def test_checkpoint_restores_onto_another_mesh(ranks):
@@ -249,6 +288,17 @@ def test_checkpoint_restores_onto_another_mesh(ranks):
         # the whole model's order, whatever the stage held
         assert [k for k in ck["keys"] if k.startswith("layers.")][0] == \
             "layers.0.attn_norm.scale"
+        np.testing.assert_allclose(ck["next_loss"][1], ck["next_loss"][0],
+                                   rtol=1e-6)
+
+
+def test_pipeline_fsdp_checkpoint_restores_onto_another_mesh(ranks):
+    _, results = ranks
+    for res in results:
+        ck = res["checkpoint_fsdp"]
+        assert ck["params_equal"] and ck["opt_equal"]
+        assert ck["count"] == [3, 3]
+        assert ck["keys"] == results[0]["checkpoint"]["keys"]
         np.testing.assert_allclose(ck["next_loss"][1], ck["next_loss"][0],
                                    rtol=1e-6)
 

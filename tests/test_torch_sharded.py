@@ -8,9 +8,12 @@ One spawn (``parallel.dryrun.spawn``) runs every case on two ranks
 (``tests/_torch_gang_worker.py``): rank 0 serves through a ``GangEngine``,
 rank 1 follows. The tests compare, at ``{"model": 2}``:
 
-- the greedy tokens of the slot pool, the paged pool and the int8-KV slot
-  pool (which scatters the scales over the rank's own heads) against the
-  reference's ``mesh_axes`` engine and the port's unsharded engine;
+- the greedy tokens of the slot pool, the paged pool, the int8-KV slot
+  pool (which scatters the scales over the rank's own heads) and the
+  int8-weight slot pool (the reference's ``quantize_for_serving`` weights:
+  each rank's kernels and scales its slices, a row-parallel product
+  scaled before its all-reduce) against the reference's ``mesh_axes``
+  engine and the port's unsharded engine;
 - every program output of the follower, bitwise, against rank 0's;
 - each rank's pool: ``num_kv_heads / 2`` heads, half the unsharded pool's
   bytes; programs run eagerly (gloo), no capture after warmup;
@@ -47,9 +50,10 @@ CASES = {
     "slot_pool": ({}, BASE),
     "paged": ({}, {**BASE, "block_size": 8}),
     "int8_kv": ({"quant_kv": True}, BASE),
+    "int8_weights": ({"quant_weights": True}, BASE),
 }
 #: the variants the reference's mesh engine also serves here
-REFERENCE = ("slot_pool", "int8_kv")
+REFERENCE = ("slot_pool", "int8_kv", "int8_weights")
 SPAWN_TIMEOUT_S = 240
 
 
@@ -70,13 +74,24 @@ def _prompts():
 
 @pytest.fixture(scope="module")
 def weights():
-    """(reference cfg, its numpy params, the port's state dict)."""
+    """(reference cfg, its numpy params, the port's state dict), and as
+    the reference's ``quantize_for_serving`` makes them int8 (the
+    ``"int8"`` entry: the same three)."""
     _, llama, convert, _ = _port()
     cfg = ref_llama.tiny()
     params = ref_llama.Llama(cfg).init(
         jax.random.PRNGKey(0), jnp.ones((1, 8), jnp.int32))["params"]
     params = jax.tree.map(np.asarray, nn.meta.unbox(params))
-    return cfg, params, convert.state_dict_from_jax(params, llama.tiny())
+    qcfg, qparams = ref_llama.quantize_for_serving(cfg, params, kv=False)
+    qparams = jax.tree.map(np.asarray, qparams)
+    return {"plain": (cfg, params,
+                      convert.state_dict_from_jax(params, llama.tiny())),
+            "int8": (qcfg, qparams, convert.state_dict_from_jax(
+                qparams, llama.tiny(quant_weights=True)))}
+
+
+def _weights_of(weights, cfg_kw):
+    return weights["int8" if cfg_kw.get("quant_weights") else "plain"]
 
 
 @pytest.fixture(scope="module")
@@ -86,13 +101,18 @@ def ranks(weights):
     from kubeflow_tpu_torch.utils.net import free_port
 
     ports = [free_port() for _ in CASES]
-    return dryrun.spawn(2, worker.run_sharded, ports, CASES, weights[2],
-                        _prompts(), NEW, WARM, timeout=SPAWN_TIMEOUT_S)
+    case_sds = {name: _weights_of(weights, cfg_kw)[2]
+                for name, (cfg_kw, _) in CASES.items()
+                if cfg_kw.get("quant_weights")}
+    return dryrun.spawn(2, worker.run_sharded, ports, CASES,
+                        weights["plain"][2], _prompts(), NEW, WARM,
+                        case_sds, timeout=SPAWN_TIMEOUT_S)
 
 
 def _unsharded(weights, cfg_kw, kw):
     _, llama, _, continuous = _port()
-    eng = continuous.ContinuousEngine(llama.tiny(**cfg_kw), weights[2],
+    eng = continuous.ContinuousEngine(llama.tiny(**cfg_kw),
+                                      _weights_of(weights, cfg_kw)[2],
                                       device="cpu", **kw)
     return worker._serve(eng, _prompts(), NEW, WARM)
 
@@ -100,8 +120,9 @@ def _unsharded(weights, cfg_kw, kw):
 def _reference(weights, cfg_kw, kw, mesh_axes=None):
     import dataclasses
 
-    cfg = dataclasses.replace(weights[0], **cfg_kw)
-    eng = RefEngine(cfg, weights[1], mesh_axes=mesh_axes, **kw)
+    base, params, _ = _weights_of(weights, cfg_kw)
+    cfg = dataclasses.replace(base, **cfg_kw)
+    eng = RefEngine(cfg, params, mesh_axes=mesh_axes, **kw)
     try:
         eng.warmup(WARM)
         reqs = [eng.submit(p, max_new_tokens=NEW) for p in _prompts()]
@@ -140,7 +161,7 @@ def test_each_rank_pool_holds_half_the_kv_heads(weights, ranks, case):
     cfg_kw, kw = CASES[case]
     whole = _unsharded(weights, cfg_kw, kw)
     for r in ranks:
-        assert r[case]["pool_heads"] == weights[0].num_kv_heads // 2
+        assert r[case]["pool_heads"] == weights["plain"][0].num_kv_heads // 2
         assert 2 * r[case]["kv_pool_bytes"] == whole["kv_pool_bytes"]
     lead = ranks[0][case]
     assert (lead["backend"], lead["graphs"]) == ("gloo", False)
@@ -154,11 +175,12 @@ def test_tp_logits_match_unsharded_and_reference(weights, ranks):
     torch, llama, _, _ = _port()
     tokens = [_prompts()[2]]
     model = llama.Llama(llama.tiny(), device="cpu")
-    model.load_state_dict(weights[2])
+    cfg, params, sd = weights["plain"]
+    model.load_state_dict(sd)
     with torch.no_grad():
         whole = model(torch.tensor(tokens)).float().numpy()
-    ref = np.asarray(ref_llama.Llama(weights[0]).apply(
-        {"params": weights[1]}, jnp.asarray(tokens)), np.float32)
+    ref = np.asarray(ref_llama.Llama(cfg).apply(
+        {"params": params}, jnp.asarray(tokens)), np.float32)
     for r in ranks:
         np.testing.assert_allclose(r["logits"], whole, rtol=0, atol=1e-5)
         np.testing.assert_allclose(r["logits"], ref, rtol=0, atol=1e-5)
@@ -169,7 +191,8 @@ def test_llama_generator_with_mesh_axes_matches_unsharded(weights, ranks):
     from kubeflow_tpu_torch.serving.storage import register_mem
 
     _, llama, _, _ = _port()
-    ref = register_mem("sharded-generator", (llama.tiny(), weights[2]))
+    ref = register_mem("sharded-generator", (llama.tiny(),
+                                             weights["plain"][2]))
     gen = LlamaGenerator("g", {"params_ref": ref, "device": "cpu",
                                "max_new_tokens": NEW})
     gen.start()
@@ -180,11 +203,11 @@ def test_llama_generator_with_mesh_axes_matches_unsharded(weights, ranks):
 def test_mesh_axes_without_a_gang_raises_value_error(weights):
     _, llama, _, continuous = _port()
     with pytest.raises(ValueError, match="needs a gang of 2 ranks"):
-        continuous.ContinuousEngine(llama.tiny(), weights[2], device="cpu",
-                                    mesh_axes={"model": 2})
+        continuous.ContinuousEngine(llama.tiny(), weights["plain"][2],
+                                    device="cpu", mesh_axes={"model": 2})
     with pytest.raises(NotImplementedError, match="only 'model'"):
-        continuous.ContinuousEngine(llama.tiny(), weights[2], device="cpu",
-                                    mesh_axes={"data": 2})
+        continuous.ContinuousEngine(llama.tiny(), weights["plain"][2],
+                                    device="cpu", mesh_axes={"data": 2})
 
 
 def test_engine_lays_out_an_unsharded_module(ranks):
