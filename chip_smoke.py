@@ -52,7 +52,10 @@ and ``kft-bert`` InferenceServices from ``mem://`` and a snapshot, a 2-layer
 cut held against the CPU), ``resnet_train`` (ResNet-50 at 224 x 224, batch
 128, bf16, channels_last; one tiny step held against the CPU),
 ``jaxjob_pods`` (MNIST and ResNet-50 JaxJobs as real pod processes on the
-card through the port's ``LocalKubelet``) and ``darts_search`` (the DARTS
+card through the port's ``LocalKubelet``, on a GPU host built from the
+machine's cards, each pod's log naming the card it was given; a job asking
+more cards than the host has stays Pending with the scheduler's reason and
+is deleted) and ``darts_search`` (the DARTS
 supernet at the bench model's width on K1-K3; one small step pair held
 against the CPU), then ``nas_experiment`` (a ``darts`` experiment whose
 suggestion service trains the same supernet in this process and whose
@@ -89,9 +92,9 @@ through ``bootstrap``, then FSDP2 over it on a one-rank ``fsdp`` mesh),
 count matrix's host copies counted), ``ring_attention_check`` (ring and
 Ulysses attention over a two-rank ring at the bench attention shape
 against ``flash_attention`` and the plain attention on the whole
-sequence) and ``dist_pods`` (``examples/02`` and a two-worker
-``examples/01`` as pod processes on the card, every rank's ``loss=``
-lines equal). Multi-GPU serving
+sequence) and ``dist_pods`` (``examples/02`` as one worker of two cards,
+whose pod runs two local ranks, and a two-worker ``examples/01``, as pod
+processes on the card, every rank's ``loss=`` lines equal). Multi-GPU serving
 (``tp_gmm_time``, K4a at the experts' shapes under ``{"model": 2}``, K
 1024 -> N 1408 and K 1408 -> N 1024, checked and timed, runs in the main
 sequence after ``serve_gmm_time``): ``nccl_graph_capture``
@@ -104,7 +107,8 @@ program output of rank 1 held bitwise against rank 0's, greedy streams
 against the unsharded engine's), ``wire_migrate`` (``DisaggregatedPool(
 wire=True)``, ``migrate_sequence`` between two engines, and a TP=2 gang's
 export imported by an unsharded engine) and ``tp_resize`` (a live TP=2 gang
-shrunk to 1 and grown back to 2 with a stream open). Every served greedy
+shrunk to 1 and grown back to 2 with a stream open, each resize the
+autoscaler's decision posted to rank 0's resize route). Every served greedy
 stream is also fed back through the plain model (teacher forcing): its
 tokens must be the model's top or within the near-tie bound of it (an MoE
 model's also under one near-tie routing flip). ``isvc_serve`` and
@@ -4157,37 +4161,80 @@ def phase_resnet_train(line: str) -> dict:
     return r
 
 
-def run_jaxjobs(jobs: dict, replicas: int, overrides: dict,
-                timeout: float) -> dict:
+def machine_card_ids(slots: int) -> list:
+    """The card ids of a GPU host built from this machine's cards: each
+    card's id ``slots`` times (time-slicing: ``slots`` pods may share a
+    card). One card is assumed where CUDA is not available (the CPU
+    rehearsal)."""
+    import torch
+
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 1
+    return [c for c in range(cards) for _ in range(slots)]
+
+
+def _own_cards_named(pod, log: str) -> bool:
+    """Whether a pod's log names the cards the scheduler gave it."""
+    ids = ",".join(map(str, pod.spec.device_ids))
+    return bool(ids) and f"the pod's cards {ids}" in log
+
+
+def _rank_streams(lines: list, k: int) -> list:
+    """The ``k`` local ranks' streams of a pod's log lines, where every
+    rank prints the same sequence: the i-th occurrence of a line is rank
+    i's (the log interleaves them)."""
+    streams: list = [[] for _ in range(k)]
+    seen: dict = {}
+    for x in lines:
+        n = seen[x] = seen.get(x, 0) + 1
+        require(n <= k, f"a line printed more than {k} times: {x}")
+        streams[n - 1].append(x)
+    return streams
+
+
+def run_jaxjobs(jobs: dict, overrides: dict, timeout: float, ids: list,
+                pending_cards: int = 0) -> dict:
     """JaxJobs on the port's ``Cluster`` with the port's ``LocalKubelet``,
     run as real pod processes (``python -m kubeflow_tpu_torch.runtime.
-    pod_main``): ``jobs`` maps a name to (manifest, entry module, env);
-    each runs ``replicas`` workers, the kubelet's env ``overrides`` on top.
-    Every job must succeed within ``timeout`` seconds. Returns, per job:
-    (the job, seconds to succeed, per pod (pod, log, metric rows))."""
+    pod_main``) on one GPU host exposing card ids ``ids``: ``jobs`` maps a
+    name to (manifest, entry module, env, workers, cards per worker), the
+    kubelet's env ``overrides`` on top. Every job must succeed within
+    ``timeout`` seconds. With ``pending_cards``, a job of one worker
+    asking that many cards (more than the host has) is submitted first;
+    it must stay Pending with the scheduler's reason while the others run,
+    and is deleted. Returns, per job: (the job, seconds to succeed, per pod
+    (pod, log, metric rows)); ``"pending"``: that job's evidence."""
     import os
 
     from kubeflow_tpu_torch.api.common import (
         JobConditionType, get_condition, has_condition)
+    from kubeflow_tpu_torch.api.yaml_io import from_dict
     from kubeflow_tpu_torch.controlplane import Cluster
     from kubeflow_tpu_torch.runtime.launcher import LocalKubelet
 
     root = tempfile.mkdtemp(prefix="kft-pods-")
     cluster = Cluster()
-    cluster.add_tpu_slice("s0", 2, 4)
+    cluster.add_gpu_host("host-0", len(ids), device_ids=ids)
     kubelet = LocalKubelet(cluster.store, root, env_overrides=overrides)
     saved = os.environ.pop("KFT_POD_DEVICE", None)
     out: dict = {}
     try:
         with cluster:
             kubelet.start()
+            if pending_cards:
+                cluster.store.create(from_dict({
+                    "kind": "JaxJob", "metadata": {"name": "too-big"},
+                    "spec": {"replica_specs": {"worker": {"template": {
+                        "entrypoint": "kubeflow_tpu_torch.models.mnist:"
+                                      "train_main",
+                        "resources": {"gpu": pending_cards}}}}}}))
             t0 = time.perf_counter()
-            for name, (job, module, env) in jobs.items():
+            for name, (job, module, env, replicas, gpu) in jobs.items():
                 job.metadata.name = name
                 worker = job.spec.replica_specs["worker"]
                 worker.replicas = replicas
                 worker.template.entrypoint = f"{module}:train_main"
                 worker.template.env = {**worker.template.env, **env}
+                worker.template.resources.gpu = gpu
                 cluster.store.create(job)
             done = {}
             while len(done) < len(jobs):
@@ -4206,7 +4253,7 @@ def run_jaxjobs(jobs: dict, replicas: int, overrides: dict,
                 time.sleep(0.2)
             for name, (job, seconds) in done.items():
                 pods = []
-                for r in range(replicas):
+                for r in range(jobs[name][3]):
                     pod = f"{name}-worker-{r}"
                     with open(kubelet.pod_log_path("default", pod)) as f:
                         log = f.read()
@@ -4215,6 +4262,27 @@ def run_jaxjobs(jobs: dict, replicas: int, overrides: dict,
                         rows = [json.loads(x) for x in f]
                     pods.append((cluster.store.get("Pod", pod), log, rows))
                 out[name] = (job, seconds, pods)
+            if pending_cards:
+                pg = cluster.store.get("PodGroup", "too-big")
+                (pod,) = cluster.store.list("Pod",
+                                            labels={"job-name": "too-big"})
+                out["pending"] = {
+                    "cards": pending_cards, "host_cards": len(ids),
+                    "phase": str(pg.status.phase.value),
+                    "reason": pg.status.message,
+                    "bound": pod.spec.node_name}
+                require(out["pending"]["phase"] == "Pending"
+                        and pg.status.message == "insufficient capacity"
+                        and pod.spec.node_name is None,
+                        f"a job asking {pending_cards} cards: {out['pending']}")
+                cluster.store.delete("JaxJob", "too-big")
+                deadline = time.monotonic() + 30
+                while cluster.store.list("Pod",
+                                         labels={"job-name": "too-big"}):
+                    require(time.monotonic() < deadline,
+                            "the pending job's pod outlived its job")
+                    time.sleep(0.1)
+                out["pending"]["deleted"] = True
     finally:
         kubelet.stop()
         if saved is not None:
@@ -4232,7 +4300,7 @@ def _metric_lists(rows: list) -> dict:
 
 def _example_jobs(sizes: dict, resnet_env: dict) -> dict:
     """``examples/01``'s MNIST job and ``examples/02``'s ResNet job, with
-    the port's entry modules."""
+    the port's entry modules: (manifest, module, env) each."""
     import os
 
     from kubeflow_tpu_torch.api.yaml_io import load_yaml_file
@@ -4251,18 +4319,23 @@ def _example_jobs(sizes: dict, resnet_env: dict) -> dict:
 
 def jaxjob_pods(device=None, sizes=PODS) -> dict:
     """JaxJobs on the port's ``Cluster`` with the port's ``LocalKubelet``:
-    ``examples/01``'s MNIST job and a one-worker ResNet job, run as real
-    pod processes (``python -m kubeflow_tpu_torch.runtime.pod_main``) on
-    the card (``device=None``: no ``KFT_POD_DEVICE``; ``"cpu"`` rehearses
-    it). Both must succeed with finite metrics, their logs naming the
-    device."""
-    jobs = _example_jobs(sizes, {
+    ``examples/01``'s MNIST job and a one-worker ResNet job, each worker
+    asking one card, run as real pod processes (``python -m
+    kubeflow_tpu_torch.runtime.pod_main``) on a GPU host built from the
+    machine's cards (each card's id twice) on the card (``device=None``:
+    no ``KFT_POD_DEVICE``; ``"cpu"`` rehearses it); a job asking more
+    cards than the host has stays Pending with the scheduler's reason and
+    is deleted. Both must succeed with finite metrics, their logs naming
+    the device and the card they were given."""
+    jobs = {name: (*job, 1, 1) for name, job in _example_jobs(sizes, {
         "KFT_RESNET": sizes["resnet"],
         "KFT_STEPS": str(sizes["resnet_steps"]),
-        "KFT_BATCH": str(sizes["resnet_batch"])})
-    ran = run_jaxjobs(jobs, 1, {} if device is None else {
-        "KFT_POD_DEVICE": device}, sizes["timeout"])
-    out: dict = {}
+        "KFT_BATCH": str(sizes["resnet_batch"])}).items()}
+    ids = machine_card_ids(2)
+    ran = run_jaxjobs(jobs, {} if device is None else {
+        "KFT_POD_DEVICE": device}, sizes["timeout"], ids,
+        pending_cards=len(ids) + 1)
+    out: dict = {"host_card_ids": ids, "pending": ran.pop("pending")}
     for name, (job, seconds, [(p, log, rows)]) in ran.items():
         metrics = _metric_lists(rows)
         where = f"on {device or 'cuda'}"
@@ -4271,8 +4344,12 @@ def jaxjob_pods(device=None, sizes=PODS) -> dict:
             "gang_startup_s": job.status.gang_startup_seconds,
             "pod_wall_s": p.status.finish_time - p.status.start_time,
             "metrics": metrics,
+            "card_ids": p.spec.device_ids,
             "log_names_device": where in log}
         require(where in log, f"jaxjob_pods: {name} log: {log}")
+        require(_own_cards_named(p, log),
+                f"jaxjob_pods: {name} log names no card of "
+                f"{p.spec.device_ids}: {log}")
         require(metrics.get("loss") and all(
             math.isfinite(v) for vs in metrics.values()
             for v in vs), f"jaxjob_pods: {name} metrics {metrics}")
@@ -4605,6 +4682,8 @@ spec:
             replicas: 1
             template:
               entrypoint: kubeflow_tpu_torch.train.llm:train_main
+              resources:
+                gpu: 1
               env:
                 KFT_INIT_FROM: "file://{base}"
                 KFT_LORA_RANK: "{sizes["lora_rank"]}"
@@ -4643,13 +4722,16 @@ class _TimedSuggestions:
 
 
 def _local_platform(device):
-    """The port's ``LocalPlatform`` (real pod processes; no
-    ``KFT_POD_DEVICE``, so pods take the card, unless ``device`` names
-    one) with its API server and dashboard up: (platform, api URL,
-    dashboard URL)."""
+    """The port's ``LocalPlatform`` on one GPU host built from the
+    machine's cards (each card's id twice; real pod processes; no
+    ``KFT_POD_DEVICE``, so each trial pod takes the card it is given,
+    unless ``device`` names one) with its API server and dashboard up:
+    (platform, api URL, dashboard URL)."""
     from kubeflow_tpu_torch.runtime.platform import LocalPlatform
 
+    ids = machine_card_ids(2)
     p = LocalPlatform(root_dir=tempfile.mkdtemp(prefix="kft-hpo-"),
+                      gpus_per_host=len(ids), device_ids=ids,
                       env_overrides={} if device is None else {
                           "KFT_POD_DEVICE": device})
     p.start()
@@ -4922,6 +5004,7 @@ def nas_experiment(base, ranked_top: list, device=None, sizes=NAS_EXPERIMENT,
                 "spec": {"replica_specs": {"worker": {"replicas": 1,
                          "template": {
                              "entrypoint": "chip_smoke:arch_trial_main",
+                             "resources": {"gpu": 1},
                              "env": {
                                  "KFT_ARCH_BASE": sizes["base"],
                                  "KFT_LAYERS": "${trialParameters.layers}",
@@ -5014,8 +5097,10 @@ MESH_NORM_TOL = 1e-3
 #: the unsharded run's are printed, not held: bf16 activations summed in
 #: another order move them 0.2-16% on an H100, PR 19)
 MESH_UPDATE_TOL = 1e-3
-#: dist_pods: examples/02 as written (2 workers) and examples/01 at 2
-DIST_PODS = dict(mnist_steps=4, mnist_batch=16, replicas=2, timeout=300)
+#: dist_pods: examples/02 as one worker of 2 cards (2 local ranks) and
+#: examples/01 at 2 workers of one card
+DIST_PODS = dict(mnist_steps=4, mnist_batch=16, replicas=2, cards=2,
+                 timeout=300)
 
 
 class _CollectiveBytes:
@@ -6008,27 +6093,40 @@ def phase_ring_attention_check(line: str) -> dict:
 
 
 def dist_pods(device=None, sizes=DIST_PODS) -> dict:
-    """``examples/02`` as written (two workers) and ``examples/01`` with two
-    workers as JaxJobs of real pod processes on the card (``device=None``;
+    """``examples/02``'s ResNet job as one worker of two cards (its pod
+    runs two local ranks) and ``examples/01`` with two workers of one card
+    as JaxJobs of real pod processes on a GPU host built from the
+    machine's cards (each card's id four times, so the ResNet pod's two
+    ids name card 0 on a one-card machine) on the card (``device=None``;
     ``"cpu"`` rehearses it), the process groups on gloo
-    (``KFT_DIST_BACKEND``: the two ranks share one card). Both must
-    succeed, every rank printing the same ``loss=`` lines."""
-    jobs = _example_jobs(sizes, {})
+    (``KFT_DIST_BACKEND``: the ranks share one card). Both must succeed,
+    every rank printing the same ``loss=`` lines and every pod's log
+    naming its cards."""
+    ex = _example_jobs(sizes, {})
+    jobs = {"mnist-smoke": (*ex["mnist-smoke"], sizes["replicas"], 1),
+            "resnet": (*ex["resnet"], 1, sizes["cards"])}
     overrides = {"KFT_DIST_BACKEND": "gloo"}
     if device is not None:
         overrides["KFT_POD_DEVICE"] = device
-    ran = run_jaxjobs(jobs, sizes["replicas"], overrides, sizes["timeout"])
-    out: dict = {}
+    ids = machine_card_ids(sizes["replicas"] + sizes["cards"])
+    ran = run_jaxjobs(jobs, overrides, sizes["timeout"], ids)
+    out: dict = {"host_card_ids": ids}
     for name, (job, seconds, pods) in ran.items():
-        lines = [[x for x in log.splitlines() if x.startswith("loss=")]
-                 for _, log, _ in pods]
+        k = jobs[name][4]
+        lines = [s for _, log, _ in pods for s in _rank_streams(
+            [x for x in log.splitlines() if x.startswith("loss=")], k)]
         out[name] = {
             "succeeded_s": seconds,
             "gang_startup_s": job.status.gang_startup_seconds,
+            "ranks": len(lines),
+            "card_ids": [p.spec.device_ids for p, _, _ in pods],
             "loss_lines": lines[0],
             "metrics": [_metric_lists(rows) for _, _, rows in pods]}
-        require(lines[0] and all(x == lines[0] for x in lines),
+        require(len(lines) == jobs[name][3] * k and lines[0]
+                and all(x == lines[0] for x in lines),
                 f"dist_pods: {name} ranks printed {lines}")
+        require(all(_own_cards_named(p, log) for p, log, _ in pods),
+                f"dist_pods: {name} logs name no card")
         require(job.status.gang_startup_seconds is not None,
                 f"dist_pods: {name} passed no barrier")
     return out
@@ -6502,13 +6600,17 @@ def _gang_resize_case(rank: int, port: int, model, sizes: dict,
     """A live TP=2 gang serves a stream undisturbed, then the same stream
     again, during which it shrinks to 1 (rank 1 parked, the group
     re-formed) after ``shrink_at`` tokens and grows back to 2 after
-    ``grow_at``; the stream is read on its handle throughout. Each rank's
-    engines share a program cache on ``aot_root`` (the gang's ``aot``):
-    the grow-back meets the degree-2 records of the first boot; rank 0's
-    ``grow["aot"]`` is its counters' change over the grow."""
+    ``grow_at``; the stream is read on its handle throughout. Each resize
+    is the autoscaler's decision posted to rank 0's resize route
+    (``gang.post_resize`` to ``gang.resize_route`` on a ``ModelServer``,
+    the gang token checked), as the controller's actuator posts it. Each
+    rank's engines share a program cache on ``aot_root`` (the gang's
+    ``aot``): the grow-back meets the degree-2 records of the first boot;
+    rank 0's ``grow["aot"]`` is its counters' change over the grow."""
     from kubeflow_tpu_torch.analysis.runtime import BlockLedger
-    from kubeflow_tpu_torch.serving import programs
+    from kubeflow_tpu_torch.serving import gang, programs
     from kubeflow_tpu_torch.serving.resize import GangResizer
+    from kubeflow_tpu_torch.serving.server import ModelServer
 
     cfg, m = _gang_model(model, device)
     sd = m.state_dict()
@@ -6527,6 +6629,10 @@ def _gang_resize_case(rank: int, port: int, model, sizes: dict,
     eng.warmup(warm)
     resizer = GangResizer(eng, reshard_token="chip-smoke",
                           warmup_groups=warm)
+    server = ModelServer()
+    server.add_control_route(gang.RESIZE_ROUTE, gang.resize_route(
+        resizer, resizer.channel, "chip-smoke"))
+    server.start()
     try:
         prompt = _prompts(cfg, 1, sizes["prompt_len"])[0]
         # the same stream with no resize: what the resized one must equal
@@ -6534,16 +6640,28 @@ def _gang_resize_case(rank: int, port: int, model, sizes: dict,
                                  max_new_tokens=sizes["new"]).wait(600)
         req = eng.submit(prompt, max_new_tokens=sizes["new"])
         _wait_tokens([req], sizes["shrink_at"], "tp_resize")
-        one = resizer.resize({"model": 1})
+        t0 = time.perf_counter()
+        answer = gang.post_resize(server.url, 1, "chip-smoke")
+        route_s = time.perf_counter() - t0
+        one = resizer.engine
+        require(answer == {"from": 2, "degree": 1, "resized": True},
+                f"tp_resize: the route answered {answer}")
         shrink = {"at": len(req.tokens), "tp_degree": one.tp_degree,
-                  "graphs": one.graphs, "timings": resizer.last_timings}
+                  "graphs": one.graphs, "timings": resizer.last_timings,
+                  "route": answer, "route_s": route_s}
         _wait_tokens([req], sizes["grow_at"], "tp_resize")
         cache = kw["program_cache"]
         before = cache.stats() if cache is not None else {}
-        two = resizer.resize({"model": 2})
+        t0 = time.perf_counter()
+        answer = gang.post_resize(server.url, 2, "chip-smoke")
+        route_s = time.perf_counter() - t0
+        two = resizer.engine
+        require(answer == {"from": 1, "degree": 2, "resized": True},
+                f"tp_resize: the route answered {answer}")
         grow = {"at": len(req.tokens), "tp_degree": two.tp_degree,
                 "graphs": two.graphs, "backend": two.backend,
-                "timings": resizer.last_timings}
+                "timings": resizer.last_timings, "route": answer,
+                "route_s": route_s}
         if cache is not None:
             grow["aot"] = {k: v - before[k]
                            for k, v in cache.stats().items()}
@@ -6553,6 +6671,7 @@ def _gang_resize_case(rank: int, port: int, model, sizes: dict,
                 "resizes": resizer.resizes_total,
                 "clean": _require_clean("tp_resize", ledger, two)}
     finally:
+        server.stop()
         resizer.engine.stop()
         del sd
         _free_card(device is None)

@@ -19,7 +19,6 @@ from .common import (
     RestartPolicy,
     RunPolicy,
     SchedulingPolicy,
-    TpuTopology,
     TypedObject,
     get_condition,
     has_condition,

@@ -9,17 +9,20 @@ typed pydantic models validated at construction time, with defaulting exposed
 as explicit pure functions (``kubeflow_tpu_torch.api.validation``) so tests can
 exercise the webhook-equivalent logic directly.
 
-TPU-first divergences from the reference:
+Divergences from the upstream operator:
 
-- Resources speak ``google.com/tpu`` + an explicit ``TpuTopology`` (e.g. a
-  ``2x4`` v5e slice) instead of ``nvidia.com/gpu`` counts.
 - Rendezvous config is the ``jax.distributed.initialize`` triple
   (coordinator address / num processes / process id) instead of
   ``MASTER_ADDR``/``RANK``/``WORLD_SIZE`` — see
   ``kubeflow_tpu_torch.runtime.bootstrap``.
 
 The port's copy of ``kubeflow_tpu/api/common.py``, device-free like it,
-with the same names; it imports nothing of the reference package.
+with the same names except one: a pod's accelerators are NVIDIA cards,
+``Resources.gpu`` (the ``nvidia.com/gpu`` count), where the reference
+counts TPU chips (``tpu`` and a ``TpuTopology``). A spec that asks for
+``tpu`` is refused when it is parsed, naming ``gpu``: the port has no TPU
+to give, and reading the count as cards would hide the mistake. It
+imports nothing of the reference package.
 """
 
 from __future__ import annotations
@@ -29,7 +32,13 @@ import re
 import time
 from typing import Any, Optional
 
-from pydantic import BaseModel, ConfigDict, Field, field_validator
+from pydantic import (
+    BaseModel,
+    ConfigDict,
+    Field,
+    field_validator,
+    model_validator,
+)
 
 API_GROUP = "kubeflow-tpu.dev"
 API_VERSION = "v1"
@@ -231,40 +240,20 @@ class RunPolicy(_Model):
 # ---------------------------------------------------------------------------
 
 
-class TpuTopology(_Model):
-    """A TPU slice topology request, e.g. ``2x4`` (v5e-8) or ``4x4`` (v5e-16).
-
-    Replaces the reference's opaque ``nvidia.com/gpu: N`` quantity with the
-    thing the TPU scheduler actually places: a slice shape whose chip count is
-    the product of its dims.
-    """
-
-    shape: str = "1x1"
-
-    @field_validator("shape")
-    @classmethod
-    def _shape_ok(cls, v: str) -> str:
-        if not re.match(r"^\d+(x\d+){0,2}$", v):
-            raise ValueError(f"topology shape {v!r} must look like '2x4' or '4x4x4'")
-        return v
-
-    @property
-    def dims(self) -> tuple[int, ...]:
-        return tuple(int(d) for d in self.shape.split("x"))
-
-    @property
-    def num_chips(self) -> int:
-        n = 1
-        for d in self.dims:
-            n *= d
-        return n
-
-
 class Resources(_Model):
     cpu: float = 1.0
     memory_gb: float = 1.0
-    tpu: int = 0  # google.com/tpu chip count per pod
-    tpu_topology: Optional[TpuTopology] = None
+    gpu: int = Field(default=0, ge=0)  # nvidia.com/gpu card count per pod
+
+    @model_validator(mode="before")
+    @classmethod
+    def _no_tpu(cls, v):
+        if isinstance(v, dict) and ({"tpu", "tpu_topology"} & set(v)):
+            raise ValueError(
+                "resources.tpu: this platform's accelerators are NVIDIA "
+                "cards; ask for them as resources.gpu (nvidia.com/gpu "
+                "cards per pod)")
+        return v
 
 
 class Container(_Model):

@@ -5,20 +5,22 @@ kubeflow/kubeflow -> components/profile-controller (Profile CRD: namespace-
 per-user multi-tenancy + ResourceQuota), components/notebook-controller
 (Notebook CRD: a stateful per-user workbench pod with stable URL + idle
 culling), components/admission-webhook (PodDefault: label-selected env/
-volume injection)].  TPU-first divergences: quotas are enforced by the gang
+volume injection)].  Divergences: quotas are enforced by the gang
 scheduler at admission (so a whole gang either fits the profile's quota or
-stays Pending — quota overcommit can't strand half a TPU slice), and
+stays Pending — quota overcommit can't strand half a gang's cards), and
 notebooks are plain entrypoint pods on the same kubelet contract as jobs.
 
 The port's copy of ``kubeflow_tpu/api/platform.py``, device-free like
-it, with the same names; it imports nothing of the reference package.
+it, with the same names; a quota counts cards as ``gpu``, and one that
+names ``tpu`` is refused (``Resources``). It imports nothing of the
+reference package.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
-from pydantic import Field
+from pydantic import Field, field_validator
 
 from .common import Container, TypedObject, _Model
 
@@ -36,7 +38,7 @@ class ProfileSpec(_Model):
     owner: str = ""
     contributors: list[str] = Field(default_factory=list)
     #: hard caps for the profile's namespace, enforced gang-atomically by
-    #: the scheduler: {"cpu": ..., "memory_gb": ..., "tpu": ...}
+    #: the scheduler: {"cpu": ..., "memory_gb": ..., "gpu": ...}
     resource_quota: dict[str, float] = Field(default_factory=dict)
     #: bearer token authenticating AS this profile on the REST API —
     #: mutations scope to the profile's namespace (apiserver authz;
@@ -52,6 +54,15 @@ class ProfileSpec(_Model):
     #: by the Profile controller (a bad spec is one Failed status),
     #: kept a plain dict so the api layer stays serving-agnostic.
     qos: Optional[dict] = None
+
+    @field_validator("resource_quota")
+    @classmethod
+    def _quota_counts_cards(cls, v: dict) -> dict:
+        if "tpu" in v:
+            raise ValueError(
+                "resource_quota.tpu: this platform's accelerators are "
+                "NVIDIA cards; cap them as resource_quota.gpu")
+        return v
 
 
 class ProfileStatus(_Model):

@@ -46,12 +46,13 @@ def default_jaxjob(job: JaxJob) -> JaxJob:
         # defaulting re-clamps it (mutating webhooks run on UPDATE too)
         rp.scheduling_policy.min_available = spec.total_replicas
     workers = spec.replica_specs[WORKER]
-    chips_per_host = max(1, workers.template.resources.tpu or 1)
-    total_chips = workers.replicas * chips_per_host
+    # one process a card: a pod of k cards runs k ranks (pod_main)
+    cards_per_pod = max(1, workers.template.resources.gpu or 1)
+    total_cards = workers.replicas * cards_per_pod
     if (
         job.metadata.creation_timestamp is not None
         and set(spec.mesh) == {"data"}
-        and spec.mesh["data"] != total_chips
+        and spec.mesh["data"] != total_cards
     ):
         # UPDATE of a live job whose pure-DP default mesh was stamped for an
         # old world size (elastic resize): re-derive.  On CREATE (no
@@ -60,7 +61,7 @@ def default_jaxjob(job: JaxJob) -> JaxJob:
         # (non-"data") meshes are always left to validation.
         spec.mesh = {}
     if not spec.mesh:
-        spec.mesh = {"data": total_chips}
+        spec.mesh = {"data": total_cards}
     return job
 
 
@@ -86,13 +87,13 @@ def validate_jaxjob(job: JaxJob) -> None:
             if size < 1:
                 raise AdmissionError(f"mesh axis {ax!r} has non-positive size {size}")
             mesh_devices *= size
-        chips_per_host = max(1, workers.template.resources.tpu or 1)
-        total_devices = workers.replicas * chips_per_host
+        cards_per_pod = max(1, workers.template.resources.gpu or 1)
+        total_devices = workers.replicas * cards_per_pod
         if mesh_devices != total_devices:
             raise AdmissionError(
                 f"mesh {spec.mesh} covers {mesh_devices} devices but the job "
                 f"provides {total_devices} ({workers.replicas} workers x "
-                f"{chips_per_host} chips)"
+                f"{cards_per_pod} cards)"
             )
 
 

@@ -9,7 +9,9 @@ The port's copy of ``kubeflow_tpu/controlplane/cluster.py``, device-free
 like it, with the same names; it imports nothing of the reference
 package. It registers the port's runtimes, and its ux and hpo tiers are
 the port's copies. Its metrics endpoint listens with
-``BurstHTTPServer``'s backlog.
+``BurstHTTPServer``'s backlog. Its nodes are GPU hosts (``add_gpu_host``,
+``add_gpu_hosts`` over an NVLink domain) where the reference models TPU
+slices (``add_tpu_slice``).
 """
 
 from __future__ import annotations
@@ -216,31 +218,45 @@ class Cluster:
         name: str,
         cpu: float = 64.0,
         memory_gb: float = 128.0,
-        tpu: int = 0,
-        slice_id: str = "slice-0",
+        gpu: int = 0,
+        nvlink_domain: str = "domain-0",
+        device_ids: Optional[list[int]] = None,
     ) -> Node:
         node = Node(
             metadata=ObjectMeta(name=name),
             spec=NodeSpec(
-                capacity={"cpu": cpu, "memory_gb": memory_gb, "tpu": float(tpu)},
-                slice_id=slice_id,
+                capacity={"cpu": cpu, "memory_gb": memory_gb, "gpu": float(gpu)},
+                nvlink_domain=nvlink_domain,
+                device_ids=list(device_ids or ()),
             ),
         )
         created = self.store.create(node)
         assert isinstance(created, Node)
         return created
 
-    def add_tpu_slice(
-        self, slice_id: str, num_hosts: int, chips_per_host: int = 4
+    def add_gpu_host(
+        self,
+        name: str,
+        gpus: int,
+        device_ids: Optional[list[int]] = None,
+        nvlink_domain: str = "domain-0",
+    ) -> Node:
+        """A host exposing ``gpus`` NVIDIA cards, their ids ``device_ids``
+        (default ``range(gpus)``; an id may repeat, as time-slicing
+        advertises one card as several)."""
+        return self.add_node(name, gpu=gpus, nvlink_domain=nvlink_domain,
+                             device_ids=device_ids)
+
+    def add_gpu_hosts(
+        self, domain: str, num_hosts: int, gpus_per_host: int = 8,
+        device_ids: Optional[list[int]] = None,
     ) -> list[Node]:
-        """Model a TPU pod slice: ``num_hosts`` VMs sharing ICI, each exposing
-        ``chips_per_host`` chips (v5e default: 4 chips/VM, so v5e-16 = 4 hosts)."""
+        """``num_hosts`` hosts of one NVLink domain (``<domain>-host-<i>``),
+        each exposing ``gpus_per_host`` cards (an HGX H100 board has 8),
+        ``device_ids`` on every host."""
         return [
-            self.add_node(
-                f"{slice_id}-host-{i}",
-                tpu=chips_per_host,
-                slice_id=slice_id,
-            )
+            self.add_gpu_host(f"{domain}-host-{i}", gpus_per_host,
+                              device_ids=device_ids, nvlink_domain=domain)
             for i in range(num_hosts)
         ]
 

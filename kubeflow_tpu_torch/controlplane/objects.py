@@ -8,7 +8,11 @@ scheduler binds Pods to Nodes; the process runtime plays kubelet.
 
 The port's copy of ``kubeflow_tpu/controlplane/objects.py``, device-free
 like it, with the same names; it imports nothing of the reference
-package.
+package. Its accelerators are NVIDIA cards: a node's capacity counts
+``gpu`` and lists the card ids it exposes (``NodeSpec.device_ids``), its
+nodes are grouped by NVLink domain where the reference groups them by TPU
+slice, and a bound pod records the ids of the cards it was given
+(``PodSpec.device_ids``, the device plugin's ``Allocate``).
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ import enum
 import time
 from typing import Optional
 
-from pydantic import Field
+from pydantic import Field, model_validator
 
 from ..api.common import Container, TypedObject, _Model
 
@@ -47,6 +51,10 @@ class PodPhase(str, enum.Enum):
 class PodSpec(_Model):
     container: Container = Field(default_factory=Container)
     node_name: Optional[str] = None  # set by the scheduler (binding)
+    #: the node's card ids this pod owns, set with ``node_name`` at bind
+    #: time (one per ``nvidia.com/gpu`` asked for; freed when the pod
+    #: ends or is deleted)
+    device_ids: list[int] = Field(default_factory=list)
     scheduler_name: str = "gang"  # "gang" | "default"
     restart_policy: str = "Never"
 
@@ -118,11 +126,25 @@ class PodGroup(TypedObject):
 
 
 class NodeSpec(_Model):
-    capacity: dict[str, float] = Field(default_factory=dict)  # cpu/memory_gb/tpu
+    capacity: dict[str, float] = Field(default_factory=dict)  # cpu/memory_gb/gpu
     labels: dict[str, str] = Field(default_factory=dict)
-    # TPU slice wiring: nodes in the same slice share ICI; different slices
-    # talk over DCN.  Used by the mesh planner's axis-placement policy.
-    slice_id: str = "slice-0"
+    # NVLink wiring: the cards of nodes in one domain talk over NVLink,
+    # those of different domains over the network.  The gang scheduler
+    # packs a gang into one domain before it spills.
+    nvlink_domain: str = "domain-0"
+    #: the card ids the node exposes, one per ``gpu`` of its capacity
+    #: (empty = ``range(gpu)``).  An id may repeat: time-slicing
+    #: advertises one card as several ``nvidia.com/gpu``.
+    device_ids: list[int] = Field(default_factory=list)
+
+    @model_validator(mode="after")
+    def _one_id_a_card(self) -> "NodeSpec":
+        gpus = int(self.capacity.get("gpu", 0))
+        if self.device_ids and len(self.device_ids) != gpus:
+            raise ValueError(
+                f"node lists {len(self.device_ids)} device_ids for a "
+                f"capacity of {gpus} gpu")
+        return self
 
 
 class Node(TypedObject):
@@ -142,7 +164,15 @@ class Event(TypedObject):
 
 def pod_resources(pod: Pod) -> dict[str, float]:
     r = pod.spec.container.resources
-    return {"cpu": r.cpu, "memory_gb": r.memory_gb, "tpu": float(r.tpu)}
+    return {"cpu": r.cpu, "memory_gb": r.memory_gb, "gpu": float(r.gpu)}
+
+
+def node_device_ids(node: Node) -> list[int]:
+    """The card ids ``node`` exposes: ``device_ids``, else one id a card
+    of its ``gpu`` capacity."""
+    if node.spec.device_ids:
+        return list(node.spec.device_ids)
+    return list(range(int(node.spec.capacity.get("gpu", 0))))
 
 
 # Make the cluster-substrate kinds YAML/REST-addressable (the api layer's

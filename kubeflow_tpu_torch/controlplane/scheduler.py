@@ -7,13 +7,18 @@ whole gang binds atomically.  Non-gang pods (``scheduler_name: default``)
 bind individually, best-fit.  This is where gang-startup latency is born
 (SURVEY.md §3.1 step 4), so admission timestamps feed the baseline metric.
 
-TPU-specific placement rule: pods requesting ``tpu`` chips are packed
-slice-first — all members of one gang land on nodes of as few slices as
-possible (ICI before DCN), recorded on the PodGroup for the mesh planner.
+GPU placement rule: pods requesting ``gpu`` cards are packed
+domain-first — all members of one gang land on nodes of as few NVLink
+domains as possible (NVLink before the network).
 
 The port's copy of ``kubeflow_tpu/controlplane/scheduler.py``, device-
-free like it, with the same names; it imports nothing of the reference
-package.
+free like it, with the same names and the same placements, counting
+``gpu`` cards where the reference counts ``tpu`` chips; it imports
+nothing of the reference package. Binding also allocates cards, as the
+NVIDIA device plugin's ``Allocate`` does: a pod gets as many free ids of
+its node's ``device_ids`` as it asks ``gpu`` for, distinct cards first,
+recorded on ``PodSpec.device_ids`` beside ``node_name``; the ids of a pod
+that ended or was deleted are free again.
 """
 
 from __future__ import annotations
@@ -35,11 +40,12 @@ from .objects import (
     PodGroup,
     PodGroupPhase,
     PodPhase,
+    node_device_ids,
     pod_resources,
 )
 from .store import NotFound, Store
 
-RESOURCE_KEYS = ("cpu", "memory_gb", "tpu")
+RESOURCE_KEYS = ("cpu", "memory_gb", "gpu")
 
 
 def _fits(need: dict[str, float], free: dict[str, float]) -> bool:
@@ -62,6 +68,18 @@ def _quota_sub(quota: dict[str, float], need: dict[str, float]) -> None:
 def _sub(free: dict[str, float], need: dict[str, float]) -> None:
     for k in RESOURCE_KEYS:
         free[k] = free.get(k, 0.0) - need.get(k, 0.0)
+
+
+def _take_ids(free: list[int], n: int) -> list[int]:
+    """``n`` ids taken out of ``free``, distinct cards first (a
+    time-sliced card repeats only when no other card is free)."""
+    got: list[int] = []
+    while len(got) < n and free:
+        fresh = [i for i in free if i not in got]
+        pick = fresh[0] if fresh else free[0]
+        free.remove(pick)
+        got.append(pick)
+    return got
 
 
 class GangScheduler:
@@ -103,14 +121,28 @@ class GangScheduler:
                     _sub(nodes[pod.spec.node_name], pod_resources(pod))
         return nodes
 
+    def _free_ids_by_node(self) -> dict[str, list[int]]:
+        """Node -> the card ids no live bound pod holds."""
+        free = {n.metadata.name: node_device_ids(n)
+                for n in self.store.list(KIND_NODE)}
+        for pod in self.store.list(KIND_POD):
+            assert isinstance(pod, Pod)
+            ids = free.get(pod.spec.node_name or "")
+            if ids is None or pod.terminal:
+                continue
+            for i in pod.spec.device_ids:
+                if i in ids:
+                    ids.remove(i)
+        return free
+
     def _node_order(self, nodes: dict[str, dict[str, float]]) -> list[str]:
-        """Slice-first order: group node names by slice so a gang packs one
-        slice before spilling to the next (ICI-before-DCN placement)."""
-        slice_of: dict[str, str] = {}
+        """Domain-first order: group node names by NVLink domain so a gang
+        packs one domain before spilling to the next."""
+        domain_of: dict[str, str] = {}
         for n in self.store.list(KIND_NODE):
             assert isinstance(n, Node)
-            slice_of[n.metadata.name] = n.spec.slice_id
-        return sorted(nodes, key=lambda name: (slice_of.get(name, ""), name))
+            domain_of[n.metadata.name] = n.spec.nvlink_domain
+        return sorted(nodes, key=lambda name: (domain_of.get(name, ""), name))
 
     def _quota_left(self) -> dict[str, dict[str, float]]:
         """Tenant namespace -> remaining Profile quota (SURVEY §2.4: the
@@ -133,16 +165,22 @@ class GangScheduler:
                 _quota_sub(left[pod.metadata.namespace], pod_resources(pod))
         return left
 
-    def _bind(self, pod: Pod, node_name: str) -> None:
+    def _bind(self, pod: Pod, node_name: str, free_ids: list[int]) -> None:
+        """Bind ``pod`` to ``node_name`` with its cards taken out of the
+        node's ``free_ids``."""
+        ids = _take_ids(free_ids, int(pod_resources(pod)["gpu"]))
+
         def mut(o):
             assert isinstance(o, Pod)
             o.spec.node_name = node_name
+            o.spec.device_ids = list(ids)
 
         self.store.update_with_retry(KIND_POD, pod.metadata.name, pod.metadata.namespace, mut)
 
     def schedule_once(self) -> int:
         """Returns the number of pods bound this pass."""
         free = self._free_by_node()
+        free_ids = self._free_ids_by_node()
         order = self._node_order(free)
         quota = self._quota_left()
         bound = 0
@@ -194,7 +232,7 @@ class GangScheduler:
                 self._set_group_phase(pg, PodGroupPhase.PENDING, "insufficient capacity")
                 continue
             for pod, node_name in placement:
-                self._bind(pod, node_name)
+                self._bind(pod, node_name, free_ids[node_name])
                 _sub(free[node_name], pod_resources(pod))
                 if ns in quota:
                     _quota_sub(quota[ns], pod_resources(pod))
@@ -209,7 +247,7 @@ class GangScheduler:
                 continue  # over profile quota: stays Pending
             for node_name in order:
                 if _fits(need, free[node_name]):
-                    self._bind(pod, node_name)
+                    self._bind(pod, node_name, free_ids[node_name])
                     _sub(free[node_name], need)
                     if ns in quota:
                         _quota_sub(quota[ns], need)

@@ -10,9 +10,11 @@ boundaries, the bandwidth-hungry ones must not.
 ``build_mesh`` makes the plan a ``torch.distributed.device_mesh.DeviceMesh``
 over the world's ranks, one process per device: rank ``r`` is device ``r``
 of the row-major mesh, and with ``num_slices > 1`` the rank array is laid
-out DCN-outermost by hand, as the reference lays out its CPU devices. A mesh
-of more devices than the world has processes needs several cards per
-process, which the port does not run (ROADMAP A13).
+out DCN-outermost by hand, as the reference lays out its CPU devices. The
+port runs one process a card (a pod of k cards runs k processes,
+``runtime/pod_main``), so a mesh of more devices than the process group
+has processes is refused: where the reference drives several devices from
+one process, the port's group has a process for each.
 
 The batch of a step is split over the ``BATCH_AXES`` present: each rank
 holds the rows of its coordinate on those axes (``batch_sharding``), so the
@@ -157,9 +159,9 @@ def build_mesh(axes: dict[str, int], num_slices: int = 1,
     total = math.prod(s for s in axes.values() if s != 1)
     if total > world:
         raise MeshPlanError(
-            f"mesh {axes} needs {total} devices but the job has {world} "
-            "processes; the port runs one device per process, and several "
-            "cards per process are not ported yet (ROADMAP A13)")
+            f"mesh {axes} needs {total} devices but the process group has "
+            f"{world} processes: the port runs one process a card (a pod "
+            "with k cards runs k processes)")
     plan = plan_mesh(axes, num_devices=world, num_slices=num_slices)
     if device_type is None:
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"

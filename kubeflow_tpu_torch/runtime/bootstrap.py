@@ -19,6 +19,16 @@ metric stream (stdout ``name=value`` and the status dir's
 - ``barrier``: the gang-startup probe. A process in a group runs one
   collective over every process on the pod's device; a process alone
   synchronizes its device. Then ``BARRIER_FILE`` is stamped.
+
+A pod's cards are the ones the scheduler gave it: the kubelet names their
+ids in ``KFT_POD_CARDS`` (as bound, a time-sliced card repeated) and
+makes only those visible (``CUDA_VISIBLE_DEVICES``, ``visible_cards``),
+so the CUDA card a pod computes on when ``KFT_POD_DEVICE`` is unset is
+its first own card. A pod of k cards in the job's process group runs k
+local ranks (``runtime/pod_main``), each marked by ``KFT_LOCAL_RANK`` and
+computing on its own card (``local_rank_env``); a local rank stamps its
+status files under its own name (``status_file``), and only local rank
+0's metrics reach the pod's ``METRICS_FILE``.
 """
 
 from __future__ import annotations
@@ -44,6 +54,10 @@ ENV_ENTRYPOINT = "KFT_ENTRYPOINT"
 ENV_POD_DEVICE = "KFT_POD_DEVICE"
 #: the torch.distributed backend ("nccl", "gloo"); unset = by the device
 ENV_DIST_BACKEND = "KFT_DIST_BACKEND"
+#: the card ids the scheduler gave the pod, comma-separated, as bound
+ENV_POD_CARDS = "KFT_POD_CARDS"
+#: a pod's local rank, set on each of the k processes of a k-card pod
+ENV_LOCAL_RANK = "KFT_LOCAL_RANK"
 #: seconds a rendezvous or collective may wait for the other processes
 DIST_TIMEOUT_S = 300
 
@@ -68,6 +82,10 @@ class PodContext:
     device: Optional[str] = None
     #: ``KFT_DIST_BACKEND``; None means nccl on a card, gloo on the CPU
     dist_backend: Optional[str] = None
+    #: ``KFT_POD_CARDS``: the pod's card ids, as the scheduler bound them
+    cards: list[int] = field(default_factory=list)
+    #: ``KFT_LOCAL_RANK``: this process's rank inside a k-card pod
+    local_rank: Optional[int] = None
 
     @classmethod
     def from_env(cls, env: Optional[dict[str, str]] = None) -> "PodContext":
@@ -87,11 +105,49 @@ class PodContext:
             status_dir=e.get(ENV_STATUS_DIR),
             device=e.get(ENV_POD_DEVICE) or None,
             dist_backend=e.get(ENV_DIST_BACKEND) or None,
+            cards=[int(c) for c in e.get(ENV_POD_CARDS, "").split(",") if c],
+            local_rank=(int(e[ENV_LOCAL_RANK]) if e.get(ENV_LOCAL_RANK)
+                        else None),
         )
 
     @property
     def is_coordinator(self) -> bool:
         return self.process_id == 0
+
+
+def visible_cards(cards: list[int]) -> list[int]:
+    """The ``CUDA_VISIBLE_DEVICES`` of a pod bound to ``cards``: each card
+    once, in bound order (a time-sliced card is one device)."""
+    return list(dict.fromkeys(cards))
+
+
+def local_rank_env(ctx: PodContext, local: int,
+                   env: Optional[dict[str, str]] = None) -> dict[str, str]:
+    """The env of local rank ``local`` of a pod of ``k = len(ctx.cards)``
+    cards: global process ``pod index * k + local`` of ``pods * k``, on
+    its own card (``cuda:<i>``, ``i`` its card's place among the pod's
+    visible cards) unless the pod names a device (``KFT_POD_DEVICE``)."""
+    k = len(ctx.cards)
+    out = dict(os.environ if env is None else env)
+    out[ENV_PROCESS_ID] = str(ctx.process_id * k + local)
+    out[ENV_NUM_PROCESSES] = str(ctx.num_processes * k)
+    out[ENV_LOCAL_RANK] = str(local)
+    if not ctx.device:
+        i = visible_cards(ctx.cards).index(ctx.cards[local])
+        out[ENV_POD_DEVICE] = f"cuda:{i}"
+    return out
+
+
+def status_file(ctx: PodContext, name: str) -> Optional[str]:
+    """Where this process stamps status file ``name``: the pod's status
+    dir, the name suffixed ``.local-<j>`` on local rank ``j`` (the pod's
+    own file is written once every local rank has its own); None without
+    a status dir."""
+    if not ctx.status_dir:
+        return None
+    if ctx.local_rank is not None:
+        name = f"{name}.local-{ctx.local_rank}"
+    return os.path.join(ctx.status_dir, name)
 
 
 def resolve_coordinator(address: str) -> str:
@@ -143,8 +199,9 @@ def initialize(ctx: Optional[PodContext] = None) -> PodContext:
 
 def pod_device(ctx: PodContext, device=None):
     """The ``torch.device`` a pod's work runs on: ``device`` when given,
-    else the context's ``KFT_POD_DEVICE``, else the CUDA card (no card
-    raises: there is no silent CPU path)."""
+    else the context's ``KFT_POD_DEVICE``, else the CUDA card, which is
+    the pod's first own card (only its cards are visible; no card raises:
+    there is no silent CPU path)."""
     from ..device import resolve_device
 
     return resolve_device(device if device is not None else ctx.device)
@@ -171,9 +228,10 @@ def barrier(ctx: PodContext) -> float:
     elif dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t = time.time()
-    if ctx.status_dir:
+    path = status_file(ctx, BARRIER_FILE)
+    if path:
         os.makedirs(ctx.status_dir, exist_ok=True)
-        with open(os.path.join(ctx.status_dir, BARRIER_FILE), "w") as f:
+        with open(path, "w") as f:
             f.write(repr(t))
     return t
 
@@ -189,9 +247,10 @@ def shutdown() -> None:
 def emit_metric(ctx: PodContext, name: str, value: float, **extra) -> None:
     """Append a metric line to the pod's status stream AND stdout: stdout
     is the Katib-style collector contract (``name=value``), the status
-    dir's jsonl the structured channel the metrics collector scrapes."""
+    dir's jsonl the structured channel the metrics collector scrapes (a
+    k-card pod's stream is its local rank 0's)."""
     print(f"{name}={value}", flush=True)
-    if ctx.status_dir:
+    if ctx.status_dir and not ctx.local_rank:
         os.makedirs(ctx.status_dir, exist_ok=True)
         with open(os.path.join(ctx.status_dir, METRICS_FILE), "a") as f:
             f.write(json.dumps({"name": name, "value": value,

@@ -16,11 +16,15 @@ mirroring a real kubelet + the operator's pod watching:
   the SIGTERM-then-SIGKILL grace path.
 
 Differences from the reference: pods run ``kubeflow_tpu_torch.runtime.
-pod_main``, and there is no CPU default: a pod computes on the CUDA card
+pod_main``, and there is no CPU default: a pod computes on its cards
 unless ``KFT_POD_DEVICE`` (the pod template's env, ``env_overrides``, or
-this process's env) says otherwise. ``CUDA_VISIBLE_DEVICES``,
-``KFT_POD_DEVICE`` and ``KFT_DIST_BACKEND`` pass through from this process;
-several pods may share one card.
+this process's env) says otherwise. A pod sees only the cards the
+scheduler gave it (``Pod.spec.device_ids``, the device plugin's
+``Allocate``): its ``CUDA_VISIBLE_DEVICES`` names them, and
+``KFT_POD_CARDS`` lists them as bound (a time-sliced card repeated, so
+pods bound to one card share it). This process's
+``CUDA_VISIBLE_DEVICES`` does not pass through; ``KFT_POD_DEVICE`` and
+``KFT_DIST_BACKEND`` do.
 """
 
 from __future__ import annotations
@@ -148,17 +152,21 @@ class LocalKubelet:
 
     def _build_env(self, pod: Pod, status_dir: str) -> dict[str, str]:
         base_keys = ("PATH", "HOME", "PYTHONPATH", "TMPDIR", "LD_LIBRARY_PATH",
-                     "CUDA_VISIBLE_DEVICES", bootstrap.ENV_POD_DEVICE,
-                     bootstrap.ENV_DIST_BACKEND)
+                     bootstrap.ENV_POD_DEVICE, bootstrap.ENV_DIST_BACKEND)
         env = {k: os.environ[k] for k in base_keys if k in os.environ}
         env["PYTHONPATH"] = os.pathsep.join(
             p for p in (os.getcwd(), env.get("PYTHONPATH")) if p
         )
-        # no device default: the pod runs on the card unless KFT_POD_DEVICE
-        # (passed through above, or the template's, or an override) says
-        # otherwise — several pods may share the one card
+        # no device default: the pod runs on its cards unless
+        # KFT_POD_DEVICE (passed through above, or the template's, or an
+        # override) says otherwise
         env.update(pod.spec.container.env)
         env.update(self.env_overrides)
+        # the cards the scheduler bound, and only they, are the pod's
+        ids = pod.spec.device_ids
+        env["CUDA_VISIBLE_DEVICES"] = ",".join(
+            map(str, bootstrap.visible_cards(ids)))
+        env[bootstrap.ENV_POD_CARDS] = ",".join(map(str, ids))
         env[bootstrap.ENV_STATUS_DIR] = status_dir
         if pod.spec.container.entrypoint:
             env[bootstrap.ENV_ENTRYPOINT] = pod.spec.container.entrypoint

@@ -8,7 +8,9 @@ LLM fine-tune entry named in the north star — here it emits a JaxJob whose
 pods run the port's packaged trainer instead of a torch/peft container).
 
 The port's copy of ``kubeflow_tpu/sdk/client.py``, device-free like it,
-with the same names; it imports nothing of the reference package.
+with the same names but one: ``train()`` asks for ``gpus_per_worker``
+NVIDIA cards where the reference asks ``chips_per_worker`` TPU chips. It
+imports nothing of the reference package.
 """
 
 from __future__ import annotations
@@ -125,7 +127,7 @@ class TrainingClient:
         name: str,
         entrypoint: str,
         num_workers: int = 1,
-        chips_per_worker: int = 0,
+        gpus_per_worker: int = 0,
         env: Optional[dict[str, str]] = None,
         mesh: Optional[dict[str, int]] = None,
         model: Optional[str] = None,
@@ -151,6 +153,9 @@ class TrainingClient:
         adapter size.  ``publish_to``: directory the coordinator writes
         the trained snapshot to (save_adapter under LoRA, save_pretrained
         otherwise) — the train -> publish -> serve loop's publish step.
+
+        ``gpus_per_worker``: NVIDIA cards each worker pod asks for; a pod
+        of k cards runs k ranks, one a card (``runtime/pod_main``).
         """
         if model:
             env = {**(env or {}), "KFT_INIT_FROM": model}
@@ -172,7 +177,7 @@ class TrainingClient:
                         template=Container(
                             entrypoint=entrypoint,
                             env=env or {},
-                            resources=Resources(tpu=chips_per_worker),
+                            resources=Resources(gpu=gpus_per_worker),
                         ),
                     )
                 },

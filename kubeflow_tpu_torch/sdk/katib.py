@@ -8,7 +8,8 @@ Capability parity with the reference's katib SDK [upstream: kubeflow/katib
 and drives JaxJob trials.
 
 The port's copy of ``kubeflow_tpu/sdk/katib.py``, device-free like it,
-with the same names; it imports nothing of the reference package.
+with the same names; ``tune`` takes ``gpus_per_worker``, the NVIDIA cards
+each trial worker asks for. It imports nothing of the reference package.
 """
 
 from __future__ import annotations
@@ -155,12 +156,15 @@ class KatibClient:
         namespace: str = "default",
         wait: bool = True,
         timeout: float = 600.0,
+        gpus_per_worker: int = 0,
     ) -> Experiment:
         """Build + submit an Experiment in one call [reference analog:
         KatibClient.tune].  ``parameters`` maps env-var-ish parameter names
         to search specs (see ``search_double``/``search_int``/
         ``search_categorical``); each trial's JaxJob gets
-        ``KFT_<NAME>=${trialParameters.<name>}`` injected.
+        ``KFT_<NAME>=${trialParameters.<name>}`` injected. Each trial
+        worker asks ``gpus_per_worker`` NVIDIA cards (a pod sees only the
+        cards it asked for).
         """
         env = dict(base_env or {})
         for pname in parameters:
@@ -194,6 +198,9 @@ class KatibClient:
                                 "template": {
                                     "entrypoint": entrypoint,
                                     "env": env,
+                                    **({"resources": {
+                                        "gpu": gpus_per_worker}}
+                                       if gpus_per_worker else {}),
                                 },
                             }
                         }

@@ -20,9 +20,13 @@ like it, with the same names; it imports nothing of the reference
 package. It differs where the port runs one process a card: a gang
 predictor runs
 ``kubeflow_tpu_torch.serving.gang:serve_main`` in one pod for each rank
-(``hosts x chips_per_host`` pods), and an in-process predictor whose
+(``hosts x chips_per_host`` pods, each asking one ``nvidia.com/gpu``),
+and an in-process predictor whose
 ``mesh_axes`` spans more than one card becomes a one-host gang
-(``hosts=1``, ``chips_per_host=N``); ``resolve_class`` refuses the JAX
+(``hosts=1``, ``chips_per_host=N``); the autoscaler's TP-degree decisions
+reach the gangs through rank 0's resize route (``gang.RESIZE_ROUTE``),
+where the reference resizes its in-process engines; ``resolve_class``
+refuses the JAX
 package's class paths, the Router listens with ``BurstHTTPServer``'s backlog, a request waiting
 at the activator keeps the idle clock from running (a cold start longer
 than the idle window scaled its own replica away), and a torn-down
@@ -160,11 +164,10 @@ class _GangPredictor:
         if logger is not None:
             conf["logger_url"] = logger.url
             conf["logger_mode"] = logger.mode
-        conf["chips_per_host"] = int(gang.chips_per_host)
         env = {ENV_SERVE_CONFIG: json.dumps(conf)}
         if cfg.get("device"):
             # every rank's pod computes there ("cpu"); unset, each pod
-            # takes its own card, cuda:<rank mod chips_per_host>
+            # computes on the card the scheduler gave it
             env["KFT_POD_DEVICE"] = str(cfg["device"])
         job = JaxJob(
             metadata=ObjectMeta(name=self.job_name, namespace=self.namespace),
@@ -179,7 +182,7 @@ class _GangPredictor:
                             entrypoint=("kubeflow_tpu_torch.serving.gang:"
                                         "serve_main"),
                             env=env,
-                            resources=Resources(tpu=1),
+                            resources=Resources(gpu=1),
                         ),
                     )
                 },
@@ -190,6 +193,32 @@ class _GangPredictor:
     @property
     def url(self) -> str:
         return f"http://127.0.0.1:{self.port}"
+
+    @property
+    def tp_degree(self) -> int:
+        """The gang's TP degree, as last placed or resized."""
+        from .resize import degree_of
+
+        return degree_of(self.gang.mesh_axes)
+
+    def resize_to_degree(self, degree: int) -> bool:
+        """The autoscaler's TP-degree decision, posted to rank 0's resize
+        route (``gang.post_resize``) with the gang token; records the new
+        degree on ``gang``'s ``mesh_axes``. True when the degree changed;
+        raises when the gang refused (a target above its live members, a
+        resize that aborted with the old degree resumed in place)."""
+        from .gang import post_resize
+
+        with open(self._token_path) as f:
+            token = f.read().strip()
+        out = post_resize(self.url, degree, token)
+        if int(out["degree"]) != int(degree):
+            raise RuntimeError(
+                f"gang {self.job_name} is at TP degree {out['degree']}, "
+                f"not {degree}")
+        self.gang = self.gang.model_copy(
+            update={"mesh_axes": {"model": int(degree)}})
+        return bool(out["resized"])
 
     @property
     def ready(self) -> bool:
@@ -2064,6 +2093,9 @@ class InferenceServiceController(Controller):
                 inflight += int(s.metrics.inflight)
             except (AttributeError, TypeError):
                 pass
+            # a serving gang's degree is on its handle (its engines live
+            # in its pods)
+            degree = max(degree, int(getattr(s, "tp_degree", 0) or 0))
             engines = getattr(s, "engines", None)
             if engines is None:
                 continue
@@ -2327,19 +2359,42 @@ class InferenceServiceController(Controller):
 
     def _resize_replicas_to_degree(self, isvc, dep: _Deployment,
                                    degree: int) -> None:
-        """TP-degree actuator: refused (ROADMAP A7d). The reference runs
-        ``GangResizer`` on its in-process replicas, each one process over
-        N devices. In the port an in-process replica is one process on one
-        card, so always at degree 1 (``_new_revision`` makes every
-        predictor of a larger degree a gang), and a gang's degree is
-        changed live by its own ``ElasticGangSupervisor`` (``resize.py``)
-        inside ``serve_main``. Raises, so the loop's bounded-retry backoff
-        sees a decision the fleet cannot act on."""
-        raise RuntimeError(
-            f"TP resize to degree {degree}: no actuator in the port "
-            "(ROADMAP A7d): an in-process replica is one process on one "
-            "card, and a gang's degree belongs to its "
-            "ElasticGangSupervisor")
+        """TP-degree actuator: post the decision to every serving gang of
+        the stable revision (``_GangPredictor.resize_to_degree``: rank 0
+        runs the gang's own ``GangResizer``, copy-then-cutover, and the
+        handle records the new degree). In-process replicas are skipped:
+        one process drives one card, so they are at degree 1
+        (``_new_revision`` makes every predictor of a larger degree a
+        gang). Raises when nothing resized, when the target is above a
+        gang's live members, and when a resize aborted (the old degree
+        resumed in place): the decision demanded a shape the fleet cannot
+        take, and the loop's bounded-retry backoff must see that, not a
+        silent no-op."""
+        rev = dep.stable
+        resized = 0
+        err: Optional[Exception] = None
+        for s in ([] if rev is None else rev.predictors):
+            act = getattr(s, "resize_to_degree", None)
+            if act is None:
+                continue
+            try:
+                if act(int(degree)):
+                    resized += 1
+            except Exception as e:  # noqa: BLE001 — a refused or aborted
+                # resize left the gang at its old degree; surface it to
+                # the actuator's retry budget below
+                err = e
+        if err is not None:
+            raise RuntimeError(
+                f"TP resize to degree {degree} failed on a replica"
+            ) from err
+        if not resized:
+            raise RuntimeError(
+                f"no replica engine accepted a TP resize to {degree}")
+        self.emit_event(
+            isvc, "GangResized",
+            f"{resized} serving gang(s) resized to TP degree {degree}"
+            " by the autoscaler")
 
     def _measure_cold_start(self, dep: _Deployment) -> None:
         """Close the wake-from-zero clock once every stable replica

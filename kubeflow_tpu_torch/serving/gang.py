@@ -39,6 +39,17 @@ pickle; it carries ``ContinuousEngine.export_sequence`` snapshots, whose
 leaves are torch CPU tensors (bf16 included) or the reference's numpy
 ones.
 
+Each gang pod owns one card, allocated by the scheduler
+(``CUDA_VISIBLE_DEVICES`` from its ``device_ids``), and every rank
+computes on its pod's first visible card.
+
+The autoscaler's TP-degree decisions reach a gang through rank 0's
+control route (``RESIZE_ROUTE``, guarded by the gang token as the control
+stream is): it runs the gang's own ``GangResizer.resize_to_degree``
+(``resize.py``), under the lock the ``ElasticGangSupervisor`` takes too,
+and the decision caps the supervisor's grow-back. ``post_resize`` is the
+controller's side of it.
+
 Chaos testing: every socket the channel creates passes through an
 injectable ``sock_wrap`` (``kubeflow_tpu_torch.chaos.FaultPlan.
 socket_wrapper``).
@@ -72,6 +83,10 @@ log = logging.getLogger("kubeflow_tpu_torch.serving")
 #: storage_path + serve_port + gang_port) the ISvc controller freezes at
 #: gang-placement time
 ENV_SERVE_CONFIG = "KFT_SERVE_CONFIG"
+#: rank 0's POST route taking the autoscaler's target TP degree
+RESIZE_ROUTE = "/v2/gang/resize"
+#: the request header carrying the gang token on ``RESIZE_ROUTE``
+TOKEN_HEADER = "X-KFT-Gang-Token"
 
 _LEN = struct.Struct("!Q")
 
@@ -1217,11 +1232,84 @@ def _resolve_gang_token(conf: dict) -> str:
     return str(conf.get("gang_token", ""))
 
 
+def resize_route(resizer, channel: GangChannel, token: str,
+                 supervisor=None):
+    """The handler of ``RESIZE_ROUTE`` on rank 0's ``ModelServer``:
+    ``{"degree": d}`` resizes the live gang to TP degree ``d`` through its
+    own ``resizer`` (``GangResizer.resize_to_degree``) and answers
+    ``{"from": old, "degree": new, "resized": bool}``. Refused: a wrong
+    token (403), a degree below 1 (400), a target above the gang's live
+    members, an engine without the paged pool, and a resize that aborted
+    with the old degree resumed in place (409). The target caps the
+    ``supervisor``'s grow-back, so a membership tick does not undo it."""
+    import hmac
+
+    from .resize import ResizeAborted
+
+    def handle(payload: dict, headers) -> tuple[int, dict]:
+        if not hmac.compare_digest(
+                str(headers.get(TOKEN_HEADER) or "").encode(),
+                token.encode()):
+            return 403, {"error": "bad gang token"}
+        try:
+            d = int(payload["degree"])
+        except (KeyError, TypeError, ValueError):
+            return 400, {"error": "want {\"degree\": n}"}
+        if d < 1:
+            return 400, {"error": f"target TP degree must be >= 1, got {d}"}
+        if resizer is None:
+            return 409, {"error": "resize requires the paged pool "
+                                  "(block_size > 0)"}
+        live = 1 + len(channel.follower_ranks())
+        if d > live:
+            return 409, {"error": f"target TP degree {d} is above the "
+                                  f"gang's {live} live members"}
+        old = resizer.degree()
+        if supervisor is not None:
+            supervisor.max_degree = d
+        try:
+            resizer.resize_to_degree(d)
+        except ResizeAborted as e:
+            return 409, {"error": f"resize to {d} aborted, degree {old} "
+                                  f"resumed in place: {e}"}
+        new = resizer.degree()
+        return 200, {"from": old, "degree": new,
+                     "resized": new == d and old != d}
+
+    return handle
+
+
+def post_resize(url: str, degree: int, token: str,
+                timeout: float = 600.0) -> dict:
+    """POST the autoscaler's target TP ``degree`` to the gang whose rank 0
+    serves ``url``; returns its answer (``resize_route``), raises
+    ``RuntimeError`` carrying its error when it refuses."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        url + RESIZE_ROUTE, data=json.dumps({"degree": int(degree)}).encode(),
+        headers={"Content-Type": "application/json", TOKEN_HEADER: token})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        try:
+            why = json.loads(e.read()).get("error", "")
+        except ValueError:
+            why = ""
+        raise RuntimeError(
+            f"gang resize to TP degree {degree} refused ({e.code}): "
+            f"{why}") from None
+
+
 def serve_main(ctx: bootstrap.PodContext) -> None:
     """Entry point of every member of a serving gang (through
     ``runtime/pod_main``: the process group is initialized and the gang
-    barrier passed when this runs). One rank per pod, on the pod's card
-    (``KFT_POD_DEVICE``; the CPU with ``"cpu"``).
+    barrier passed when this runs). One rank per pod, on the pod's own
+    card (the first its ``CUDA_VISIBLE_DEVICES`` names; ``KFT_POD_DEVICE``
+    overrides it, the CPU with ``"cpu"``). Rank 0 serves ``RESIZE_ROUTE``
+    when its engine is paged.
 
     Config (``KFT_SERVE_CONFIG`` JSON): engine knobs per ``engine_kwargs``
     plus ``mesh_axes`` (``{"model": N}``, N = the gang's size),
@@ -1265,13 +1353,9 @@ def serve_main(ctx: bootstrap.PodContext) -> None:
     dev = kw["device"]
     if dev.type == "cuda":
         if dev.index is None:
-            # each rank its own card: rank mod the host's cards (one card
-            # shared by every rank on a host that has one)
-            cards = min(int(conf.get("chips_per_host") or 0)
-                        or torch.cuda.device_count(),
-                        torch.cuda.device_count())
+            # the pod's first own card: only its cards are visible
             dev = kw["device"] = torch.device(
-                "cuda", ctx.process_id % max(cards, 1))
+                "cuda", torch.cuda.current_device())
         torch.cuda.set_device(dev)
 
     if ctx.process_id == 0:
@@ -1311,16 +1395,18 @@ def serve_main(ctx: bootstrap.PodContext) -> None:
                 time.sleep(0.2)
         supervisor = None
         resizer = None
-        if elastic:
+        if elastic or engine.paged:
             from .resize import ElasticGangSupervisor, GangResizer, degree_of
 
-            degree = degree_of(conf.get("mesh_axes"))
+            # a new degree's engine warms the groups the boot warmed
             resizer = GangResizer(
-                engine, reshard_token=token,
+                engine, reshard_token=token, warmup_groups=groups,
                 set_engine=lambda e: (
                     model.swap_engine(e)
                     if hasattr(model, "swap_engine")
                     else setattr(model, "engine", e)))
+        if elastic:
+            degree = degree_of(conf.get("mesh_axes"))
             supervisor = ElasticGangSupervisor(
                 resizer, channel,
                 degree_per_member=max(degree // ctx.num_processes, 1),
@@ -1328,6 +1414,8 @@ def serve_main(ctx: bootstrap.PodContext) -> None:
                 min_degree=int(elastic.get("min_degree", 1)),
                 resize_deadline_s=float(
                     elastic.get("resize_deadline_s", 2.0)))
+        server.add_control_route(
+            RESIZE_ROUTE, resize_route(resizer, channel, token, supervisor))
         stop = threading.Event()
         signal.signal(signal.SIGTERM, lambda *_: stop.set())
         try:

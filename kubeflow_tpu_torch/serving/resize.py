@@ -51,11 +51,14 @@ import torch
 
 from ..parallel.sharding import param_shardings, reshard_plan
 from . import continuous as contlib
+# ``GangEngine`` is read off ``gang`` at each use, as ``ContinuousEngine``
+# is off ``continuous``: a resize checks and builds the class installed
+# there when it runs, whenever this module was first imported
+from . import gang as ganglib
 from . import sharded
 from .gang import (
     KV_HELLO_MAX,
     ChannelClosed,
-    GangEngine,
     _kv_recv,
     _kv_send,
     _leaf_bytes,
@@ -626,7 +629,7 @@ class GangResizer:
             t1 = time.perf_counter()
             if rtr is not None:
                 rtr.phase("resize.reshard")
-            if isinstance(src, GangEngine):
+            if isinstance(src, ganglib.GangEngine):
                 # the gather is a collective of the old group
                 src.publish(("params",))
             full = full_params(src)
@@ -665,7 +668,7 @@ class GangResizer:
                 src._host_pool = None
                 reform_group(group, 0)
                 if new_degree > 1:
-                    new = GangEngine(src.cfg, full, channel=channel,
+                    new = ganglib.GangEngine(src.cfg, full, channel=channel,
                                      mesh_axes=_mesh_of(new_degree), **kw)
                 else:
                     new = contlib.ContinuousEngine(src.cfg, full, **kw)
@@ -710,7 +713,7 @@ class GangResizer:
                         new.release_sequence(req)
                     except (RuntimeError, TimeoutError):
                         pass
-                if isinstance(new, GangEngine):
+                if isinstance(new, ganglib.GangEngine):
                     new.keep_channel_open = True
                 new.stop()
             if published:
@@ -793,7 +796,7 @@ class GangResizer:
                 _adopt(req)
         except (RuntimeError, TimeoutError) as e:
             cut_err = cut_err or e
-        if isinstance(src, GangEngine):
+        if isinstance(src, ganglib.GangEngine):
             src.keep_channel_open = True
         src.stop()
         if cut_err is not None:
@@ -825,7 +828,8 @@ class GangResizer:
         """End the gang's stream when the live engine no longer owns it (a
         degree-1 leader's plain engine): followers return from
         ``follow``."""
-        if self.channel is None or isinstance(self.engine, GangEngine):
+        if self.channel is None or isinstance(self.engine,
+                                              ganglib.GangEngine):
             return
         try:
             self.channel.publish(("stop",))

@@ -19,7 +19,9 @@ GPU; here it is native.
 The port's copy of ``kubeflow_tpu/serving/server.py``, device-free like
 it, with the same names; it imports nothing of the reference package.
 Its HTTP server listens with ``BurstHTTPServer``'s backlog
-(``utils/net.py``).
+(``utils/net.py``), and a process may add POST control routes of its own
+(``add_control_route``: a serving gang's rank 0 takes the autoscaler's
+TP-degree decisions at ``/v2/gang/resize``, ``serving/gang.py``).
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import threading
 import time
 from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 from ..utils.net import BurstHTTPServer, allocate_port
 from .model import Model
@@ -293,6 +295,17 @@ class ModelServer:
         self._httpd: Optional[BurstHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
         self._grpc = None
+        #: POST path -> handler(payload, headers) -> (status, body): the
+        #: process's own control routes (a gang's resize actuator)
+        self._control: dict[str, Callable[[dict, Any], tuple[int, Any]]] = {}
+
+    def add_control_route(
+            self, path: str,
+            handler: Callable[[dict, Any], tuple[int, Any]]) -> None:
+        """Serve POST ``path`` with ``handler(payload, headers)``, which
+        returns the response's status and JSON body. The handler
+        authenticates its caller itself."""
+        self._control[path] = handler
 
     def enable_grpc(self, port: Optional[int] = None) -> str:
         """Serve the V2 protocol over gRPC too (kserve's grpc_port analog);
@@ -617,6 +630,14 @@ class ModelServer:
             h._send(400, {"error": f"bad request body: {e}"})
             return
         path = h.path
+        control = self._control.get(path)
+        if control is not None:
+            try:
+                code, body = control(payload, h.headers)
+            except Exception as e:  # noqa: BLE001 — surfaced as a 500
+                code, body = 500, {"error": f"{type(e).__name__}: {e}"}
+            h._send(code, body)
+            return
         # V1: /v1/models/<name>:predict
         if path.startswith("/v1/models/") and path.endswith(":predict"):
             name = path[len("/v1/models/"):-len(":predict")]

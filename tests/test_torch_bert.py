@@ -158,7 +158,7 @@ def test_kft_bert_isvc_on_port_cluster():
     key = register_mem("torch-bert-tiny",
                        (cfg, convert.bert_from_reference(params, cfg)))
     cluster = Cluster()
-    cluster.add_tpu_slice("s0", 1, 4)
+    cluster.add_gpu_hosts("s0", 1, 4)
     cluster.enable_serving()
     instances = [[5, 9, 2], [7, 1, 3, 4, 8, 11, 2]]
     with cluster:

@@ -28,6 +28,7 @@ engines run without warmup (each shape compiles at first use).
 
 import importlib
 import json
+import math
 import socket
 import threading
 import time
@@ -36,6 +37,7 @@ import urllib.request
 
 import pytest
 
+from tests._torch_resources import add_hosts
 from tests.test_torch_text_server import BASE, register_both, tiny_weights
 
 PKGS = ("kubeflow_tpu", "kubeflow_tpu_torch")
@@ -98,7 +100,7 @@ def clusters():
         for pkg, key in zip(PKGS, keys):
             cp = importlib.import_module(f"{pkg}.controlplane")
             c = cp.Cluster()
-            c.add_tpu_slice("slice-0", 1, 4)
+            add_hosts(pkg, c, "slice-0", 1, 4)
             c.enable_serving()
             c.start()
             out.append((pkg, c, key))
@@ -455,8 +457,10 @@ def test_unported_knobs_fail(clusters, knob, tmp_path):
         assert spec.template.entrypoint == \
             "kubeflow_tpu_torch.serving.gang:serve_main"
         assert spec.template.env["KFT_POD_DEVICE"] == "cpu"
+        # a card a rank: the gang's mesh covers one pod of one card each
+        assert spec.template.resources.gpu == 1
         conf = json.loads(spec.template.env["KFT_SERVE_CONFIG"])
-        assert conf["chips_per_host"] * (2 if knob == "gang" else 1) == pods
+        assert math.prod(conf["mesh_axes"].values()) == pods
         isvc = c.store.get("InferenceService", name)
         assert str(isvc.status.phase.value) != "Failed", isvc.status
     finally:

@@ -22,7 +22,10 @@ and the op table of the gang's protocol.
   arm is found.
 - an InferenceService with ``mesh_axes`` placed as a gang of two
   ``serve_main`` pod processes on the CPU, answering through its Router
-  with the reference engine's tokens.
+  with the reference engine's tokens; the autoscaler's TP-resize
+  actuator takes the live gang 2 -> 1 -> 2 through rank 0's resize route
+  (``GangResized`` emitted, the degree recorded on the handle, the tokens
+  still the reference engine's), and refuses a target of 3.
 
 Every stream is held against the reference engine on the same weights (the
 reference's init, converted by ``models/convert.py``).
@@ -295,19 +298,30 @@ def test_mesh_axes_inference_service_serves_as_a_gang_of_pods(weights,
     """An InferenceService whose predictor has ``mesh_axes={"model": 2}``
     is placed as a one-host gang: a JaxJob of two ``serve_main`` pods
     (real processes, gloo on the CPU, ``KFT_POD_DEVICE=cpu`` from the
-    config's device), rank 0's frontend behind the Router; its greedy
-    tokens equal the reference engine's."""
+    config's device), each bound to a card of its own, rank 0's frontend
+    behind the Router; its greedy tokens equal the reference engine's.
+    The autoscaler's resize decisions then reach the live gang through
+    its actuator: 2 -> 1 -> 2, the tokens the reference engine's at each
+    degree, ``GangResized`` emitted, and the degree recorded on the
+    handle; a target above the gang's two members raises, the degree
+    kept."""
     import json
     import urllib.request
 
     from kubeflow_tpu_torch.api import from_dict
     from kubeflow_tpu_torch.controlplane.cluster import Cluster
+    from kubeflow_tpu_torch.controlplane.controller import events_for
     from kubeflow_tpu_torch.runtime.launcher import LocalKubelet
+    from kubeflow_tpu_torch.serving.autoscale import Decision
+    from kubeflow_tpu_torch.serving.controller import (
+        InferenceServiceController,
+    )
 
     llama = _port()[1]
     snap = str(tmp_path / "snapshot")
     llama.save_pretrained(snap, llama.tiny(), weights[2])
-    kw = {"num_slots": 2, "decode_chunk": 4, "prefix_cache": False}
+    kw = {"num_slots": 2, "decode_chunk": 4, "block_size": 8,
+          "prefix_cache": False}
     prompt = _prompts()[1]
     (want,) = _reference_tokens(weights, kw, [prompt], 6, [(1, 32)])
     isvc = {"kind": "InferenceService", "metadata": {"name": "tp"},
@@ -318,7 +332,7 @@ def test_mesh_axes_inference_service_serves_as_a_gang_of_pods(weights,
                            "mesh_axes": {"model": 2}, "max_new_tokens": 6,
                            "warmup_groups": [[1, 32]], **kw}}}}
     cluster = Cluster()
-    cluster.add_tpu_slice("s0", 1, 4)
+    cluster.add_gpu_hosts("s0", 1, 4)
     kubelet = LocalKubelet(cluster.store, str(tmp_path / "pods"))
     with cluster:
         cluster.enable_serving()
@@ -335,13 +349,39 @@ def test_mesh_axes_inference_service_serves_as_a_gang_of_pods(weights,
             assert str(obj.status.phase.value) == "Ready", obj.status
             (job,) = cluster.store.list("JaxJob")
             assert next(iter(job.spec.replica_specs.values())).replicas == 2
-            req = urllib.request.Request(
-                obj.status.url + "/v1/models/tp:predict",
-                data=json.dumps({"instances": [prompt]}).encode(),
-                headers={"Content-Type": "application/json"})
-            with urllib.request.urlopen(req, timeout=worker.WAIT_S) as r:
-                got = json.loads(r.read())["predictions"][0]
-            assert got == want
+            pods = cluster.store.list("Pod")
+            assert sorted(i for p in pods for i in p.spec.device_ids) == \
+                [0, 1]
+
+            def predict():
+                req = urllib.request.Request(
+                    obj.status.url + "/v1/models/tp:predict",
+                    data=json.dumps({"instances": [prompt]}).encode(),
+                    headers={"Content-Type": "application/json"})
+                with urllib.request.urlopen(req, timeout=worker.WAIT_S) as r:
+                    return json.loads(r.read())["predictions"][0]
+
+            assert predict() == want
+            ctl = next(x for x in cluster.controllers
+                       if isinstance(x, InferenceServiceController))
+            dep = ctl._deployments["default/tp"]
+            (handle,) = dep.stable.predictors
+            resize = ctl._autoscale_actuators(obj, dep)["resize"]
+            for degree, action in ((1, "resize_down"), (2, "resize_up")):
+                resize(Decision(action, degree=degree))
+                assert handle.tp_degree == degree
+                assert handle.gang.mesh_axes == {"model": degree}
+                assert predict() == want, degree
+            resized = [e.message for e in events_for(
+                cluster.store, "InferenceService", "tp")
+                if e.reason == "GangResized"]
+            assert len(resized) == 2 and "TP degree 1" in resized[0]
+            with pytest.raises(RuntimeError, match="failed on a replica") \
+                    as err:
+                resize(Decision("resize_up", degree=3))
+            assert "above the gang's 2 live members" in str(
+                err.value.__cause__)
+            assert handle.tp_degree == 2 and predict() == want
         finally:
             cluster.store.delete("InferenceService", "tp")
             kubelet.stop()

@@ -23,6 +23,8 @@ import time
 import numpy as np
 import pytest
 
+from tests._torch_resources import add_hosts
+
 PKGS = ("kubeflow_tpu", "kubeflow_tpu_torch")
 PARAMS = [
     {"name": "lr", "parameter_type": "double",
@@ -199,7 +201,7 @@ def _run_experiment(pkg: str, root, early_stopping: bool) -> dict:
     fk = _mod(pkg, "controlplane.fake_kubelet")
     objects = _mod(pkg, "controlplane.objects")
     cluster = cluster_mod.Cluster()
-    cluster.add_tpu_slice("slice-0", 1, 4)
+    add_hosts(pkg, cluster, "slice-0", 1, 4)
     cluster.enable_hpo(metrics_root=str(root))
     kubelet = fk.FakeKubelet(
         cluster.store, script=lambda pod: fk.PodScript(run_seconds=0.3))

@@ -13,6 +13,8 @@ import urllib.request
 
 import pytest
 
+from tests._torch_resources import add_hosts
+
 PKGS = ("kubeflow_tpu", "kubeflow_tpu_torch")
 
 
@@ -64,7 +66,7 @@ def clusters():
             cp = importlib.import_module(f"{pkg}.controlplane")
             api = importlib.import_module(f"{pkg}.api")
             c = cp.Cluster()
-            c.add_tpu_slice("slice-0", 1, 4)
+            add_hosts(pkg, c, "slice-0", 1, 4)
             c.enable_serving()
             c.start()
             out.append((pkg, c))

@@ -14,8 +14,8 @@ parallel/{mesh,sharding}.py``) against the reference's, in one process.
 - what the layout cannot take raises: a ``seq`` axis without ring
   attention, a stack the pipeline stages do not divide, and a mesh larger
   than the job's processes (``plan_mesh``'s ``MeshPlanError``; on a
-  one-rank gloo group ``build_mesh``'s, naming ROADMAP A13, a ``seq``
-  mesh of two on one rank too);
+  one-rank gloo group ``build_mesh``'s, which says the port runs one
+  process a card, a ``seq`` mesh of two on one rank too);
 - ``shard_model`` lays out what it once refused, on a mesh of fake axes
   over the one-rank group: LoRA and int8 weights under ``model`` (every
   kernel, scale and adapter factor sliced as its logical axes say),
@@ -273,7 +273,7 @@ def test_unported_axes_and_features_raise_naming_items():
     three = pt.llama.Llama(pt.llama.tiny(num_layers=3), device="cpu")
     with pytest.raises(ValueError, match="3 layers not divisible by 2"):
         pt.sharding.shard_model(three, _fake_mesh({"pipeline": 2}))
-    # more devices than the job has (A13's MeshPlanError on a group)
+    # more devices than the job has (build_mesh's refusal on a group)
     with pytest.raises(pt.mesh.MeshPlanError) as err:
         pt.mesh.plan_mesh({"fsdp": 2, "model": 2}, num_devices=2)
     with pytest.raises(ref_mesh.MeshPlanError) as want:
@@ -360,7 +360,8 @@ def test_one_rank_meshes(one_rank_group):
     from kubeflow_tpu_torch.train.trainer import TrainConfig, Trainer
 
     pt = _port()
-    with pytest.raises(pt.mesh.MeshPlanError, match="ROADMAP A13"):
+    with pytest.raises(pt.mesh.MeshPlanError,
+                       match="a pod with k cards runs k processes"):
         pt.mesh.build_mesh({"fsdp": 2})
     mesh = pt.mesh.build_mesh({"fsdp": 1, "model": 1})
     assert mesh.mesh_dim_names == ("data",) and mesh.mesh.tolist() == [0]
@@ -368,7 +369,8 @@ def test_one_rank_meshes(one_rank_group):
 
     cfg = TrainConfig(model=pt.llama.tiny(), global_batch=4, seq_len=16,
                       steps=3, warmup_steps=1, mu_dtype=None)
-    with pytest.raises(pt.mesh.MeshPlanError, match="ROADMAP A13"):
+    with pytest.raises(pt.mesh.MeshPlanError,
+                       match="one process a card"):
         Trainer(TrainConfig(mesh_axes={"seq": 2}), device="cpu")
     plain = Trainer(cfg, device="cpu")
     assert plain.mesh is None

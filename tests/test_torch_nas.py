@@ -135,7 +135,7 @@ def test_darts_experiment_reaches_the_port_supernet(tmp_path):
     settings = {"task_ref": key, "supernet_steps": str(STEPS)}
 
     cluster = Cluster()
-    cluster.add_tpu_slice("slice-0", 1, 4)
+    cluster.add_gpu_hosts("slice-0", 1, 4)
     cluster.enable_hpo(metrics_root=str(tmp_path))
     kubelet = FakeKubelet(cluster.store)
     stop = threading.Event()

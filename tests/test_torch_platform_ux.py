@@ -11,14 +11,26 @@ reference's ``kubeflow_tpu/ux/``, on the CPU, with the fake kubelet.
   and observation db.
 
 (The Notebook pod that runs ``notebook_server`` and answers ``/execute``
-is ``tests/test_torch_sdk_cli.py``'s.) Both packages are imported inside
-the tests.
+is ``tests/test_torch_sdk_cli.py``'s.) The port counts NVIDIA cards
+(``gpu``) where the reference counts TPU chips (``tpu``): each side is
+written in its own words, and the reference's results are mapped into the
+port's before they are compared (``tests/_torch_resources.py``). Both
+packages are imported inside the tests.
 """
 
 import importlib
 import time
 import urllib.error
 import urllib.request
+
+from tests._torch_resources import (
+    add_hosts,
+    as_port,
+    as_ref,
+    in_vocab,
+    text_as_port,
+    translate_store,
+)
 
 PKGS = ("kubeflow_tpu", "kubeflow_tpu_torch")
 
@@ -38,16 +50,16 @@ def _wait(fn, what: str, timeout: float = 15.0):
 
 
 def _job(pkg: str, name: str, replicas: int, tpu: int, env=None):
-    return _mod(pkg, "api").from_dict({
+    return _mod(pkg, "api").from_dict(in_vocab(pkg, {
         "kind": "JaxJob", "metadata": {"name": name, "namespace": "team-a"},
         "spec": {"replica_specs": {"worker": {"replicas": replicas,
                  "template": {"env": env or {}, "resources": {
-                     "cpu": 1, "memory_gb": 1, "tpu": tpu}}}}}})
+                     "cpu": 1, "memory_gb": 1, "tpu": tpu}}}}}}))
 
 
 def _ux_cluster(pkg: str):
     c = _mod(pkg, "controlplane.cluster").Cluster()
-    c.add_tpu_slice("s0", num_hosts=4, chips_per_host=4)
+    add_hosts(pkg, c, "s0", 4, 4)
     c.enable_platform_ux()
     fk = _mod(pkg, "controlplane.fake_kubelet")
     return c, fk.FakeKubelet(c.store, lambda pod: fk.PodScript(hang=True))
@@ -60,9 +72,9 @@ def _quota_and_defaults(pkg: str) -> dict:
     with c:
         kubelet.start()
         try:
-            c.store.create(api.from_dict({
+            c.store.create(api.from_dict(in_vocab(pkg, {
                 "kind": "Profile", "metadata": {"name": "team-a"},
-                "spec": {"owner": "a@corp", "resource_quota": {"tpu": 4}}}))
+                "spec": {"owner": "a@corp", "resource_quota": {"tpu": 4}}})))
             c.store.create(api.from_dict({
                 "kind": "PodDefault",
                 "metadata": {"name": "tracking", "namespace": "team-a"},
@@ -84,7 +96,8 @@ def _quota_and_defaults(pkg: str) -> dict:
                           and all(x.spec.node_name for x in p) and p,
                           "the gang inside the quota bound")
             prof = _wait(lambda: (p := c.store.try_get("Profile", "team-a"))
-                         and p.status.usage.get("tpu") == 4.0 and p,
+                         and p.status.usage.get(
+                             "tpu" if pkg == PKGS[0] else "gpu") == 4.0 and p,
                          "the profile's usage")
             env = dict(small[0].spec.container.env)
             # the coordinator's port is allocated at bind time
@@ -102,7 +115,7 @@ def _quota_and_defaults(pkg: str) -> dict:
 
 def test_profile_quota_and_pod_defaults_match_reference():
     got = {pkg: _quota_and_defaults(pkg) for pkg in PKGS}
-    want = got["kubeflow_tpu"]
+    want = as_port(got["kubeflow_tpu"])
     assert got["kubeflow_tpu_torch"] == want
     assert want["big"][2] == [None, None]
     assert want["small"][0]["KFT_TRACKING"] == "on"
@@ -143,7 +156,7 @@ def _notebook_lifecycle(pkg: str) -> list:
 
 def test_notebook_lifecycle_matches_reference():
     got = {pkg: _notebook_lifecycle(pkg) for pkg in PKGS}
-    want = got["kubeflow_tpu"]
+    want = as_port(got["kubeflow_tpu"])
     assert got["kubeflow_tpu_torch"] == want
     assert want[0] == ("Running", "http://wb-notebook-0.default.svc", True)
     assert want[1][1]["kft-stopped"] == "idle-culled" and want[2] is None
@@ -170,7 +183,7 @@ def test_dashboard_pages_match_reference(tmp_path):
     (logs / "dash-worker-0.log").write_text("score=0.5\n")
     data_dir = str(tmp_path / "store")
     c = Cluster(data_dir=data_dir)
-    c.add_tpu_slice("s0", 1, 4)
+    c.add_gpu_hosts("s0", 1, 4)
     c.enable_platform_ux()
     kubelet = FakeKubelet(c.store, lambda pod: PodScript(run_seconds=0.05))
     with c:
@@ -186,7 +199,8 @@ def test_dashboard_pages_match_reference(tmp_path):
         finally:
             kubelet.stop()
     # the cluster is stopped; each package replays its log into a store
-    # of its own, which no longer moves under the pages
+    # of its own, which no longer moves under the pages (the reference a
+    # copy in its words: chips for cards)
     server = DbManagerServer(str(tmp_path / "obs.sqlite")).start()
     db = DbManagerClient(server.address)
     db.report_observation("exp1", "exp1-t1", {"lr": 0.1}, 0.5, step=10)
@@ -199,9 +213,11 @@ def test_dashboard_pages_match_reference(tmp_path):
              "/api/pods/team-a/dash-worker-0/logs", "/api/mystery", "/x"]
     pages = {}
     try:
-        for name, cls, pkg in (("ref", RefDashboard, "kubeflow_tpu"),
-                               ("port", Dashboard, "kubeflow_tpu_torch")):
-            store = _mod(pkg, "controlplane.store").Store.open(data_dir)
+        ref_dir = translate_store(data_dir, str(tmp_path / "ref"), as_ref)
+        for name, cls, pkg, d in (
+                ("ref", RefDashboard, "kubeflow_tpu", ref_dir),
+                ("port", Dashboard, "kubeflow_tpu_torch", data_dir)):
+            store = _mod(pkg, "controlplane.store").Store.open(d)
             dash = cls(store, db=db,
                        log_path_for=lambda ns, pod: str(logs / f"{pod}.log"))
             try:
@@ -212,7 +228,8 @@ def test_dashboard_pages_match_reference(tmp_path):
     finally:
         db.close()
         server.stop()
-    assert pages["port"] == pages["ref"]
+    assert pages["port"] == [(code, ctype, text_as_port(body.decode()).encode())
+                             for code, ctype, body in pages["ref"]]
     codes = [p[0] for p in pages["ref"]]
     assert codes == [200] * 9 + [404, 200, 200, 404, 404]
     assert b"team-a/dash" in pages["ref"][0][2]

@@ -184,11 +184,13 @@ def test_pod_context_from_env_equals_the_reference():
            "KFT_MESH": json.dumps({"data": 4}), "KFT_STATUS_DIR": "/s"}
     got = pt.bootstrap.PodContext.from_env(env)
     want = ref_boot.PodContext.from_env(env)
-    # the port's fields more: the pod's device (unset = the card) and the
-    # process group's backend (unset = by the device)
+    # the port's fields more: the pod's device (unset = the card), the
+    # process group's backend (unset = by the device), the pod's card ids
+    # and the local rank of a process of a several-card pod
     assert got.device is None and got.dist_backend is None
     assert dataclasses.asdict(got) == {**dataclasses.asdict(want),
-                                       "device": None, "dist_backend": None}
+                                       "device": None, "dist_backend": None,
+                                       "cards": [], "local_rank": None}
     assert pt.bootstrap.PodContext.from_env(
         {**env, "KFT_POD_DEVICE": "cpu"}).device == "cpu"
     cpu = pt.bootstrap.PodContext.from_env({**env, "KFT_POD_DEVICE": "cpu"})

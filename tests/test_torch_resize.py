@@ -16,9 +16,11 @@ on the CPU.
 - the controller's elastic knobs, as the reference's tests drive them: a
   bad ``elastic`` family is one Failed status, the degraded deadline
   re-places a gang at its surviving shape, ``min_degree`` floors it;
-- the autoscaler's TP-resize actuator refuses, naming ROADMAP A7d: an
-  in-process replica is one process on one card, and a gang's degree
-  belongs to its ``ElasticGangSupervisor``;
+- the autoscaler's TP-resize actuator posts its decision to the serving
+  gangs and raises when nothing resized, when a gang refused, and when a
+  resize aborted; rank 0's resize route checks the gang token and
+  refuses what it cannot take (the live actuator is
+  ``tests/test_torch_gang.py``'s);
 - ``ElasticGangSupervisor``'s shrink-to-survive and grow-back decisions,
   the plan's helpers.
 
@@ -251,7 +253,7 @@ def test_bad_elastic_fails_isvc_at_conf_freeze():
                      "elastic": {"min_degree": 1}},
     }
     with Cluster() as cluster:
-        cluster.add_tpu_slice("slice-0", 1, 4)
+        cluster.add_gpu_hosts("slice-0", 1, 4)
         cluster.enable_serving()
         for name, cfg in bad.items():
             cluster.store.create(InferenceService(
@@ -362,20 +364,104 @@ def test_min_degree_floors_the_shrink():
 
 
 def test_tp_resize_actuator_refuses_naming_its_item():
-    """The autoscaler's TP-degree decision has no actuator in the port:
-    an in-process replica is one process on one card, and a gang's degree
-    is changed live by its own ``ElasticGangSupervisor``. The actuator
-    raises, naming ROADMAP A7d, so the loop's retry budget sees it."""
+    """(Named when the actuator was refused.) The autoscaler's TP-degree
+    actuator posts the decision to every serving gang of the stable
+    revision and skips in-process replicas (one card, degree 1). It
+    raises, so the loop's retry budget sees a decision the fleet cannot
+    act on: when nothing resized, when a gang refused a target above its
+    live members, and when a resize aborted with the old degree resumed;
+    a resize emits ``GangResized``."""
     from kubeflow_tpu_torch.api.common import ObjectMeta
     from kubeflow_tpu_torch.api.inference import InferenceService
     from kubeflow_tpu_torch.serving.controller import (
         InferenceServiceController,
         _Deployment,
+        _Revision,
     )
 
     isvc = InferenceService(metadata=ObjectMeta(name="act"))
     act = InferenceServiceController._resize_replicas_to_degree
-    for degree in (1, 2):
-        with pytest.raises(RuntimeError, match="A7d") as e:
-            act(_controller_stub(None, []), isvc, _Deployment(), degree)
-        assert "ElasticGangSupervisor" in str(e.value)
+
+    class _InProcess:  # a ModelServer replica: no resize_to_degree
+        pass
+
+    class _Gang:
+        def __init__(self, answer):
+            self.answer = answer
+
+        def resize_to_degree(self, degree):
+            if isinstance(self.answer, Exception):
+                raise self.answer
+            return self.answer
+
+    def run(*preds, degree=2):
+        events: list = []
+        dep = _Deployment()
+        dep.stable = _Revision(1, "fp", isvc.spec, None, {})
+        dep.stable.predictors = list(preds)
+        act(_controller_stub(None, events), isvc, dep, degree)
+        return events
+
+    for preds in ((), (_InProcess(),), (_InProcess(), _Gang(False))):
+        with pytest.raises(RuntimeError, match="no replica engine accepted"):
+            run(*preds)
+    above = RuntimeError("gang resize to TP degree 3 refused (409): target "
+                         "TP degree 3 is above the gang's 2 live members")
+    aborted = RuntimeError("gang resize to TP degree 1 refused (409): "
+                           "resize to 1 aborted, degree 2 resumed in place")
+    for err in (above, aborted):
+        with pytest.raises(RuntimeError, match="failed on a replica") as e:
+            run(_Gang(True), _Gang(err))
+        assert e.value.__cause__ is err
+    events = run(_InProcess(), _Gang(True), _Gang(True), degree=1)
+    assert events == [("GangResized", "2 serving gang(s) resized to TP "
+                       "degree 1 by the autoscaler")]
+
+
+def test_resize_route_guards_and_refusals():
+    """Rank 0's resize route (``gang.resize_route``): the gang token
+    guards it; a degree below 1, an engine without the paged pool, a
+    target above the live members and an aborted resize are refused; a
+    resize answers both degrees and caps the supervisor's grow-back."""
+    from kubeflow_tpu_torch.serving import gang
+    from kubeflow_tpu_torch.serving.resize import ResizeAborted
+
+    class _Channel:
+        def follower_ranks(self):
+            return [1]
+
+    class _Resizer:
+        def __init__(self, fail=False):
+            self.d, self.fail = 2, fail
+
+        def degree(self):
+            return self.d
+
+        def resize_to_degree(self, d):
+            if self.fail:
+                raise ResizeAborted("export")
+            self.d = d
+
+    class _Supervisor:
+        max_degree = 2
+
+    good = {gang.TOKEN_HEADER: "tok"}
+    sup = _Supervisor()
+    route = gang.resize_route(_Resizer(), _Channel(), "tok", sup)
+    assert route({"degree": 1}, {gang.TOKEN_HEADER: "nope"})[0] == 403
+    assert route({"degree": 1}, {})[0] == 403
+    assert route({"degree": 0}, good)[0] == 400
+    assert route({}, good)[0] == 400
+    code, body = route({"degree": 3}, good)
+    assert code == 409 and "above the gang's 2 live members" in body["error"]
+    assert route({"degree": 1}, good) == (
+        200, {"from": 2, "degree": 1, "resized": True})
+    assert sup.max_degree == 1
+    assert route({"degree": 1}, good) == (
+        200, {"from": 1, "degree": 1, "resized": False})
+    code, body = gang.resize_route(_Resizer(fail=True), _Channel(), "tok")(
+        {"degree": 1}, good)
+    assert code == 409 and "degree 2 resumed in place" in body["error"]
+    code, body = gang.resize_route(None, _Channel(), "tok")(
+        {"degree": 1}, good)
+    assert code == 409 and "paged pool" in body["error"]

@@ -27,6 +27,8 @@ import urllib.request
 import pytest
 import yaml
 
+from tests._torch_resources import add_hosts, as_port
+
 PKGS = ("kubeflow_tpu", "kubeflow_tpu_torch")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MANIFEST = """
@@ -71,7 +73,7 @@ def _cli_session(pkg: str, tmp_path, capsys) -> dict:
     manifest = tmp_path / f"{pkg}.yaml"
     manifest.write_text(MANIFEST)
     cluster = cluster_mod.Cluster()
-    cluster.add_tpu_slice("slice-0", 1, 4)
+    add_hosts(pkg, cluster, "slice-0", 1, 4)
     cluster.enable_hpo(log_path_for=lambda ns, pod: str(logs / f"{pod}.log"))
     kubelet = fk.FakeKubelet(cluster.store)
     out = {}
@@ -125,7 +127,8 @@ def test_cli_matches_reference(tmp_path, capsys):
     want, port = got["kubeflow_tpu"], got["kubeflow_tpu_torch"]
     assert port.pop("module") == (0, [["NAMESPACE", "NAME", "PHASE"],
                                       ["default", "team-cli", "Pending"]])
-    assert port == want
+    # the job's resources count the port's cards as the reference's chips
+    assert port == as_port(want)
     assert want["apply"][1] == "jaxjob/cli-job created\nprofile/team-cli created\n"
     assert want["get"] == (0, [["NAMESPACE", "NAME", "PHASE"],
                                ["default", "cli-job", "Succeeded"]])
@@ -138,7 +141,7 @@ def test_kserve_client_echo_matches_reference():
     answers = {}
     for pkg in PKGS:
         cluster = _mod(pkg, "controlplane.cluster").Cluster()
-        cluster.add_tpu_slice("s0", 1, 4)
+        add_hosts(pkg, cluster, "s0", 1, 4)
         cluster.enable_serving()
         with cluster:
             client = _mod(pkg, "sdk").KServeClient(cluster)
