@@ -29,7 +29,10 @@ the engine's ``stats()`` to the metrics contract with
 (``spec_serve``, ``moe_spec_serve``, ``prefix_serve``) and moving and
 storing sequences (``migrate_serve``, ``moe_migrate_serve``,
 ``hibernate_serve`` with a ``LockAudit`` over the locks its threads share,
-``host_tier_serve``, ``disagg_serve``), and the
+``host_tier_serve``, ``disagg_serve``), a snapshot with bf16 parameters
+(``bf16_snapshot_serve``: the bench model saved by the port in bf16, its
+``config.json`` saying so, served bitwise as the same weights cast at
+load, each engine's peak memory beside the f32 engine's), and the
 serving plane over HTTP (``http_serve``: ``ModelServer`` and
 ``TextGenerator`` over the bench model, every greedy completion held to the
 engine's own text, SSE streams timed, a QoS preemption, then the MoE bench
@@ -82,8 +85,8 @@ engine's streams; the MoE bench model's capacity dispatch on
 ``{"expert": 2}``; Adafactor on ``{"fsdp": 2}`` and ``{"model": 2}``;
 GPipe and 1F1B on ``{"pipeline": 2, "fsdp": 2}``, four ranks; the
 two-rank layouts in one spawn, the four-rank ones in another), then
-multi-GPU serving: ``wire_migrate``, ``tp_serve``, ``moe_tp_serve`` and
-``tp_resize`` (below). The main
+multi-GPU serving: ``wire_migrate``, ``tp_serve``, ``moe_tp_serve``,
+``moe_ep_serve`` and ``tp_resize`` (below). The main
 sequence ends with the rest of the parallel phases (``MAIN_TAIL_PHASES``,
 beside the track's gangs): ``nccl_one_rank`` (a one-rank NCCL group
 through ``bootstrap``, then FSDP2 over it on a one-rank ``fsdp`` mesh),
@@ -94,17 +97,25 @@ Ulysses attention over a two-rank ring at the bench attention shape
 against ``flash_attention`` and the plain attention on the whole
 sequence) and ``dist_pods`` (``examples/02`` as one worker of two cards,
 whose pod runs two local ranks, and a two-worker ``examples/01``, as pod
-processes on the card, every rank's ``loss=`` lines equal). Multi-GPU serving
-(``tp_gmm_time``, K4a at the experts' shapes under ``{"model": 2}``, K
-1024 -> N 1408 and K 1408 -> N 1024, checked and timed, runs in the main
-sequence after ``serve_gmm_time``): ``nccl_graph_capture``
+processes on the card, every rank's ``loss=`` lines equal) and ``dryrun``
+(``parallel.dryrun`` at four ranks over gloo: a training step on each
+layout leg, every rank's loss equal, and the ``{"model": 2}`` and
+``{"expert": 2, "model": 2}`` serving legs' tokens against one engine's).
+Multi-GPU serving (``tp_gmm_time``, K4a at the experts' shapes under
+``{"model": 2}``, K 1024 -> N 1408 and K 1408 -> N 1024, and
+``ep_gmm_time``, the same over an expert-parallel rank's window of the
+sorted rows, rows of no group on both sides, checked and timed, run in
+the main sequence after ``serve_gmm_time``): ``nccl_graph_capture``
 (a one-rank NCCL group: a CUDA graph holding the tensor-parallel
 all-reduce and all-gather, and the serving engine with its collectives
 forced on, every program captured), ``tp_serve`` and ``moe_tp_serve`` (the
 bench models behind a two-rank serving gang at ``{"model": 2}`` through
 ``serve_main`` and ``ModelServer``, ranks sharing the card over gloo, every
 program output of rank 1 held bitwise against rank 0's, greedy streams
-against the unsharded engine's), ``wire_migrate`` (``DisaggregatedPool(
+against the unsharded engine's), ``moe_ep_serve`` (the MoE bench model
+behind a four-rank gang at ``{"expert": 2, "model": 2}``, held as
+``moe_tp_serve`` is, every rank's K4a counted, no count-matrix host
+copy), ``wire_migrate`` (``DisaggregatedPool(
 wire=True)``, ``migrate_sequence`` between two engines, and a TP=2 gang's
 export imported by an unsharded engine) and ``tp_resize`` (a live TP=2 gang
 shrunk to 1 and grown back to 2 with a stream open, each resize the
@@ -542,16 +553,18 @@ def grouped_cases() -> dict[str, tuple]:
     }
 
 
-def _offsets(sizes):
+def _offsets(sizes, lead: int = 0):
+    """The groups' offsets, the first group starting at row ``lead``."""
     import torch
 
-    return torch.tensor([0, *itertools.accumulate(sizes)],
+    return torch.tensor(list(itertools.accumulate(sizes, initial=lead)),
                         dtype=torch.int32, device="cuda")
 
 
-def check_grouped_case(b, k, n, sizes, trans_w, gen) -> dict:
+def check_grouped_case(b, k, n, sizes, trans_w, gen, lead: int = 0) -> dict:
     """gmm and tgmm against their plain versions on bf16 inputs; rows of no
-    group and empty groups' blocks must come back exactly 0, and a second
+    group (the ``lead`` rows before the first group, the tail after the
+    last) and empty groups' blocks must come back exactly 0, and a second
     launch on the same inputs bitwise equal to the first (the kernels'
     schedules use no atomics). x's and g's rows of no group hold NaN: the
     tiles and slices that read them past a group's end must not carry them
@@ -567,9 +580,10 @@ def check_grouped_case(b, k, n, sizes, trans_w, gen) -> dict:
     e = len(sizes)
     x, g = rnd(b, k), rnd(b, n)
     w = rnd(e, n, k) if trans_w else rnd(e, k, n)
-    offs = _offsets(sizes)
-    end = sum(sizes)
+    offs = _offsets(sizes, lead)
+    end = lead + sum(sizes)
     x[end:], g[end:] = float("nan"), float("nan")
+    x[:lead], g[:lead] = float("nan"), float("nan")
     # poison the memory the outputs will reuse: a row or block the kernels
     # failed to write would not read back as 0
     torch.full((b, n), float("nan"), dtype=torch.bfloat16, device="cuda")
@@ -583,8 +597,9 @@ def check_grouped_case(b, k, n, sizes, trans_w, gen) -> dict:
     return {
         "gmm_rel": rel_err(out, out_p), "tgmm_rel": rel_err(dw, dw_p),
         "gmm_abs": abs_err(out, out_p), "tgmm_abs": abs_err(dw, dw_p),
-        "tail_rows": b - end,
-        "tail_rows_zero": bool((out[end:] == 0).all()),
+        "tail_rows": b - end, "lead_rows": lead,
+        "tail_rows_zero": bool((out[end:] == 0).all()
+                               and (out[:lead] == 0).all()),
         "empty_groups": sizes.count(0),
         "empty_blocks_zero": all(bool((dw[i] == 0).all())
                                  for i, size in enumerate(sizes) if size == 0),
@@ -848,41 +863,49 @@ SERVE_VERIFY_SIZES = _split(8 * 5 * 2, 8)
 
 
 def _serve_gmm_reading(sizes, gen, k: int = GMM_BENCH["k"],
-                       n: int = GMM_BENCH["n"]) -> dict:
+                       n: int = GMM_BENCH["n"], lead: int = 0,
+                       tail: int = 0) -> dict:
     """gmm at a serving shape (``sizes`` rows over 8 experts; by default
     the gate/up product, K 1024 -> N 2816): against its plain version and
     ``torch._grouped_mm`` on the same inputs. The kernel is shorter than
     its host launch, so ``ms`` and ``library_ms`` come from launches
     captured in a CUDA graph, as the serving engine runs them
     (``eager_ms``: one launch between events, the host's launch included).
-    Its bound counts what this routing needs: x, the output and the
-    weights of the experts that have rows."""
+    Its bound counts what this routing needs: x's rows of a group, the
+    whole output (rows of no group written 0) and the weights of the
+    experts that have rows. ``lead`` / ``tail``: rows of no group before
+    the first group and after the last (an expert-parallel rank's window
+    of the sorted rows); the library, which has no such rows, takes the
+    window's rows alone."""
     import torch
 
     from kubeflow_tpu_torch.ops import grouped_matmul as gm
 
-    b, e = sum(sizes), len(sizes)
+    rows, e = sum(sizes), len(sizes)
+    b = lead + rows + tail
     x = torch.randn(b, k, generator=gen, device="cuda").to(torch.bfloat16)
     w = torch.randn(e, k, n, generator=gen, device="cuda").to(torch.bfloat16)
-    offs = _offsets(sizes)
+    offs = _offsets(sizes, lead)
     live = sum(1 for size in sizes if size)
-    bnd = roofline(2 * (b * k + b * n + live * k * n) + 4 * (e + 1),
-                   2 * b * k * n)
+    bnd = roofline(2 * (rows * k + b * n + live * k * n) + 4 * (e + 1),
+                   2 * rows * k * n)
     out = {"ms": graph_time_ms(lambda: gm.gmm(x, w, offs)),
            "plain_ms": time_ms(lambda: gm.gmm_plain(x, w, offs), 20),
            "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"],
            "library_ms": None}
-    ends = offs[1:].contiguous()
+    ends = (offs[1:] - lead).contiguous()
+    xw = x[lead:lead + rows]
     try:
-        err = rel_err(torch._grouped_mm(x, w, offs=ends),
-                      gm.gmm_plain(x, w, offs))
+        err = rel_err(torch._grouped_mm(xw, w, offs=ends),
+                      gm.gmm_plain(x, w, offs)[lead:lead + rows])
         note = f"torch._grouped_mm, rel err {err}"
         if err <= REL_TOL:
             out["library_ms"] = graph_time_ms(
-                lambda: torch._grouped_mm(x, w, offs=ends))
+                lambda: torch._grouped_mm(xw, w, offs=ends))
     except (AttributeError, RuntimeError, TypeError) as exc:
         note = f"{type(exc).__name__}: {exc}"
     return {**out, "rows": b, "k": k, "n": n, "sizes": sizes,
+            "lead": lead, "tail": tail,
             "eager_ms": time_ms(lambda: gm.gmm(x, w, offs), 200),
             "bytes": bnd["bytes"], "flops": bnd["flops"], "library": note,
             "bound_share": bnd["bound_ms"] / out["ms"]}
@@ -2871,6 +2894,96 @@ def phase_finetune_serve(base: str, adapter: str, card: str) -> None:
 #: off and every prompt plus its completion stays under the first attend
 #: rung (128), so a request runs the same program shapes whatever shares
 #: the pool with it: the server's greedy text must equal the engine's own
+#: ``bf16_snapshot_serve``: bench.py's serving prompts through three
+#: engines of the 271M bench model's weights
+BF16_SNAPSHOT = dict(prompts=8, prompt_len=128, new=64)
+
+
+def bf16_snapshot_serve(model="bench_model", device=None,
+                        sizes=BF16_SNAPSHOT, line: str = "") -> dict:
+    """A bf16 snapshot the port wrote, served: ``model`` (random weights
+    from SEED) served in f32, then its weights cast to bf16 in place (what
+    a runtime's ``weights_dtype="bfloat16"`` does once at load) and served,
+    then saved by ``llama.save_pretrained`` (``config.json`` must say
+    ``param_dtype: "bfloat16"``, the dtype the leaves have), loaded back
+    through ``continuous.resolve_model_source`` as a ``storage_path`` (the
+    leaves bf16 but the norms' scales, f32 as in the reference) and served
+    by a fresh engine. The snapshot's streams must equal the cast
+    weights' bitwise; each engine's peak device memory
+    (``torch.cuda.max_memory_allocated``, reset before it) is printed
+    beside the others. ``device="cpu"`` with a tiny config rehearses it."""
+    import torch
+
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.serving import continuous
+
+    dev = torch.device(device or "cuda")
+    cuda = dev.type == "cuda"
+    cfg = _config(model)
+    m = llama.Llama(cfg, device=dev)
+    m.init_weights(SEED)
+    prompts = _prompts(cfg, sizes["prompts"], sizes["prompt_len"])
+    warm = [(sizes["prompts"], sizes["prompt_len"])]
+
+    def served(c, params) -> dict:
+        _free_card(cuda)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        r = _serve(c, params, prompts, sizes["new"], warm, device=dev,
+                   **SERVE_ENGINE)
+        r["peak_bytes"] = torch.cuda.max_memory_allocated() if cuda else None
+        return {k: r[k] for k in ("tokens", "tokens_per_sec",
+                                  "ms_per_dispatch", "peak_bytes")}
+
+    f32 = served(cfg, m)
+    m.to(torch.bfloat16)
+    cast = served(cfg, m)
+    work = tempfile.mkdtemp(prefix="kft-bf16-")
+    try:
+        t0 = time.perf_counter()
+        llama.save_pretrained(work, cfg, m)
+        save_s = time.perf_counter() - t0
+        with open(os.path.join(work, "config.json")) as f:
+            declared = json.load(f)["param_dtype"]
+        snap_bytes = _dir_bytes(work)
+        del m
+        t0 = time.perf_counter()
+        scfg, sd = continuous.resolve_model_source({"storage_path": work})
+        load_s = time.perf_counter() - t0
+        dtypes = sorted({str(v.dtype) for v in sd.values()})
+        snap = served(scfg, sd)
+        del sd
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    _free_card(cuda)
+    row = dict(card=line, model=model if isinstance(model, str) else
+               "custom", **sizes, engine=SERVE_ENGINE,
+               param_dtype_written=declared,
+               param_dtype_loaded=str(scfg.param_dtype),
+               leaf_dtypes_loaded=dtypes, snapshot_bytes=snap_bytes,
+               save_s=save_s, load_s=load_s,
+               equal_to_cast=snap["tokens"] == cast["tokens"],
+               # bf16 weights are other weights: streams equal to f32's
+               streams_equal_to_f32=sum(
+                   a == b for a, b in zip(cast["tokens"], f32["tokens"])),
+               **{f"{name}_{k}": v for name, r in (
+                   ("f32", f32), ("cast", cast), ("snapshot", snap))
+                  for k, v in r.items() if k != "tokens"})
+    emit("bf16_snapshot_serve", **row)
+    require(declared == "bfloat16",
+            f"bf16_snapshot_serve: config.json says {declared!r}")
+    require(scfg.param_dtype == torch.bfloat16,
+            f"bf16_snapshot_serve: loaded as {scfg.param_dtype}")
+    require(row["equal_to_cast"],
+            "bf16_snapshot_serve: the snapshot's streams differ from the "
+            "same weights cast to bf16 at load")
+    return row
+
+
+def phase_bf16_snapshot_serve(line: str) -> dict:
+    return bf16_snapshot_serve("bench_model", line=line)
+
+
 HTTP_ENGINE = {"block_size": 16, "prefill_budget": 64, "num_slots": 8,
                "decode_chunk": 4, "prefix_cache": False,
                "max_new_tokens": 32, "tracing": {"sample": 1.0},
@@ -6147,10 +6260,16 @@ TP_GMM = ((1024, 1408), (1408, 1024))
 TP_PREFILL_SIZES = _split(4 * 128 * 2, 8)
 #: the gang phases: two ranks share the card over gloo at {"model": 2}
 GANG_ENGINE = dict(SERVE_ENGINE, block_size=16)
+#: ``moe_ep_serve``'s gang: four ranks share the card over gloo, each with
+#: 4 of the MoE bench model's 8 experts and half of each one's mlp dim
+EP_MESH = {"expert": 2, "model": 2}
 GANG = dict(
     timeout=900,
     tp_serve=dict(prompts=8, prompt_len=128, new=64, rounds=1),
     moe_tp_serve=dict(prompts=4, prompt_len=128, new=32, rounds=1),
+    # the same MoE sizes on four ranks: moe_tp_serve's unsharded streams
+    # are its baseline too
+    moe_ep_serve=dict(prompts=4, prompt_len=128, new=32, rounds=1),
     wire=dict(prompts=2, prompt_len=128, new=64, at=8),
     resize=dict(prompt_len=128, new=96, shrink_at=16, grow_at=40),
 )
@@ -6205,6 +6324,56 @@ def phase_tp_gmm_time() -> dict:
                     and check["empty_blocks_zero"],
                     f"gmm at K {k} N {n} {name}: {check}")
     emit("tp_gmm_time", rows=rows)
+    return rows
+
+
+#: an expert-parallel serving rank's window: 4 of the 8 experts' rows of
+#: the expert-sorted token copies, rows of the other experts before and
+#: after it (``moe.MoeMlp._ragged`` under ``{"expert": 2, ...}``): rank 0's
+#: experts 0-3, rank 1's 4-7, and experts 2-5, a window with rows on both
+#: sides
+EP_WINDOWS = {"rank0": (0, 4), "rank1": (4, 8), "interior": (2, 6)}
+
+
+def _window(sizes, first: int, last: int) -> tuple:
+    """(lead rows, the window's group sizes, tail rows)."""
+    return (sum(sizes[:first]), list(sizes[first:last]),
+            sum(sizes[last:]))
+
+
+def phase_ep_gmm_time() -> dict:
+    """K4a at the shapes ``moe_ep_serve`` gives it: the MoE bench model's
+    expert products under ``{"expert": 2, "model": 2}`` (``TP_GMM``: each
+    rank holds 4 of the 8 experts and half of each one's mlp dim), over
+    one rank's window of a decode step's 16 rows (8 slots x top-2,
+    ``SERVE_DECODE_SIZES``) and of a 4 x 128 prefill's 1,024
+    (``TP_PREFILL_SIZES``). Every window of ``EP_WINDOWS`` is checked as
+    ``check_grouped_case`` checks the kernels (rows of no group on both
+    sides of it NaN in x and 0 in the output); rank 1's, whose groups
+    start past row 0, is read by ``_serve_gmm_reading`` (graph-replayed
+    time, plain, ``torch._grouped_mm`` on the window's rows, bound)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    rows, checks = {}, {}
+    for k, n in TP_GMM:
+        for name, sizes in (("decode", SERVE_DECODE_SIZES),
+                            ("prefill", TP_PREFILL_SIZES)):
+            for win, (first, last) in EP_WINDOWS.items():
+                lead, part, tail = _window(sizes, first, last)
+                check = check_grouped_case(lead + sum(part) + tail, k, n,
+                                           part, False, gen, lead=lead)
+                checks[f"k{k}_n{n}_{name}_{win}"] = check
+                require(check["gmm_rel"] <= REL_TOL
+                        and check["tgmm_rel"] <= REL_TOL
+                        and check["repeat_bitwise_equal"]
+                        and check["tail_rows_zero"]
+                        and check["empty_blocks_zero"],
+                        f"gmm at K {k} N {n} {name} window {win}: {check}")
+            lead, part, tail = _window(sizes, *EP_WINDOWS["rank1"])
+            rows[f"k{k}_n{n}_{name}"] = _serve_gmm_reading(
+                part, gen, k, n, lead=lead, tail=tail)
+    emit("ep_gmm_time", rows=rows, checks=checks)
     return rows
 
 
@@ -6442,30 +6611,34 @@ def _teacher_forced_check(unsharded, tp_model, prompts, streams) -> dict:
 
 
 def _gang_serve_case(rank: int, ports: list, model, sizes: dict,
-                     device=None, streams=None) -> dict:
-    """One gang of two ranks through ``serve_main`` (rank 0's
-    ``ModelServer`` over a ``GangEngine``, rank 1 following), serving
-    ``sizes["prompts"]`` prompts over HTTP (``_drive_gang``); then
-    ``streams`` (the unsharded engine's) fed through the gang's laid-out
-    model and the unsharded one (``_teacher_forced_check``)."""
+                     device=None, streams=None, mesh=None) -> dict:
+    """One gang of ``prod(mesh)`` ranks (``{"model": 2}`` by default)
+    through ``serve_main`` (rank 0's ``ModelServer`` over a
+    ``GangEngine``, the others following), serving ``sizes["prompts"]``
+    prompts over HTTP (``_drive_gang``); then ``streams`` (the unsharded
+    engine's) fed through the gang's laid-out model and the unsharded one
+    (``_teacher_forced_check``). ``host_copies``: the MoE count matrix's
+    copies to the host in this process (serving must make none)."""
     import os
     import threading
 
     from kubeflow_tpu_torch.analysis.runtime import BlockLedger
+    from kubeflow_tpu_torch.models import moe as moelib
     from kubeflow_tpu_torch.runtime import bootstrap
     from kubeflow_tpu_torch.serving import gang, storage
 
+    mesh = mesh or {"model": 2}
     cfg, m = _gang_model(model, device)
     key = f"gang-serve-{rank}"
     conf = {"params_ref": storage.register_mem(key, (cfg, m.state_dict())),
-            "model_name": "m", "mesh_axes": {"model": 2},
+            "model_name": "m", "mesh_axes": mesh,
             "gang_port": ports[0], "serve_port": ports[1],
             "gang_token": "chip-smoke", "max_new_tokens": sizes["new"],
             "warmup_groups": [[sizes["prompts"], sizes["prompt_len"]],
                               [1, sizes["prompt_len"]]], **GANG_ENGINE}
     os.environ[gang.ENV_SERVE_CONFIG] = json.dumps(conf)
     ctx = bootstrap.PodContext(
-        num_processes=2, process_id=rank,
+        num_processes=math.prod(mesh.values()), process_id=rank,
         coordinator_address=f"127.0.0.1:{ports[2]}", device=device or "cuda")
     rec, ledger, out = _GangRecorder(), BlockLedger(), {}
     undo = rec.install(rank, ledger)
@@ -6492,6 +6665,9 @@ def _gang_serve_case(rank: int, ports: list, model, sizes: dict,
                        kv_pool_bytes=eng.kv_pool_bytes)
         out["teacher_forced"] = _teacher_forced_check(
             m, rec.engines[-1].model, prompts, streams)
+        out["host_copies"] = moelib.HOST_COPIES["moe_ep_counts"]
+        out["w_gate"] = [list(x.w_gate.shape)
+                         for x in _moe_layers(rec.engines[-1].model)][:1]
         out["digests"] = rec.digests()
         out["row_launches"] = [d for _, _, d in rec.rows]
     finally:
@@ -6748,6 +6924,85 @@ def _gang_rank(rank: int, ports: list, dense, moe, sizes: dict,
     return out
 
 
+def _ep_rank(rank: int, ports: list, moe, sizes: dict, device=None,
+             streams=None) -> dict:
+    """``moe_ep_serve`` on one of the four ranks: ``_gang_serve_case`` at
+    ``EP_MESH``."""
+    import torch
+
+    if device is None:
+        torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    out = _gang_serve_case(rank, ports, moe, sizes, device, streams,
+                           mesh=EP_MESH)
+    out["case_seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _gang_row(name: str, line: str, model, cfg_n, m_n, prompts, truth,
+              ranks: list, sizes: dict, mesh: dict, device) -> dict:
+    """Hold one serving gang's ranks (``_gang_serve_case`` results, rank 0
+    first) against the unsharded engine on the same device, emit its line
+    and return it: each rank's decode path teacher-forced within
+    TEACHER_TOL, rank 0's streams first apart from the unsharded ones only
+    at a near tie, every follower's program outputs bitwise rank 0's, a
+    pool of ``num_kv_heads / model`` heads a rank, 0 captures after
+    warmup, 0 leaked blocks, no count-matrix host copy, and on the card
+    every rank's K4a launched (an MoE model)."""
+    a, rest = ranks[0], ranks[1:]
+    tp = mesh.get("model", 1)
+    tf = [x["teacher_forced"] for x in ranks]
+    require(all(x["rel_l2_max"] <= TEACHER_TOL for x in tf),
+            f"{name}: the gang's decode-path logits are "
+            f"{[x['rel_l2_max'] for x in tf]} (relative L2) from the "
+            f"unsharded model's, over {TEACHER_TOL}")
+    diffs = _diffs(name, cfg_n, m_n, prompts, truth["tokens"], a["tokens"])
+    lo, hi = a["window"]
+    launches = {"rank0": a["launches"], **{
+        f"rank{i + 1}": _sum_launches(b["row_launches"][lo:hi])
+        for i, b in enumerate(rest)}}
+    st = a["stats"]
+    row = dict(card=line,
+               model=model if isinstance(model, str) else "custom",
+               mesh=mesh, backend=a["backend"], graphs=a["graphs"],
+               engine=GANG_ENGINE, **sizes,
+               tokens_per_sec=a["tokens_per_sec"],
+               tokens_per_sec_rounds=a["tokens_per_sec_rounds"],
+               ms_per_dispatch=a["ms_per_dispatch"],
+               decode_steps=a["decode_steps"], seconds=a["seconds"],
+               unsharded_tokens_per_sec=truth["tokens_per_sec"],
+               unsharded_ms_per_dispatch=truth["ms_per_dispatch"],
+               kv_pool_bytes_per_rank=[x["kv_pool_bytes"] for x in ranks],
+               unsharded_kv_pool_bytes=truth["stats"]["kv_pool_bytes"],
+               pool_heads=[x["pool_heads"] for x in ranks],
+               captures_after_warmup=st["graph_captures_total"],
+               blocks_leaked=a["leaked"], ledger_errors=a["ledger_errors"],
+               differences_from_unsharded=diffs, teacher_forced=tf,
+               follower_outputs_equal=all(
+                   b["digests"] == a["digests"] for b in rest),
+               programs_run=len(a["digests"]), launches=launches,
+               unsharded_launches=truth["launches"],
+               host_copies=[x["host_copies"] for x in ranks],
+               w_gate_per_rank=a["w_gate"])
+    require(row["follower_outputs_equal"],
+            f"{name}: a follower's program outputs differ from rank 0's")
+    require(tp * a["kv_pool_bytes"] == truth["stats"]["kv_pool_bytes"]
+            and a["pool_heads"] == cfg_n.num_kv_heads // tp,
+            f"{name}: the pool of a rank is not 1/{tp} of the unsharded one")
+    require(st["graph_captures_total"] == 0, f"{name}: captures")
+    require(a["leaked"] == 0 and not a["ledger_errors"],
+            f"{name}: leaked blocks")
+    require(st["tp_degree"] == tp, f"{name}: tp_degree {st['tp_degree']}")
+    require(not any(row["host_copies"]),
+            f"{name}: count-matrix host copies {row['host_copies']}")
+    if cfg_n.moe_experts and device is None:
+        require(all(x.get("gmm", 0) > 0 for x in launches.values()),
+                f"{name}: gmm launches {launches}")
+    return row
+
+
 def _truth(cfg, model, prompts, new: int, warm, engine_kw: dict,
            counters: bool = False) -> dict:
     """One engine's streams on the device ``model`` lives on, the
@@ -6770,7 +7025,9 @@ def gang_serving(dense, moe, device=None, sizes=GANG,
                  line: str = "") -> dict:
     """The gang phases (``tp_serve``, ``moe_tp_serve``, the gang half of
     ``wire_migrate``, ``tp_resize``): two ranks share the card over gloo
-    (``device=None``; ``"cpu"`` with tiny configs rehearses them), each
+    (``device=None``; ``"cpu"`` with tiny configs rehearses them), then
+    ``moe_ep_serve``, four ranks at ``EP_MESH`` held against
+    ``moe_tp_serve``'s unsharded baseline, each
     case held against the unsharded engine on the same device: the serving
     cases' streams, and their decode path teacher-forced on those streams
     (``TEACHER_TOL``); the resized stream bitwise against the same stream
@@ -6816,60 +7073,29 @@ def gang_serving(dense, moe, device=None, sizes=GANG,
     collectives = [r["collectives"] for r in ranks]
     for name in ("tp_serve", "moe_tp_serve"):
         cfg_n, m_n, prompts, truth = baselines[name]
-        a, b = lead[name], follower[name]
-        require(all(x["teacher_forced"]["rel_l2_max"] <= TEACHER_TOL
-                    for x in (a, b)),
-                f"{name}: the TP decode path's logits are "
-                f"{a['teacher_forced']['rel_l2_max']} / "
-                f"{b['teacher_forced']['rel_l2_max']} (relative L2) from "
-                f"the unsharded model's, over {TEACHER_TOL}")
-        diffs = _diffs(name, cfg_n, m_n, prompts, truth["tokens"],
-                       a["tokens"])
-        lo, hi = a["window"]
-        launches = {"rank0": a["launches"],
-                    "rank1": _sum_launches(b["row_launches"][lo:hi])}
-        st = a["stats"]
         model = dense if name == "tp_serve" else moe
-        row = dict(card=line,
-                   model=model if isinstance(model, str) else "custom",
-                   mesh={"model": 2},
-                   backend=a["backend"], graphs=a["graphs"],
-                   engine=GANG_ENGINE, **sizes[name],
-                   tokens_per_sec=a["tokens_per_sec"],
-                   tokens_per_sec_rounds=a["tokens_per_sec_rounds"],
-                   ms_per_dispatch=a["ms_per_dispatch"],
-                   decode_steps=a["decode_steps"], seconds=a["seconds"],
-                   unsharded_tokens_per_sec=truth["tokens_per_sec"],
-                   unsharded_ms_per_dispatch=truth["ms_per_dispatch"],
-                   kv_pool_bytes_per_rank=[a["kv_pool_bytes"],
-                                           b["kv_pool_bytes"]],
-                   unsharded_kv_pool_bytes=truth["stats"]["kv_pool_bytes"],
-                   pool_heads=[a["pool_heads"], b["pool_heads"]],
-                   captures_after_warmup=st["graph_captures_total"],
-                   blocks_leaked=a["leaked"],
-                   ledger_errors=a["ledger_errors"],
-                   differences_from_unsharded=diffs,
-                   teacher_forced=[a["teacher_forced"],
-                                   b["teacher_forced"]],
-                   follower_outputs_equal=a["digests"] == b["digests"],
-                   collective_ms_per_rank=collectives,
-                   programs_run=len(a["digests"]), launches=launches,
-                   unsharded_launches=truth["launches"])
+        row = _gang_row(name, line, model, cfg_n, m_n, prompts, truth,
+                        [lead[name], follower[name]], sizes[name],
+                        {"model": 2}, device)
+        row["collective_ms_per_rank"] = collectives
         emit(name, **row)
         out[name] = row
-        require(a["digests"] == b["digests"],
-                f"{name}: rank 1's program outputs differ from rank 0's")
-        require(2 * a["kv_pool_bytes"] == truth["stats"]["kv_pool_bytes"]
-                and a["pool_heads"] == cfg_n.num_kv_heads // 2,
-                f"{name}: the pool of a rank is not half the unsharded one")
-        require(st["graph_captures_total"] == 0, f"{name}: captures")
-        require(a["leaked"] == 0 and not a["ledger_errors"],
-                f"{name}: leaked blocks")
-        require(st["tp_degree"] == 2, f"{name}: tp_degree {st['tp_degree']}")
-        if cfg_n.moe_experts and device is None:
-            require(launches["rank0"].get("gmm", 0) > 0
-                    and launches["rank1"].get("gmm", 0) > 0,
-                    f"{name}: gmm launches {launches}")
+    # four ranks: the MoE's experts over ``expert``, its mlp over ``model``
+    cfg_n, m_n, prompts, truth = baselines["moe_tp_serve"]
+    ep_ports = [free_port() for _ in range(3)]
+    t0 = time.perf_counter()
+    ep = dryrun.spawn(4, _ep_rank, ep_ports, moe, sizes["moe_ep_serve"],
+                      device, streams["moe_tp_serve"], backend="gloo",
+                      timeout=sizes["timeout"])
+    out["ep_spawn_seconds"] = time.perf_counter() - t0
+    row = _gang_row("moe_ep_serve", line, moe, cfg_n, m_n, prompts, truth,
+                    ep, sizes["moe_ep_serve"], EP_MESH, device)
+    tp_row = out["moe_tp_serve"]
+    row["moe_tp_serve"] = {k: tp_row[k] for k in (
+        "tokens_per_sec", "ms_per_dispatch", "kv_pool_bytes_per_rank")}
+    row["case_seconds"] = [x["case_seconds"] for x in ep]
+    emit("moe_ep_serve", **row)
+    out["moe_ep_serve"] = row
     wr = lead["wire"]
     wire_diffs = _diffs("wire_migrate", cfg, m, wire_prompts,
                         wire_truth["tokens"], wr["streams"])
@@ -7079,10 +7305,34 @@ def phase_nccl_graph_capture(line: str) -> None:
         "bench_model"))
 
 
+#: the dry run's legs for four ranks, in order (leg 5 needs eight)
+DRYRUN_LEGS = ("mesh", "gpipe", "1f1b", "expert", "tp_serve", "moe_serve")
+
+
+def phase_dryrun(line: str) -> dict:
+    """``python -m kubeflow_tpu_torch.parallel.dryrun 4 --backend gloo``
+    on the card: the dry run's legs for four ranks (``DRYRUN_LEGS``), the
+    ranks sharing the card over gloo, the tiny in bf16 at head dim 64; each
+    training leg's loss (equal on every rank, finite) and each serving
+    leg's tokens (equal to one unsharded engine's) printed."""
+    from kubeflow_tpu_torch.parallel import dryrun
+
+    t0 = time.perf_counter()
+    out = dryrun.dryrun_multichip(4, device="cuda", backend="gloo",
+                                  timeout=600)
+    legs = {name: {k: v for k, v in leg.items() if k != "ranks"}
+            for name, leg in out["legs"].items()}
+    row = dict(card=line, n=4, backend=out["backend"], legs=legs,
+               seconds=time.perf_counter() - t0)
+    emit("dryrun", **row)
+    require(tuple(legs) == DRYRUN_LEGS, f"dryrun: legs {list(legs)}")
+    return row
+
+
 def phase_gang(line: str) -> dict:
     """``wire_migrate`` (in one process, then the TP=2 export) and the
-    gang phases (``tp_serve``, ``moe_tp_serve``, ``tp_resize``) on the
-    bench models at full width and depth."""
+    gang phases (``tp_serve``, ``moe_tp_serve``, ``moe_ep_serve``,
+    ``tp_resize``) on the bench models at full width and depth."""
     t2 = time.perf_counter()
     local = wire_local("bench_model")
     t3 = time.perf_counter()
@@ -7090,7 +7340,8 @@ def phase_gang(line: str) -> dict:
     emit("wire_migrate", card=line, **local, tp2_export=gangs["wire"])
     t4 = time.perf_counter()
     return {"wire_local": t3 - t2, "gang": t4 - t3,
-            "gang_cases": gangs["case_seconds"],
+            "gang_cases": {**gangs["case_seconds"],
+                           "moe_ep_serve": gangs["ep_spawn_seconds"]},
             "tp_resize_grow": gangs["tp_resize"]["grow"]}
 
 
@@ -7109,7 +7360,8 @@ BACKGROUND_PHASES = (
 #: so that the two tracks end together (``mesh_more_train`` made the
 #: background track the longer one)
 MAIN_TAIL_PHASES = ("nccl_one_rank", "nccl_graph_capture",
-                    "moe_mesh_train", "ring_attention_check", "dist_pods")
+                    "moe_mesh_train", "ring_attention_check", "dist_pods",
+                    "dryrun")
 
 
 def background_track(line: str) -> dict:
@@ -7276,7 +7528,9 @@ def run() -> int:
     phase_serve_gmm_time()
     t_tp = time.perf_counter()
     phase_tp_gmm_time()
-    tp_gmm_s = time.perf_counter() - t_tp
+    t_ep = time.perf_counter()
+    phase_ep_gmm_time()
+    tp_gmm_s, ep_gmm_s = t_ep - t_tp, time.perf_counter() - t_ep
     phase_serve()
     phase_serve_variants()
     phase_moe_serve()
@@ -7295,6 +7549,8 @@ def run() -> int:
         phase_hibernate_serve()
         phase_host_tier_serve()
         phase_disagg_serve()
+        t_bf16 = time.perf_counter()
+        phase_bf16_snapshot_serve(line)
         t2 = time.perf_counter()
         track.check()
         phase_http_serve(line)
@@ -7358,7 +7614,8 @@ def run() -> int:
     emit("phase_seconds", total=now - started, lint=lint_s,
          before_split=t_split - started, main_track=t11 - t_split,
          background_track=bg["wall"], waited=bg["waited"],
-         speculation_and_prefix=t1 - t0, migration_and_tiers=t2 - t1,
+         speculation_and_prefix=t1 - t0, migration_and_tiers=t_bf16 - t1,
+         bf16_snapshot_serve=t2 - t_bf16, ep_gmm_time=ep_gmm_s,
          http_serve=t_isvc - t2, isvc_serve=t_http - t_isvc,
          finetune=t3 - t_http, adafactor_step=t4 - t3,
          finetune_serve=t5 - t4, corpus_train=t_hpo - t5,

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from . import _msgpack
-from .llama import Llama, LlamaConfig
+from .llama import Llama, LlamaConfig, leaf_dtype
 
 _SUFFIXES = (("_lora_a", "lora_a"), ("_lora_b", "lora_b"),
              ("_scale", "scale"))
@@ -52,18 +52,23 @@ def _get(tree, path):
     return tree
 
 
-def _host(x) -> torch.Tensor:
+def _host(x, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """A tree leaf as a CPU tensor: integer leaves keep their dtype,
-    floating ones become f32 (the port's params are f32)."""
+    floating ones become ``dtype`` (the config's ``param_dtype``)."""
     if not isinstance(x, torch.Tensor):
         arr = np.asarray(x)
-        if not np.issubdtype(arr.dtype, np.integer):
-            arr = arr.astype(np.float32, copy=False)
-        if not arr.flags.writeable:  # torch takes only writable memory
-            arr = arr.copy()
-        x = torch.from_numpy(arr)
-    if x.is_floating_point() and x.dtype != torch.float32:
-        x = x.float()
+        if arr.dtype.name == "bfloat16":
+            # ml_dtypes' bfloat16 (a reference tree in memory): its bits
+            x = torch.from_numpy(arr.view(np.int16).copy()).view(
+                torch.bfloat16)
+        else:
+            if not np.issubdtype(arr.dtype, np.integer):
+                arr = arr.astype(np.float32, copy=False)
+            if not arr.flags.writeable:  # torch takes only writable memory
+                arr = arr.copy()
+            x = torch.from_numpy(arr)
+    if x.is_floating_point() and x.dtype != dtype:
+        x = x.to(dtype)
     return x.detach().cpu()
 
 
@@ -95,7 +100,7 @@ def state_dict_from_jax(params, cfg: LlamaConfig, *, partial: bool = False
                 continue
             raise KeyError(f"{key}: the tree has no {'/'.join(path)}") \
                 from None
-        t = _host(leaf)
+        t = _host(leaf, leaf_dtype(key, cfg))
         if layer is not None and stacked:
             if t.shape[0] != cfg.num_layers:
                 raise ValueError(

@@ -6,9 +6,10 @@ Mixture-of-Experts MLP of ``moe.py``, embedding and head (optionally tied),
 with per-block rematerialisation. Parameters keep the reference's Einsum
 kernel layouts (wq ``[E,H,D]``, wk/wv ``[E,K,D]``, wo ``[H,D,E]``,
 w_gate/w_up ``[E,M]``, w_down ``[M,E]``, unembedding ``[E,V]``; MoE router
-``[E,X]`` and experts ``[X,E,M]``/``[X,M,E]``) in f32 and are cast to the
-activation dtype before each product, as the reference does, so
-``convert.py`` maps weights by name alone.
+``[E,X]`` and experts ``[X,E,M]``/``[X,M,E]``) in f32 (``param_dtype``:
+bf16 for a bf16 snapshot) and are cast to the activation dtype before each
+product, as the reference does, so ``convert.py`` maps weights by name
+alone.
 
 A projection ``w`` may carry LoRA adapters ``w_lora_a`` ``[in..., r]`` and
 ``w_lora_b`` ``[r, out...]`` (``lora_rank``; the reference's
@@ -66,8 +67,14 @@ class LlamaConfig:
     max_seq_len: int = 4096
     rope_theta: float = 10000.0
     rms_norm_eps: float = 1e-5
-    #: activation dtype; params are always f32 and cast before each product
+    #: activation dtype; params are cast to it before each product
     dtype: torch.dtype = torch.bfloat16
+    #: the parameters' dtype: f32, or bf16 for a snapshot written so (the
+    #: reference's ``param_dtype``: its ``config.json`` key, halving the
+    #: bytes a serving engine holds and streams); the norms' scales and
+    #: the MoE router stay f32 whatever it says, as in the reference
+    #: (``leaf_dtype``)
+    param_dtype: torch.dtype = torch.float32
     remat: bool = True
     #: "dots" keeps every matmul output and recomputes the rest of the block
     #: in the backward pass (flash attention's forward runs again); "nothing"
@@ -120,6 +127,17 @@ class LlamaConfig:
             raise ValueError(f"unknown remat_policy {self.remat_policy!r}")
         if self.moe_dispatch not in ("dense", "ragged"):
             raise ValueError(f"unknown moe_dispatch {self.moe_dispatch!r}")
+
+
+#: parameters the reference keeps in f32 whatever ``param_dtype`` says:
+#: the norms' scales, the MoE router, and int8 kernels' scales
+_F32_LEAVES = ("norm.scale", "router", "_scale")
+
+
+def leaf_dtype(key: str, cfg: LlamaConfig) -> torch.dtype:
+    """The dtype floating parameter ``key`` (a ``Llama`` state dict key)
+    has under ``cfg.param_dtype``."""
+    return torch.float32 if key.endswith(_F32_LEAVES) else cfg.param_dtype
 
 
 def tiny(**kw) -> LlamaConfig:
@@ -735,6 +753,11 @@ class Llama(nn.Module):
         self.layers = nn.ModuleList(
             Block(cfg, device) for _ in range(cfg.num_layers))
         self.head = Head(cfg, device)
+        if cfg.param_dtype != torch.float32:
+            for key, p in self.named_parameters():
+                # floating leaves only: int8 serving kernels stay int8
+                if p.is_floating_point():
+                    p.data = p.data.to(leaf_dtype(key, cfg))
 
     @property
     def kv_heads(self) -> int:
@@ -944,7 +967,6 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 #: the reference's LlamaConfig fields the port has no counterpart for, and
 #: the values the port can honour (None: any value; the same computation)
 _REFERENCE_ONLY = {
-    "param_dtype": ("float32",),
     "scan_layers": None,            # only the tree's layout
     "embed_one_hot": None,          # the same lookup as a gather
     "moe_ragged_compute": ("auto", "masked", "grouped"),
@@ -957,14 +979,37 @@ def _state_dict(params) -> dict:
     return params
 
 
+#: the parameter dtypes a snapshot's ``param_dtype`` may name
+PARAM_DTYPES = ("float32", "bfloat16")
+
+
+def _dtype_name(dt: torch.dtype) -> str:
+    return str(dt).removeprefix("torch.")
+
+
+def param_dtype_of(params) -> torch.dtype:
+    """The dtype of a state dict's (or a module's) floating leaves that
+    ``param_dtype`` governs (``leaf_dtype``: not the norms, the router or
+    int8 scales), the ``param_dtype`` a snapshot of them declares; raises
+    when they mix dtypes (one ``param_dtype`` cannot say that)."""
+    found = {v.dtype for k, v in _state_dict(params).items()
+             if v.is_floating_point() and not k.endswith(_F32_LEAVES)}
+    if len(found) > 1:
+        raise ValueError(
+            "a snapshot's floating leaves must share one dtype (its "
+            f"param_dtype), not {sorted(map(_dtype_name, found))}")
+    return found.pop() if found else torch.float32
+
+
 def config_to_dict(cfg: LlamaConfig) -> dict:
     """``config.json`` of a snapshot: the reference's ``save_pretrained``
     dict (every key its ``LlamaConfig(**d)`` accepts, dtypes by name,
     the scan-stacked layout the port writes)."""
     d = dataclasses.asdict(cfg)
-    d["dtype"] = str(cfg.dtype).removeprefix("torch.")
+    d["dtype"] = _dtype_name(cfg.dtype)
+    d["param_dtype"] = _dtype_name(cfg.param_dtype)
     d["lora_targets"] = list(cfg.lora_targets)
-    d.update(param_dtype="float32", scan_layers=True, embed_one_hot=False,
+    d.update(scan_layers=True, embed_one_hot=False,
              moe_ragged_compute="auto")
     return d
 
@@ -987,6 +1032,13 @@ def config_from_dict(d: dict) -> LlamaConfig:
             raise ValueError(f"snapshot config dtype={d['dtype']!r} is not "
                              "supported by the port")
         d["dtype"] = _DTYPES[d["dtype"]]
+    if "param_dtype" in d:
+        if d["param_dtype"] not in PARAM_DTYPES:
+            raise ValueError(
+                f"snapshot config param_dtype={d['param_dtype']!r} is not "
+                "supported by the port (it takes "
+                f"{', '.join(map(repr, PARAM_DTYPES))})")
+        d["param_dtype"] = _DTYPES[d["param_dtype"]]
     if "lora_targets" in d:
         d["lora_targets"] = tuple(d["lora_targets"])  # json round-trip
     return LlamaConfig(**d)
@@ -1018,11 +1070,13 @@ def _write_msgpack(path: str, tree: dict) -> None:
 def save_pretrained(path: str, cfg: LlamaConfig, params) -> None:
     """Write a snapshot the reference's ``load_pretrained`` reads:
     ``config.json`` plus ``weights.msgpack``, the tree scan-stacked. Each
-    leaf streams from its per-layer tensors (on any device)."""
+    leaf streams from its per-layer tensors (on any device), in its own
+    dtype, which ``param_dtype`` names (bf16 leaves: ``"bfloat16"``)."""
     from . import convert
 
     os.makedirs(path, exist_ok=True)
-    _write_config(path, cfg)
+    _write_config(path, dataclasses.replace(
+        cfg, param_dtype=param_dtype_of(params)))
     tree = convert.tree_from_state_dict(_state_dict(params), cfg, lazy=True)
     _write_msgpack(os.path.join(path, "weights.msgpack"), tree)
 
@@ -1042,7 +1096,9 @@ def load_pretrained_config(path: str) -> LlamaConfig:
 def load_pretrained(path: str) -> tuple[LlamaConfig, dict]:
     """(config, state dict of CPU tensors) of a snapshot written by either
     package's ``save_pretrained`` (either layer layout), or of a
-    transformers-layout safetensors snapshot (auto-detected)."""
+    transformers-layout safetensors snapshot (auto-detected). The
+    floating leaves are in the config's ``param_dtype``: a bf16 snapshot
+    stays bf16, once, here."""
     from . import _msgpack, convert, hf_checkpoint
 
     if hf_checkpoint.is_hf_snapshot(path):

@@ -45,7 +45,16 @@ Laid out on a mesh (``parallel.sharding.shard_model``):
   layer's output summed over the group (the gradients of the experts'
   input and of the gates sum over it too);
 - the batch axes (``batch``): the load-balancing loss is taken over the
-  global batch, its two means all-reduced over them.
+  global batch, its two means all-reduced over them;
+- serving (``shard_model(serving=True)``): every rank of a gang replays
+  the same host inputs, so its rows are replicated over ``expert``, not
+  sharded along it. Each rank runs its ``e / d`` experts over their own
+  window of the expert-sorted token copies (the reference's one-program
+  fallback for rows the expert axis does not divide, whose math this
+  is), and the partial outputs sum over the ``expert`` x ``model`` ranks
+  (``sum_group``) in one all-reduce. Neither the aux loss's all-reduce
+  nor the count matrix's host copy runs, so the layer holds no host sync
+  and captures in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -116,6 +125,10 @@ class MoeMlp(nn.Module):
     #: the mesh's ``model``, ``expert`` and batch axis groups
     #: (``parallel.sharding.AxisGroup``), set by ``shard_model``
     tp = ep = batch = None
+    #: a serving layout's ``expert`` x ``model`` group when ``ep`` is set:
+    #: the rows are replicated over ``expert`` and each rank's partial
+    #: output (its experts, its mlp shard) sums over this group
+    sum_group = None
 
     def __init__(self, cfg, device):
         super().__init__()
@@ -140,7 +153,7 @@ class MoeMlp(nn.Module):
     def route(self, x):
         """(probs [b,s,e] f32, gates [b,s,k] f32, expert ids [b,s,k])."""
         cfg = self.cfg
-        probs = (x.float() @ self.router).softmax(dim=-1)
+        probs = (x.float() @ self.router.float()).softmax(dim=-1)
         gates, idx = probs.topk(cfg.moe_top_k, dim=-1)
         if cfg.moe_normalize_topk:
             gates = gates / (gates.sum(dim=-1, keepdim=True) + 1e-9)
@@ -165,18 +178,27 @@ class MoeMlp(nn.Module):
         # under TP each rank's expert outputs are partial sums over its mlp
         # shard: the gradients of their inputs and of the gates that weigh
         # them sum over the group
+        # (serving under ``expert``: over the expert x model group)
+        group = self.tp if self.sum_group is None else self.sum_group
         xe, ge = x, gates
-        if self.tp is not None:
-            xe = copy_to_group(x, self.tp.group)
-            ge = copy_to_group(gates, self.tp.group)
+        if group is not None:
+            xe = copy_to_group(x, group.group)
+            ge = copy_to_group(gates, group.group)
         if cfg.moe_dispatch == "ragged":
-            y = (self._ragged(xe, idx, ge) if self.ep is None
+            y = (self._ragged(xe, idx, ge)
+                 if self.ep is None or self.sum_group is not None
                  else self._ragged_ep(xe, idx, ge))
         else:
             y = self._dense(xe, ge, expert_mask)
-        if self.tp is not None:
-            y = reduce_from_group(y, self.tp.group)
+        if group is not None:
+            y = reduce_from_group(y, group.group)
         return y, aux
+
+    def _window(self) -> tuple[int, int]:
+        """(first, count) of the global experts this rank computes: all of
+        them, or under a serving ``expert`` axis its own ``e / d``."""
+        el = self.w_gate.shape[0]
+        return (0 if self.sum_group is None else self.ep.rank * el), el
 
     def _dense(self, x, gates, expert_mask):
         """GShard capacity dispatch (sequence-major priority). Under an
@@ -200,7 +222,13 @@ class MoeMlp(nn.Module):
         combine = torch.einsum("bske,bskc,bsk->bsec", dispatch_k, cap_onehot,
                                gates)
         xin = torch.einsum("bsec,bsh->ebch", dispatch.to(dt), x)
-        if self.ep is not None:
+        if self.sum_group is not None:
+            # rows replicated over ``expert``: this rank's experts' slots
+            # of every row, no exchange; the partial output sums in forward
+            first, el = self._window()
+            xin = xin[first:first + el]
+            combine = combine[:, :, first:first + el]
+        elif self.ep is not None:
             d, h = self.ep.size, x.shape[-1]
             # chunk j (experts of rank j) to rank j; chunk i back from i
             xin = all_to_all(xin.reshape(d, e // d, b, capacity, h),
@@ -210,7 +238,7 @@ class MoeMlp(nn.Module):
                                       self.w_gate.to(dt)))
                   * torch.einsum("ebch,ehm->ebcm", xin, self.w_up.to(dt)))
         out_e = torch.einsum("ebcm,emh->ebch", hidden, self.w_down.to(dt))
-        if self.ep is not None:
+        if self.ep is not None and self.sum_group is None:
             out_e = all_to_all(
                 out_e.reshape(e // d, d, b, capacity, h).transpose(0, 1),
                 self.ep.group).reshape(e, b, capacity, h)
@@ -218,11 +246,16 @@ class MoeMlp(nn.Module):
 
     def _ragged(self, x, idx, gates):
         """Dropless dispatch: sort the token copies by expert, run the
-        experts over contiguous row ranges, unsort, combine with the gates."""
+        experts over contiguous row ranges, unsort, combine with the gates.
+        Under a serving ``expert`` axis only this rank's experts run, over
+        their window of the sorted copies: the grouped GEMM leaves the
+        rows before ``offsets[0]`` and after ``offsets[-1]`` zero, so the
+        window needs no host sync to cut."""
         cfg = self.cfg
         dt = cfg.dtype
         b, s, h = x.shape
-        e, k = cfg.moe_experts, cfg.moe_top_k
+        k = cfg.moe_top_k
+        first, el = self._window()
         n = b * s
         flat_expert = idx.reshape(n * k)
         order = torch.argsort(flat_expert, stable=True)
@@ -231,7 +264,8 @@ class MoeMlp(nn.Module):
         xs = _GatherTokens.apply(x.reshape(n, h), order, inv, k).to(dt)
         wg, wu, wd = (w.to(dt) for w in (self.w_gate, self.w_up, self.w_down))
         offsets = torch.searchsorted(
-            sorted_expert, torch.arange(e + 1, device=x.device),
+            sorted_expert, torch.arange(first, first + el + 1,
+                                        device=x.device),
             out_int32=True)
         hidden = (F.silu(grouped_matmul(xs, wg, offsets))
                   * grouped_matmul(xs, wu, offsets))

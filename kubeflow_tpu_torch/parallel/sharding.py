@@ -710,7 +710,8 @@ def _grad_shard_of(full, like):
     return (out / mesh.size()).contiguous()
 
 
-def shard_model(model, mesh, interleave: int = 1) -> Layout:
+def shard_model(model, mesh, interleave: int = 1,
+                serving: bool = False) -> Layout:
     """Lay ``model`` (a ``Llama`` holding full parameters, or on the meta
     device) out on ``mesh`` in place: this rank's pipeline stage (its model
     chunks under ``interleave`` > 1), manual ``model``/``expert`` shards,
@@ -720,7 +721,14 @@ def shard_model(model, mesh, interleave: int = 1) -> Layout:
     A ``seq`` axis needs ``attention_impl="ring"``. LoRA adapters and
     int8 weights follow their kernel (``param_axes``: an adapter's ``lora``
     dim and the factor beside the split one are whole on every rank of the
-    ``model`` group), as do the MoE dispatches under ``expert``."""
+    ``model`` group), as do the MoE dispatches under ``expert``.
+
+    ``serving``: the layout of a serving gang, whose every rank replays
+    the same host inputs, so no axis shards the rows: each ``MoeMlp``
+    takes no batch group (its balancing loss is its own rows') and, under
+    ``expert``, runs its experts over all of them and sums its partial
+    output over the ``expert`` x ``model`` ranks (``MoeMlp.sum_group``)
+    instead of exchanging rows."""
     import torch
     from torch import nn
 
@@ -764,8 +772,10 @@ def shard_model(model, mesh, interleave: int = 1) -> Layout:
     seq_group = layout.group(("seq",))
     # the tokens a balancing loss is taken over: every batch shard's and
     # sequence block's
-    batch_group = layout.group([a for a in layout.axes
-                                if a in BATCH_AXES or a == "seq"])
+    batch_group = (None if serving else layout.group(
+        [a for a in layout.axes if a in BATCH_AXES or a == "seq"]))
+    sum_group = (layout.group(("expert", "model"))
+                 if serving and ep_group is not None else None)
     model.seq = seq_group
     for mod in model.modules():
         if isinstance(mod, (Attention, Mlp, Embedder, Head)):
@@ -774,6 +784,7 @@ def shard_model(model, mesh, interleave: int = 1) -> Layout:
             mod.seq = seq_group
         if isinstance(mod, MoeMlp):
             mod.tp, mod.ep, mod.batch = tp_group, ep_group, batch_group
+            mod.sum_group = sum_group
     if layout.fsdp_dims:
         _fully_shard(model, layout)
     model.layout = layout

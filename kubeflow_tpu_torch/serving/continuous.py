@@ -100,7 +100,8 @@ spans are ``warmup.hit`` / ``warmup.miss``, one more for each kernel
 library on the card, and the trace's meta carries ``aot_hits`` and
 ``aot_misses``.
 
-A tensor-parallel engine (``mesh_axes``) is one rank of a serving gang
+A tensor-parallel engine (``mesh_axes``: ``model``, and ``expert`` for an
+MoE model) is one rank of a serving gang
 (``sharded.py``, ``gang.py``): one process drives one card. Its programs
 hold the model's collectives; on an NCCL group they are captured as CUDA
 graphs like any other, on gloo they run eagerly on the card's tensors.
@@ -860,6 +861,10 @@ class _Dispatch:
         t0 = time.perf_counter()
         if not self.counter.armed:
             prog.run()
+        # this thread's cuBLAS handle, made before the capture: a matmul
+        # captured on a thread that has none (the scheduler's, with no
+        # warmup) would create it inside the capture, which fails
+        torch.cuda.current_blas_handle()
         t1 = time.perf_counter()
         counters = _launch_counters()
         before = [dict(c) for c in counters]
@@ -1085,10 +1090,12 @@ class ContinuousEngine:
       only). A ``prefill`` engine freezes each sequence at its final chunk
       and calls ``on_prefilled`` (set by ``DisaggregatedPool``), which
       hands it to a decode engine by migration;
-    - ``mesh_axes``: a tensor-parallel serving mesh, ``{"model": N}``.
-      One process drives one card, so the engine is then one rank of a
-      ``torch.distributed`` group of N ranks (``sharded.py``): its model
-      holds this rank's shards and its pool ``num_kv_heads / N`` heads,
+    - ``mesh_axes``: a tensor-parallel serving mesh, ``{"model": N}``,
+      or for an MoE model ``{"expert": E, "model": N}`` (its experts
+      split over ``expert`` too). One process drives one card, so the
+      engine is then one rank of a ``torch.distributed`` group of
+      ``E x N`` ranks (``sharded.py``): its model holds this rank's
+      shards and its pool ``num_kv_heads / N`` heads,
       and it runs only as a serving gang (``gang.py``: rank 0's
       ``GangEngine`` decides, the others ``follow``). Without a group of
       N ranks it raises ``ValueError``. On an NCCL group every program is
@@ -1191,7 +1198,8 @@ class ContinuousEngine:
         self.mesh = (sharded.build_serving_mesh(self.mesh_axes)
                      if sharded.degree_of(mesh_axes) > 1 else None)
         if isinstance(params, Llama) and (
-                self.mesh is None or sharded.tp_group(params) is not None):
+                self.mesh is None
+                or getattr(params, "layout", None) is not None):
             # one process's model, or one already laid out on the group
             self.model = params
         elif self.mesh is not None:
@@ -1209,10 +1217,10 @@ class ContinuousEngine:
         #: on the card, unless a gloo group's collectives (which a graph
         #: cannot hold) are in them
         self.backend = None
-        if self._tp is not None:
+        if self.mesh is not None:
             import torch.distributed as dist
 
-            self.backend = dist.get_backend(self._tp.group)
+            self.backend = dist.get_backend()
         self.graphs = (self.device.type == "cuda"
                        and self.backend in (None, "nccl"))
         self.num_slots = num_slots
@@ -2530,6 +2538,7 @@ class ContinuousEngine:
         scheduler; the copy is awaited here, on the caller's thread."""
         if not self.paged:
             raise RuntimeError("prefix export requires the paged pool")
+        sharded.refuse_expert(self.mesh_axes, "a kv_migrate prefix export")
         out = self._post_migration_op("export_prefix",
                                       [int(t) for t in tokens], None,
                                       timeout)
@@ -2630,6 +2639,7 @@ class ContinuousEngine:
         if not self.paged:
             raise RuntimeError(
                 "KV migration requires the paged pool (block_size > 0)")
+        sharded.refuse_expert(self.mesh_axes, "a kv_migrate export")
         xsp = (req.trace.begin("kv.export")
                if req.trace is not None else None)
         out = self._post_migration_op("export", req, None, timeout)

@@ -201,6 +201,15 @@ class _GangPredictor:
 
         return degree_of(self.gang.mesh_axes)
 
+    @property
+    def tp_resizable(self) -> bool:
+        """Whether the TP-resize actuator may post to this gang: not with
+        an ``expert`` axis (its resizes are refused, ``sharded.
+        refuse_expert``)."""
+        from .sharded import expert_degree
+
+        return expert_degree(self.gang.mesh_axes) == 1
+
     def resize_to_degree(self, degree: int) -> bool:
         """The autoscaler's TP-degree decision, posted to rank 0's resize
         route (``gang.post_resize``) with the gang token; records the new
@@ -2369,13 +2378,14 @@ class InferenceServiceController(Controller):
         gang's live members, and when a resize aborted (the old degree
         resumed in place): the decision demanded a shape the fleet cannot
         take, and the loop's bounded-retry backoff must see that, not a
-        silent no-op."""
+        silent no-op. A gang with an ``expert`` axis is skipped as an
+        in-process replica is (``_GangPredictor.tp_resizable``)."""
         rev = dep.stable
         resized = 0
         err: Optional[Exception] = None
         for s in ([] if rev is None else rev.predictors):
             act = getattr(s, "resize_to_degree", None)
-            if act is None:
+            if act is None or not getattr(s, "tp_resizable", True):
                 continue
             try:
                 if act(int(degree)):

@@ -2,12 +2,14 @@
 ``kubeflow_tpu/serving/gang.py``.
 
 One process drives one card, so a tensor-parallel predictor (an engine
-with ``mesh_axes={"model": N}``, ``sharded.py``) is a gang of N processes,
-each one rank of a ``torch.distributed`` group, on one host as on several:
+with ``mesh_axes={"model": N}``, or ``{"expert": E, "model": N}`` for an
+MoE model, ``sharded.py``) is a gang of N (E x N) processes, each one rank
+of a ``torch.distributed`` group, on one host as on several:
 
 - every member loads the same snapshot and builds the same engine (the
   knobs byte-identical, ``engine_kwargs``) over its shards of the weights
-  and ``num_kv_heads / N`` heads of the KV pool;
+  (its experts, its ``model`` slice) and ``num_kv_heads / N`` heads of the
+  KV pool;
 - rank 0 owns the HTTP frontend (``ModelServer``) and the engine's
   scheduler, a :class:`GangEngine`. Its decisions are host numpy arrays:
   the engine's one dispatch chokepoint, ``_Dispatch.run(key, build,
@@ -1272,6 +1274,9 @@ def resize_route(resizer, channel: GangChannel, token: str,
         except ResizeAborted as e:
             return 409, {"error": f"resize to {d} aborted, degree {old} "
                                   f"resumed in place: {e}"}
+        except ValueError as e:
+            # refused before anything moved (an 'expert' axis)
+            return 409, {"error": str(e)}
         new = resizer.degree()
         return 200, {"from": old, "degree": new,
                      "resized": new == d and old != d}
@@ -1312,7 +1317,8 @@ def serve_main(ctx: bootstrap.PodContext) -> None:
     when its engine is paged.
 
     Config (``KFT_SERVE_CONFIG`` JSON): engine knobs per ``engine_kwargs``
-    plus ``mesh_axes`` (``{"model": N}``, N = the gang's size),
+    plus ``mesh_axes`` (``{"model": N}``, or ``{"expert": E, "model":
+    N}`` for an MoE model; their product the gang's size),
     ``storage_path`` or ``params_ref`` (every member loads the same
     weights), ``serve_port`` (rank 0's HTTP frontend, stable across gang
     restarts) and ``gang_port`` (the control stream). ``elastic`` adds the
@@ -1406,6 +1412,8 @@ def serve_main(ctx: bootstrap.PodContext) -> None:
                     if hasattr(model, "swap_engine")
                     else setattr(model, "engine", e)))
         if elastic:
+            sharded.refuse_expert(conf.get("mesh_axes"),
+                                  "an elastic gang (shrink and grow-back)")
             degree = degree_of(conf.get("mesh_axes"))
             supervisor = ElasticGangSupervisor(
                 resizer, channel,

@@ -552,6 +552,8 @@ class GangResizer:
     def resize_to_degree(self, degree: int) -> Any:
         """The autoscaler's entry point: a target degree as ``{"model":
         N}``; a same-degree target returns the live engine."""
+        sharded.refuse_expert(getattr(self.engine, "mesh_axes", None),
+                              "a resize")
         d = int(degree)
         if d < 1:
             raise ValueError(f"target TP degree must be >= 1, got {d}")
@@ -565,6 +567,10 @@ class GangResizer:
         Returns the new engine (also installed through ``set_engine`` and
         as ``self.engine``); raises :class:`ResizeAborted` with the old
         engine resumed in place on any failure before cutover."""
+        # the reference's resizes target {"model": N} too
+        sharded.refuse_expert(getattr(self.engine, "mesh_axes", None),
+                              "a resize")
+        sharded.refuse_expert(mesh_axes, "a resize")
         with self._lock:
             # the lock is the drain barrier: one resize at a time
             # analysis: ok lock-blocking-call — lock is the drain barrier
@@ -858,6 +864,9 @@ class ElasticGangSupervisor:
                  min_degree: int = 1, resize_deadline_s: float = 2.0,
                  max_resize_attempts: int = 5,
                  poll_s: float = 0.1, on_event: Optional[Callable] = None):
+        sharded.refuse_expert(
+            getattr(getattr(resizer, "engine", None), "mesh_axes", None),
+            "an elastic shrink")
         self.resizer = resizer
         self.channel = channel
         self.degree_per_member = int(degree_per_member)

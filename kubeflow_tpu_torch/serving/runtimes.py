@@ -123,9 +123,11 @@ class LlamaGenerator(Model):
       weights_dtype: cast every floating weight once at load (e.g.
                     "bfloat16": decode streams every weight per token)
       device:       "cpu" to serve on the CPU (default: the CUDA card)
-      mesh_axes:    a tensor-parallel serving mesh, ``{"model": N}``: one
+      mesh_axes:    a tensor-parallel serving mesh, ``{"model": N}``
+                    (an MoE model may add ``"expert": E``): one
                     process a card, so the model is then one rank's
-                    shards in a ``torch.distributed`` group of N ranks
+                    shards in a ``torch.distributed`` group of N (E x N)
+                    ranks
                     (``sharded.py``), and every rank of the group loads
                     it and calls ``predict_batch`` with the same
                     instances (the collectives line the ranks up; the

@@ -28,6 +28,18 @@ CAPACITY_MESH = {"expert": 2, "data": 2}
 LORA_MESH = ADAFACTOR_MESH = {"fsdp": 2, "model": 2}
 LORA = dict(lora_rank=4, lora_targets=("wq", "wv", "wo", "w_down"))
 WIDE = dict(hidden_size=256, intermediate_size=512, head_dim=128)
+#: MoE serving on an expert x model gang: the reference's
+#: ``tests/test_moe_serving.py`` prompts and new tokens, each engine a
+#: slot pool and a paged pool
+SERVE_MESH = {"expert": 2, "model": 2}
+SERVE_PROMPTS = [[1, 2, 3], [4, 5, 6, 7, 8], [9]]
+SERVE_NEW = 5
+SERVE_ENGINES = {
+    "slot": dict(num_slots=4, decode_chunk=2, eos_id=None,
+                 prefix_cache=False),
+    "paged": dict(num_slots=4, decode_chunk=2, eos_id=None,
+                  prefix_cache=False, block_size=8)}
+GANG_TOKEN = "dist-moe-serve"
 
 
 def _setup():
@@ -234,6 +246,106 @@ def _ragged(rank: int, world: int) -> dict:
             "d_output": buf.grad.numpy()}
 
 
+def _digest(t) -> str:
+    import hashlib
+
+    import torch
+
+    raw = t.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+    return hashlib.sha256(raw.numpy().tobytes()).hexdigest()
+
+
+def _refusals(eng, channel, req) -> dict:
+    """What rank 0's expert gang refuses, each message (or None when it
+    did not raise): a resize, an elastic shrink, a kv_migrate export."""
+    from kubeflow_tpu_torch.serving import resize
+
+    def caught(fn):
+        try:
+            fn()
+        except ValueError as e:
+            return str(e)
+        return None
+
+    return {
+        "resize": caught(lambda: resize.GangResizer(eng).resize(
+            {"model": 4})),
+        "elastic": caught(lambda: resize.ElasticGangSupervisor(
+            resize.GangResizer(eng), channel, degree_per_member=1,
+            max_degree=4)),
+        "export": caught(lambda: eng.export_sequence(req)),
+    }
+
+
+def _moe_serve(rank: int, init: dict, name: str) -> dict:
+    """The MoE tiny served greedily by a gang of the four ranks at
+    ``SERVE_MESH``: rank 0's ``GangEngine`` decides, the others
+    ``follow``; every rank's program outputs digested in order, its
+    ``w_gate`` shapes and its count-matrix host copies."""
+    torch = _setup()
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch.models import convert, llama
+    from kubeflow_tpu_torch.models import moe as moelib
+    from kubeflow_tpu_torch.serving import continuous, gang
+    from kubeflow_tpu_torch.utils.net import free_port
+
+    cfg = llama.tiny(**MOE)
+    sd = convert.state_dict_from_jax(init, cfg)
+    port = [free_port() if rank == 0 else None]
+    dist.broadcast_object_list(port, src=0)
+    kw = dict(SERVE_ENGINES[name], mesh_axes=SERVE_MESH, device="cpu")
+    digests: list = []
+    moelib.HOST_COPIES["moe_ep_counts"] = 0
+    out: dict = {}
+    if rank == 0:
+        ch = gang.GangChannel.listen(port[0], dist.get_world_size() - 1,
+                                     token=GANG_TOKEN, timeout=60)
+        eng = gang.GangEngine(cfg, sd, channel=ch, **kw)
+        inner = eng._dispatch.run
+
+        def run(key, build, host):
+            res = inner(key, build, host)
+            if isinstance(res, torch.Tensor):
+                digests.append(_digest(res))
+            return res
+
+        eng._dispatch.run = run
+        try:
+            out["tokens"] = [eng.generate(p, max_new_tokens=SERVE_NEW)
+                             for p in SERVE_PROMPTS]
+            if eng.paged:
+                req = eng.submit(SERVE_PROMPTS[0], max_new_tokens=1)
+                req.wait(60)
+                out["refused"] = _refusals(eng, ch, req)
+            out["stats"] = {k: eng.stats()[k] for k in ("tp_degree",)}
+        finally:
+            eng.stop()
+    else:
+        ch = gang.GangChannel.connect("127.0.0.1", port[0], rank=rank,
+                                      token=GANG_TOKEN, timeout=60)
+        eng = continuous.ContinuousEngine(cfg, sd, **kw)
+        inner = eng.replay
+
+        def replay(key, host):
+            res = inner(key, host)
+            if isinstance(res, torch.Tensor):
+                digests.append(_digest(res))
+            return res
+
+        eng.replay = replay
+        try:
+            gang.follow(eng, ch)
+        finally:
+            ch.close()
+    out.update(
+        digests=digests, host_copies=moelib.HOST_COPIES["moe_ep_counts"],
+        w_gate=[tuple(b.mlp.w_gate.shape) for b in eng.model.layers],
+        pool_heads=int(eng._pool.k.shape[3]), backend=eng.backend,
+        graphs=eng.graphs)
+    return out
+
+
 def run(rank: int, inits: dict, ckpt_dir: str, snapshot: str) -> dict:
     _setup()
     import os
@@ -254,4 +366,6 @@ def run(rank: int, inits: dict, ckpt_dir: str, snapshot: str) -> dict:
     out["checkpoint"] = _checkpoint(os.path.join(ckpt_dir, "adamw"))
     out["checkpoint_adafactor"] = _checkpoint(
         os.path.join(ckpt_dir, "adafactor"), "adafactor")
+    for name in SERVE_ENGINES:
+        out[f"moe_serve_{name}"] = _moe_serve(rank, inits["moe"], name)
     return out

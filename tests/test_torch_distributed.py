@@ -37,7 +37,15 @@ One spawn (``parallel.dryrun.spawn``: a fresh rendezvous port, the
   Adafactor's factored and whole moments), and the next step's loss
   agrees (rtol 1e-6);
 - each rank's rows of a global batch, joined in shard order, are the
-  one-process batch on three meshes.
+  one-process batch on three meshes;
+- the MoE tiny served greedily by a gang of the four ranks at
+  ``{"expert": 2, "model": 2}`` (rank 0's ``GangEngine``, the others
+  following), slot pool and paged: the tokens of the reference's
+  ``test_moe_serving.py`` prompts against the reference engine's on the
+  same mesh of four virtual devices and unsharded, every rank's program
+  outputs bitwise rank 0's, ``w_gate`` ``[4 / 2, h, m / 2]`` a layer, no
+  count-matrix host copy; what such a gang refuses by name (a resize, an
+  elastic shrink, a kv_migrate export).
 
 torch and the port are imported inside the tests (the spawned ranks import
 only them).
@@ -56,6 +64,7 @@ from kubeflow_tpu.models import llama as ref_llama
 from kubeflow_tpu.parallel import collectives as ref_coll
 from kubeflow_tpu.parallel import mesh as ref_mesh
 from kubeflow_tpu.parallel import sharding as ref_shard
+from kubeflow_tpu.serving.continuous import ContinuousEngine as RefEngine
 from kubeflow_tpu.train import data as ref_data
 from kubeflow_tpu.train import trainer as ref_train
 
@@ -414,3 +423,65 @@ def test_batch_does_not_depend_on_world_size(ranks):
         assert sorted(shards) == list(range(count))
         np.testing.assert_array_equal(
             np.concatenate([shards[i] for i in range(count)]), want)
+
+
+@pytest.fixture(scope="module")
+def ref_moe_serve(ranks):
+    """The reference engine's greedy tokens of ``worker.SERVE_PROMPTS``,
+    unsharded and on ``worker.SERVE_MESH`` (four virtual devices), with
+    the placement of the mesh engine's first ``w_gate``."""
+    inits = ranks[0]
+    cfg = ref_llama.tiny(**worker.MOE)
+    out = {}
+    for name, axes in (("unsharded", None), ("mesh", worker.SERVE_MESH)):
+        eng = RefEngine(cfg, inits["moe"], mesh_axes=axes,
+                        **worker.SERVE_ENGINES["slot"])
+        try:
+            if axes is not None:
+                wg = eng.params["layers"]["block"]["mlp"]["w_gate"]
+                out["spec"] = tuple(wg.sharding.spec)
+            out[name] = [eng.generate(p, max_new_tokens=worker.SERVE_NEW)
+                         for p in worker.SERVE_PROMPTS]
+        finally:
+            eng.stop()
+    return out
+
+
+@pytest.mark.parametrize("name", list(worker.SERVE_ENGINES))
+def test_moe_serving_on_an_expert_model_gang_matches_reference(
+        ranks, ref_moe_serve, name):
+    """Every rank's experts split over ``expert`` and their mlp dim over
+    ``model`` (the reference's ``spec[1] == "expert"``, ``spec[-1] ==
+    "model"``), the gang's greedy tokens the reference's on the mesh and
+    unsharded, the followers' program outputs bitwise rank 0's, and no
+    host copy of a count matrix while serving."""
+    _, results, _ = ranks
+    assert ref_moe_serve["spec"][1] == "expert"
+    assert ref_moe_serve["spec"][-1] == "model"
+    assert ref_moe_serve["mesh"] == ref_moe_serve["unsharded"]
+    lead = results[0][f"moe_serve_{name}"]
+    assert lead["tokens"] == ref_moe_serve["unsharded"]
+    assert lead["stats"]["tp_degree"] == worker.SERVE_MESH["model"]
+    cfg = ref_llama.tiny(**worker.MOE)
+    local = (cfg.moe_experts // worker.SERVE_MESH["expert"],
+             cfg.hidden_size,
+             cfg.intermediate_size // worker.SERVE_MESH["model"])
+    for res in results:
+        got = res[f"moe_serve_{name}"]
+        assert got["digests"] == lead["digests"] and got["digests"]
+        assert got["host_copies"] == 0
+        assert got["w_gate"] == [local] * cfg.num_layers
+        assert got["pool_heads"] == (cfg.num_kv_heads
+                                     // worker.SERVE_MESH["model"])
+        assert got["backend"] == "gloo" and not got["graphs"]
+
+
+@pytest.mark.parametrize("what", ["resize", "elastic", "export"])
+def test_an_expert_gang_refuses_by_name(ranks, what):
+    """A resize (``GangResizer.resize``), an elastic shrink
+    (``ElasticGangSupervisor`` over the gang) and a kv_migrate export
+    (``export_sequence``) of the paged expert x model gang raise a
+    ``ValueError`` that names the ``expert`` axis."""
+    _, results, _ = ranks
+    msg = results[0]["moe_serve_paged"]["refused"][what]
+    assert msg is not None and "'expert' axis" in msg

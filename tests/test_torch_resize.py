@@ -465,3 +465,42 @@ def test_resize_route_guards_and_refusals():
     code, body = gang.resize_route(None, _Channel(), "tok")(
         {"degree": 1}, good)
     assert code == 409 and "paged pool" in body["error"]
+
+def test_tp_resize_actuator_skips_a_gang_with_an_expert_axis():
+    """A serving gang on ``{"expert": 2, "model": 2}`` is not TP-resizable
+    (``_GangPredictor.tp_resizable``): the actuator skips it as it skips
+    an in-process replica, so with nothing else to resize it raises."""
+    import math
+    import types
+
+    from kubeflow_tpu_torch.api.common import ObjectMeta
+    from kubeflow_tpu_torch.api.inference import GangSpec, InferenceService
+    from kubeflow_tpu_torch.serving.controller import (
+        InferenceServiceController,
+        _Deployment,
+        _GangPredictor,
+        _Revision,
+    )
+
+    def resizable(axes) -> bool:
+        handle = types.SimpleNamespace(
+            gang=GangSpec(hosts=1, chips_per_host=math.prod(axes.values()),
+                          mesh_axes=axes))
+        return _GangPredictor.tp_resizable.fget(handle)
+
+    assert resizable({"model": 2})
+    assert not resizable({"expert": 2, "model": 2})
+
+    class _ExpertGang:
+        tp_resizable = False
+
+        def resize_to_degree(self, degree):
+            raise AssertionError("an expert gang must not be posted to")
+
+    isvc = InferenceService(metadata=ObjectMeta(name="ep"))
+    dep = _Deployment()
+    dep.stable = _Revision(1, "fp", isvc.spec, None, {})
+    dep.stable.predictors = [_ExpertGang()]
+    with pytest.raises(RuntimeError, match="no replica engine accepted"):
+        InferenceServiceController._resize_replicas_to_degree(
+            _controller_stub(None, []), isvc, dep, 2)

@@ -188,9 +188,10 @@ def test_port_snapshot_loads_in_reference(tmp_path, case, request):
 @pytest.mark.parametrize("key,value,ok", [
     ("scan_layers", False, True), ("embed_one_hot", True, True),
     ("moe_ragged_compute", "masked", True),
-    ("param_dtype", "bfloat16", False), ("moe_ragged_compute", "fast", False),
+    ("param_dtype", "bfloat16", True), ("moe_ragged_compute", "fast", False),
+    ("param_dtype", "float16", False),
 ], ids=["scan_layers", "embed_one_hot", "ragged_compute", "param_dtype_bf16",
-        "ragged_compute_unknown"])
+        "ragged_compute_unknown", "param_dtype_f16"])
 def test_reference_only_config_keys(tmp_path, key, value, ok):
     pt = _port()
     d = pt.llama.config_to_dict(pt.llama.tiny())
@@ -198,8 +199,10 @@ def test_reference_only_config_keys(tmp_path, key, value, ok):
     with open(tmp_path / "config.json", "w") as f:
         json.dump(d, f)
     if ok:
-        assert pt.llama.load_pretrained_config(str(tmp_path)) == \
-            pt.llama.tiny()
+        # a bf16 snapshot's parameters stay bf16 (the port's param_dtype)
+        want = (pt.llama.tiny(param_dtype=pt.torch.bfloat16)
+                if key == "param_dtype" else pt.llama.tiny())
+        assert pt.llama.load_pretrained_config(str(tmp_path)) == want
     else:
         with pytest.raises(ValueError, match=key):
             pt.llama.load_pretrained_config(str(tmp_path))
