@@ -68,7 +68,19 @@ started after ``moe_serve`` and joined at the end: each of them is two or
 more processes over gloo that leave the card idle most of the time, so
 the kernel, training and serving readings before it are taken with the
 card to themselves, and what is timed after it is read with both tracks
-running. Its lines follow the main sequence's. In that track:
+running. Its lines follow the main sequence's. Once it has started, the
+main sequence runs Llama-2 7B (6.74B parameters, bf16, built on the card
+in bf16 with no f32 copy): ``llama7b_job`` writes its base snapshot
+(13.48 GB), reads it back bit for bit and runs the pod entry
+``train_main`` on it as ``finetune`` does on llama_1b (a rank-8 LoRA at
+8 x 2048, f32 adapters over the bf16 base, adapter-only checkpoints, a
+resume at step 4, the adapter published; 64/32/32 K1/K2/K3 launches a
+step). The track's last phases serve what it wrote: ``tp7b_serve`` the
+base's first 8 layers at full width behind a two-rank ``{"model": 2}``
+gang, and ``llama7b_serve`` the base with the published adapter merged,
+through ``LlamaGenerator`` and the engine's slot and paged pools
+(streams teacher-forced, paged equal to slot, the decode roofline's
+share). In that track:
 ``mesh_train`` (the bench model on ``{"fsdp": 2}`` and ``{"model": 2}``, two
 ranks sharing the card over gloo, 3 steps each against the same steps
 unsharded; K1-K3 counted on every rank, 4 query heads under ``model: 2``),
@@ -86,7 +98,8 @@ engine's streams; the MoE bench model's capacity dispatch on
 GPipe and 1F1B on ``{"pipeline": 2, "fsdp": 2}``, four ranks; the
 two-rank layouts in one spawn, the four-rank ones in another), then
 multi-GPU serving: ``wire_migrate``, ``tp_serve``, ``moe_tp_serve``,
-``moe_ep_serve`` and ``tp_resize`` (below). The main
+``moe_ep_serve``, ``tp_resize`` (below), ``tp7b_serve`` and
+``llama7b_serve``. The main
 sequence ends with the rest of the parallel phases (``MAIN_TAIL_PHASES``,
 beside the track's gangs): ``nccl_one_rank`` (a one-rank NCCL group
 through ``bootstrap``, then FSDP2 over it on a one-rank ``fsdp`` mesh),
@@ -163,6 +176,8 @@ LSE_ATOL = 1e-3
 BENCH = dict(b=14, s=1024, h=8, kv=8, d=128)
 #: the fine-tune path's attention: llama_1b at 8 x 2048, h = kv = 16
 LLAMA_1B_ATTN = dict(b=8, s=2048, h=16, kv=16, d=128)
+#: Llama-2 7B's in ``llama7b_job``: 8 x 2048, h = kv = 32
+LLAMA2_7B_ATTN = dict(b=8, s=2048, h=32, kv=32, d=128)
 #: a ring block of the bench shape on a two-rank ``seq`` axis: 512 queries
 #: against 512 keys, causal on the diagonal, non-causal for an earlier block
 RING_BLOCK = dict(BENCH, s=BENCH["s"] // 2)
@@ -629,6 +644,8 @@ def phase_kernels_check() -> dict[str, float]:
         ("ragged_333_noncausal", dict(b=2, s=333, h=8, kv=2, d=64), False),
         # the fine-tune path's shape (llama_1b: s 2048, 16 heads, d 128)
         ("llama_1b_causal", dict(LLAMA_1B_ATTN, b=2), True),
+        # Llama-2 7B's, whole (llama7b_job: 8 x 2048, 32 heads)
+        ("llama2_7b_causal", dict(LLAMA2_7B_ATTN), True),
         # seq_train's ring blocks: the diagonal (causal) and an earlier
         # block (non-causal), the lse cotangent folded into delta
         ("ring_block_causal", dict(RING_BLOCK), True, True),
@@ -671,10 +688,11 @@ def phase_kernels_check() -> dict[str, float]:
 
 def phase_kernels_time() -> dict[str, dict]:
     """K1-K3 at the bench shape (the returned readings, the ``kernels``
-    line's), at the fine-tune path's llama_1b shape, and K1 at the ring's
-    block shape."""
+    line's), at the fine-tune path's llama_1b and Llama-2 7B shapes, and
+    K1 at the ring's block shape."""
     out = _kernels_time("kernels_time", BENCH, plain_reps=5)
     _kernels_time("kernels_time_llama_1b", LLAMA_1B_ATTN, plain_reps=2)
+    _kernels_time("kernels_time_llama2_7b", LLAMA2_7B_ATTN, plain_reps=2)
     _ring_block_time()
     return out
 
@@ -1544,9 +1562,10 @@ def _routing_explained(model, prompt, stream, scored):
     return best
 
 
-def _stream_gaps(model, prompts, streams) -> dict:
+def _stream_gaps(model, prompts, streams, forced=None) -> dict:
     """Served greedy ``streams`` of ``model`` held by teacher forcing: the
-    model fed each prompt and its own stream (``_forced_logits``); at
+    model fed each prompt and its own stream (``forced``: its plain
+    forward, ``_forced_logits``, by default); at
     every position the gap between the top logit and the stream token's,
     relative to the top. A greedy engine emits the top token, so a gap
     can only be the rounding of another program shape (a near tie). For
@@ -1568,7 +1587,7 @@ def _stream_gaps(model, prompts, streams) -> dict:
     gaps, control, over, explained, plain_max = [], [], [], 0, 0.0
     for rows in groups.values():
         ps, sts = [r[0] for r in rows], [r[1] for r in rows]
-        logits = _forced_logits(model, ps, sts)
+        logits = (forced or _forced_logits)(model, ps, sts)
         drawn = torch.from_numpy(rng.integers(0, logits.shape[-1],
                                               (len(sts), len(sts[0]))))
         g = _rel_gaps(logits, torch.tensor(sts))
@@ -1594,7 +1613,7 @@ def _stream_gaps(model, prompts, streams) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
-def _gaps(model, prompts, runs: dict) -> dict:
+def _gaps(model, prompts, runs: dict, forced=None) -> dict:
     """``_stream_gaps`` of each run's streams (run name -> streams); runs
     whose streams are equal share one teacher-forced pass."""
     done: dict = {}
@@ -1602,9 +1621,16 @@ def _gaps(model, prompts, runs: dict) -> dict:
     for run, streams in runs.items():
         key = json.dumps(streams)
         if key not in done:
-            done[key] = _stream_gaps(model, prompts, streams)
+            done[key] = _stream_gaps(model, prompts, streams, forced)
         out[run] = done[key]
     return out
+
+
+def _decode_logits(model, prompts, streams):
+    """``_forced_logits`` through the model's decode path instead of its
+    plain forward (``_teacher_forced``: the prompts through a KV cache,
+    then one token a forward), the path every serving engine runs."""
+    return _teacher_forced(model, prompts, streams)[0]
 
 
 def _require_gaps(name: str, gaps: dict) -> None:
@@ -2460,25 +2486,72 @@ def _metric(rows: list, name: str) -> list:
     return [r for r in rows if r["name"] == name]
 
 
-def _base_unchanged(base_model, trainer) -> bool:
+def _rss_bytes() -> int:
+    """This process's resident host memory now (``VmRSS``)."""
+    with open("/proc/self/status") as f:
+        for row in f:
+            if row.startswith("VmRSS:"):
+                return int(row.split()[1]) * 1024
+    raise RuntimeError("no VmRSS in /proc/self/status")
+
+
+def _sync(cuda: bool) -> None:
+    import torch
+
+    if cuda:
+        torch.cuda.synchronize()
+
+
+def _peak_reset(cuda: bool) -> None:
+    """Frees what the caching allocator holds and starts a peak reading
+    (the card only)."""
+    import torch
+
+    _free_card(cuda)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak(cuda: bool) -> Optional[int]:
+    import torch
+
+    return torch.cuda.max_memory_allocated() if cuda else None
+
+
+def _base_unchanged(base: dict, trainer) -> bool:
+    """Whether the trainer's frozen base is bit for bit ``base`` (a state
+    dict on any device), compared a leaf at a time on the trainer's
+    device."""
     import torch
 
     from kubeflow_tpu_torch.models import llama
 
     got = trainer.model.state_dict()
-    return all(torch.equal(got[k], v)
-               for k, v in base_model.state_dict().items()
-               if not llama.is_lora_path(k))
+    return all(torch.equal(got[k], v.to(got[k].device))
+               for k, v in base.items() if not llama.is_lora_path(k))
 
 
-def phase_finetune(work: str, card: str) -> dict:
-    """The fine-tune job end to end on llama_1b (1.19B, 21 layers, full
-    width, random weights from SEED): ``save_pretrained`` writes the base,
-    the pod entry ``train_main`` fine-tunes a rank-8 LoRA on it
-    (``KFT_INIT_FROM``, 8 x 2048, 4 steps, checkpoints every 2) and
-    publishes the adapter; a second ``train_main`` to step 6 resumes at
-    step 4. Each run launches K1-K3 (counted per run); the base stays bit
-    for bit the snapshot's; checkpoints hold the adapters only."""
+def _float_dtypes(sd: dict) -> list:
+    return sorted({str(v.dtype).removeprefix("torch.") for v in sd.values()
+                   if v.is_floating_point()})
+
+
+def finetune_job(phase: str, name: str, cfg, base: str, work: str,
+                 card: str, sizes: dict = FINETUNE,
+                 ready: Optional[str] = None, device=None) -> dict:
+    """The fine-tune job end to end on ``cfg``, the preset ``name``
+    (random weights from SEED,
+    built on the card in its ``param_dtype``): ``save_pretrained`` writes
+    the base into ``base``, read back bit for bit (then ``ready`` is
+    created, when given), the pod entry ``train_main`` fine-tunes a LoRA
+    on it (``KFT_INIT_FROM``, ``sizes``' batch, length, steps and
+    checkpoint interval) and publishes the adapter; a second
+    ``train_main`` to ``resume_to`` resumes at ``steps``. Each run
+    launches K1-K3 (counted per run); the base stays bit for bit the
+    snapshot's; the adapters, their checkpoints and the published adapter
+    are f32 and hold the adapters only. Returns the base and adapter
+    paths and the phase's line. ``device="cpu"`` rehearses it with a tiny
+    ``cfg`` (no kernel, no memory reading)."""
     import gc
     import os
 
@@ -2487,34 +2560,47 @@ def phase_finetune(work: str, card: str) -> dict:
     from kubeflow_tpu_torch.models import llama
     from kubeflow_tpu_torch.train.checkpoint import CheckpointManager
 
-    gc.collect()
-    torch.cuda.empty_cache()
-    cfg = llama.llama_1b()
-    model = llama.Llama(cfg, device="cuda")
+    cuda = device is None
+    dev = device or "cuda"
+    _peak_reset(cuda)
+    free_at_start = torch.cuda.mem_get_info()[0] if cuda else None
+    t0 = time.perf_counter()
+    model = llama.Llama(cfg, device=dev)
     model.init_weights(SEED)
-    torch.cuda.synchronize()
-    base = os.path.join(work, "base")
+    _sync(cuda)
+    build_s = time.perf_counter() - t0
+    build_peak = _peak(cuda)
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
     t0 = time.perf_counter()
     llama.save_pretrained(base, cfg, model)
     save_s = time.perf_counter() - t0
+    rss_before = _rss_bytes()
     t0 = time.perf_counter()
     snap_cfg, snap = llama.load_pretrained(base)
     load_s = time.perf_counter() - t0
+    # what the loaded state dict holds on the host: the file's bytes once
+    load_rss = _rss_bytes() - rss_before
     require(snap_cfg == cfg, f"snapshot config {snap_cfg} != {cfg}")
     require(all(torch.equal(snap[k], v.cpu())
                 for k, v in model.state_dict().items()),
             "the snapshot does not read back bit for bit")
-    del snap
-    ft = FINETUNE
+    del model
+    _free_card(cuda)
+    if ready is not None:
+        with open(ready, "w") as f:
+            f.write(base)
+    ft = sizes
     env = {"KFT_INIT_FROM": f"file://{base}",
            "KFT_LORA_RANK": str(ft["lora_rank"]),
            "KFT_STEPS": str(ft["steps"]), "KFT_BATCH": str(ft["batch"]),
            "KFT_SEQ_LEN": str(ft["seq"]),
-           "KFT_CKPT_DIR": os.path.join(work, "ckpt"),
+           "KFT_CKPT_DIR": os.path.join(work, f"{phase}-ckpt"),
            "KFT_SAVE_EVERY": str(ft["save_every"]), "KFT_LOG_EVERY": "1",
-           "KFT_PUBLISH_TO": os.path.join(work, "adapter")}
-    status = os.path.join(work, "status")
-    torch.cuda.reset_peak_memory_stats()
+           "KFT_PUBLISH_TO": os.path.join(work, f"{phase}-adapter"),
+           **({} if cuda else {"KFT_POD_DEVICE": dev})}
+    status = os.path.join(work, f"{phase}-status")
+    _peak_reset(cuda)
     runs = []
     for steps in (ft["steps"], ft["resume_to"]):
         trainer, rows, launches, seconds = _train_main(
@@ -2523,62 +2609,83 @@ def phase_finetune(work: str, card: str) -> dict:
         per_step = {k: FINETUNE_PER_LAYER.get(k, 0) * cfg.num_layers
                     * (steps - done) for k in launches}
         losses = [r["value"] for r in _metric(rows, "loss")]
+        tokens = ft["batch"] * ft["seq"]
+        tps = [r["value"] for r in _metric(rows, "tokens_per_sec_per_chip")]
         runs.append({
             "steps": steps, "seconds": seconds,
             "resume_step": _metric(rows, "resume_step")[0]["value"],
             "loss_steps": [r["step"] for r in _metric(rows, "loss")],
-            "losses": losses,
-            "tokens_per_sec": [r["value"] for r in _metric(
-                rows, "tokens_per_sec_per_chip")],
+            "losses": losses, "tokens_per_sec": tps,
+            "step_s": [tokens / x for x in tps],
             "mfu_reported": _metric(rows, "mfu")[0]["value"],
             "published": _metric(rows, "published")[0]["value"],
             "launches": launches, "launches_expected": per_step,
-            "base_unchanged": _base_unchanged(model, trainer),
+            "base_unchanged": _base_unchanged(snap, trainer),
+            "adapter_dtypes": _float_dtypes(llama.split_lora(
+                trainer.model.state_dict())[1]),
             "checkpoints": trainer.ckpt.all_steps(),
         })
         if steps != ft["resume_to"]:
             del trainer
-            gc.collect()
-            torch.cuda.empty_cache()
+            _free_card(cuda)
     last = trainer
-    peak = torch.cuda.max_memory_allocated()
+    peak = _peak(cuda)
     ckpt_dir = env["KFT_CKPT_DIR"]
     ckpt_bytes = {s: _dir_bytes(os.path.join(ckpt_dir, str(s)))
                   for s in runs[-1]["checkpoints"]}
     adapter_bytes = _dir_bytes(env["KFT_PUBLISH_TO"])
     base_bytes = _dir_bytes(base)
     # the save, restore and publish of this state, timed alone
-    timing = CheckpointManager(os.path.join(work, "ckpt_timing"))
-    torch.cuda.synchronize()
+    timing = CheckpointManager(os.path.join(work, f"{phase}-ckpt-timing"))
+    _sync(cuda)
     t0 = time.perf_counter()
     timing.save(ft["resume_to"], last._to_ckpt(), force=True)
     ckpt_save_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    timing.restore(map_location="cuda")
-    torch.cuda.synchronize()
+    restored = timing.restore(map_location=dev)
+    _sync(cuda)
     ckpt_restore_s = time.perf_counter() - t0
+    ckpt_keys = sorted(restored)
+    ckpt_adapters = restored.get("adapters", {})
+    # AdamW's moments of the adapters: nu f32, mu in the trainer's mu_dtype
+    moments = {k: _float_dtypes(dict(enumerate(
+        restored.get("opt_state", {}).get(k, [])))) for k in ("mu", "nu")}
+    mu_dtype = str(last.cfg.mu_dtype or torch.float32).removeprefix("torch.")
     t0 = time.perf_counter()
-    llama.save_adapter(os.path.join(work, "adapter_timing"), last.cfg.model,
-                       last.model)
+    llama.save_adapter(os.path.join(work, f"{phase}-adapter-timing"),
+                       last.cfg.model, last.model)
     publish_s = time.perf_counter() - t0
+    _, published = llama.load_adapter(env["KFT_PUBLISH_TO"])
     # steady steps: every run's steps after its first
     steady = [t for r in runs for t in r["tokens_per_sec"][1:]]
     tps = statistics.median(steady)
     flops_tok = llama.flops_per_token(cfg, ft["seq"])
-    emit("finetune", model="llama_1b", params=llama.num_params(cfg),
-         lora_rank=ft["lora_rank"], lora_params=sum(
-             p.numel() for n, p in last.model.named_parameters()
-             if llama.is_lora_path(n)),
-         global_batch=ft["batch"], seq_len=ft["seq"], runs=runs,
-         tokens_per_sec=tps, tokens_per_sec_steps=steady,
-         mfu=tps * flops_tok / PEAK_FLOPS,
-         mfu_convention="6N + attention per token (the reference's "
-         "flops_per_token), frozen-base weight gradients included",
-         peak_mem_bytes=peak, snapshot_write_ms=save_s * 1e3,
-         snapshot_read_ms=load_s * 1e3, checkpoint_save_ms=ckpt_save_s * 1e3,
-         checkpoint_restore_ms=ckpt_restore_s * 1e3,
-         publish_ms=publish_s * 1e3, base_bytes=base_bytes,
-         checkpoint_bytes=ckpt_bytes, adapter_bytes=adapter_bytes, card=card)
+    line = dict(
+        model=name, params=llama.num_params(cfg),
+        param_dtype=str(cfg.param_dtype).removeprefix("torch."),
+        param_bytes=param_bytes, lora_rank=ft["lora_rank"],
+        lora_params=sum(p.numel() for n, p in last.model.named_parameters()
+                        if llama.is_lora_path(n)),
+        global_batch=ft["batch"], seq_len=ft["seq"], runs=runs,
+        tokens_per_sec=tps, tokens_per_sec_steps=steady,
+        step_s=ft["batch"] * ft["seq"] / tps,
+        flops_per_step=flops_tok * ft["batch"] * ft["seq"],
+        mfu=tps * flops_tok / PEAK_FLOPS,
+        mfu_convention="6N + attention per token (the reference's "
+        "flops_per_token), frozen-base weight gradients included",
+        free_bytes_at_start=free_at_start, build_s=build_s,
+        build_peak_bytes=build_peak, peak_mem_bytes=peak,
+        snapshot_write_ms=save_s * 1e3, snapshot_read_ms=load_s * 1e3,
+        snapshot_read_rss_bytes=load_rss,
+        checkpoint_save_ms=ckpt_save_s * 1e3,
+        checkpoint_restore_ms=ckpt_restore_s * 1e3,
+        publish_ms=publish_s * 1e3, base_bytes=base_bytes,
+        checkpoint_bytes=ckpt_bytes, checkpoint_keys=ckpt_keys,
+        checkpoint_adapter_dtypes=_float_dtypes(ckpt_adapters),
+        checkpoint_moment_dtypes=moments,
+        published_dtypes=_float_dtypes(published),
+        adapter_bytes=adapter_bytes, card=card)
+    emit(phase, **line)
     first, second = runs
     require(first["resume_step"] == 0 and second["resume_step"] ==
             ft["steps"], f"resume steps {first['resume_step']}, "
@@ -2590,20 +2697,41 @@ def phase_finetune(work: str, card: str) -> dict:
     for r in runs:
         require(all(map(math.isfinite, r["losses"])),
                 f"fine-tune losses not finite: {r['losses']}")
-        require(r["launches"] == r["launches_expected"] and all(
-            r["launches"][k] > 0 for k in FINETUNE_PER_LAYER),
+        require(not cuda or (r["launches"] == r["launches_expected"] and all(
+            r["launches"][k] > 0 for k in FINETUNE_PER_LAYER)),
             f"fine-tune launches {r['launches']} != "
             f"{r['launches_expected']}")
         require(r["base_unchanged"], "the frozen base changed")
         require(r["published"] == 1.0, "the adapter was not published")
-    require(max(ckpt_bytes.values()) < base_bytes / 100,
-            f"checkpoints {ckpt_bytes} are not adapter-only")
+        require(r["adapter_dtypes"] == ["float32"],
+                f"the adapters are {r['adapter_dtypes']}, not f32")
+    require(max(ckpt_bytes.values()) < base_bytes / 100
+            and "params" not in restored and ckpt_adapters
+            and all(llama.is_lora_path(k) for k in ckpt_adapters),
+            f"checkpoints {ckpt_bytes} ({ckpt_keys}) are not adapter-only")
+    require(line["checkpoint_adapter_dtypes"] == ["float32"]
+            and line["published_dtypes"] == ["float32"],
+            f"checkpointed adapters {line['checkpoint_adapter_dtypes']}, "
+            f"published {line['published_dtypes']}: not f32")
+    require(moments == {"mu": [mu_dtype], "nu": ["float32"]},
+            f"the checkpointed moments are {moments}, not mu {mu_dtype} "
+            "and nu f32")
     require(adapter_bytes < base_bytes / 100,
             f"the published adapter is {adapter_bytes} bytes")
-    del last, model
-    gc.collect()
-    torch.cuda.empty_cache()
-    return {"base": base, "adapter": env["KFT_PUBLISH_TO"]}
+    del last, snap, restored
+    _free_card(cuda)
+    return {"base": base, "adapter": env["KFT_PUBLISH_TO"], "line": line}
+
+
+def phase_finetune(work: str, card: str) -> dict:
+    """The fine-tune job on llama_1b (1.19B, 21 layers, full width, f32
+    parameters, ``finetune_job``)."""
+    import os
+
+    from kubeflow_tpu_torch.models import llama
+
+    return finetune_job("finetune", "llama_1b", llama.llama_1b(),
+                        os.path.join(work, "base"), work, card)
 
 
 #: Adafactor at full fine-tune: llama_1b, 8 x 2048 in two microbatches
@@ -2886,6 +3014,270 @@ def phase_finetune_serve(base: str, adapter: str, card: str) -> None:
     del plain_model, models, params
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# -- Llama-2 7B: the reference's headline model through the port --------------
+
+#: ``llama7b_serve``: FINETUNE_SERVE's 8 prompts x 128 tokens, 64 new,
+#: greedy, one round, in engines of 256 positions (8 slots at the
+#: config's 4,096 would hold 16 GB of KV, and warmup captures every
+#: attend rung up to it); the engines' knobs are ``serve``'s, the paged
+#: one's blocks 16 (``GANG_ENGINE``)
+LLAMA7B_SERVE = dict(FINETUNE_SERVE, rounds=1, max_seq_len=256)
+#: ``tp7b_serve``: the same prompts behind a gang of two ranks, on the
+#: first ``layers`` of the 7B's 32 at full width (at 32 the phase took
+#: 121-149 s, and the script ~1,180 s of its 1,200 on a slow host);
+#: ``wait``: the seconds the background track may wait for
+#: ``llama7b_job``'s files in the main sequence
+TP7B = dict(prompts=8, prompt_len=128, new=64, rounds=1, max_seq_len=256,
+            layers=8, timeout=900, wait=1200)
+#: the files ``llama7b_job`` creates once its base snapshot reads back and
+#: once its adapter is published, each holding the path
+LLAMA7B_READY = "ready"
+LLAMA7B_ADAPTER = "adapter"
+
+
+def _wait_for(path: str, wait: float) -> tuple[str, float]:
+    """The contents of file ``path`` once it exists, and the seconds it
+    took; fails after ``wait`` seconds."""
+    import os
+
+    t0 = time.perf_counter()
+    while not os.path.exists(path):
+        require(time.perf_counter() - t0 < wait,
+                f"no {path} after {wait} s")
+        time.sleep(1.0)
+    with open(path) as f:
+        return f.read(), time.perf_counter() - t0
+
+
+def phase_llama7b_job(snap_dir: str, card: str) -> dict:
+    """``finetune_job`` on Llama-2 7B (6.74B parameters in bf16, 32
+    layers, h 4096, 32 heads, ffn 11,008): the base written into
+    ``snap_dir/base``, a rank-8 LoRA at 8 x 2048, with ``llama_1b``'s
+    settings (flash attention, remat "nothing"). ``snap_dir/ready`` is
+    created once the base reads back and ``snap_dir/adapter`` once the
+    adapter is published: the other track serves them."""
+    import os
+
+    import torch
+
+    from kubeflow_tpu_torch.models import llama
+
+    cfg = llama.llama2_7b(attention_impl="flash", remat_policy="nothing",
+                          param_dtype=torch.bfloat16)
+    job = finetune_job("llama7b_job", "llama2_7b", cfg,
+                       os.path.join(snap_dir, "base"), snap_dir, card,
+                       ready=os.path.join(snap_dir, LLAMA7B_READY))
+    with open(os.path.join(snap_dir, LLAMA7B_ADAPTER), "w") as f:
+        f.write(job["adapter"])
+    return job
+
+
+def phase_llama7b_serve(snap_dir: str, card: str,
+                        wait: float = TP7B["wait"]) -> dict:
+    """``llama7b_serve`` of the base and adapter ``llama7b_job`` wrote into
+    ``snap_dir`` (waits for its files)."""
+    import os
+
+    base, _ = _wait_for(os.path.join(snap_dir, LLAMA7B_READY), wait)
+    adapter, _ = _wait_for(os.path.join(snap_dir, LLAMA7B_ADAPTER), wait)
+    return llama7b_serve(base, adapter, line=card)
+
+
+def llama7b_serve(base: str, adapter: str, device=None,
+                  sizes=LLAMA7B_SERVE, line: str = "") -> dict:
+    """A published fine-tune of the 7B served: ``resolve_model_source`` of
+    the base and the adapter (merged at load: f32 adapters into bf16
+    kernels), then ``LlamaGenerator`` (the eager ``KvCache`` decode path,
+    the prompts in one batch, on its own copy of the weights, alone on the
+    card) and ``ContinuousEngine``'s slot pool and paged pool (blocks of
+    16) on one model. Held: every greedy stream teacher-forced through the
+    plain model within the near-tie bound (``_require_gaps``), the paged
+    tokens equal to the slot pool's, 0 captures after warmup, 0 leaked
+    blocks. Printed: each path's tokens/s, the engines' ms a decode
+    dispatch and a step, peak memory, KV pool bytes, and the decode
+    roofline (the weights' bytes over the HBM rate, a step) as a share of
+    each engine's ms a step."""
+    import torch
+
+    from kubeflow_tpu_torch.analysis.runtime import BlockLedger
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.serving import storage
+    from kubeflow_tpu_torch.serving.continuous import resolve_model_source
+    from kubeflow_tpu_torch.serving.runtimes import LlamaGenerator
+
+    cuda = device is None
+    dev = device or "cuda"
+    _peak_reset(cuda)
+    t0 = time.perf_counter()
+    cfg, params = resolve_model_source({
+        "storage_path": base, "adapter_path": adapter,
+        "max_seq_len": sizes["max_seq_len"]})
+    resolve_s = time.perf_counter() - t0
+    require(cfg.lora_rank == 0, "the adapter was not merged")
+    n, plen, new = sizes["prompts"], sizes["prompt_len"], sizes["new"]
+    prompts = _prompts(cfg, n, plen)
+    key = "llama7b-serve"
+    gen = LlamaGenerator("llama7b", {
+        "params_ref": storage.register_mem(key, (cfg, params)),
+        "max_new_tokens": new, "device": device})
+    try:
+        t0 = time.perf_counter()
+        gen.load()
+        gen_load_s = time.perf_counter() - t0
+        gen_s = []
+        for _ in range(sizes["rounds"]):
+            t0 = time.perf_counter()
+            gen_tokens = gen.predict_batch(prompts)
+            gen_s.append(time.perf_counter() - t0)
+        gen_peak = _peak(cuda)
+    finally:
+        gen.stop()
+        storage._MEM_REGISTRY.pop(key, None)
+    del gen
+    _peak_reset(cuda)
+    model = llama.Llama(cfg, device=dev)
+    model.load_state_dict(params, strict=True)
+    del params
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    warm = [(n, plen), (1, plen)]
+    ledger = BlockLedger()
+    engines = {}
+    for name, kw in (("slot", SERVE_ENGINE), ("paged", GANG_ENGINE)):
+        engines[name] = _serve(
+            cfg, model, prompts, new, warm, rounds=sizes["rounds"],
+            counters=True, ledger=ledger if name == "paged" else None,
+            device=model.embedder.embedding.device, **kw)
+    engine_peak = _peak(cuda)
+    streams = {"generator": gen_tokens,
+               **{k: e["tokens"] for k, e in engines.items()}}
+    gaps = _gaps(model, prompts, streams, forced=_decode_logits)
+    plain_gaps = _gaps(model, prompts, streams)
+    roofline_ms = weight_bytes / PEAK_BYTES * 1e3
+    runs = {"generator": {"load_s": gen_load_s, "seconds": gen_s,
+                          "tokens_per_sec": statistics.median(
+                              n * new / x for x in gen_s),
+                          "peak_mem_bytes": gen_peak}}
+    for name, e in engines.items():
+        step_ms = e["ms_per_dispatch"] / SERVE_ENGINE["decode_chunk"]
+        runs[name] = {
+            "tokens_per_sec": e["tokens_per_sec"],
+            "tokens_per_sec_rounds": e["tokens_per_sec_rounds"],
+            "ms_per_dispatch": e["ms_per_dispatch"],
+            "ms_per_decode_step": step_ms,
+            "decode_roofline_share": roofline_ms / step_ms,
+            "decode_dispatches": e["decode_dispatches"],
+            "warmup_s": e["warmup_s"],
+            "kv_pool_bytes": e["stats"]["kv_pool_bytes"],
+            "captures_after_warmup": e["stats"]["graph_captures_total"],
+            "graph_captures_warmup": e["stats"]["graph_captures_warmup"],
+            "stats_audit": e["stats_audit"], "launches": e["launches"]}
+    out = dict(card=line, model="llama2_7b", merged_adapter=adapter,
+               prompts=n, prompt_len=plen, new=new,
+               max_seq_len=cfg.max_seq_len, resolve_s=resolve_s,
+               weight_bytes=weight_bytes, decode_roofline_ms=roofline_ms,
+               runs=runs, engines_peak_mem_bytes=engine_peak,
+               paged_equal_to_slot=(engines["paged"]["tokens"]
+                                    == engines["slot"]["tokens"]),
+               blocks_leaked=ledger.leaked_total,
+               ledger_errors=list(ledger.conservation_errors),
+               teacher_forced=gaps, teacher_forced_plain_forward=plain_gaps)
+    emit("llama7b_serve", **out)
+    require(out["paged_equal_to_slot"],
+            "llama7b_serve: the paged pool's tokens differ from the slot "
+            "pool's")
+    require(all(runs[k]["captures_after_warmup"] == 0 for k in engines),
+            "llama7b_serve: captures after warmup")
+    require(ledger.leaked_total == 0 and not ledger.conservation_errors,
+            f"llama7b_serve: leaked blocks {ledger.conservation_errors}")
+    _require_gaps("llama7b_serve", gaps)
+    del model
+    _free_card(cuda)
+    return out
+
+
+def tp7b_serve(snap_dir: str, device=None, sizes=TP7B,
+               line: str = "") -> dict:
+    """The 7B base ``llama7b_job`` wrote (waits for its ``ready`` file in
+    ``snap_dir``), cut to its first ``sizes["layers"]`` layers at full
+    width and written as a snapshot of its own, behind a gang of two ranks
+    at ``{"model": 2}`` through ``serve_main``, each rank loading that
+    snapshot (``storage_path``) and laying out its 16 heads and half the
+    weights (``place_params``), held as
+    ``tp_serve`` is (``_gang_row``: follower outputs bitwise rank 0's,
+    streams and the teacher-forced decode path against one unsharded
+    engine's on the same weights, a pool a rank half the unsharded one).
+    The unsharded model is on the card before and after the spawn only;
+    its teacher-forced logits reach the ranks in a file."""
+    import dataclasses
+    import os
+
+    import torch
+
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.parallel import dryrun
+    from kubeflow_tpu_torch.utils.net import free_port
+
+    cuda = device is None
+    dev = device or "cuda"
+    base, waited_s = _wait_for(os.path.join(snap_dir, LLAMA7B_READY),
+                               sizes["wait"])
+    cfg, sd = llama.load_pretrained(base)
+    cut = sizes["layers"]
+    cfg = dataclasses.replace(cfg, num_layers=cut,
+                              max_seq_len=sizes["max_seq_len"])
+    # copies, so that the whole snapshot's read buffer is freed
+    sd = {k: v.clone() for k, v in sd.items()
+          if not k.startswith("layers.") or int(k.split(".")[1]) < cut}
+    base = os.path.join(snap_dir, f"base-{cut}-layers")
+    llama.save_pretrained(base, cfg, sd)
+
+    def unsharded():
+        m = llama.Llama(cfg, device=dev)
+        m.load_state_dict(sd, strict=True)
+        return m
+
+    m = unsharded()
+    prompts = _prompts(cfg, sizes["prompts"], sizes["prompt_len"])
+    truth = _truth(cfg, m, prompts, sizes["new"],
+                   [(sizes["prompts"], sizes["prompt_len"]),
+                    (1, sizes["prompt_len"])], GANG_ENGINE, counters=True)
+    tmp = tempfile.mkdtemp(prefix="kft-tp7b-")
+    try:
+        reference = os.path.join(tmp, "reference.pt")
+        torch.save(_teacher_forced_reference(m, prompts, truth["tokens"]),
+                   reference)
+        del m
+        _free_card(cuda)
+        snapshot = {"path": base, "max_seq_len": sizes["max_seq_len"],
+                    "reference": reference}
+        ports = [free_port() for _ in range(3)]
+        t0 = time.perf_counter()
+        ranks = dryrun.spawn(2, _case_rank, ports, "llama2_7b", sizes,
+                             device, None, {"model": 2}, snapshot,
+                             backend="gloo", timeout=sizes["timeout"])
+        spawn_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    m = unsharded()
+    row = _gang_row("tp7b_serve", line, "llama2_7b", cfg, m, prompts, truth,
+                    ranks, sizes, {"model": 2}, device)
+    row.update(snapshot_wait_s=waited_s, spawn_seconds=spawn_s,
+               case_seconds=[r["case_seconds"] for r in ranks],
+               weight_bytes_per_rank=[r["weight_bytes"] for r in ranks],
+               unsharded_weight_bytes=sum(
+                   p.numel() * p.element_size() for p in m.parameters()))
+    emit("tp7b_serve", **row)
+    # half of every projection, the embedding and the head; the norms whole
+    require(all(abs(w / row["unsharded_weight_bytes"] - 0.5) < 1e-2
+                for w in row["weight_bytes_per_rank"]),
+            f"tp7b_serve: ranks hold {row['weight_bytes_per_rank']} bytes of "
+            f"the model's {row['unsharded_weight_bytes']}")
+    del m, sd
+    _free_card(cuda)
+    return row
 
 
 #: the HTTP phase (``http_serve``): the port's ModelServer + TextGenerator
@@ -5900,7 +6292,8 @@ def _lora_after(t, sizes: dict, device, model=None, int8=None,
     tp = sharded.place_params(qcfg, sd, mesh, unsharded.embedder.embedding
                               .device)
     del sd
-    check = _teacher_forced_check(unsharded, tp, *int8)
+    check = _teacher_forced_check(
+        _teacher_forced_reference(unsharded, *int8), tp)
     del tp, unsharded
     _free_card(device is None)
     return {**update, "next_loss": next_loss, "int8_teacher_forced": check,
@@ -6585,23 +6978,35 @@ def _teacher_forced(model, prompts, streams, pins=None) -> tuple:
     return torch.stack(rows, dim=1), ids
 
 
-def _teacher_forced_check(unsharded, tp_model, prompts, streams) -> dict:
-    """The unsharded streams fed through the TP model's decode path and
-    the unsharded model's (``_teacher_forced``, the streams of one length
-    batched; MoE layers of the TP model routed as the unsharded one
-    chose): the largest relative L2 distance of the TP logits from the
-    unsharded ones over every position, and at how many positions the
-    greedy token agrees. Every rank calls it with the same inputs."""
+def _teacher_forced_reference(unsharded, prompts, streams) -> list:
+    """The unsharded side of ``_teacher_forced_check``: ``streams`` fed
+    through ``unsharded``'s decode path (``_teacher_forced``, the streams
+    of one length batched): per group, (prompts, streams, logits, the
+    expert ids of each forward)."""
     groups: dict = {}
     for p, st in zip(prompts, streams):
         groups.setdefault((len(p), len(st)), []).append((p, st))
-    moe = bool(_moe_layers(unsharded))
-    rel, agree, n = 0.0, 0, 0
+    out = []
     for rows in groups.values():
         ps, sts = [r[0] for r in rows], [r[1] for r in rows]
         want, ids = _teacher_forced(unsharded, ps, sts)
+        out.append((ps, sts, want, ids))
+    return out
+
+
+def _teacher_forced_check(reference: list, tp_model) -> dict:
+    """The unsharded streams fed through the TP model's decode path (its
+    MoE layers routed as the unsharded one chose) against the unsharded
+    model's logits (``_teacher_forced_reference``): the largest relative
+    L2 distance of the TP logits from the unsharded ones over every
+    position, and at how many positions the greedy token agrees. Every
+    rank calls it with the same inputs."""
+    moe = bool(_moe_layers(tp_model))
+    rel, agree, n = 0.0, 0, 0
+    for ps, sts, want, ids in reference:
         got, _ = _teacher_forced(tp_model, ps, sts,
                                  pins=ids if moe else None)
+        want = want.to(got.device)
         rel = max(rel, float((got - want).norm(dim=-1).div(
             want.norm(dim=-1)).max()))
         agree += int((got.argmax(-1) == want.argmax(-1)).sum())
@@ -6611,27 +7016,44 @@ def _teacher_forced_check(unsharded, tp_model, prompts, streams) -> dict:
 
 
 def _gang_serve_case(rank: int, ports: list, model, sizes: dict,
-                     device=None, streams=None, mesh=None) -> dict:
+                     device=None, streams=None, mesh=None,
+                     snapshot: Optional[dict] = None) -> dict:
     """One gang of ``prod(mesh)`` ranks (``{"model": 2}`` by default)
     through ``serve_main`` (rank 0's ``ModelServer`` over a
     ``GangEngine``, the others following), serving ``sizes["prompts"]``
     prompts over HTTP (``_drive_gang``); then ``streams`` (the unsharded
     engine's) fed through the gang's laid-out model and the unsharded one
     (``_teacher_forced_check``). ``host_copies``: the MoE count matrix's
-    copies to the host in this process (serving must make none)."""
+    copies to the host in this process (serving must make none).
+
+    Each rank builds ``model`` unsharded from SEED and serves it from
+    ``mem://``, or with ``snapshot`` (``path``: a ``save_pretrained``
+    directory every rank loads through ``storage_path``; ``max_seq_len``;
+    ``reference``: a file of ``_teacher_forced_reference`` on the
+    unsharded model) holds no unsharded model: a 7B's does not fit on the
+    card twice beside its shards."""
     import os
     import threading
 
+    import torch
+
     from kubeflow_tpu_torch.analysis.runtime import BlockLedger
+    from kubeflow_tpu_torch.models import llama
     from kubeflow_tpu_torch.models import moe as moelib
     from kubeflow_tpu_torch.runtime import bootstrap
     from kubeflow_tpu_torch.serving import gang, storage
 
     mesh = mesh or {"model": 2}
-    cfg, m = _gang_model(model, device)
     key = f"gang-serve-{rank}"
-    conf = {"params_ref": storage.register_mem(key, (cfg, m.state_dict())),
-            "model_name": "m", "mesh_axes": mesh,
+    if snapshot is None:
+        cfg, m = _gang_model(model, device)
+        source = {"params_ref": storage.register_mem(
+            key, (cfg, m.state_dict()))}
+    else:
+        cfg, m = llama.load_pretrained_config(snapshot["path"]), None
+        source = {"storage_path": snapshot["path"],
+                  "max_seq_len": snapshot["max_seq_len"]}
+    conf = {**source, "model_name": "m", "mesh_axes": mesh,
             "gang_port": ports[0], "serve_port": ports[1],
             "gang_token": "chip-smoke", "max_new_tokens": sizes["new"],
             "warmup_groups": [[sizes["prompts"], sizes["prompt_len"]],
@@ -6663,13 +7085,19 @@ def _gang_serve_case(rank: int, ports: list, model, sizes: dict,
             eng = rec.engines[-1]
             out.update(pool_heads=int(eng._pool.k.shape[3]),
                        kv_pool_bytes=eng.kv_pool_bytes)
-        out["teacher_forced"] = _teacher_forced_check(
-            m, rec.engines[-1].model, prompts, streams)
+        tp_model = rec.engines[-1].model
+        reference = (_teacher_forced_reference(m, prompts, streams)
+                     if m is not None else torch.load(
+                         snapshot["reference"],
+                         map_location=tp_model.embedder.embedding.device))
+        out["teacher_forced"] = _teacher_forced_check(reference, tp_model)
         out["host_copies"] = moelib.HOST_COPIES["moe_ep_counts"]
         out["w_gate"] = [list(x.w_gate.shape)
-                         for x in _moe_layers(rec.engines[-1].model)][:1]
+                         for x in _moe_layers(tp_model)][:1]
         out["digests"] = rec.digests()
         out["row_launches"] = [d for _, _, d in rec.rows]
+        out["weight_bytes"] = sum(p.numel() * p.element_size()
+                                  for p in tp_model.parameters())
     finally:
         undo()
         storage._MEM_REGISTRY.pop(key, None)
@@ -6924,10 +7352,10 @@ def _gang_rank(rank: int, ports: list, dense, moe, sizes: dict,
     return out
 
 
-def _ep_rank(rank: int, ports: list, moe, sizes: dict, device=None,
-             streams=None) -> dict:
-    """``moe_ep_serve`` on one of the four ranks: ``_gang_serve_case`` at
-    ``EP_MESH``."""
+def _case_rank(rank: int, ports: list, model, sizes: dict, device=None,
+               streams=None, mesh=None, snapshot=None) -> dict:
+    """One rank of a gang spawned for one serving case (``moe_ep_serve``
+    at ``EP_MESH``, ``tp7b_serve``): ``_gang_serve_case``."""
     import torch
 
     if device is None:
@@ -6935,8 +7363,8 @@ def _ep_rank(rank: int, ports: list, moe, sizes: dict, device=None,
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    out = _gang_serve_case(rank, ports, moe, sizes, device, streams,
-                           mesh=EP_MESH)
+    out = _gang_serve_case(rank, ports, model, sizes, device, streams,
+                           mesh=mesh, snapshot=snapshot)
     out["case_seconds"] = time.perf_counter() - t0
     return out
 
@@ -7084,9 +7512,9 @@ def gang_serving(dense, moe, device=None, sizes=GANG,
     cfg_n, m_n, prompts, truth = baselines["moe_tp_serve"]
     ep_ports = [free_port() for _ in range(3)]
     t0 = time.perf_counter()
-    ep = dryrun.spawn(4, _ep_rank, ep_ports, moe, sizes["moe_ep_serve"],
-                      device, streams["moe_tp_serve"], backend="gloo",
-                      timeout=sizes["timeout"])
+    ep = dryrun.spawn(4, _case_rank, ep_ports, moe, sizes["moe_ep_serve"],
+                      device, streams["moe_tp_serve"], EP_MESH,
+                      backend="gloo", timeout=sizes["timeout"])
     out["ep_spawn_seconds"] = time.perf_counter() - t0
     row = _gang_row("moe_ep_serve", line, moe, cfg_n, m_n, prompts, truth,
                     ep, sizes["moe_ep_serve"], EP_MESH, device)
@@ -7355,7 +7783,7 @@ def phase_gang(line: str) -> dict:
 #: what either track times after that is read with the other one running
 BACKGROUND_PHASES = (
     "mesh_train", "seq_train", "pipeline_train", "mesh_more_train",
-    "wire_local", "gang")
+    "wire_local", "gang", "tp7b_serve", "llama7b_serve")
 #: the parallel phases the main sequence runs after ``nas_experiment``,
 #: so that the two tracks end together (``mesh_more_train`` made the
 #: background track the longer one)
@@ -7364,9 +7792,11 @@ MAIN_TAIL_PHASES = ("nccl_one_rank", "nccl_graph_capture",
                     "dryrun")
 
 
-def background_track(line: str) -> dict:
-    """``BACKGROUND_PHASES`` in order; returns each one's seconds (the
-    gang's cases too) and the grow-back's cache outcome for
+def background_track(line: str, snap_dir: str) -> dict:
+    """``BACKGROUND_PHASES`` in order (``tp7b_serve`` and ``llama7b_serve``
+    on the 7B snapshot and adapter the main sequence writes into
+    ``snap_dir``); returns each one's
+    seconds (the gang's cases too) and the grow-back's cache outcome for
     ``aot_boots``."""
     seconds, t = {}, time.perf_counter()
 
@@ -7390,6 +7820,11 @@ def background_track(line: str) -> dict:
     gang = phase_gang(line)
     grow = gang.pop("tp_resize_grow")
     seconds.update(gang)
+    t = time.perf_counter()
+    tp7b_serve(snap_dir, line=line)
+    lap("tp7b_serve")
+    phase_llama7b_serve(snap_dir, line)
+    lap("llama7b_serve")
     return {"seconds": seconds, "tp_resize_grow": grow}
 
 
@@ -7403,11 +7838,11 @@ def main_tail(line: str) -> dict:
     return seconds
 
 
-def run_track(result_path: str) -> int:
-    """``python3 chip_smoke.py --track RESULT``: ``background_track`` in
-    this process; its phase lines go to stdout, its result as JSON to
-    RESULT. SIGTERM unwinds it, so that every phase stops the processes
-    it started."""
+def run_track(result_path: str, snap_dir: str) -> int:
+    """``python3 chip_smoke.py --track RESULT SNAPSHOT_DIR``:
+    ``background_track`` in this process; its phase lines go to stdout,
+    its result as JSON to RESULT. SIGTERM unwinds it, so that every phase
+    stops the processes it started."""
     import torch
 
     def _stop(*_):
@@ -7416,7 +7851,7 @@ def run_track(result_path: str) -> int:
     signal.signal(signal.SIGTERM, _stop)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    out = background_track(card_line())
+    out = background_track(card_line(), snap_dir)
     with open(result_path, "w") as f:
         json.dump(out, f)
     return 0
@@ -7425,12 +7860,13 @@ def run_track(result_path: str) -> int:
 class BackgroundTrack:
     """``run_track`` in a child process of its own session, its stdout and
     stderr in files until ``join`` prints them after the main sequence's
-    lines."""
+    lines; ``snap_dir`` is where the main sequence writes the 7B
+    snapshot."""
 
     #: seconds the track may take from its start
     TIMEOUT = 1200
 
-    def __init__(self):
+    def __init__(self, snap_dir: str):
         here = os.path.abspath(__file__)
         self.dir = tempfile.mkdtemp(prefix="kft-track-")
         self.result = os.path.join(self.dir, "result.json")
@@ -7438,7 +7874,7 @@ class BackgroundTrack:
         self.err = open(os.path.join(self.dir, "stderr"), "w+")
         self.t0 = time.perf_counter()
         self.proc = subprocess.Popen(
-            [sys.executable, here, "--track", self.result],
+            [sys.executable, here, "--track", self.result, snap_dir],
             cwd=os.path.dirname(here), stdout=self.out, stderr=self.err,
             start_new_session=True)
 
@@ -7534,11 +7970,15 @@ def run() -> int:
     phase_serve()
     phase_serve_variants()
     phase_moe_serve()
-    # the layouts and multi-GPU serving from here on in a second process
+    # the layouts and multi-GPU serving from here on in a second process;
+    # the 7B's snapshot goes to a directory both tracks see
     t_split = time.perf_counter()
-    track = BackgroundTrack()
+    snap7b = tempfile.mkdtemp(prefix="kft-7b-")
+    track = BackgroundTrack(snap7b)
     try:
+        phase_llama7b_job(snap7b, line)
         t0 = time.perf_counter()
+        track.check()
         phase_spec_serve()
         phase_moe_spec_serve()
         phase_prefix_serve()
@@ -7593,6 +8033,7 @@ def run() -> int:
         bg = track.join()
     finally:
         track.stop()
+        shutil.rmtree(snap7b, ignore_errors=True)
     grow = bg["tp_resize_grow"]
     now = time.perf_counter()
     # the program-artifact cache's boots in one line: cold (an empty root)
@@ -7614,6 +8055,7 @@ def run() -> int:
     emit("phase_seconds", total=now - started, lint=lint_s,
          before_split=t_split - started, main_track=t11 - t_split,
          background_track=bg["wall"], waited=bg["waited"],
+         llama7b_job=t0 - t_split,
          speculation_and_prefix=t1 - t0, migration_and_tiers=t_bf16 - t1,
          bf16_snapshot_serve=t2 - t_bf16, ep_gmm_time=ep_gmm_s,
          http_serve=t_isvc - t2, isvc_serve=t_http - t_isvc,
@@ -7641,5 +8083,5 @@ def run() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--track"]:
-        sys.exit(run_track(sys.argv[2]))
+        sys.exit(run_track(sys.argv[2], sys.argv[3]))
     sys.exit(run())

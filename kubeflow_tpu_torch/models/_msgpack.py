@@ -20,13 +20,17 @@ What is written and read:
 GB is never built in memory. ``Stacked`` is a leaf that is the stack of
 equal tensors along a new first axis, written from its parts without
 stacking them (the port's per-layer tensors as the reference's scan-stacked
-leaf). ``load`` reads the file once into a buffer; the arrays it returns
-are views of that buffer.
+leaf). ``load`` reads the file once into a buffer (in pieces, in
+parallel); the arrays it returns
+are views of that buffer, a chunked leaf's too (its chunks are moved
+together in place), so a snapshot's load holds one copy of its bytes.
 """
 
 from __future__ import annotations
 
+import ctypes
 import io
+import os
 import struct
 from typing import Any
 
@@ -360,44 +364,105 @@ _LENGTHS = {0xc4: ("bin", ">B"), 0xc5: ("bin", ">H"), 0xc6: ("bin", ">I"),
             0xde: ("map", ">H"), 0xdf: ("map", ">I")}
 
 
-def _unchunk(tree):
-    """flax's ``_unchunk_array_leaves_in_place``, returning the tree."""
+def _address(x) -> int:
+    return x.data_ptr() if isinstance(x, torch.Tensor) else x.ctypes.data
+
+
+def _nbytes_of(x) -> int:
+    return (x.numel() * x.element_size() if isinstance(x, torch.Tensor)
+            else x.nbytes)
+
+
+def _join_in_place(chunks: list, buf: memoryview):
+    """The chunks (views of ``buf``) as one flat array over ``buf``'s
+    bytes, each moved down to the end of the one before it, or None where
+    ``buf`` is read-only or the chunks do not lie in it one after another.
+    A leaf's chunks are written in order with only msgpack headers between
+    them, so a move overwrites only bytes already parsed, and no other
+    leaf's."""
+    if buf.readonly or not len(buf):
+        return None
+    base = np.frombuffer(buf, np.uint8)
+    start = base.ctypes.data
+    spans = [(_address(c) - start, _nbytes_of(c)) for c in chunks]
+    at = spans[0][0]
+    for off, n in spans:
+        if off < at or off + n > base.nbytes:
+            return None
+        at += n
+    at = spans[0][0]
+    for off, n in spans:
+        if off != at:
+            ctypes.memmove(start + at, start + off, n)
+        at += n
+    flat = base[spans[0][0]:at]
+    if isinstance(chunks[0], torch.Tensor):  # bfloat16
+        return torch.from_numpy(flat.view(np.int16)).view(torch.bfloat16)
+    return flat.view(chunks[0].dtype)
+
+
+def _unchunk(tree, buf: memoryview):
+    """flax's ``_unchunk_array_leaves_in_place``, returning the tree: a
+    chunked leaf joined in ``buf`` (``_join_in_place``), else copied."""
     if not isinstance(tree, dict):
         return tree
     if CHUNKED in tree:
         shape = [tree["shape"][str(i)] for i in range(len(tree["shape"]))]
         chunks = [tree["chunks"][str(i)] for i in range(len(tree["chunks"]))]
+        joined = _join_in_place(chunks, buf)
+        if joined is not None:
+            return joined.reshape(shape)
         if isinstance(chunks[0], torch.Tensor):
             return torch.cat(chunks).reshape(shape)
         return np.concatenate(chunks).reshape(shape)
-    return {k: _unchunk(v) for k, v in tree.items()}
+    return {k: _unchunk(v, buf) for k, v in tree.items()}
 
 
 def loads(data) -> Any:
     """The tree in ``data`` (bytes, bytearray or memoryview). Arrays are
     numpy views of ``data`` (writable when ``data`` is), ``bfloat16`` ones
-    torch tensors; chunked leaves come back whole."""
+    torch tensors; chunked leaves come back whole, views of ``data`` too
+    when it is writable (their chunks moved together in it, so ``data``
+    no longer holds the msgpack it held)."""
     buf = memoryview(data)
     tree, end = _read(buf, 0)
     if end != len(buf):
         raise ValueError(f"{len(buf) - end} trailing bytes after the tree")
-    return _unchunk(tree)
+    return _unchunk(tree, buf)
+
+
+#: ``load`` reads a file in pieces of this many bytes on this many
+#: threads: one ``readinto`` is bound by one core copying from the page
+#: cache, which for a snapshot of several GB is seconds a load
+READ_PIECE = 64 << 20
+READ_THREADS = 8
 
 
 def load(path: str) -> Any:
-    """``loads`` of a file, read once into a writable buffer."""
-    with open(path, "rb") as f:
-        f.seek(0, 2)
-        size = f.tell()
-        f.seek(0)
+    """``loads`` of a file, read once into a writable buffer, its pieces
+    read in parallel (``os.preadv`` on ``READ_THREADS`` threads)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        size = os.fstat(fd).st_size
         data = bytearray(size)
         view = memoryview(data)
-        got = 0
-        while got < size:
-            n = f.readinto(view[got:])
-            if not n:
-                raise OSError(f"{path}: short read at {got} of {size} bytes")
-            got += n
+
+        def read(start: int) -> None:
+            end, at = min(start + READ_PIECE, size), start
+            while at < end:
+                n = os.preadv(fd, [view[at:end]], at)
+                if not n:
+                    raise OSError(f"{path}: short read at {at} of {size} "
+                                  "bytes")
+                at += n
+
+        with ThreadPoolExecutor(READ_THREADS) as pool:
+            for _ in pool.map(read, range(0, size, READ_PIECE)):
+                pass
+    finally:
+        os.close(fd)
     return loads(data)
 
 

@@ -6,6 +6,8 @@ Capability target: baseline config 3 — "KServe BERT-base InferenceService"
 (``serving/runtimes.py`` ``BertClassifierModel``). bf16 activations and f32
 parameters, cast before each product; attention is bidirectional (padding
 mask only) and dense, as in the reference, which runs it as XLA einsums.
+``param_dtype`` bf16 (a bf16 snapshot's) keeps every parameter but the
+LayerNorms' in bf16, as the reference does (``leaf_dtype``).
 
 Parameters keep the reference's Einsum kernel layouts (q/k/v ``[E, H, D]``,
 o ``[H, D, E]``, ffn_in ``[E, M]``, ffn_out ``[M, E]``, pooler ``[E, E]``,
@@ -52,7 +54,8 @@ class BertConfig:
     layer_norm_eps: float = 1e-12
     num_classes: int = 2
     dtype: torch.dtype = torch.bfloat16
-    #: parameters are f32 (the only dtype the port stores them in)
+    #: the kernels' and embeddings' dtype: f32, or bf16 for a bf16
+    #: snapshot; the LayerNorms' scale and bias stay f32 (``leaf_dtype``)
     param_dtype: torch.dtype = torch.float32
     #: recompute each layer in the backward pass
     remat: bool = False
@@ -66,8 +69,19 @@ class BertConfig:
     def __post_init__(self):
         if self.hidden_size % self.num_heads:
             raise ValueError("hidden_size must divide by num_heads")
-        if self.param_dtype != torch.float32:
-            raise ValueError("the port keeps BERT parameters in float32")
+        if self.param_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(
+                "the port keeps BERT parameters in float32 or bfloat16, "
+                f"not {self.param_dtype}")
+
+
+def leaf_dtype(key: str, cfg: BertConfig) -> torch.dtype:
+    """The dtype of parameter ``key`` (a state dict key, or a module's own
+    name for it) under ``cfg.param_dtype``: the LayerNorms' scale and
+    bias are f32 whatever it says, as in the reference."""
+    if key.endswith(("norm.scale", "norm.bias")):
+        return torch.float32
+    return cfg.param_dtype
 
 
 def tiny(**kw) -> BertConfig:
@@ -131,10 +145,11 @@ class SelfAttention(nn.Module):
         super().__init__()
         self.cfg = cfg
         e, h, d = cfg.hidden_size, cfg.num_heads, cfg.head_dim
+        dt = leaf_dtype("q", cfg)
         for name in ("q", "k", "v"):
             self.register_parameter(name, nn.Parameter(
-                torch.empty(e, h, d, device=device)))
-        self.o = nn.Parameter(torch.empty(h, d, e, device=device))
+                torch.empty(e, h, d, dtype=dt, device=device)))
+        self.o = nn.Parameter(torch.empty(h, d, e, dtype=dt, device=device))
         #: 1/sqrt(d) in f32, as ``jnp.sqrt(d).astype(float32)``
         self._sqrt_d = float(np.sqrt(np.float32(d)))
 
@@ -167,8 +182,10 @@ class EncoderLayer(nn.Module):
         e, m = cfg.hidden_size, cfg.intermediate_size
         self.attention = SelfAttention(cfg, device)
         self.attn_norm = LayerNorm(e, cfg.layer_norm_eps, cfg.dtype, device)
-        self.ffn_in = nn.Parameter(torch.empty(e, m, device=device))
-        self.ffn_out = nn.Parameter(torch.empty(m, e, device=device))
+        dt = leaf_dtype("ffn_in", cfg)
+        self.ffn_in = nn.Parameter(torch.empty(e, m, dtype=dt, device=device))
+        self.ffn_out = nn.Parameter(torch.empty(m, e, dtype=dt,
+                                                device=device))
         self.ffn_norm = LayerNorm(e, cfg.layer_norm_eps, cfg.dtype, device)
 
     def forward(self, x, mask):
@@ -184,17 +201,17 @@ class BertEncoder(nn.Module):
     def __init__(self, cfg: BertConfig, device):
         super().__init__()
         self.cfg = cfg
-        e = cfg.hidden_size
-        self.token_embedding = nn.Parameter(
-            torch.empty(cfg.vocab_size, e, device=device))
-        self.position_embedding = nn.Parameter(
-            torch.empty(cfg.max_position, e, device=device))
-        self.segment_embedding = nn.Parameter(
-            torch.empty(cfg.type_vocab_size, e, device=device))
+        e, dt = cfg.hidden_size, leaf_dtype("token_embedding", cfg)
+        for name, rows in (("token_embedding", cfg.vocab_size),
+                           ("position_embedding", cfg.max_position),
+                           ("segment_embedding", cfg.type_vocab_size)):
+            self.register_parameter(name, nn.Parameter(torch.empty(
+                rows, e, dtype=dt, device=device)))
         self.embed_norm = LayerNorm(e, cfg.layer_norm_eps, cfg.dtype, device)
         self.layers = nn.ModuleList(
             EncoderLayer(cfg, device) for _ in range(cfg.num_layers))
-        self.pooler = nn.Parameter(torch.empty(e, e, device=device))
+        self.pooler = nn.Parameter(torch.empty(e, e, dtype=dt,
+                                               device=device))
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None):
         cfg = self.cfg
@@ -231,8 +248,9 @@ class BertClassifier(nn.Module):
         device = resolve_device(device)
         self.cfg = cfg
         self.encoder = BertEncoder(cfg, device)
-        self.classifier = nn.Parameter(
-            torch.empty(cfg.hidden_size, cfg.num_classes, device=device))
+        self.classifier = nn.Parameter(torch.empty(
+            cfg.hidden_size, cfg.num_classes,
+            dtype=leaf_dtype("classifier", cfg), device=device))
 
     @torch.no_grad()
     def init_weights(self, seed: int = 0) -> None:

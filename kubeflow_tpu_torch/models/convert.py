@@ -159,9 +159,10 @@ def _put(tree: dict, path: tuple, value) -> None:
 # -- the other model families ---------------------------------------------------
 #
 # Reference param trees (numpy leaves; a top ``{"params": ...}`` wrapper, as
-# ``model.init`` returns, is taken too) in, the port's state dicts (CPU f32
-# tensors) out. Each checks that the result covers the port module's keys
-# and shapes.
+# ``model.init`` returns, is taken too) in, the port's state dicts (CPU
+# tensors, each leaf in the dtype the module holds it in: its config's
+# ``param_dtype``, norms f32) out. Each checks that the result covers the
+# port module's keys and shapes.
 
 
 def _unwrap(params):
@@ -178,8 +179,10 @@ def _flatten(tree, prefix: tuple = ()):
 
 
 def _checked(out: dict, module: torch.nn.Module, what: str) -> dict:
-    """``out`` when its keys and shapes are ``module.state_dict()``'s."""
-    want = {k: v.shape for k, v in module.state_dict().items()}
+    """``out`` when its keys and shapes are ``module.state_dict()``'s, each
+    floating leaf cast to the module's dtype for it."""
+    held = module.state_dict()
+    want = {k: v.shape for k, v in held.items()}
     got = {k: v.shape for k, v in out.items()}
     if got != want:
         missing = sorted(set(want) - set(got))
@@ -188,7 +191,8 @@ def _checked(out: dict, module: torch.nn.Module, what: str) -> dict:
         raise ValueError(f"{what}: the tree does not match the port's "
                          f"module (missing {missing}, extra {extra}, "
                          f"shapes differ {bad})")
-    return out
+    return {k: v.to(held[k].dtype) if v.is_floating_point() else v
+            for k, v in out.items()}
 
 
 def _einsum_key(path: tuple) -> str:
@@ -241,14 +245,15 @@ def bert_from_reference(params, cfg) -> dict[str, torch.Tensor]:
 
 def bert_to_reference(sd: dict, cfg) -> dict:
     """The reference's ``{"params": tree}`` of a port BERT state dict, in
-    ``cfg.scan_layers``'s layout (numpy f32 leaves)."""
-    from .bert import EINSUMS
+    ``cfg.scan_layers``'s layout, each leaf in its ``bert.leaf_dtype``
+    (numpy; bf16 ones torch tensors)."""
+    from .bert import EINSUMS, leaf_dtype
 
     tree: dict = {}
     layered: dict[tuple, dict[int, np.ndarray]] = {}
     for key, value in sd.items():
         parts = key.split(".")
-        leaf = _numpy(value.float())
+        leaf = _numpy(value.to(leaf_dtype(key, cfg)))
         if parts[-1] in EINSUMS:
             parts.append("kernel")
         if parts[:2] == ["encoder", "layers"]:
@@ -260,8 +265,8 @@ def bert_to_reference(sd: dict, cfg) -> dict:
         else:
             _put(tree, tuple(parts), leaf)
     for rest, by_layer in layered.items():
-        _put(tree, ("encoder", "layers", *rest),
-             np.stack([by_layer[i] for i in range(cfg.num_layers)]))
+        _put(tree, ("encoder", "layers", *rest), _msgpack.Stacked(
+            [by_layer[i] for i in range(cfg.num_layers)]).materialize())
     return {"params": tree}
 
 

@@ -130,13 +130,16 @@ class LlamaConfig:
 
 
 #: parameters the reference keeps in f32 whatever ``param_dtype`` says:
-#: the norms' scales, the MoE router, and int8 kernels' scales
-_F32_LEAVES = ("norm.scale", "router", "_scale")
+#: the norms' scales, the MoE router, int8 kernels' scales and the LoRA
+#: adapters (its ``lora_a``/``lora_b`` are ``jnp.float32`` params)
+_F32_LEAVES = ("norm.scale", "router", "_scale", "_lora_a", "_lora_b")
 
 
 def leaf_dtype(key: str, cfg: LlamaConfig) -> torch.dtype:
-    """The dtype floating parameter ``key`` (a ``Llama`` state dict key)
-    has under ``cfg.param_dtype``."""
+    """The dtype floating parameter ``key`` (a ``Llama`` state dict key, or
+    a module's own name for it: ``wq``, ``wq_lora_a``, ``embedding``, ...)
+    has under ``cfg.param_dtype``. Every module allocates its parameters
+    in this dtype (an RMSNorm's ``scale``, f32, by construction)."""
     return torch.float32 if key.endswith(_F32_LEAVES) else cfg.param_dtype
 
 
@@ -408,18 +411,20 @@ class _Projections(nn.Module):
                 self.register_parameter(f"{name}_scale", nn.Parameter(
                     torch.ones(*outs, device=device)))
             else:
-                self.register_parameter(name, nn.Parameter(
-                    torch.empty(*ins, *outs, device=device)))
+                self.register_parameter(name, nn.Parameter(torch.empty(
+                    *ins, *outs, dtype=leaf_dtype(name, cfg),
+                    device=device)))
             if cfg.lora_rank > 0 and name in cfg.lora_targets:
                 r = cfg.lora_rank
                 self._lora.append(name)
                 # rounded to the dtype once, as ``jnp.asarray(scale, dtype)``
                 self._lora_scale = float(
                     torch.tensor(cfg.lora_scale, dtype=cfg.dtype))
-                self.register_parameter(f"{name}_lora_a", nn.Parameter(
-                    torch.zeros(*ins, r, device=device)))
-                self.register_parameter(f"{name}_lora_b", nn.Parameter(
-                    torch.zeros(r, *outs, device=device)))
+                for leaf, shape in (("lora_a", (*ins, r)),
+                                    ("lora_b", (r, *outs))):
+                    key = f"{name}_{leaf}"
+                    self.register_parameter(key, nn.Parameter(torch.zeros(
+                        shape, dtype=leaf_dtype(key, cfg), device=device)))
 
     def init_weights(self, gen):
         """Kernels fan-in truncated normal (zeros and unit scales when
@@ -651,8 +656,9 @@ class Embedder(nn.Module):
     def __init__(self, cfg: LlamaConfig, device):
         super().__init__()
         self.cfg = cfg
-        self.embedding = nn.Parameter(
-            torch.empty(cfg.vocab_size, cfg.hidden_size, device=device))
+        self.embedding = nn.Parameter(torch.empty(
+            cfg.vocab_size, cfg.hidden_size,
+            dtype=leaf_dtype("embedding", cfg), device=device))
 
     def forward(self, tokens):
         # out-of-range ids clamp, like the reference's gather
@@ -691,8 +697,9 @@ class Head(nn.Module):
             self.unembedding_scale = nn.Parameter(
                 torch.ones(cfg.vocab_size, device=device))
         else:
-            self.unembedding = nn.Parameter(
-                torch.empty(cfg.hidden_size, cfg.vocab_size, device=device))
+            self.unembedding = nn.Parameter(torch.empty(
+                cfg.hidden_size, cfg.vocab_size,
+                dtype=leaf_dtype("unembedding", cfg), device=device))
 
     def forward(self, x, embed_table=None):
         x = self.final_norm(x)
@@ -753,11 +760,6 @@ class Llama(nn.Module):
         self.layers = nn.ModuleList(
             Block(cfg, device) for _ in range(cfg.num_layers))
         self.head = Head(cfg, device)
-        if cfg.param_dtype != torch.float32:
-            for key, p in self.named_parameters():
-                # floating leaves only: int8 serving kernels stay int8
-                if p.is_floating_point():
-                    p.data = p.data.to(leaf_dtype(key, cfg))
 
     @property
     def kv_heads(self) -> int:

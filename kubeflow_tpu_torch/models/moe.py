@@ -135,11 +135,13 @@ class MoeMlp(nn.Module):
         self.cfg = cfg
         #: the host count matrix of the last forward pass (expert axis)
         self._counts = None
+        from .llama import leaf_dtype  # llama.py imports this module
+
         e, h, m = cfg.moe_experts, cfg.hidden_size, cfg.intermediate_size
-        self.router = nn.Parameter(torch.empty(h, e, device=device))
-        self.w_gate = nn.Parameter(torch.empty(e, h, m, device=device))
-        self.w_up = nn.Parameter(torch.empty(e, h, m, device=device))
-        self.w_down = nn.Parameter(torch.empty(e, m, h, device=device))
+        for name, shape in (("router", (h, e)), ("w_gate", (e, h, m)),
+                            ("w_up", (e, h, m)), ("w_down", (e, m, h))):
+            self.register_parameter(name, nn.Parameter(torch.empty(
+                shape, dtype=leaf_dtype(name, cfg), device=device)))
 
     def init_weights(self, gen):
         """Router normal(0.02); experts fan-in truncated normal over axis 1

@@ -4,8 +4,9 @@
 Capability target: baseline config 2 — "PyTorchJob DDP ResNet-50" [local:
 BASELINE.json configs], launched as an ordinary JaxJob (``train_main``).
 The reference's choices are kept: NHWC images in, bf16 activations with
-f32 params, GroupNorm instead of BatchNorm, the stride-2 convolutions in
-the 3x3 as v1.5 puts them. The convolutions run in ``torch.channels_last``
+f32 params (``param_dtype``: bf16 convolutions and head, the GroupNorms
+f32), GroupNorm instead of BatchNorm, the stride-2 convolutions in the 3x3
+as v1.5 puts them. The convolutions run in ``torch.channels_last``
 (an NHWC input viewed as NCHW is already that layout).
 
 Where flax and torch differ, the port follows flax:
@@ -18,7 +19,7 @@ Where flax and torch differ, the port follows flax:
 - flax ``GroupNorm``: epsilon 1e-6 (torch's default is 1e-5), statistics
   in f32, the groups of ``_norm``, output in the activation dtype;
 - the global mean pool rounds to the activation dtype (jnp.mean of bf16)
-  and the head is an f32 ``Dense``.
+  and the head is an f32 ``Dense`` (its parameters cast to f32).
 
 Parameters are torch's: conv kernels ``[out, in, kh, kw]`` (flax HWIO),
 GroupNorm ``weight``/``bias`` (flax ``scale``/``bias``), the head an
@@ -48,8 +49,12 @@ class ResNetConfig:
     num_classes: int = 1000
     bottleneck: bool = True
     norm_groups: int = 32
-    #: activation dtype; params are f32 and cast before each convolution
+    #: activation dtype; params are cast to it before each convolution
     dtype: torch.dtype = torch.bfloat16
+    #: the convolutions' and the head's dtype (the reference's
+    #: ``param_dtype``); the GroupNorms' scale and bias stay f32, as flax
+    #: ``GroupNorm``'s default
+    param_dtype: torch.dtype = torch.float32
 
 
 def tiny(**kw) -> ResNetConfig:
@@ -105,11 +110,11 @@ class Conv(nn.Module):
     padding, the kernel cast to the activation dtype."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int,
-                 dtype: torch.dtype, device):
+                 cfg: ResNetConfig, device):
         super().__init__()
-        self.k, self.stride, self.dtype = k, stride, dtype
-        self.weight = nn.Parameter(torch.empty(cout, cin, k, k,
-                                               device=device))
+        self.k, self.stride, self.dtype = k, stride, cfg.dtype
+        self.weight = nn.Parameter(torch.empty(
+            cout, cin, k, k, dtype=cfg.param_dtype, device=device))
 
     def forward(self, x):
         x, pad = _pad_same(x, self.k, self.stride)
@@ -146,13 +151,12 @@ class Block(nn.Module):
     def __init__(self, cfg: ResNetConfig, cin: int, filters: int,
                  strides: int, device):
         super().__init__()
-        dt = cfg.dtype
-        self.conv1 = Conv(cin, filters, 3, strides, dt, device)
+        self.conv1 = Conv(cin, filters, 3, strides, cfg, device)
         self.norm1 = _norm(cfg, filters, device)
-        self.conv2 = Conv(filters, filters, 3, 1, dt, device)
+        self.conv2 = Conv(filters, filters, 3, 1, cfg, device)
         self.norm2 = _norm(cfg, filters, device)
         if cin != filters or strides != 1:
-            self.proj = Conv(cin, filters, 1, strides, dt, device)
+            self.proj = Conv(cin, filters, 1, strides, cfg, device)
             self.proj_norm = _norm(cfg, filters, device)
 
     def forward(self, x):
@@ -170,15 +174,15 @@ class BottleneckBlock(nn.Module):
     def __init__(self, cfg: ResNetConfig, cin: int, filters: int,
                  strides: int, device):
         super().__init__()
-        dt, out = cfg.dtype, filters * 4
-        self.conv1 = Conv(cin, filters, 1, 1, dt, device)
+        out = filters * 4
+        self.conv1 = Conv(cin, filters, 1, 1, cfg, device)
         self.norm1 = _norm(cfg, filters, device)
-        self.conv2 = Conv(filters, filters, 3, strides, dt, device)
+        self.conv2 = Conv(filters, filters, 3, strides, cfg, device)
         self.norm2 = _norm(cfg, filters, device)
-        self.conv3 = Conv(filters, out, 1, 1, dt, device)
+        self.conv3 = Conv(filters, out, 1, 1, cfg, device)
         self.norm3 = _norm(cfg, out, device)
         if cin != out or strides != 1:
-            self.proj = Conv(cin, out, 1, strides, dt, device)
+            self.proj = Conv(cin, out, 1, strides, cfg, device)
             self.proj_norm = _norm(cfg, out, device)
 
     def forward(self, x):
@@ -198,7 +202,7 @@ class ResNet(nn.Module):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
-        self.stem = Conv(3, cfg.num_filters, 7, 2, cfg.dtype, device)
+        self.stem = Conv(3, cfg.num_filters, 7, 2, cfg, device)
         self.stem_norm = _norm(cfg, cfg.num_filters, device)
         block_cls = BottleneckBlock if cfg.bottleneck else Block
         cin = cfg.num_filters
@@ -212,7 +216,8 @@ class ResNet(nn.Module):
                     device))
                 self.blocks.append(name)
                 cin = filters * 4 if cfg.bottleneck else filters
-        self.head = nn.Linear(cin, cfg.num_classes, device=device)
+        self.head = nn.Linear(cin, cfg.num_classes, dtype=cfg.param_dtype,
+                              device=device)
         self.to(memory_format=torch.channels_last)
 
     @torch.no_grad()
@@ -242,7 +247,8 @@ class ResNet(nn.Module):
             x = getattr(self, name)(x)
         # jnp.mean of the activations: f32 sum, rounded to their dtype
         x = x.float().mean(dim=(2, 3)).to(cfg.dtype)
-        return self.head(x.float())
+        return F.linear(x.float(), self.head.weight.float(),
+                        self.head.bias.float())
 
 
 # -- JaxJob entrypoint (baseline config 2) ----------------------------------

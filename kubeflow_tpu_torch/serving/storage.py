@@ -786,3 +786,25 @@ class KvSpillStore:
             "kv_spill_reads_total": self.reads_total,
             "kv_spill_verify_failures_total": self.verify_failures_total,
         }
+
+
+def list_cache(cache_dir: str) -> list[dict]:
+    """Manifests of every cache entry (the repository-listing surface)."""
+    out = []
+    try:
+        entries = sorted(os.listdir(cache_dir))
+    except OSError:
+        return out
+    for name in entries:
+        if name.startswith("."):  # in-flight/orphaned staging dirs
+            continue
+        mpath = os.path.join(cache_dir, name, MANIFEST_NAME)
+        try:
+            with open(mpath) as f:
+                m = json.load(f)
+            m["entry"] = name
+            m["valid"] = verify_manifest(os.path.join(cache_dir, name))
+            out.append(m)
+        except (OSError, json.JSONDecodeError):
+            continue
+    return out

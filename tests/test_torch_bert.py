@@ -111,13 +111,22 @@ def test_padding_row_attends_uniformly():
     assert torch.isfinite(logits).all()
 
 
-def test_snapshots_cross_between_packages(tmp_path):
-    """The reference's snapshot (scan-stacked, as bert_base writes) loads
-    in the port; the port's loads in the reference; same probabilities."""
+#: the served probabilities' tolerance against the reference's by the
+#: snapshot's ``param_dtype``: bf16 weights in both packages, but the
+#: kft-bert runtime pads the batch to its bucket
+PROBS_ATOL = {"float32": 1e-5, "bfloat16": 1e-3}
+
+
+@pytest.mark.parametrize("param_dtype", list(PROBS_ATOL))
+def test_snapshots_cross_between_packages(tmp_path, param_dtype):
+    """The reference's snapshot (scan-stacked, as bert_base writes; f32 or
+    bf16 parameters) loads in the port, its leaves in the reference's
+    dtypes (LayerNorms f32); the port's loads in the reference bit for
+    bit; same probabilities."""
     torch, bert, _ = _port()
     from kubeflow_tpu_torch.serving.runtimes import BertClassifierModel
 
-    rcfg = ref.tiny(scan_layers=True)
+    rcfg = ref.tiny(scan_layers=True, param_dtype=getattr(jnp, param_dtype))
     params = _ref_params(rcfg, seed=3)
     ref.save_pretrained(str(tmp_path / "ref"), rcfg, params)
     ids, mask = _inputs()
@@ -125,17 +134,22 @@ def test_snapshots_cross_between_packages(tmp_path):
     want = np.asarray(jax.nn.softmax(model.apply(
         params, jnp.asarray(ids), jnp.asarray(mask)), axis=-1))
     cfg, sd = bert.load_pretrained(str(tmp_path / "ref"))
-    assert cfg == bert.tiny(scan_layers=True)
+    assert cfg == bert.tiny(scan_layers=True,
+                            param_dtype=getattr(torch, param_dtype))
+    for k, v in sd.items():
+        assert v.dtype == bert.leaf_dtype(k, cfg), k
+    assert {v.dtype for k, v in sd.items() if "norm" in k} == {torch.float32}
     served = BertClassifierModel("b", {
         "storage_path": str(tmp_path / "ref"), "device": "cpu",
         "buckets": (4,), "seq_buckets": (16,)})
     served.start()
     rows = [list(map(int, r[m])) for r, m in zip(ids, mask)][:3]
     got = np.asarray(served.predict_batch(rows))
-    np.testing.assert_allclose(got, want[:3], atol=1e-5)
+    np.testing.assert_allclose(got, want[:3], atol=PROBS_ATOL[param_dtype])
     bert.save_pretrained(str(tmp_path / "port"), cfg, sd)
     rcfg2, params2 = ref.load_pretrained(str(tmp_path / "port"))
     assert rcfg2 == rcfg
+    jax.tree.map(np.testing.assert_array_equal, params2, params)
     back = np.asarray(jax.nn.softmax(ref.BertClassifier(rcfg2).apply(
         params2, jnp.asarray(ids), jnp.asarray(mask)), axis=-1))
     np.testing.assert_allclose(back, want, atol=1e-6)

@@ -65,6 +65,19 @@ def test_kernel_ab_refuses_without_a_card():
     assert out.stdout == ""
 
 
+def test_snapshot_ab_refuses_without_a_card():
+    """snapshot_ab.py, which times the snapshot loader on a 7B written on
+    the card, fails where no CUDA card is visible and prints nothing."""
+    root = Path(__file__).resolve().parents[1]
+    out = subprocess.run(
+        [sys.executable, "snapshot_ab.py", str(root)],
+        capture_output=True, text=True, timeout=120, cwd=root,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode != 0
+    assert "no CUDA device is visible" in out.stderr
+    assert out.stdout == ""
+
+
 @pytest.fixture
 def csrc_copy(tmp_path, monkeypatch):
     """_build with CSRC pointed at a copy of csrc/ in tmp_path."""

@@ -1,6 +1,7 @@
 """The port's fine-tune path against the reference on tiny() (f32, CPU): LoRA
 in the model and the trainer, the adapter functions, Adafactor, gradient
-accumulation and checkpoint/resume.
+accumulation and checkpoint/resume. The LoRA cases run on a bf16 base too
+(``param_dtype``): the reference keeps its adapters f32 under any base.
 
 torch and the port are imported inside the tests (``_port``): imported at
 collection they would sit in every test worker's heap and slow the other
@@ -25,6 +26,15 @@ from kubeflow_tpu.train import trainer as ref_train
 LOGITS_TOL = 2e-4
 STEPS, BATCH, SEQ = 5, 4, 32
 TARGETS_ALL = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+#: the base's parameter dtype (``param_dtype``) of the LoRA cases
+PARAM_DTYPES = ["float32", "bfloat16"]
+
+
+def _param_dtypes(name):
+    """(the reference's, the port's) ``param_dtype`` named ``name``."""
+    import torch
+
+    return getattr(jnp, name), getattr(torch, name)
 
 
 def _port():
@@ -101,35 +111,52 @@ def test_lora_logits_match_reference(targets, alpha):
     assert cfg.lora_scale == ref.tiny(**kw).lora_scale
 
 
-def test_merge_adapter_matches_reference():
+@pytest.mark.parametrize("param_dtype", PARAM_DTYPES)
+def test_merge_adapter_matches_reference(param_dtype):
+    """The merged kernels are the reference's: in f32 within 1e-6; on a
+    bf16 base (f32 adapters, the sum taken in f32 and rounded once) bit
+    for bit."""
     pt = _port()
+    rdt, dt = _param_dtypes(param_dtype)
     kw = dict(lora_rank=4, lora_targets=TARGETS_ALL)
-    rcfg = ref.tiny(**kw)
+    rcfg = ref.tiny(**kw, param_dtype=rdt)
     params = _nonzero_b(_init(rcfg))
     rbase, rada = ref.split_lora(params)
     rmcfg, rmerged = ref.merge_adapter(rcfg, rbase, rada)
-    cfg = pt.llama.tiny(**kw)
+    cfg = pt.llama.tiny(**kw, param_dtype=dt)
     sd = pt.convert.state_dict_from_jax(params, cfg)
     base, ada = pt.llama.split_lora(sd)
+    assert {v.dtype for v in ada.values()} == {pt.torch.float32}
     mcfg, merged = pt.llama.merge_adapter(cfg, base, ada)
     assert mcfg.lora_rank == 0 and rmcfg.lora_rank == 0
     want = pt.convert.state_dict_from_jax(rmerged, mcfg)
     assert merged.keys() == want.keys()
     for k, v in want.items():
-        np.testing.assert_allclose(merged[k].numpy(), v.numpy(), atol=1e-6,
-                                   err_msg=k)
+        assert merged[k].dtype == v.dtype == pt.llama.leaf_dtype(k, mcfg), k
+        if param_dtype == "bfloat16":
+            assert pt.torch.equal(merged[k], v), k
+        else:
+            np.testing.assert_allclose(merged[k].numpy(), v.numpy(),
+                                       atol=1e-6, err_msg=k)
+    if param_dtype == "bfloat16":
+        return  # the merged kernels are rounded: their logits move
     tokens = _tokens()
     np.testing.assert_allclose(
         _port_logits(pt, mcfg, merged, tokens),
         _port_logits(pt, cfg, sd, tokens), atol=LOGITS_TOL, rtol=LOGITS_TOL)
 
 
+@pytest.mark.parametrize("param_dtype", PARAM_DTYPES)
 @pytest.mark.parametrize("direction", ["reference_to_port",
                                        "port_to_reference"])
-def test_adapter_crosses_packages(tmp_path, direction):
+def test_adapter_crosses_packages(tmp_path, direction, param_dtype):
+    """An adapter crosses bit for bit and f32 both ways, whatever the
+    base's ``param_dtype``."""
     pt = _port()
+    rdt, dt = _param_dtypes(param_dtype)
     kw = dict(lora_rank=4, lora_targets=("wq", "wv", "w_down"))
-    rcfg, cfg = ref.tiny(**kw), pt.llama.tiny(**kw)
+    rcfg = ref.tiny(**kw, param_dtype=rdt)
+    cfg = pt.llama.tiny(**kw, param_dtype=dt)
     params = _nonzero_b(_init(rcfg))
     sd = pt.convert.state_dict_from_jax(params, cfg)
     path = str(tmp_path / "adapter")
@@ -140,12 +167,15 @@ def test_adapter_crosses_packages(tmp_path, direction):
         _, want = pt.llama.split_lora(sd)
         assert got.keys() == want.keys()
         for k in want:
+            assert got[k].dtype == pt.torch.float32, k
             np.testing.assert_array_equal(got[k].numpy(), want[k].numpy())
     else:
         pt.llama.save_adapter(path, cfg, sd)
         got_cfg, got = ref.load_adapter(path)
         assert got_cfg == rcfg
         _, want = ref.split_lora(params)
+        assert {np.asarray(x).dtype for x in jax.tree.leaves(got)} == {
+            np.dtype(np.float32)}
         jax.tree.map(np.testing.assert_array_equal, got, want)
     assert sorted(os.listdir(path)) == ["adapter.msgpack", "config.json"]
 
@@ -224,29 +254,40 @@ def _assert_params(pt, trainer, want_tree, rtol, atol, keys=None):
                                    rtol=rtol, atol=atol, err_msg=k)
 
 
-def test_lora_finetune_matches_reference(tmp_path):
-    """5 LoRA steps from a reference-written snapshot: the loss curve and
-    the adapters as the reference's, the base bit-equal to the snapshot,
-    and the reported grad norm the adapters' alone."""
+@pytest.mark.parametrize("param_dtype", PARAM_DTYPES)
+def test_lora_finetune_matches_reference(tmp_path, param_dtype):
+    """5 LoRA steps from a reference-written snapshot (f32 or bf16): the
+    loss curve and the adapters as the reference's, the adapters f32 in
+    both, the base bit-equal to the snapshot, and the reported grad norm
+    the adapters' alone."""
     pt = _port()
+    rdt, dt = _param_dtypes(param_dtype)
     snap = str(tmp_path / "base")
-    base_cfg = ref.tiny(attention_impl="flash")
+    base_cfg = ref.tiny(attention_impl="flash", param_dtype=rdt)
     ref.save_pretrained(snap, base_cfg, _init(base_cfg))
     # f32 moments: a bf16 first moment rounds a last-bit gradient
     # difference into a 2^-8 relative step
     kw = dict(global_batch=BATCH, seq_len=SEQ, steps=STEPS, warmup_steps=2,
               log_every=1, init_from=snap, mu_dtype=None)
     want_losses, want_norms, want_params = _ref_curve(ref_train.TrainConfig(
-        model=ref.tiny(attention_impl="flash", lora_rank=4), **kw))
+        model=ref.tiny(attention_impl="flash", lora_rank=4,
+                       param_dtype=rdt), **kw))
     cfg = pt.trainer.TrainConfig(
-        model=pt.llama.tiny(attention_impl="flash", lora_rank=4), **kw)
+        model=pt.llama.tiny(attention_impl="flash", lora_rank=4,
+                            param_dtype=dt), **kw)
     losses, norms, t = _port_curve(pt, cfg)
     np.testing.assert_allclose(losses, want_losses, rtol=1e-4)
     adapters = [k for k in t.model.state_dict() if pt.llama.is_lora_path(k)]
     assert len(adapters) == 2 * 2 * 2  # (a, b) x (wq, wv) x 2 layers
+    assert {np.asarray(x).dtype for p, x in
+            jax.tree_util.tree_leaves_with_path(want_params)
+            if ref.is_lora_path(tuple(k.key for k in p))} == {
+                np.dtype(np.float32)}
+    got = t.model.state_dict()
+    assert {got[k].dtype for k in adapters} == {pt.torch.float32}
     _assert_params(pt, t, want_params, 1e-4, 1e-7, keys=adapters)
     _, base_sd = pt.llama.load_pretrained(snap)
-    got = t.model.state_dict()
+    assert pt.llama.param_dtype_of(base_sd) == dt
     for k, v in base_sd.items():
         assert pt.torch.equal(got[k], v), k
     assert all(p.grad is None for n, p in t.model.named_parameters()

@@ -284,6 +284,31 @@ def test_download_and_the_manifest_cache(tmp_path):
             pt.storage.download(bad)
 
 
+def test_list_cache_matches_the_reference(tmp_path):
+    """The cache listing: the reference's manifests of the same cache dir
+    (entries in order, each marked valid or not; staging dirs and entries
+    without a manifest skipped)."""
+    pt = _port()
+    cache = str(tmp_path / "cache")
+    assert pt.storage.list_cache(cache) == ref_storage.list_cache(cache) == []
+    staged = []
+    for name, body in (("a", b"a" * 64), ("b", b"b" * 10)):
+        src = tmp_path / name
+        src.mkdir()
+        (src / "weights.bin").write_bytes(body)
+        (src / "config.json").write_text('{"d": 1}')
+        staged.append(pt.storage.download(f"file://{src}", cache_dir=cache))
+    with open(os.path.join(staged[1], "weights.bin"), "wb") as f:
+        f.write(b"torn")
+    os.makedirs(os.path.join(cache, ".staging-x"))
+    os.makedirs(os.path.join(cache, "no-manifest"))
+    got = pt.storage.list_cache(cache)
+    assert got == ref_storage.list_cache(cache)
+    assert sorted(m["valid"] for m in got) == [False, True]
+    assert {f["path"] for f in got[0]["files"]} == {"weights.bin",
+                                                    "config.json"}
+
+
 # -- int8 serving of a published fine-tune ------------------------------------------
 
 

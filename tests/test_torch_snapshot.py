@@ -115,6 +115,51 @@ def test_msgpack_bytes_equal_flax(case, request):
         np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_msgpack_chunked_leaves_load_in_place(tmp_path, small_chunks, dtype,
+                                              monkeypatch):
+    """A chunked leaf read back from a writable buffer (``load``'s, read
+    in pieces on threads) is a view of it, its chunks joined in place, so
+    a snapshot's load holds one copy of its bytes; the values are
+    flax's."""
+    pt = _port()
+    monkeypatch.setattr(pt.msgpack, "READ_PIECE", 1000)
+    rng = np.random.default_rng(0)
+    w = rng.standard_normal((40, 30)).astype(np.float32)
+    leaf = (pt.torch.from_numpy(w).to(pt.torch.bfloat16)
+            if dtype == "bfloat16" else w)
+    tree = {"a": {"w": leaf, "small": np.arange(3, dtype=np.int32)},
+            "z": np.ones(500, np.float32)}
+    raw = pt.msgpack.dumps(tree)
+    data = bytearray(raw)
+    got = pt.msgpack.loads(data)
+    lo = np.frombuffer(data, np.uint8).ctypes.data
+    for x in (got["a"]["w"], got["z"]):
+        at = (x.data_ptr() if isinstance(x, pt.torch.Tensor)
+              else x.ctypes.data)
+        assert lo <= at < lo + len(data)
+    want = serialization.msgpack_restore(raw)
+    np.testing.assert_array_equal(got["z"], want["z"])
+    np.testing.assert_array_equal(got["a"]["small"], want["a"]["small"])
+    if dtype == "bfloat16":
+        np.testing.assert_array_equal(got["a"]["w"].float().numpy(),
+                                      np.asarray(want["a"]["w"], np.float32))
+    else:
+        np.testing.assert_array_equal(got["a"]["w"], w)
+    path = tmp_path / "tree.msgpack"
+    path.write_bytes(raw)
+    from_file = pt.msgpack.load(str(path))
+    for x, y in ((from_file["a"]["w"], got["a"]["w"]),
+                 (from_file["z"], got["z"])):
+        assert pt.torch.equal(pt.torch.as_tensor(x), pt.torch.as_tensor(y))
+    # a read-only buffer is left as it is: the leaf is copied whole
+    again = pt.msgpack.loads(raw)
+    np.testing.assert_array_equal(np.asarray(
+        again["a"]["w"].float() if dtype == "bfloat16" else again["a"]["w"]),
+        np.asarray(got["a"]["w"].float() if dtype == "bfloat16"
+                   else got["a"]["w"]))
+
+
 def test_msgpack_stacked_leaf_streams_its_parts():
     pt = _port()
     parts = [pt.torch.randn(3, 4) for _ in range(5)]

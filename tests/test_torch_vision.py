@@ -3,7 +3,9 @@
 and numpy inputs (CPU, f32).
 
 - ResNet ``tiny()`` with basic blocks and a bottleneck tiny config, at image
-  sizes 32 and 33: logits within 1e-4 relative. The two sizes take both of
+  sizes 32 and 33, and with bf16 parameters (``param_dtype``: the
+  convolutions and head bf16, the GroupNorms f32 in both packages):
+  logits within 1e-4 relative. The two sizes take both of
   flax's "SAME" splits (a 7x7/2 stem pads (2, 3) on 32 and (3, 3) on 33; a
   3x3/2 pads (0, 1) on 16, none extra on 17).
 - Two steps of SGD with momentum 0.9 (the second uses the trace): losses
@@ -31,6 +33,7 @@ from kubeflow_tpu.models import resnet as ref_resnet
 
 CASES = {f"{kind}-{size}": (kind == "bottleneck", size)
          for kind in ("basic", "bottleneck") for size in (32, 33)}
+CASES["bottleneck-32-bf16-params"] = (True, 32, "bfloat16")
 
 
 def _port():
@@ -51,16 +54,27 @@ def _numpy(params):
     return jax.tree.map(np.asarray, nn.meta.unbox(params))
 
 
-def _resnet_pair(bottleneck: bool, size: int):
+def _resnet_pair(bottleneck: bool, size: int, param_dtype="float32"):
     torch, convert, _, resnet, _ = _port()
-    rcfg = ref_resnet.tiny(bottleneck=bottleneck, num_classes=10)
+    rcfg = ref_resnet.tiny(bottleneck=bottleneck, num_classes=10,
+                           param_dtype=getattr(jnp, param_dtype))
     x = np.random.default_rng(1).standard_normal(
         (2, size, size, 3)).astype(np.float32)
     model = ref_resnet.ResNet(rcfg)
     params = _numpy(model.init(jax.random.PRNGKey(1), jnp.asarray(x)))
-    cfg = resnet.tiny(bottleneck=bottleneck, num_classes=10)
+    cfg = resnet.tiny(bottleneck=bottleneck, num_classes=10,
+                      param_dtype=getattr(torch, param_dtype))
     port = resnet.ResNet(cfg, device="cpu")
-    port.load_state_dict(convert.resnet_from_reference(params, cfg))
+    sd = convert.resnet_from_reference(params, cfg)
+    # each leaf in the reference's dtype: the GroupNorms f32 in both
+    want = {"/".join(k.key for k in path): np.asarray(v).dtype.name
+            for path, v in jax.tree_util.tree_leaves_with_path(params)}
+    got = {k: str(v.dtype).removeprefix("torch.") for k, v in sd.items()}
+    assert sorted(got.values()) == sorted(want.values())
+    assert {got[k] for k in got if "norm" in k} == {"float32"}
+    port.load_state_dict(sd)
+    assert {k: v.dtype for k, v in port.state_dict().items()} == {
+        k: v.dtype for k, v in sd.items()}
     return model, params, port, x
 
 
